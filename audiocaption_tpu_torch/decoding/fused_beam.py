@@ -1,0 +1,205 @@
+"""Whole-loop beam search: the CUDA kernel ``csrc/fused_beam.cu``, its plain
+PyTorch version, and the decoder that serves the API through them.
+
+Replaces the TPU kernel ``audiocaption_tpu/decoding/fused_beam.py``
+(``_make_beam_kernel`` :126-384, launched by ``_fused_beam_call``
+:387-447; host side ``FusedBeamDecoder`` :450-622).
+
+What bounds it on an H100: as the greedy kernel, every step reads all
+decoder weights (~12.5 MB float32 at the flagship width) per sample, now
+applied to the K beam rows at once, plus the sample's memory K/V (stored
+once and shared by its beams) and its K cache prefixes; the parent-beam
+gather copies 2 * nlayers * K * (t+1) * E cache floats per step.  Unique
+device-memory bytes per call are ~13 MB at B=64, S=31 (about 4 us at
+3.35 TB/s); the weights stay in the 50 MB L2 and are streamed from there
+B * L times.  One block per sample keeps the top-K over [K*V], the gather
+and the done-beam merge inside one block with no grid-wide sync.
+
+Semantics (temp 1): log-softmax plus running beam score; only beam 0
+competes at t=0; top-K over [K*V] with ties to the lower flat index
+k*V + w; parent gather of caches, sequences and pad flags; harvest of
+ended beams with score * (1/(t+1)), every beam harvested at t=L-1;
+best-K merge of done beams and candidates by strict ">" in slot order;
+-1000 on ended beams.  Outputs: n-best sequences [B, K, L] int32 and
+scores [B, K] float32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from audiocaption_tpu_torch import cuda_build
+from audiocaption_tpu_torch.decoding.fused_greedy import (
+    PackedDecoder, _ptr, check_inputs, decoder_rows_plain, memory_kv,
+    pack_decoder_weights)
+from audiocaption_tpu_torch.device import DeviceLike, resolve_device
+
+NEG = -3.0e38        # the TPU kernel's stand-in for float32's lowest value
+MAX_BEAMS = 4        # ACD_RMAX in csrc/decoder_common.cuh
+
+
+@torch.no_grad()
+def fused_beam_plain(packed: PackedDecoder, memkv: torch.Tensor,
+                     mem_valid: torch.Tensor, max_length: int,
+                     beam_size: int = 3, bos: int = 1, eos: int = 2,
+                     pad: int = 0, steps: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the beam kernel ->
+    (seq [B, K, L] int32, score [B, K] float32).  ``steps`` ([B] int64),
+    if given, gets the number of steps each sample runs before it stops,
+    as the kernel runs them (for counting the work a call needs)."""
+    nl, _, B, S, E = memkv.shape
+    K, L, V = beam_size, max_length, packed.vocab_size
+    dev = memkv.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    neg = torch.tensor(NEG, **f32)
+    sqrt_e = math.sqrt(E)
+    self_k = memkv.new_zeros(nl, B, K, L, E)
+    self_v = memkv.new_zeros(nl, B, K, L, E)
+    valid = torch.ones(B, K, L, dtype=torch.bool, device=dev)
+    word = torch.full((B, K), bos, dtype=torch.long, device=dev)
+    topk_lp = torch.zeros(B, K, **f32)
+    seq = torch.full((B, K, L), eos, dtype=torch.long, device=dev)
+    done_seq = seq.clone()
+    done_score = torch.full((B, K), NEG, **f32)
+    done_count = torch.zeros(B, dtype=torch.long, device=dev)
+    stopped = torch.zeros(B, dtype=torch.bool, device=dev)
+    rows = torch.arange(B, device=dev)
+
+    for t in range(L):
+        if steps is not None:
+            steps += (~stopped).long()
+        valid[:, :, t] = word != pad
+        x = packed.emb[word] * sqrt_e + packed.pe[t]
+        x = decoder_rows_plain(packed, x, t, self_k, self_v, valid, memkv,
+                               mem_valid)
+        logits = F.linear(x, packed.cls)                          # [B, K, V]
+        m = logits.amax(-1, keepdim=True)
+        lp = logits - m - torch.log(torch.exp(logits - m).sum(-1, keepdim=True))
+        total = lp + topk_lp[..., None]
+        if t == 0:
+            total[:, 1:] = NEG
+        flat = total.reshape(B, K * V).clone()
+        picks, new_lp = [], []
+        for _ in range(K):
+            i = torch.argmax(flat, dim=-1)
+            picks.append(i)
+            new_lp.append(flat[rows, i])
+            flat[rows, i] = NEG
+        idx, new_lp = torch.stack(picks, 1), torch.stack(new_lp, 1)
+        prev_beam = torch.div(idx, V, rounding_mode="floor")
+        new_word = idx % V
+
+        # parent-beam gather (rows > t are identical across beams)
+        g = prev_beam[None, :, :, None, None].expand(nl, B, K, L, E)
+        self_k = torch.gather(self_k, 2, g)
+        self_v = torch.gather(self_v, 2, g)
+        valid = torch.gather(valid, 1, prev_beam[..., None].expand(B, K, L))
+        seq = torch.gather(seq, 1, prev_beam[..., None].expand(B, K, L))
+        seq[:, :, t] = new_word
+
+        # harvest, then best-K merge of done beams and candidates
+        inv_len = torch.tensor(1.0, **f32) / torch.tensor(float(t + 1), **f32)
+        is_end = (new_word == eos) | (t == L - 1)
+        harvest = is_end & ~stopped[:, None]
+        cand = torch.where(harvest, new_lp * inv_len, neg)
+        srcs = torch.cat([done_score, cand], 1)                   # [B, 2K]
+        chosen = torch.zeros(B, 2 * K, dtype=torch.bool, device=dev)
+        slot_src, slot_score = [], []
+        for _ in range(K):
+            c = torch.where(chosen, neg, srcs)
+            best = torch.full((B,), NEG, **f32)
+            best_src = torch.zeros(B, dtype=torch.long, device=dev)
+            for s in range(2 * K):
+                better = c[:, s] > best
+                best = torch.where(better, c[:, s], best)
+                best_src = torch.where(better, torch.full_like(best_src, s),
+                                       best_src)
+            slot_src.append(best_src)
+            slot_score.append(best)
+            chosen[rows, best_src] = True
+        both = torch.cat([done_seq, seq], 1)                      # [B, 2K, L]
+        sel = torch.stack(slot_src, 1)
+        done_seq = torch.gather(both, 1, sel[..., None].expand(B, K, L))
+        done_score = torch.stack(slot_score, 1)
+        done_count = done_count + (cand > NEG / 2).sum(1)
+        stopped = stopped | (done_count >= K)
+        topk_lp = torch.where(is_end, new_lp - 1000.0, new_lp)
+        word = new_word
+    return done_seq.to(torch.int32), done_score
+
+
+_BEAM_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [
+    ctypes.c_float, ctypes.c_void_p]
+
+
+def fused_beam_decode(packed: PackedDecoder, memkv: torch.Tensor,
+                      mem_valid: torch.Tensor, max_length: int,
+                      beam_size: int = 3, bos: int = 1, eos: int = 2,
+                      pad: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam search of every sample -> (seq [B, K, L] int32, score [B, K]).
+    CUDA tensors launch ``csrc/fused_beam.cu``; CPU tensors run
+    :func:`fused_beam_plain`."""
+    check_inputs(packed, memkv, mem_valid, max_length)
+    if not 1 <= beam_size <= MAX_BEAMS or beam_size > packed.vocab_size:
+        raise ValueError(f"beam_size must be in [1, {MAX_BEAMS}]")
+    if memkv.device.type == "cpu":
+        return fused_beam_plain(packed, memkv, mem_valid, max_length,
+                                beam_size, bos, eos, pad)
+    if memkv.device.type != "cuda":
+        raise ValueError(f"unsupported device {memkv.device}")
+    nl, _, B, S, E = memkv.shape
+    K, L = beam_size, max_length
+    lib = cuda_build.load("fused_beam")
+    fn = lib.fused_beam_launch
+    fn.argtypes, fn.restype = _BEAM_ARGS, ctypes.c_int
+    dev = memkv.device
+    seq = torch.empty(B, K, L, dtype=torch.int32, device=dev)
+    score = torch.empty(B, K, dtype=torch.float32, device=dev)
+    self_kv = torch.empty(2 * nl * 2 * B * K * L * E, dtype=torch.float32,
+                          device=dev)
+    err = fn(_ptr(packed.emb), _ptr(packed.cls), _ptr(packed.pe),
+             _ptr(packed.layers), _ptr(memkv), _ptr(mem_valid), _ptr(self_kv),
+             _ptr(seq), _ptr(score), B, S, L, E, packed.nhead, packed.ffn,
+             packed.vocab_size, nl, K, bos, eos, pad, math.sqrt(E),
+             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    cuda_build.check(err, "fused_beam")
+    fused_beam_decode.launches += 1
+    return seq, score
+
+
+fused_beam_decode.launches = 0
+
+
+class FusedBeamDecoder:
+    """Encoder + whole-loop beam kernel for a ``Captioner``.
+
+        fb = FusedBeamDecoder(model, beam_size=3)     # device="cuda"
+        seq = fb(wav, wav_len)                        # [B, L], best beam
+        seq, score = fb(wav, wav_len, n_best=True)    # [B, K, L], [B, K]
+    """
+
+    def __init__(self, model, max_length: int = 20, beam_size: int = 3,
+                 device: DeviceLike = "cuda"):
+        self.device = resolve_device(device)
+        self.model = model
+        self.max_length = max_length
+        self.beam_size = beam_size
+        self.packed = pack_decoder_weights(model.decoder).to(self.device)
+
+    @torch.no_grad()
+    def __call__(self, wav: torch.Tensor, wav_len: torch.Tensor,
+                 n_best: bool = False):
+        enc = self.model.encode(wav.to(self.device), wav_len.to(self.device))
+        memkv, mem_valid = memory_kv(self.model.decoder, enc["attn_emb"],
+                                     enc["attn_emb_len"])
+        sp = self.model.special
+        seq, score = fused_beam_decode(self.packed, memkv, mem_valid,
+                                       self.max_length, self.beam_size,
+                                       sp.bos, sp.eos, sp.pad)
+        return (seq, score) if n_best else seq[:, 0]

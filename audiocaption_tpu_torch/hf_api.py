@@ -1,0 +1,137 @@
+"""Public inference API (counterpart of ``audiocaption_tpu/hf_api.py``),
+mirroring the reference's HF ``trust_remote_code`` models:
+
+    model = Effb2TrmCaptioningModel(Effb2TrmConfig(vocab_size=4981))
+    model.load_torch_checkpoint("pytorch_model.bin")   # HF zoo weights
+    ids = model(audio=wav_batch, audio_length=[n1, n2],
+                sample_method="beam", beam_size=3)     # [N, 20] token ids
+
+Audio is padded up to 1 s buckets (padding is masked by
+``audio_length``).  On CUDA, greedy decodes and temp-1 beam decodes (the
+default) go through the whole-loop CUDA kernels; on the CPU, and for
+other settings, through the torch decoding engine.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from audiocaption_tpu_torch.device import DeviceLike, resolve_device
+from audiocaption_tpu_torch.models.captioner import generate
+from audiocaption_tpu_torch.models.convert import load_reference_state_dict
+from audiocaption_tpu_torch.models.zoo import effb2_trm, random_init
+
+
+def pad_bucket(audio: np.ndarray, sample_rate: int,
+               bucket_s: float = 1.0) -> np.ndarray:
+    """Pad the time axis up to the next bucket multiple."""
+    n = audio.shape[1]
+    bucket = int(sample_rate * bucket_s)
+    target = max(bucket, (n + bucket - 1) // bucket * bucket)
+    if target == n:
+        return audio
+    return np.pad(audio, ((0, 0), (0, target - n)))
+
+
+def _as_2d_float(audio) -> np.ndarray:
+    a = np.asarray(audio, np.float32)
+    return a[None, :] if a.ndim == 1 else a
+
+
+@dataclasses.dataclass
+class Effb2TrmConfig:
+    """The reference HF config defaults."""
+    sample_rate: int = 16000
+    fc_emb_dim: int = 1408
+    attn_emb_dim: int = 1408
+    decoder_n_layers: int = 2
+    decoder_we_tie_weights: bool = True
+    decoder_emb_dim: int = 256
+    decoder_dropout: float = 0.2
+    vocab_size: int = 4981
+
+
+class Effb2TrmCaptioningModel:
+    """EffB2 + 2-layer transformer captioner with the reference's
+    forward(audio, audio_length, sample_method, beam_size, max_length,
+    temp) -> token ids API.
+
+    ``state_dict`` takes reference-key-space weights (see
+    ``models/convert.py``); without it the weights are random, drawn
+    from ``torch.Generator().manual_seed(seed)``."""
+
+    def __init__(self, config: Effb2TrmConfig = Effb2TrmConfig(),
+                 state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+                 seed: int = 0, device: DeviceLike = "cuda"):
+        self.device = resolve_device(device)
+        self.config = config
+        self.model = effb2_trm(
+            vocab_size=config.vocab_size,
+            decoder_emb_dim=config.decoder_emb_dim,
+            decoder_n_layers=config.decoder_n_layers,
+            decoder_dropout=config.decoder_dropout,
+            tie_weights=config.decoder_we_tie_weights)
+        random_init(self.model, torch.Generator().manual_seed(seed))
+        if state_dict is not None:
+            load_reference_state_dict(self.model, state_dict)
+        self.model.to(self.device).eval()
+        self._decode: Dict = {}
+
+    def load_torch_checkpoint(self, path: str) -> None:
+        """Load an HF zoo checkpoint (a plain state dict, or one wrapped
+        as ``{"state_dict": ...}``)."""
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+        if isinstance(ckpt, dict) and "state_dict" in ckpt:
+            ckpt = ckpt["state_dict"]
+        self.load_torch_state_dict(ckpt)
+
+    def load_torch_state_dict(self, sd: Mapping[str, torch.Tensor]) -> None:
+        load_reference_state_dict(self.model, sd)
+        self.model.to(self.device).eval()
+        self._decode = {}   # drop decoders bound to the old weights
+
+    def _decode_fn(self, key):
+        if key not in self._decode:
+            sample_method, beam_size, max_length, temp = key
+            on_cuda = self.device.type == "cuda"
+            if sample_method == "greedy" and on_cuda:
+                from audiocaption_tpu_torch.decoding.fused_greedy import (
+                    FusedGreedyDecoder)
+                fn = FusedGreedyDecoder(self.model, max_length=max_length,
+                                        device=self.device)
+            elif sample_method == "beam" and temp == 1.0 and on_cuda:
+                from audiocaption_tpu_torch.decoding.fused_beam import (
+                    FusedBeamDecoder)
+                fn = FusedBeamDecoder(self.model, max_length=max_length,
+                                      beam_size=beam_size, device=self.device)
+            else:
+                def fn(wav, wav_len):
+                    return generate(self.model, wav, wav_len,
+                                    sample_method=sample_method,
+                                    beam_size=beam_size,
+                                    max_length=max_length, temp=temp)["seq"]
+            self._decode[key] = fn
+        return self._decode[key]
+
+    @torch.no_grad()
+    def decode(self, audio: torch.Tensor, audio_length: torch.Tensor,
+               sample_method: str = "beam", beam_size: int = 3,
+               max_length: int = 20, temp: float = 1.0) -> torch.Tensor:
+        """Device tensors in, device token ids [B, max_length] out, with
+        no host synchronisation (the serving path)."""
+        fn = self._decode_fn((sample_method, beam_size, max_length, temp))
+        return fn(audio.to(self.device), audio_length.to(self.device))
+
+    def __call__(self, audio, audio_length, sample_method: str = "beam",
+                 beam_size: int = 3, max_length: int = 20,
+                 temp: float = 1.0) -> np.ndarray:
+        audio = pad_bucket(_as_2d_float(audio), self.config.sample_rate)
+        lens = torch.as_tensor(np.asarray(audio_length, np.int64))
+        seq = self.decode(torch.from_numpy(audio), lens,
+                          sample_method=sample_method, beam_size=beam_size,
+                          max_length=max_length, temp=temp)
+        return seq.cpu().numpy().astype(np.int32)

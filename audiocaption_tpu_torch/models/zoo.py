@@ -1,0 +1,66 @@
+"""Model zoo constructors (counterpart of ``audiocaption_tpu/models/zoo.py``)."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from audiocaption_tpu_torch.decoding.engine import SpecialTokens
+from audiocaption_tpu_torch.models.captioner import Captioner
+from audiocaption_tpu_torch.models.effb2 import EfficientNetB2
+from audiocaption_tpu_torch.models.layers import MultiheadAttention
+from audiocaption_tpu_torch.models.transformer_decoder import (
+    TransformerDecoder)
+from audiocaption_tpu_torch.ops.frontend import EFFB2_MEL_16K
+
+
+def effb2_trm(vocab_size: int = 4981, decoder_emb_dim: int = 256,
+              decoder_n_layers: int = 2, decoder_dropout: float = 0.2,
+              tie_weights: bool = True, max_length: int = 20) -> Captioner:
+    """The HF Effb2TrmCaptioningModel dims: EffB2 encoder (16 kHz mel),
+    2-layer transformer decoder, emb 256, 4 heads, FFN 1024, tied."""
+    encoder = EfficientNetB2()
+    decoder = TransformerDecoder(
+        emb_dim=decoder_emb_dim, vocab_size=vocab_size,
+        attn_emb_dim=encoder.fc_emb_size, nlayers=decoder_n_layers,
+        tie_weights=tie_weights, dropout=decoder_dropout)
+    return Captioner(encoder=encoder, decoder=decoder, mel=EFFB2_MEL_16K,
+                     special=SpecialTokens(max_length=max_length))
+
+
+@torch.no_grad()
+def random_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random weights drawn from ``generator`` (random-init
+    serving and tests): He-normal fan-out convs, torch-default uniform
+    linears, Xavier-uniform embeddings and packed attention projections,
+    identity normalisation.  The positional table stays sinusoidal."""
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
+            m.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.Linear):
+            bound = 1.0 / math.sqrt(m.in_features)
+            m.weight.uniform_(-bound, bound, generator=generator)
+            if m.bias is not None:
+                m.bias.uniform_(-bound, bound, generator=generator)
+        elif isinstance(m, nn.Embedding):
+            _xavier_uniform(m.weight, generator)
+        elif isinstance(m, MultiheadAttention):
+            _xavier_uniform(m.in_proj_weight, generator)
+            m.in_proj_bias.zero_()
+        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            if isinstance(m, nn.BatchNorm2d):
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+    return model
+
+
+def _xavier_uniform(w: torch.Tensor, generator: torch.Generator) -> None:
+    bound = math.sqrt(6.0 / (w.shape[0] + w.shape[1]))
+    w.uniform_(-bound, bound, generator=generator)

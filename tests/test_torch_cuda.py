@@ -1,0 +1,88 @@
+"""The port's CUDA decode kernels against their plain PyTorch versions, on
+the card.  Every test here needs an NVIDIA GPU and skips elsewhere (a
+CUDA kernel has no CPU mode).  This file imports torch only, so it also
+runs where JAX is absent:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
+
+Tolerances: greedy tokens exact at the small width; at the flagship
+width at most 1% of tokens may differ (float32 sums in another order can
+flip a near-tie); n-best beam scores of matching sequences within 1e-4.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from audiocaption_tpu_torch.decoding import fused_beam as TB
+from audiocaption_tpu_torch.decoding import fused_greedy as TG
+from audiocaption_tpu_torch.models.transformer_decoder import (
+    TransformerDecoder)
+from audiocaption_tpu_torch.models.zoo import random_init
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from audiocaption_tpu_torch.device import set_parity_precision
+    set_parity_precision()
+    return torch.device("cuda")
+
+
+def make_inputs(E, H, FFN, V, NL, B, S, seed, device):
+    """Random jittered decoder (packed) and well-spread memory K/V."""
+    gen = torch.Generator().manual_seed(seed)
+    dec = TransformerDecoder(E, V, 32, nlayers=NL, nhead=H,
+                             dim_feedforward=FFN, tie_weights=True)
+    random_init(dec, gen)
+    with torch.no_grad():
+        for p in dec.parameters():
+            p.add_(torch.randn(p.shape, generator=gen) * 0.3)
+    packed = TG.pack_decoder_weights(dec.eval()).to(device)
+    memkv = torch.randn(NL, 2, B, S, E, generator=gen).to(device)
+    lens = torch.randint(0, S + 1, (B,), generator=gen)
+    lens[0] = S
+    valid = (torch.arange(S)[None] < lens[:, None]).to(torch.uint8).to(device)
+    return packed, memkv, valid
+
+
+SMALL = dict(E=128, H=2, FFN=256, V=48, NL=2, B=8, S=9)
+FLAGSHIP = dict(E=256, H=4, FFN=1024, V=4981, NL=2, B=8, S=31)
+# a 60 s clip's memory (S = 6001 // 32) and a longer caption
+LONG = dict(E=256, H=4, FFN=1024, V=4981, NL=2, B=4, S=187)
+CASES = [(SMALL, 7, 0.0), (FLAGSHIP, 20, 0.01), (LONG, 30, 0.01)]
+CASE_IDS = ["small", "flagship", "long_memory"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,L,limit", CASES, ids=CASE_IDS)
+def test_greedy_kernel_matches_plain(cuda, shape, L, limit):
+    args = make_inputs(seed=1, device=cuda, **shape)
+    n0 = TG.fused_greedy_decode.launches
+    got = TG.fused_greedy_decode(*args, L)
+    torch.cuda.synchronize()
+    assert TG.fused_greedy_decode.launches == n0 + 1
+    want = TG.fused_greedy_plain(*args, L)
+    mismatch = (got != want).float().mean().item()
+    assert mismatch <= limit, mismatch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,L,limit,K",
+                         [c + (3,) for c in CASES]
+                         + [(SMALL, 7, 0.0, k) for k in (1, 2, 4)],
+                         ids=CASE_IDS + ["beam1", "beam2", "beam4"])
+def test_beam_kernel_matches_plain(cuda, shape, L, limit, K):
+    args = make_inputs(seed=2, device=cuda, **shape)
+    n0 = TB.fused_beam_decode.launches
+    seq, score = TB.fused_beam_decode(*args, L, K)
+    torch.cuda.synchronize()
+    assert TB.fused_beam_decode.launches == n0 + 1
+    want_seq, want_score = TB.fused_beam_plain(*args, L, K)
+    assert (seq != want_seq).float().mean().item() <= limit
+    same = (seq == want_seq).all(-1)
+    np.testing.assert_allclose(score[same].cpu().numpy(),
+                               want_score[same].cpu().numpy(), atol=1e-4)
