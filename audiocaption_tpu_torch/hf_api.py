@@ -6,10 +6,17 @@ mirroring the reference's HF ``trust_remote_code`` models:
     ids = model(audio=wav_batch, audio_length=[n1, n2],
                 sample_method="beam", beam_size=3)     # [N, 20] token ids
 
+    model = Cnn14RnnTempAttnGruModel()                 # 32 kHz, temporal
+    ids = model(audio=wav_batch, audio_length=[n1, n2],
+                temporal_tag=[0, 2])                   # optional user tag
+
 Audio is padded up to 1 s buckets (padding is masked by
-``audio_length``).  On CUDA, greedy decodes and temp-1 beam decodes (the
-default) go through the whole-loop CUDA kernels; on the CPU, and for
-other settings, through the torch decoding engine.
+``audio_length``).  EffB2-Transformer: on CUDA, greedy decodes and temp-1
+beam decodes (the default) go through the whole-loop CUDA kernels; on
+the CPU, and for other settings, through the torch decoding engine.
+Temporal model: the 32 kHz log-mel goes through the fused log-mel kernel
+on CUDA (``ops/fused_logmel.py``) and is shared by the SED branch and the
+captioner; decoding is the torch engine's, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,10 +27,15 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from torch import nn
+
 from audiocaption_tpu_torch.device import DeviceLike, resolve_device
 from audiocaption_tpu_torch.models.captioner import generate
 from audiocaption_tpu_torch.models.convert import load_reference_state_dict
-from audiocaption_tpu_torch.models.zoo import effb2_trm, random_init
+from audiocaption_tpu_torch.models.sed import (
+    Cnn8RnnSedModel, framewise_to_temporal_tags)
+from audiocaption_tpu_torch.models.zoo import (
+    cnn14rnn_tempgru, effb2_trm, random_init)
 
 
 def pad_bucket(audio: np.ndarray, sample_rate: int,
@@ -134,4 +146,108 @@ class Effb2TrmCaptioningModel:
         seq = self.decode(torch.from_numpy(audio), lens,
                           sample_method=sample_method, beam_size=beam_size,
                           max_length=max_length, temp=temp)
+        return seq.cpu().numpy().astype(np.int32)
+
+
+@dataclasses.dataclass
+class Cnn14RnnTempAttnGruConfig:
+    """The reference HF config defaults (dropouts are training-only)."""
+    sample_rate: int = 32000
+    encoder_rnn_hidden_size: int = 256
+    encoder_rnn_num_layers: int = 3
+    encoder_rnn_dropout: float = 0.5
+    decoder_emb_dim: int = 512
+    decoder_d_model: int = 512
+    decoder_dropout: float = 0.5
+    vocab_size: int = 4981
+
+
+class TemporalCaptionModel(nn.Module):
+    """The temporal model's two networks under the reference checkpoint's
+    names: ``cap_model`` (Cnn14-BiGRU captioner) and ``sed_model``."""
+
+    def __init__(self, config: Cnn14RnnTempAttnGruConfig):
+        super().__init__()
+        self.cap_model = cnn14rnn_tempgru(
+            vocab_size=config.vocab_size, sample_rate=config.sample_rate,
+            encoder_rnn_hidden_size=config.encoder_rnn_hidden_size,
+            encoder_rnn_num_layers=config.encoder_rnn_num_layers,
+            decoder_emb_dim=config.decoder_emb_dim,
+            decoder_d_model=config.decoder_d_model)
+        self.sed_model = Cnn8RnnSedModel()
+
+
+class Cnn14RnnTempAttnGruModel:
+    """Temporal-tag controllable captioner: one 32 kHz log-mel shared by a
+    SED branch (framewise event probabilities -> host-side temporal tag)
+    and a Cnn14-BiGRU captioner whose GRU decoder starts from the tag's
+    embedding.  Tags: 0 single event, 1 simultaneous, 2 sequential,
+    3 complex; a user tag is merged with the SED tag by ``min``.
+
+    ``state_dict`` takes the reference checkpoint's key space (see
+    ``models/convert.py``); without it the weights are random, drawn from
+    ``torch.Generator().manual_seed(seed)``."""
+
+    def __init__(self, config: Cnn14RnnTempAttnGruConfig =
+                 Cnn14RnnTempAttnGruConfig(),
+                 state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+                 seed: int = 0, device: DeviceLike = "cuda"):
+        self.device = resolve_device(device)
+        self.config = config
+        self.model = TemporalCaptionModel(config)
+        random_init(self.model, torch.Generator().manual_seed(seed))
+        if state_dict is not None:
+            self.load_torch_state_dict(state_dict)
+        self.model.to(self.device).eval()
+        self.mel = self.model.cap_model.mel
+
+    def load_torch_checkpoint(self, path: str) -> None:
+        """Load the reference checkpoint (a plain state dict: unlike the
+        EffB2 class, no ``{"state_dict": ...}`` wrapper is unwrapped)."""
+        self.load_torch_state_dict(
+            torch.load(path, map_location="cpu", weights_only=False))
+
+    def load_torch_state_dict(self, sd: Mapping[str, torch.Tensor]) -> None:
+        self.model.load_state_dict({
+            k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+            for k, v in sd.items()})
+        self.model.to(self.device).eval()
+
+    @torch.no_grad()
+    def log_mel(self, wav: torch.Tensor) -> torch.Tensor:
+        """[B, T] -> the shared log-mel [B, T // hop + 1, 64]."""
+        return self.model.cap_model.frontend(wav.to(self.device))
+
+    @torch.no_grad()
+    def sed_tags(self, lms: torch.Tensor) -> np.ndarray:
+        """Log-mel -> SED temporal tag per clip [B] (host numpy)."""
+        framewise = self.model.sed_model(lms)["framewise_output"]
+        return framewise_to_temporal_tags(framewise.cpu().numpy())
+
+    @torch.no_grad()
+    def decode_lms(self, lms: torch.Tensor, audio_length, temporal_tag=None,
+                   sample_method: str = "beam", beam_size: int = 3,
+                   max_length: int = 20, temp: float = 1.0) -> torch.Tensor:
+        """Captions of a computed log-mel -> device token ids [B, L].
+        ``audio_length`` is a host sequence or a tensor of sample counts."""
+        tag = self.sed_tags(lms)
+        if temporal_tag is not None:
+            tag = np.minimum(np.asarray(temporal_tag, np.int32), tag)
+        lens = torch.as_tensor(audio_length if torch.is_tensor(audio_length)
+                               else np.asarray(audio_length, np.int64))
+        return generate(self.model.cap_model, lms=lms,
+                        feat_len=self.mel.feat_len(lens.to(self.device)),
+                        temporal_tag=torch.from_numpy(tag).to(self.device),
+                        sample_method=sample_method, beam_size=beam_size,
+                        max_length=max_length, temp=temp)["seq"]
+
+    def __call__(self, audio, audio_length, temporal_tag=None,
+                 sample_method: str = "beam", beam_size: int = 3,
+                 max_length: int = 20, temp: float = 1.0) -> np.ndarray:
+        audio = pad_bucket(_as_2d_float(audio), self.config.sample_rate)
+        lms = self.log_mel(torch.from_numpy(audio))
+        seq = self.decode_lms(lms, audio_length, temporal_tag,
+                              sample_method=sample_method,
+                              beam_size=beam_size, max_length=max_length,
+                              temp=temp)
         return seq.cpu().numpy().astype(np.int32)

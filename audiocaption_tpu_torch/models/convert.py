@@ -14,6 +14,16 @@ HF checkpoints ship (``model.model.encoder.backbone.eff_net.*``,
 
 ``load_reference_state_dict`` loads such a dict (a converted JAX tree or
 a downloaded reference checkpoint) into the port's ``Captioner``.
+
+``tempgru_state_dict_from_jax`` does the same for the temporal captioner
+and its SED model, into the ``wsntxxn/cnn14rnn-tempgru`` key space
+(``cap_model.encoder.{cnn,rnn}.*``, ``cap_model.decoder.*``,
+``sed_model.*``), which the port's ``TemporalCaptionModel`` loads with a
+plain strict ``load_state_dict``.  More layout changes:
+
+  GRU        w_ih [in, 3H]           -> weight_ih_l{k}[_reverse] [3H, in]
+             cell w_hh [H, 3H]       -> weight_hh_l{k}[_reverse] [3H, H]
+  Embedding  embedding [V, E]        -> weight [V, E]
 """
 
 from __future__ import annotations
@@ -56,6 +66,28 @@ def _batchnorm(p, s, prefix, out):
 def _layernorm(p, prefix, out):
     out[f"{prefix}.weight"] = _n(p["scale"])
     out[f"{prefix}.bias"] = _n(p["bias"])
+
+
+def _embedding(p, prefix, out):
+    out[f"{prefix}.weight"] = _n(p["embedding"])
+
+
+def _gru(p, prefix, num_layers, bidirectional, out):
+    for layer in range(num_layers):
+        for d in range(2 if bidirectional else 1):
+            suf = f"l{layer}" + ("_reverse" if d == 1 else "")
+            cell = p[f"cell_{suf}"]
+            out[f"{prefix}.weight_ih_{suf}"] = _n(p[f"w_ih_{suf}"]).T
+            out[f"{prefix}.bias_ih_{suf}"] = _n(p[f"b_ih_{suf}"])
+            out[f"{prefix}.weight_hh_{suf}"] = _n(cell["w_hh"]).T
+            out[f"{prefix}.bias_hh_{suf}"] = _n(cell["b_hh"])
+
+
+def _conv_block(p, s, prefix, out):
+    _conv2d(p["conv1"], f"{prefix}.conv1", out)
+    _conv2d(p["conv2"], f"{prefix}.conv2", out)
+    _batchnorm(p["bn1"], s["bn1"], f"{prefix}.bn1", out)
+    _batchnorm(p["bn2"], s["bn2"], f"{prefix}.bn2", out)
 
 
 def _mha(p, prefix, out):
@@ -152,3 +184,39 @@ def load_reference_state_dict(model: torch.nn.Module,
         dec["pos_encoder.pe"] = model.decoder.pos_encoder.pe
     model.encoder.load_state_dict(enc)
     model.decoder.load_state_dict(dec)
+
+
+def _cnn(params, stats, prefix, n_blocks, out):
+    _batchnorm(params["bn0"], stats["bn0"], f"{prefix}.bn0", out)
+    for i in range(1, n_blocks + 1):
+        _conv_block(params[f"conv_block{i}"], stats[f"conv_block{i}"],
+                    f"{prefix}.conv_block{i}", out)
+
+
+def tempgru_state_dict_from_jax(variables: Mapping, sed_variables: Mapping,
+                                rnn_num_layers: int = 3
+                                ) -> Dict[str, torch.Tensor]:
+    """JAX Cnn14RnnTempAttnGru variables and Cnn8-RNN SED variables (nested
+    numpy dicts) -> the reference checkpoint's state dict of tensors."""
+    out: Dict[str, np.ndarray] = {}
+    enc_p = variables["params"]["encoder"]
+    enc_s = variables["batch_stats"]["encoder"]
+    _cnn(enc_p["cnn"], enc_s["cnn"], "cap_model.encoder.cnn", 6, out)
+    if "fc1" in enc_p["cnn"]:
+        _linear(enc_p["cnn"]["fc1"], "cap_model.encoder.cnn.fc1", out)
+    _gru(enc_p["rnn"]["network"], "cap_model.encoder.rnn.network",
+         rnn_num_layers, True, out)
+    dec, d = variables["params"]["decoder"], "cap_model.decoder"
+    _embedding(dec["word_embedding"], f"{d}.word_embedding", out)
+    _gru(dec["model"], f"{d}.model", 1, False, out)
+    _linear(dec["attn"]["h2attn"], f"{d}.attn.h2attn", out)
+    out[f"{d}.attn.v"] = _n(dec["attn"]["v"])
+    for name in ("fc_proj", "ctx_proj", "classifier"):
+        _linear(dec[name], f"{d}.{name}", out)
+    _embedding(dec["temporal_embedding"], f"{d}.temporal_embedding", out)
+    sed_p, sed_s = sed_variables["params"], sed_variables["batch_stats"]
+    _cnn(sed_p, sed_s, "sed_model", 4, out)
+    _linear(sed_p["fc1"], "sed_model.fc1", out)
+    _gru(sed_p["rnn"], "sed_model.rnn", 1, True, out)
+    _linear(sed_p["fc_audioset"], "sed_model.fc_audioset", out)
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}

@@ -1,11 +1,12 @@
-"""Neural building blocks the EffB2-Transformer captioner needs
-(counterpart of the matching subset of ``audiocaption_tpu/models/layers.py``).
+"""Neural building blocks the captioners need (counterpart of the
+matching subset of ``audiocaption_tpu/models/layers.py``).
 
 Parameter names follow torch's own modules (``nn.Conv2d``,
 ``nn.MultiheadAttention``'s packed ``in_proj_weight``,
-``nn.TransformerDecoderLayer``) so reference checkpoints load with a
-plain ``load_state_dict``.  Layouts follow PyTorch habit: NCHW convs,
-[out, in] linear weights.
+``nn.TransformerDecoderLayer``, ``nn.GRU``'s ``weight_ih_l{k}[_reverse]``)
+so reference checkpoints load with a plain ``load_state_dict``.  Layouts
+follow PyTorch habit: NCHW convs, [out, in] linear weights, [3H, in] GRU
+weights with gate order r, z, n (the JAX package keeps the transpose).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
 NEG_MASK = float(torch.finfo(torch.float32).min)
 
@@ -155,3 +157,78 @@ class TransformerDecoderLayer(nn.Module):
         x = self.norm2(x + self.multihead_attn.attend_step(
             x, mem_k, mem_v, memory_key_padding_mask))
         return self.norm3(x + self._ffn(x))
+
+
+class ConvBlock(nn.Module):
+    """PANNs double-conv block: conv3x3 (pad 1, no bias) -> BN (eps 1e-5)
+    -> ReLU, twice.  Pooling is the caller's (:func:`pool_2d`)."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1,
+                               bias=False)
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1,
+                               bias=False)
+        self.bn1 = nn.BatchNorm2d(out_channels)
+        self.bn2 = nn.BatchNorm2d(out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.bn1(self.conv1(x)))
+        return F.relu(self.bn2(self.conv2(x)))
+
+
+def pool_2d(x: torch.Tensor, window: Tuple[int, int],
+            pool_type: str) -> torch.Tensor:
+    """Non-overlapping "avg" / "max" / "avg+max" (the sum) pooling of NCHW
+    ``x`` over (H, W); odd sizes are floored.  A (1, 1) window is the
+    identity for each pool, so "avg+max" then gives 2 * x."""
+    def avg(v):
+        return v if tuple(window) == (1, 1) else F.avg_pool2d(v, window)
+
+    def max_(v):
+        return v if tuple(window) == (1, 1) else F.max_pool2d(v, window)
+
+    if pool_type == "avg":
+        return avg(x)
+    if pool_type == "max":
+        return max_(x)
+    if pool_type == "avg+max":
+        return avg(x) + max_(x)
+    raise ValueError(f"unknown pool type {pool_type!r}")
+
+
+def batch_norm_mels(bn: nn.BatchNorm2d, lms: torch.Tensor) -> torch.Tensor:
+    """BatchNorm over the mel bins of ``lms`` [B, T, M] (the M bins are
+    the features), returned as the NCHW image [B, 1, T, M]."""
+    x = bn(lms.transpose(1, 2)[..., None])           # [B, M, T, 1]
+    return x[..., 0].transpose(1, 2)[:, None]
+
+
+class GRU(nn.GRU):
+    """``nn.GRU`` (batch first) whose ``forward(x, lens)`` has the
+    pack-padded semantics of the reference encoders: each row runs over its
+    first ``lens[b]`` steps only (the backward direction from its own last
+    valid step), state is frozen and output zero past its length.  A row
+    of length 0 gives zeros, as the JAX package's masked scan does
+    (``pack_padded_sequence`` itself refuses a length of 0).  Without
+    ``lens`` every row runs over the whole padded length."""
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 num_layers: int = 1, bidirectional: bool = False):
+        super().__init__(input_size, hidden_size, num_layers=num_layers,
+                         bidirectional=bidirectional, batch_first=True)
+
+    def forward(self, x: torch.Tensor, lens: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """x [B, T, I] -> out [B, T, H * directions]."""
+        if lens is None:
+            return super().forward(x)[0]
+        T = x.shape[1]
+        lens_cpu = lens.detach().to("cpu", torch.int64).clamp(max=T)
+        packed = pack_padded_sequence(x, lens_cpu.clamp(min=1),
+                                      batch_first=True, enforce_sorted=False)
+        out, _ = pad_packed_sequence(super().forward(packed)[0],
+                                     batch_first=True, total_length=T)
+        if bool((lens_cpu <= 0).any()):
+            out = out * (lens_cpu > 0).to(out.device, out.dtype)[:, None, None]
+        return out

@@ -11,9 +11,13 @@ from audiocaption_tpu_torch.decoding.engine import SpecialTokens
 from audiocaption_tpu_torch.models.captioner import Captioner
 from audiocaption_tpu_torch.models.effb2 import EfficientNetB2
 from audiocaption_tpu_torch.models.layers import MultiheadAttention
+from audiocaption_tpu_torch.models.rnn_decoder import (
+    Seq2SeqAttention, TemporalBahAttnDecoder)
+from audiocaption_tpu_torch.models.rnn_encoder import Cnn14RnnEncoder
 from audiocaption_tpu_torch.models.transformer_decoder import (
     TransformerDecoder)
-from audiocaption_tpu_torch.ops.frontend import EFFB2_MEL_16K
+from audiocaption_tpu_torch.ops.frontend import (
+    CNN14_MEL_16K, CNN14_MEL_32K, EFFB2_MEL_16K)
 
 
 def effb2_trm(vocab_size: int = 4981, decoder_emb_dim: int = 256,
@@ -30,12 +34,33 @@ def effb2_trm(vocab_size: int = 4981, decoder_emb_dim: int = 256,
                      special=SpecialTokens(max_length=max_length))
 
 
+def cnn14rnn_tempgru(vocab_size: int = 4981, sample_rate: int = 32000,
+                     encoder_rnn_hidden_size: int = 256,
+                     encoder_rnn_num_layers: int = 3,
+                     decoder_emb_dim: int = 512, decoder_d_model: int = 512,
+                     max_length: int = 20) -> Captioner:
+    """The HF Cnn14RnnTempAttnGruModel captioner: Cnn14 -> 3-layer
+    BiGRU(256) encoder (32 kHz mel), temporal Bahdanau-attention GRU
+    decoder (emb 512, d_model 512, attention size d_model)."""
+    encoder = Cnn14RnnEncoder(rnn_hidden_size=encoder_rnn_hidden_size,
+                              rnn_num_layers=encoder_rnn_num_layers)
+    decoder = TemporalBahAttnDecoder(
+        emb_dim=decoder_emb_dim, vocab_size=vocab_size,
+        fc_emb_dim=encoder.fc_emb_size, attn_emb_dim=encoder.fc_emb_size,
+        d_model=decoder_d_model)
+    mel = CNN14_MEL_32K if sample_rate == 32000 else CNN14_MEL_16K
+    return Captioner(encoder=encoder, decoder=decoder, mel=mel,
+                     special=SpecialTokens(max_length=max_length))
+
+
 @torch.no_grad()
 def random_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights drawn from ``generator`` (random-init
     serving and tests): He-normal fan-out convs, torch-default uniform
     linears, Xavier-uniform embeddings and packed attention projections,
-    identity normalisation.  The positional table stays sinusoidal."""
+    torch-default uniform GRUs, a standard-normal additive-attention
+    ``v``, identity normalisation.  The positional table stays
+    sinusoidal."""
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
             fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
@@ -52,6 +77,12 @@ def random_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, MultiheadAttention):
             _xavier_uniform(m.in_proj_weight, generator)
             m.in_proj_bias.zero_()
+        elif isinstance(m, nn.GRU):
+            bound = 1.0 / math.sqrt(m.hidden_size)
+            for p in m.parameters():
+                p.uniform_(-bound, bound, generator=generator)
+        elif isinstance(m, Seq2SeqAttention):
+            m.v.normal_(0.0, 1.0, generator=generator)
         elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()

@@ -10,10 +10,15 @@ the reference encoders use them:
   * 10*log10(clamp(x, 1e-10)) with an optional ``top_db`` floor taken
     per clip over all frames and mel bins (bucket padding included).
 
-The windowed DFT is a stride-``hop`` ``conv1d`` whose filters are the
-windowed cos / -sin basis rows, so framing happens inside the
-convolution instead of materialising the overlapping frame tensor.  All
-math is float32.  Frame count: ``feat_len = wav_len // hop + 1``.
+Two paths, chosen as the JAX package chooses between its conv-DFT path
+and its Pallas kernel (``LogMelFrontend._resolve_pallas``): a CUDA
+waveform of a 32 kHz preset goes through the hand-written kernel
+(``ops/fused_logmel.py``); every other case, the 16 kHz presets on the
+card and everything on the CPU, takes the conv-DFT path, a stride-``hop``
+``conv1d`` whose filters are the windowed cos / -sin basis rows, so
+framing happens inside the convolution instead of materialising the
+overlapping frame tensor.  All math is float32.  Frame count:
+``feat_len = wav_len // hop + 1``.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from audiocaption_tpu_torch.ops.fused_logmel import fused_logmel
 
 
 def _hz_to_mel(freq, mel_scale: str) -> np.ndarray:
@@ -148,7 +155,9 @@ EFFB2_MEL_16K = MelConfig(sample_rate=16000, f_min=0.0, f_max=None,
 
 
 class LogMelFrontend(torch.nn.Module):
-    """Waveform [B, T] -> log-mel [B, T // hop + 1, n_mels], float32."""
+    """Waveform [B, T] -> log-mel [B, T // hop + 1, n_mels], float32:
+    the fused kernel for a CUDA waveform of a 32 kHz preset, the conv-DFT
+    path (:meth:`conv_path`) otherwise."""
 
     def __init__(self, config: MelConfig):
         super().__init__()
@@ -175,6 +184,14 @@ class LogMelFrontend(torch.nn.Module):
         re, im = proj[:, :n_freqs], proj[:, n_freqs:]
         return (re * re + im * im).transpose(1, 2)
 
-    def forward(self, wav: torch.Tensor) -> torch.Tensor:
+    def uses_kernel(self, wav: torch.Tensor) -> bool:
+        return wav.device.type == "cuda" and self.config.sample_rate == 32000
+
+    def conv_path(self, wav: torch.Tensor) -> torch.Tensor:
         mel = torch.matmul(self.power_spectrogram(wav), self.mel_fb)
         return amplitude_to_db(mel, top_db=self.config.top_db)
+
+    def forward(self, wav: torch.Tensor) -> torch.Tensor:
+        if self.uses_kernel(wav):
+            return fused_logmel(wav, self.config)
+        return self.conv_path(wav)

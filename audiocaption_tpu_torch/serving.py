@@ -142,7 +142,7 @@ class MicroBatchServer:
         outstanding-dispatch window; 1 serializes.
     """
 
-    def __init__(self, decode_fn: Callable, *, max_batch: int = 64,
+    def __init__(self, decode_fn: Callable, *, max_batch: int = 128,
                  max_wait_ms: float = 5.0, max_samples: int = 160000,
                  batch_buckets: Optional[Sequence[int]] = None,
                  max_queue: int = 4096, wire: str = "f32",

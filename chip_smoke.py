@@ -7,28 +7,47 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
 Phases, each of which must pass (none is caught and skipped):
 
   1. print the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel of the serving path from ``csrc/`` with nvcc
-     (one process per source, all started together);
-  3. hold each kernel against its plain PyTorch version on the card, at
-     the flagship decoder width (E=256, 4 heads, 2 layers, V=4981),
-     L=20, S=31, B=64, on random jittered decoder weights and random
-     well-spread memory K/V.  Limits: at most 1% of tokens differ; n-best
-     beam scores of matching sequences within 1e-4;
-  4. drive the serving path end to end through ``Effb2TrmCaptioningModel``
-     at flagship width (random weights from a seed, decoder jittered, BN
-     statistics jittered so the encoder output does not collapse): 8
-     clips of 10 s with mixed lengths, greedy and beam 3, and compare with
-     the torch-engine path on the same card (at most 1% of tokens differ);
+  2. build every CUDA kernel of the port from ``csrc/`` with nvcc (one
+     process per source, all started together);
+  3. hold each decode kernel against its plain PyTorch version on the
+     card, at the flagship decoder width (E=256, 4 heads, 2 layers,
+     V=4981), L=20, S=31, B=64, on random jittered decoder weights and
+     random well-spread memory K/V.  Limits: at most 1% of tokens differ;
+     n-best beam scores of matching sequences within 1e-4;
+  4. drive the EffB2 serving path end to end through
+     ``Effb2TrmCaptioningModel`` at flagship width (random weights from a
+     seed, decoder jittered, BN statistics jittered so the encoder output
+     does not collapse): 8 clips of 10 s with mixed lengths, greedy and
+     beam 3, and compare with the torch-engine path on the same card (at
+     most 1% of tokens differ);
   5. serve 16 clips through ``MicroBatchServer``; the answers must equal a
      direct decode of the same batch;
-  6. time each kernel and its plain version (CUDA events, after warm-up,
-     B=64, S=31), compute each kernel's bound from its inputs, and time
-     end-to-end clips/s for greedy and beam 3 at B=64 on 10 s clips.
+  6. time each decode kernel and its plain version (CUDA events, after
+     warm-up, B=64, S=31), compute each kernel's bound from its inputs,
+     and time end-to-end clips/s for greedy and beam 3 at B=64 on 10 s
+     clips;
+  7. hold the log-mel kernel against its plain version at B=64 x 10 s, for
+     the 32 kHz Cnn14 preset and the 16 kHz EffB2 preset (the kernel is
+     config-general).  Limit 1e-3 dB: the JAX package holds its own kernel
+     to 2e-4 dB of its conv path, and here 1024-term float32 DFT sums run
+     in another order on the card, on 10 s of audio instead of 1 s;
+  8. drive the temporal path end to end through
+     ``Cnn14RnnTempAttnGruModel`` at full width (vocab 4981; random weights
+     from a seed, decoder jittered, BN statistics jittered): 8 clips of
+     10 s at 32 kHz with mixed lengths (each >= 1 s), greedy and beam 3,
+     with and without a user temporal tag, and compare with the same
+     modules fed by the plain log-mel on the same card.  Limits: at most 1%
+     of tokens differ; SED framewise probabilities within 1e-4;
+  9. time the log-mel kernel, its plain version, the conv-DFT frontend
+     (its yardstick) and its bound at B=64 x 10 s, the split of one
+     temporal-model batch (frontend, SED network, host tag step, captioner
+     encoder, decode), and end-to-end clips/s, greedy and beam 3.
 
-Every kernel's launch counter is set to 0 just before phases 4-5 (the
-serving path) and read just after; the run fails if a kernel of the path
-was not launched there.  The second-to-last line is the kernels JSON
-object, the last line ``{"ok": true, "device": {...}}``.
+Every kernel's launch counter is set to 0 just before each path is
+driven (phases 4-5, the EffB2 serving path; phase 8, the temporal path)
+and read just after; the run fails if a kernel of that path was not
+launched there.  The second-to-last line is the kernels JSON object, the
+last line ``{"ok": true, "device": {...}}``.
 
 The script imports nothing of JAX.  It exits non-zero, printing no
 result, where CUDA is unavailable or the package is not beside it.
@@ -48,8 +67,11 @@ SEED = 0
 E, NHEAD, FFN, V, NLAYERS = 256, 4, 1024, 4981, 2
 B_KERNEL, S_KERNEL, L = 64, 31, 20
 SR = 16000
+SR_32K, B_LOGMEL = 32000, 64
 MISMATCH_LIMIT = 0.01
 SCORE_ATOL = 1e-4
+LOGMEL_DB_ATOL = 1e-3
+SED_ATOL = 1e-4
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -144,6 +166,211 @@ def jitter_model(api, gen) -> None:
                 m.weight.copy_(1 + 0.2 * torch.randn(n, generator=gen))
                 m.bias.copy_(0.2 * torch.randn(n, generator=gen))
     api._decode = {}
+
+
+def jitter_temporal(api, gen) -> None:
+    """Jitter the temporal decoder, sharpen the SED classifier (so SED tags
+    vary and a user tag changes them) and give every BN (captioner encoder
+    and SED) non-identity statistics."""
+    import torch
+    with torch.no_grad():
+        for p in api.model.cap_model.decoder.parameters():
+            # 0.1: larger jitters make the decoder GRU chaotic, so that
+            # float32 rounding alone flips tokens late in a caption
+            p.add_(torch.randn(p.shape, generator=gen).to(p.device) * 0.1)
+        api.model.sed_model.fc_audioset.weight.mul_(2.7)
+        for m in api.model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                m.running_mean.copy_(torch.randn(n, generator=gen) * 0.1)
+                m.running_var.copy_(0.5 + torch.rand(n, generator=gen))
+                m.weight.copy_(1 + 0.2 * torch.randn(n, generator=gen))
+                m.bias.copy_(0.2 * torch.randn(n, generator=gen))
+
+
+def logmel_work(config, batch: int, samples: int):
+    """(float ops, bytes) one log-mel call needs: the DFT and mel products
+    per frame (2 ops per multiply-add); the wave read once, the tables
+    read once, the log-mel written once."""
+    n_frames = samples // config.hop + 1
+    nf = config.n_fft // 2 + 1
+    flops = batch * n_frames * (2 * config.n_fft * 2 * nf
+                                + 2 * nf * config.n_mels)
+    nbytes = 4 * (batch * samples + config.n_fft * 2 * nf
+                  + nf * config.n_mels + batch * n_frames * config.n_mels)
+    return flops, nbytes
+
+
+def logmel_check(dev, card):
+    """Phase 7: the log-mel kernel against its plain version at
+    B=64 x 10 s, 32 kHz and 16 kHz presets -> max |diff| per preset."""
+    import torch
+    from audiocaption_tpu_torch.ops import frontend as TF
+    from audiocaption_tpu_torch.ops import fused_logmel as FL
+    gen = torch.Generator().manual_seed(SEED + 2)
+    errs = {}
+    for name in ("CNN14_MEL_32K", "EFFB2_MEL_16K"):
+        cfg = getattr(TF, name)
+        wav = torch.randn(B_LOGMEL, 10 * cfg.sample_rate, generator=gen) * 0.1
+        wav[-1, wav.shape[1] // 2:] = 0.0          # silence: the 1e-10 floor
+        wav = wav.to(dev)
+        got = FL.fused_logmel(wav, cfg)
+        want = FL.fused_logmel_plain(wav, cfg)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        errs[name] = err
+        log(f"log-mel kernel vs plain, {name}, B={B_LOGMEL} x 10 s "
+            f"{tuple(got.shape)}: max |diff| {err:.3g} dB (limit "
+            f"{LOGMEL_DB_ATOL}) on {card}")
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        assert err <= LOGMEL_DB_ATOL, f"log-mel kernel disagrees on {name}"
+    return errs
+
+
+def temporal_path(dev, card, rng):
+    """Phase 8: the temporal captioner end to end, kernel log-mel vs the
+    same modules fed by the plain log-mel -> (api, launches)."""
+    import numpy as np
+    import torch
+    from audiocaption_tpu_torch.decoding import fused_beam as FB
+    from audiocaption_tpu_torch.decoding import fused_greedy as FG
+    from audiocaption_tpu_torch.hf_api import (
+        Cnn14RnnTempAttnGruConfig, Cnn14RnnTempAttnGruModel, pad_bucket)
+    from audiocaption_tpu_torch.ops import fused_logmel as FL
+    api = Cnn14RnnTempAttnGruModel(Cnn14RnnTempAttnGruConfig(vocab_size=V),
+                                   seed=SEED, device="cuda")
+    jitter_temporal(api, torch.Generator().manual_seed(SEED + 3))
+    sr = SR_32K
+    lens = np.asarray([10 * sr, 9 * sr, 7 * sr + 123, 5 * sr, 3 * sr + 7,
+                       2 * sr, sr, sr + 4000])
+    audio = (rng.randn(8, 10 * sr) * 0.1).astype(np.float32)
+    for i, n in enumerate(lens):
+        audio[i, n:] = 0.0                        # zero-padded clips
+    user_tag = np.asarray([0, 1, 2, 3, 3, 2, 1, 0], np.int32)
+    runs = [(m, t) for m in ("greedy", "beam") for t in (None, user_tag)]
+    FG.fused_greedy_decode.launches = 0
+    FB.fused_beam_decode.launches = 0
+    FL.fused_logmel.launches = 0
+    out = {}
+    for method, tag in runs:
+        out[method, tag is None] = api(audio, lens, temporal_tag=tag,
+                                       sample_method=method, beam_size=3,
+                                       max_length=L)
+    launches = {"fused_greedy": FG.fused_greedy_decode.launches,
+                "fused_beam": FB.fused_beam_decode.launches,
+                "fused_logmel": FL.fused_logmel.launches}
+    log(f"temporal-path launches: {launches}")
+    assert launches["fused_logmel"] > 0, "the log-mel kernel was not launched"
+
+    wav = torch.from_numpy(pad_bucket(audio, sr)).to(dev)
+    lms_kernel = api.log_mel(wav)
+    lms_plain = FL.fused_logmel_plain(wav, api.mel)
+    with torch.no_grad():
+        fw_k = api.model.sed_model(lms_kernel)["framewise_output"]
+        fw_p = api.model.sed_model(lms_plain)["framewise_output"]
+        lens_t = torch.from_numpy(lens).to(dev)
+        enc_k = api.model.cap_model.encode_lms(lms_kernel,
+                                               api.mel.feat_len(lens_t))
+        enc_p = api.model.cap_model.encode_lms(lms_plain,
+                                               api.mel.feat_len(lens_t))
+    enc_err = float((enc_k["attn_emb"] - enc_p["attn_emb"]).abs().max())
+    sed_err = float((fw_k - fw_p).abs().max())
+    tags = api.sed_tags(lms_kernel)
+    log(f"temporal path: kernel vs plain log-mel: SED framewise max |diff| "
+        f"{sed_err:.3g} (limit {SED_ATOL}), captioner attn_emb max |diff| "
+        f"{enc_err:.3g}; SED tags {tags.tolist()}, "
+        f"user tags {user_tag.tolist()}, merged "
+        f"{np.minimum(user_tag, tags).tolist()} on {card}")
+    assert sed_err <= SED_ATOL, "SED output disagrees"
+    np.testing.assert_array_equal(tags, api.sed_tags(lms_plain))
+    for (method, no_tag), ids in out.items():
+        assert ids.shape == (8, L) and ((ids >= 0) & (ids < V)).all()
+        ref = api.decode_lms(lms_plain, lens, None if no_tag else user_tag,
+                             sample_method=method, beam_size=3,
+                             max_length=L).cpu().numpy()
+        mis = int((ids != ref).sum())
+        log(f"temporal end to end {method}, "
+            f"{'SED tag' if no_tag else 'user tag'}: kernel log-mel vs "
+            f"plain log-mel {mis}/{ids.size} tokens differ; first caption "
+            f"{ids[0][:8]} on {card}")
+        assert mis <= MISMATCH_LIMIT * ids.size, f"{method} path disagrees"
+    assert len(np.unique(np.concatenate(list(out.values())))) > 10, \
+        "degenerate temporal captions"
+    return api, launches
+
+
+def temporal_times(api, dev, card):
+    """Phase 9: log-mel kernel, plain, conv-DFT yardstick and bound; the
+    split of one temporal batch; end-to-end clips/s.  B=64 x 10 s."""
+    import numpy as np
+    import torch
+    from audiocaption_tpu_torch.models.captioner import generate
+    from audiocaption_tpu_torch.models.sed import framewise_to_temporal_tags
+    from audiocaption_tpu_torch.ops import fused_logmel as FL
+    from audiocaption_tpu_torch.ops.frontend import LogMelFrontend
+    cfg, B = api.mel, B_LOGMEL
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    wav = torch.randn(B, 10 * SR_32K, generator=gen, device=dev) * 0.1
+    lens = torch.full((B,), 10 * SR_32K, dtype=torch.long, device=dev)
+    conv = LogMelFrontend(cfg).to(dev).conv_path
+    with torch.no_grad():
+        k_ms = cuda_ms(lambda: FL.fused_logmel(wav, cfg), 10)
+        p_ms = cuda_ms(lambda: FL.fused_logmel_plain(wav, cfg), 5, warmup=1)
+        lib_ms = cuda_ms(lambda: conv(wav), 10)
+        k_ms2 = cuda_ms(lambda: FL.fused_logmel(wav, cfg), 10)
+    flops, nbytes = logmel_work(cfg, B, wav.shape[1])
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    log(f"fused_logmel: {k_ms:.4f} ms/call (again {k_ms2:.4f}; plain "
+        f"{p_ms:.3f} ms, conv-DFT frontend {lib_ms:.4f} ms, bound "
+        f"{max(t_bytes, t_ops):.4f} ms: {nbytes} bytes, {flops} fp32 ops) "
+        f"B={B} x 10 s 32 kHz on {card}")
+    timing = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+              "bound_ms": max(t_bytes, t_ops),
+              "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+    with torch.no_grad():
+        lms = api.log_mel(wav)
+        feat_len = api.mel.feat_len(lens)
+        sed_ms = cuda_ms(lambda: api.model.sed_model(lms), 3, warmup=1)
+        framewise = api.model.sed_model(lms)["framewise_output"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tags = framewise_to_temporal_tags(framewise.cpu().numpy())
+        host_ms = (time.perf_counter() - t0) * 1e3
+        enc_ms = cuda_ms(lambda: api.model.cap_model.encode_lms(lms,
+                                                                feat_len),
+                         3, warmup=1)
+        enc = api.model.cap_model.encode_lms(lms, feat_len)
+        tag_t = torch.from_numpy(tags).to(dev)
+        dec_ms = {}
+        for method in ("greedy", "beam"):
+            dec_ms[method] = cuda_ms(lambda: generate(
+                api.model.cap_model, enc=enc, temporal_tag=tag_t,
+                sample_method=method, beam_size=3, max_length=L), 2,
+                warmup=1)
+    log(f"temporal batch split, B={B} x 10 s: frontend (log-mel kernel) "
+        f"{k_ms:.3f} ms, SED network {sed_ms:.2f} ms, host tag step "
+        f"{host_ms:.1f} ms (tags {np.bincount(tags, minlength=4).tolist()}), "
+        f"captioner encoder {enc_ms:.2f} ms, decode greedy "
+        f"{dec_ms['greedy']:.2f} ms / beam 3 {dec_ms['beam']:.2f} ms "
+        f"on {card}")
+    for method in ("greedy", "beam"):
+        def fn():
+            return api.decode_lms(api.log_mel(wav), lens,
+                                  sample_method=method, beam_size=3,
+                                  max_length=L)
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reps = 2
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / reps
+        log(f"temporal end to end {method}: {B / dt:.1f} clips/s "
+            f"({dt * 1e3:.1f} ms per batch of {B} x 10 s) on {card}")
+    return timing
 
 
 def main() -> int:
@@ -310,6 +537,21 @@ def main() -> int:
         dt = (time.perf_counter() - t0) / reps
         log(f"end to end {method}: {64 / dt:.1f} clips/s ({dt * 1e3:.2f} "
             f"ms per batch of 64 x 10 s) on {card}")
+
+    # -- 7. log-mel kernel vs its plain version ---------------------------
+    logmel_errs = logmel_check(dev, card)
+
+    # -- 8. temporal path end to end ---------------------------------------
+    temporal_api, t_launches = temporal_path(dev, card, rng)
+
+    # -- 9. times on the temporal path -------------------------------------
+    timing = temporal_times(temporal_api, dev, card)
+    kernels.append({
+        "name": "fused_logmel", "route": "cuda",
+        "source": "audiocaption_tpu_torch/csrc/fused_logmel.cu",
+        "replaces": "audiocaption_tpu/ops/pallas_logmel.py:44",
+        "launches": t_launches["fused_logmel"],
+        "max_abs_err": logmel_errs["CNN14_MEL_32K"], **timing})
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
-"""The port's CUDA decode kernels against their plain PyTorch versions, on
-the card.  Every test here needs an NVIDIA GPU and skips elsewhere (a
+"""The port's CUDA kernels (decode loops, log-mel) against their plain
+PyTorch versions, on the card.  Every test here needs an NVIDIA GPU and skips elsewhere (a
 CUDA kernel has no CPU mode).  This file imports torch only, so it also
 runs where JAX is absent:
 
@@ -7,7 +7,8 @@ runs where JAX is absent:
 
 Tolerances: greedy tokens exact at the small width; at the flagship
 width at most 1% of tokens may differ (float32 sums in another order can
-flip a near-tie); n-best beam scores of matching sequences within 1e-4.
+flip a near-tie); n-best beam scores of matching sequences within 1e-4;
+log-mel within 1e-3 dB (1024-term float32 DFT sums in another order).
 """
 
 import numpy as np
@@ -19,6 +20,8 @@ from audiocaption_tpu_torch.decoding import fused_greedy as TG
 from audiocaption_tpu_torch.models.transformer_decoder import (
     TransformerDecoder)
 from audiocaption_tpu_torch.models.zoo import random_init
+from audiocaption_tpu_torch.ops import frontend as TF
+from audiocaption_tpu_torch.ops import fused_logmel as FL
 
 torch.set_num_threads(1)
 
@@ -86,3 +89,33 @@ def test_beam_kernel_matches_plain(cuda, shape, L, limit, K):
     same = (seq == want_seq).all(-1)
     np.testing.assert_allclose(score[same].cpu().numpy(),
                                want_score[same].cpu().numpy(), atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,seconds", [
+    ("CNN14_MEL_32K", 1.0), ("CNN14_MEL_32K", 2.3), ("EFFB2_MEL_16K", 1.7)],
+    ids=["32k_1s", "32k_ragged_tile", "16k_top_db"])
+def test_logmel_kernel_matches_plain(cuda, preset, seconds):
+    cfg = getattr(TF, preset)
+    gen = torch.Generator().manual_seed(3)
+    wav = (torch.randn(3, int(seconds * cfg.sample_rate), generator=gen)
+           * 0.1).to(cuda)
+    wav[2, wav.shape[1] // 2:] = 0.0
+    n0 = FL.fused_logmel.launches
+    got = FL.fused_logmel(wav, cfg)
+    torch.cuda.synchronize()
+    assert FL.fused_logmel.launches == n0 + 1
+    want = FL.fused_logmel_plain(wav, cfg)
+    assert got.shape == want.shape == (3, wav.shape[1] // cfg.hop + 1,
+                                       cfg.n_mels)
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_frontend_sends_32k_cuda_waveforms_to_the_kernel(cuda):
+    wav = torch.randn(2, 32000, device=cuda) * 0.1
+    n0 = FL.fused_logmel.launches
+    TF.LogMelFrontend(TF.CNN14_MEL_32K).to(cuda)(wav)
+    assert FL.fused_logmel.launches == n0 + 1
+    TF.LogMelFrontend(TF.EFFB2_MEL_16K).to(cuda)(wav)   # conv path
+    assert FL.fused_logmel.launches == n0 + 1

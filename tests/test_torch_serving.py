@@ -94,3 +94,17 @@ def test_wire_decoder_feeds_device_tensors():
     assert torch.is_tensor(out)
     np.testing.assert_allclose(seen["wav"].numpy(), [[0.5, -1.0]])
     assert seen["lens"].dtype == torch.int64
+
+
+def test_server_defaults_equal_jax():
+    """Every keyword default of the port's MicroBatchServer equals the JAX
+    server's (max_batch was 64 in the port, 128 in the JAX package)."""
+    import inspect
+    from audiocaption_tpu.serving import MicroBatchServer as JaxServer
+
+    def defaults(cls):
+        return {name: p.default for name, p in
+                inspect.signature(cls.__init__).parameters.items()
+                if p.default is not inspect.Parameter.empty}
+    assert defaults(MicroBatchServer) == defaults(JaxServer)
+    assert defaults(MicroBatchServer)["max_batch"] == 128
