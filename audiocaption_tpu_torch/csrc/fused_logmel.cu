@@ -22,16 +22,17 @@
 // thread sums the mel projection of a few (frame, mel) outputs over all
 // bins and writes the dB value.
 //
-// What bounds it: float32 operations.  The DFT is 2 * n_fft * 2 * nf
-// operations per frame (4.2 MFLOP at 32 kHz, 1001 frames per 10 s clip:
-// ~2.1 GFLOP per clip) against ~100 bytes of wave and output per frame, so
-// at 67 TFLOP/s of float32 (no tensor cores, no TF32) the bound is ~2 ms for
-// 64 clips, ~60x the time to move the bytes.  This first design runs on the
-// CUDA cores with register blocking (FR x 4 bins x 2 per thread, one float4
-// wave load per four basis rows); the TPU version's chunk-roll framing and
-// 128-lane padding are Mosaic constraints and are not carried over.  Faster
-// designs use wgmma (3xTF32 or split bf16) and skip bins outside the mel
-// filters' support.
+// Work: like the TPU version, this kernel computes the DFT as a dense
+// product, 2 * n_fft * 2 * nf operations per frame (2.1 MFLOP at 32 kHz,
+// ~2.1 GFLOP per 10 s clip), about 80x the ~26 kFLOP of a real FFT of the
+// frame.  The function itself is bound by its bytes (the wave in, the
+// log-mel out): ~0.03 ms for 64 clips of 10 s on an H100, where this design
+// needs ~2 ms of float32 arithmetic at best.  It runs on the CUDA cores with
+// register blocking (FR x 4 bins x 2 per thread, one float4 wave load per
+// four basis rows); the TPU version's chunk-roll framing and 128-lane
+// padding are Mosaic constraints and are not carried over.  The faster
+// design is an FFT of each frame in shared memory over the bins with mel
+// weight.
 #include <cuda_runtime.h>
 
 namespace {

@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Mapping, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -78,14 +78,21 @@ def build_all(names: Iterable[str] = KERNELS, verbose: bool = False
     return todo
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, building it if needed."""
+def load(name: str, signatures: Mapping[str, Tuple[list, type]]
+         ) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, building it if needed.
+    ``signatures`` maps each C function the caller uses to its
+    ``(argtypes, restype)``; they are set once, when the library loads."""
     with _lock:
         if name not in _loaded:
             path = library_path(name)
             if not path.exists():
                 build_all([name])
-            _loaded[name] = ctypes.CDLL(str(path))
+            lib = ctypes.CDLL(str(path))
+            for fn, (argtypes, restype) in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            _loaded[name] = lib
         return _loaded[name]
 
 

@@ -134,8 +134,9 @@ def fused_beam_plain(packed: PackedDecoder, memkv: torch.Tensor,
     return done_seq.to(torch.int32), done_score
 
 
-_BEAM_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [
-    ctypes.c_float, ctypes.c_void_p]
+_SIGNATURES = {"fused_beam_launch": (
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
+    + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int)}
 
 
 def fused_beam_decode(packed: PackedDecoder, memkv: torch.Tensor,
@@ -155,9 +156,7 @@ def fused_beam_decode(packed: PackedDecoder, memkv: torch.Tensor,
         raise ValueError(f"unsupported device {memkv.device}")
     nl, _, B, S, E = memkv.shape
     K, L = beam_size, max_length
-    lib = cuda_build.load("fused_beam")
-    fn = lib.fused_beam_launch
-    fn.argtypes, fn.restype = _BEAM_ARGS, ctypes.c_int
+    fn = cuda_build.load("fused_beam", _SIGNATURES).fused_beam_launch
     dev = memkv.device
     seq = torch.empty(B, K, L, dtype=torch.int32, device=dev)
     score = torch.empty(B, K, dtype=torch.float32, device=dev)

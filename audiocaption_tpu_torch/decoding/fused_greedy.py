@@ -248,8 +248,9 @@ def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(x.data_ptr())
 
 
-_GREEDY_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [
-    ctypes.c_float, ctypes.c_void_p]
+_SIGNATURES = {"fused_greedy_launch": (
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
+    + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int)}
 
 
 def fused_greedy_decode(packed: PackedDecoder, memkv: torch.Tensor,
@@ -267,9 +268,7 @@ def fused_greedy_decode(packed: PackedDecoder, memkv: torch.Tensor,
         raise ValueError(f"unsupported device {memkv.device}")
     nl, _, B, S, E = memkv.shape
     L = max_length
-    lib = cuda_build.load("fused_greedy")
-    fn = lib.fused_greedy_launch
-    fn.argtypes, fn.restype = _GREEDY_ARGS, ctypes.c_int
+    fn = cuda_build.load("fused_greedy", _SIGNATURES).fused_greedy_launch
     out = torch.empty(B, L, dtype=torch.int32, device=memkv.device)
     self_kv = torch.empty(nl * 2 * B * L * E, dtype=torch.float32,
                           device=memkv.device)

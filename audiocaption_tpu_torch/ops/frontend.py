@@ -14,11 +14,10 @@ Two paths, chosen as the JAX package chooses between its conv-DFT path
 and its Pallas kernel (``LogMelFrontend._resolve_pallas``): a CUDA
 waveform of a 32 kHz preset goes through the hand-written kernel
 (``ops/fused_logmel.py``); every other case, the 16 kHz presets on the
-card and everything on the CPU, takes the conv-DFT path, a stride-``hop``
-``conv1d`` whose filters are the windowed cos / -sin basis rows, so
-framing happens inside the convolution instead of materialising the
-overlapping frame tensor.  All math is float32.  Frame count:
-``feat_len = wav_len // hop + 1``.
+card and everything on the CPU, takes the kernel's plain version there
+(``unfold`` framing, a matmul with the windowed cos / -sin basis, power,
+the mel matmul).  Both read this module's tables.  All math is float32.
+Frame count: ``feat_len = wav_len // hop + 1``.
 """
 
 from __future__ import annotations
@@ -29,9 +28,9 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from audiocaption_tpu_torch.ops.fused_logmel import fused_logmel
+from audiocaption_tpu_torch.ops.fused_logmel import (
+    fused_logmel, fused_logmel_plain)
 
 
 def _hz_to_mel(freq, mel_scale: str) -> np.ndarray:
@@ -102,18 +101,6 @@ def _dft_basis(n_fft: int, window: np.ndarray) -> np.ndarray:
     return (window[:, None] * basis).astype(np.float32)
 
 
-def amplitude_to_db(power: torch.Tensor, top_db: Optional[float] = None,
-                    amin: float = 1e-10) -> torch.Tensor:
-    """Power -> dB; ``top_db`` floors each sample at its own max - top_db,
-    the max taken over all non-batch axes."""
-    db = 10.0 * torch.log10(torch.clamp(power, min=amin))
-    if top_db is not None:
-        peak = db.reshape(db.shape[0], -1).amax(dim=1)
-        floor = (peak - top_db).reshape((-1,) + (1,) * (db.ndim - 1))
-        db = torch.maximum(db, floor)
-    return db
-
-
 @dataclasses.dataclass(frozen=True)
 class MelConfig:
     """torchaudio-MelSpectrogram-compatible configuration."""
@@ -156,16 +143,16 @@ EFFB2_MEL_16K = MelConfig(sample_rate=16000, f_min=0.0, f_max=None,
 
 class LogMelFrontend(torch.nn.Module):
     """Waveform [B, T] -> log-mel [B, T // hop + 1, n_mels], float32:
-    the fused kernel for a CUDA waveform of a 32 kHz preset, the conv-DFT
-    path (:meth:`conv_path`) otherwise."""
+    the fused kernel for a CUDA waveform of a 32 kHz preset, its plain
+    version otherwise.  Buffers: ``basis`` [n_fft, 2 * n_freqs] and
+    ``mel_fb`` [n_freqs, n_mels]."""
 
     def __init__(self, config: MelConfig):
         super().__init__()
         self.config = config
-        basis = _dft_basis(config.n_fft, hann_window(config.n_fft))
-        # conv1d filters [2F, 1, n_fft]
         self.register_buffer(
-            "basis", torch.from_numpy(np.ascontiguousarray(basis.T[:, None, :])),
+            "basis", torch.from_numpy(
+                _dft_basis(config.n_fft, hann_window(config.n_fft))),
             persistent=False)
         self.register_buffer(
             "mel_fb", torch.from_numpy(mel_filterbank(
@@ -175,23 +162,10 @@ class LogMelFrontend(torch.nn.Module):
                 mel_scale=config.mel_scale)),
             persistent=False)
 
-    def power_spectrogram(self, wav: torch.Tensor) -> torch.Tensor:
-        """[B, T] -> power spec [B, n_frames, n_freqs]."""
-        pad = self.config.n_fft // 2
-        x = F.pad(wav.float()[:, None, :], (pad, pad), mode="reflect")
-        proj = F.conv1d(x, self.basis, stride=self.config.hop)  # [B, 2F, T']
-        n_freqs = self.config.n_fft // 2 + 1
-        re, im = proj[:, :n_freqs], proj[:, n_freqs:]
-        return (re * re + im * im).transpose(1, 2)
-
     def uses_kernel(self, wav: torch.Tensor) -> bool:
         return wav.device.type == "cuda" and self.config.sample_rate == 32000
 
-    def conv_path(self, wav: torch.Tensor) -> torch.Tensor:
-        mel = torch.matmul(self.power_spectrogram(wav), self.mel_fb)
-        return amplitude_to_db(mel, top_db=self.config.top_db)
-
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
         if self.uses_kernel(wav):
-            return fused_logmel(wav, self.config)
-        return self.conv_path(wav)
+            return fused_logmel(wav, self.basis, self.mel_fb, self.config)
+        return fused_logmel_plain(wav, self.basis, self.mel_fb, self.config)

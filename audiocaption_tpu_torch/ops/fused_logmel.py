@@ -1,5 +1,5 @@
 """Fused log-mel spectrogram: the CUDA kernel ``csrc/fused_logmel.cu`` and
-its plain PyTorch version.
+its plain PyTorch version, the port's one plain log-mel.
 
 Replaces the TPU kernel ``audiocaption_tpu/ops/pallas_logmel.py``
 (``_logmel_kernel`` :44-77, wrapper ``pallas_logmel`` :80-147): framing of
@@ -7,81 +7,77 @@ the center reflect-padded wave, windowed real DFT, power, mel projection
 and ``10 * log10(max(., 1e-10))`` in one launch, for any ``MelConfig``;
 ``top_db`` (EffB2 preset) is applied outside the kernel, as there.
 
-What bounds it on an H100: float32 operations.  At 32 kHz (n_fft 1024,
-hop 320, 513 bins, 64 mels) each frame costs 2 * 1024 * 1026 DFT and
-2 * 513 * 64 mel operations, about 2.17 GFLOP per 10 s clip (1001
-frames); the bytes (wave in, log-mel out, tables) are ~1.6 MB per clip.
-So the bound at B=64 is ~2.07 ms of float32 arithmetic at 67 TFLOP/s
-against ~0.03 ms of device-memory traffic.  The kernel's design is
-described in its source.
+Both functions take the tables a ``LogMelFrontend`` holds as buffers:
+``basis`` [n_fft, 2 * n_freqs] (windowed cos | -sin columns) and
+``mel_fb`` [n_freqs, n_mels].  ``fused_logmel`` launches the kernel for a
+CUDA tensor and runs ``fused_logmel_plain`` (framing by ``unfold``, two
+matmuls) only for a CPU tensor.  ``LogMelFrontend`` sends every CUDA
+waveform of a 32 kHz preset to the wrapper and every other waveform to
+the plain version.
 
-``fused_logmel`` launches the kernel for a CUDA tensor and runs
-``fused_logmel_plain`` (same tables, framing by ``unfold``, two matmuls)
-only for a CPU tensor.  ``LogMelFrontend`` sends every CUDA waveform of a
-32 kHz preset here (``ops/frontend.py``).
+Like the TPU kernel, this one computes the DFT as a dense product with the
+basis: 2.1 GFLOP per 10 s clip at 32 kHz, about 80x what a real FFT needs.
+The function itself is bound by its bytes (the wave in, the log-mel out):
+~0.03 ms for 64 clips of 10 s on an H100 (``chip_smoke.py::logmel_work``
+counts it).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from audiocaption_tpu_torch import cuda_build
 
-_tables: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+def db_floor(db: torch.Tensor, top_db: Optional[float]) -> torch.Tensor:
+    """Floor each sample at its own max - ``top_db``, the max taken over
+    all non-batch axes (no floor for ``None``)."""
+    if top_db is None:
+        return db
+    peak = db.reshape(db.shape[0], -1).amax(dim=1)
+    return torch.maximum(db, (peak - top_db).reshape(
+        (-1,) + (1,) * (db.ndim - 1)))
 
 
-def logmel_tables(config, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(basis [n_fft, 2 * n_freqs] (windowed cos | -sin), mel filterbank
-    [n_freqs, n_mels]), float32 and contiguous on ``device``, cached."""
-    key = (config, str(device))
-    if key not in _tables:
-        from audiocaption_tpu_torch.ops.frontend import (
-            _dft_basis, hann_window, mel_filterbank)
-        basis = _dft_basis(config.n_fft, hann_window(config.n_fft))
-        fb = mel_filterbank(config.n_fft // 2 + 1, config.f_min,
-                            config.effective_f_max, config.n_mels,
-                            config.sample_rate, config.norm,
-                            config.mel_scale)
-        _tables[key] = (torch.from_numpy(basis).to(device),
-                        torch.from_numpy(fb).to(device))
-    return _tables[key]
+def amplitude_to_db(power: torch.Tensor, top_db: Optional[float] = None,
+                    amin: float = 1e-10) -> torch.Tensor:
+    """Power -> dB, then :func:`db_floor`."""
+    return db_floor(10.0 * torch.log10(torch.clamp(power, min=amin)), top_db)
 
 
 def _reflect_pad(wav: torch.Tensor, pad: int) -> torch.Tensor:
     return F.pad(wav.float()[:, None, :], (pad, pad), mode="reflect")[:, 0]
 
 
-def _top_db(lms: torch.Tensor, config) -> torch.Tensor:
-    if config.top_db is None:
-        return lms
-    peak = lms.amax(dim=(1, 2), keepdim=True)
-    return torch.maximum(lms, peak - config.top_db)
-
-
-@torch.no_grad()
-def fused_logmel_plain(wav: torch.Tensor, config) -> torch.Tensor:
+def fused_logmel_plain(wav: torch.Tensor, basis: torch.Tensor,
+                       mel_fb: torch.Tensor, config) -> torch.Tensor:
     """Plain PyTorch version of the kernel: [B, T] -> log-mel
     [B, T // hop + 1, n_mels] float32 (``top_db`` applied per clip)."""
-    basis, fb = logmel_tables(config, wav.device)
-    n_freqs = fb.shape[0]
+    n_freqs = mel_fb.shape[0]
     frames = _reflect_pad(wav, config.n_fft // 2).unfold(
         1, config.n_fft, config.hop)                 # [B, n_frames, n_fft]
     proj = torch.matmul(frames, basis)               # [B, n_frames, 2F]
     re, im = proj[..., :n_freqs], proj[..., n_freqs:]
-    mel = torch.matmul(re * re + im * im, fb)
-    return _top_db(10.0 * torch.log10(torch.clamp(mel, min=1e-10)), config)
+    return amplitude_to_db(torch.matmul(re * re + im * im, mel_fb),
+                           config.top_db)
 
 
-_LAUNCH_ARGS = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_void_p]
+_SIGNATURES = {
+    "fused_logmel_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_long),
+    "fused_logmel_tile_frames": ([], ctypes.c_int),
+    "fused_logmel_launch": (
+        [ctypes.c_void_p] + [ctypes.c_int] * 5
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+           ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int),
+}
 
 
-def fused_logmel(wav: torch.Tensor, config) -> torch.Tensor:
+def fused_logmel(wav: torch.Tensor, basis: torch.Tensor, mel_fb: torch.Tensor,
+                 config) -> torch.Tensor:
     """[B, T] waveform -> log-mel [B, T // hop + 1, n_mels] float32.
     CUDA tensors launch ``csrc/fused_logmel.cu``; CPU tensors run
     :func:`fused_logmel_plain`."""
@@ -92,17 +88,17 @@ def fused_logmel(wav: torch.Tensor, config) -> torch.Tensor:
         raise ValueError(f"{wav.shape[1]} samples is too short for the "
                          f"reflect padding of n_fft // 2 = {n_fft // 2}")
     if wav.device.type == "cpu":
-        return fused_logmel_plain(wav, config)
+        return fused_logmel_plain(wav, basis, mel_fb, config)
     if wav.device.type != "cuda":
         raise ValueError(f"unsupported device {wav.device}")
-    lib = cuda_build.load("fused_logmel")
-    basis, fb = logmel_tables(config, wav.device)
-    n_freqs, n_mels = fb.shape
-    smem_bytes = lib.fused_logmel_smem_bytes
-    smem_bytes.argtypes, smem_bytes.restype = [ctypes.c_int] * 3, ctypes.c_long
-    lib.fused_logmel_tile_frames.argtypes = []
-    lib.fused_logmel_tile_frames.restype = ctypes.c_int
-    if smem_bytes(n_fft, hop, n_freqs) == 0:
+    n_freqs, n_mels = mel_fb.shape
+    if basis.shape != (n_fft, 2 * n_freqs) or not all(
+            t.device == wav.device and t.dtype == torch.float32
+            and t.is_contiguous() for t in (basis, mel_fb)):
+        raise ValueError("basis and mel_fb must be contiguous float32 tables "
+                         "of this config on the wave's device")
+    lib = cuda_build.load("fused_logmel", _SIGNATURES)
+    if lib.fused_logmel_smem_bytes(n_fft, hop, n_freqs) == 0:
         raise ValueError("the log-mel kernel needs n_fft and hop multiples "
                          f"of 4 (got {n_fft}, {hop})")
     tile = lib.fused_logmel_tile_frames()
@@ -114,14 +110,13 @@ def fused_logmel(wav: torch.Tensor, config) -> torch.Tensor:
     x = F.pad(x, (0, max(0, need - x.shape[1]))).contiguous()
     out = torch.empty(B, n_frames, n_mels, dtype=torch.float32,
                       device=wav.device)
-    fn = lib.fused_logmel_launch
-    fn.argtypes, fn.restype = _LAUNCH_ARGS, ctypes.c_int
-    err = fn(x.data_ptr(), x.shape[1], B, n_frames, n_fft, hop,
-             basis.data_ptr(), n_freqs, fb.data_ptr(), n_mels, out.data_ptr(),
-             torch.cuda.current_stream(wav.device).cuda_stream)
+    err = lib.fused_logmel_launch(
+        x.data_ptr(), x.shape[1], B, n_frames, n_fft, hop, basis.data_ptr(),
+        n_freqs, mel_fb.data_ptr(), n_mels, out.data_ptr(),
+        torch.cuda.current_stream(wav.device).cuda_stream)
     cuda_build.check(err, "fused_logmel")
     fused_logmel.launches += 1
-    return _top_db(out, config)
+    return db_floor(out, config.top_db)
 
 
 fused_logmel.launches = 0

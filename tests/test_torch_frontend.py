@@ -1,6 +1,7 @@
 """Log-mel frontend and masking of the PyTorch port against the JAX
 package, on the same numpy inputs.  Tolerance: log-mel within 2e-3 dB
-(float32 convolution sums in another order); filterbank tables exact
+(float32 DFT sums in another order: unfold + matmul against the JAX
+convolution); filterbank tables exact
 (both are the same float64 numpy arithmetic)."""
 
 import numpy as np
