@@ -22,7 +22,7 @@ from typing import Dict, Iterable, Mapping, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-KERNELS = ("fused_greedy", "fused_beam", "fused_logmel")
+KERNELS = ("fused_greedy", "fused_beam", "fused_logmel", "fused_mbconv")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

@@ -33,8 +33,6 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from audiocaption_tpu_torch.models.effb2 import b2_block_plan
-
 ENCODER_PREFIX = "model.model.encoder.backbone.eff_net."
 DECODER_PREFIX = "model.model.decoder."
 
@@ -102,10 +100,12 @@ def _mha(p, prefix, out):
 def _effb2(params, stats, prefix, out):
     _conv2d(params["conv_stem"], f"{prefix}._conv_stem", out)
     _batchnorm(params["bn0"], stats["bn0"], f"{prefix}._bn0", out)
-    for i, args in enumerate(b2_block_plan()):
+    # walk the tree's own blocks, so a pruned encoder converts as well
+    n_blocks = sum(k.startswith("block") for k in params)
+    for i in range(n_blocks):
         bp, bs = params[f"block{i}"], stats[f"block{i}"]
         tp = f"{prefix}._blocks.{i}"
-        if args["expand_ratio"] != 1:
+        if "expand_conv" in bp:
             _conv2d(bp["expand_conv"], f"{tp}._expand_conv", out)
             _batchnorm(bp["bn0"], bs["bn0"], f"{tp}._bn0", out)
         _conv2d(bp["depthwise_conv"], f"{tp}._depthwise_conv", out)
@@ -140,8 +140,9 @@ def _transformer_decoder(params, prefix, nlayers, tie_weights, out):
 
 def effb2_state_dict_from_jax(params: Mapping, stats: Mapping
                               ) -> Dict[str, torch.Tensor]:
-    """JAX ``EfficientNetB2`` params and batch stats -> the port encoder's
-    state dict (efficientnet_pytorch names, no prefix)."""
+    """JAX ``EfficientNetB2`` or ``PrunedEfficientNetB2`` params and batch
+    stats -> the port encoder's state dict (efficientnet_pytorch names, no
+    prefix)."""
     out: Dict[str, np.ndarray] = {}
     _effb2(params, stats, "", out)
     return {k[1:]: torch.from_numpy(np.array(v)) for k, v in out.items()}

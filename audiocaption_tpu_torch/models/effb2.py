@@ -14,13 +14,19 @@ checkpoint loads with a plain ``load_state_dict``.
 Output: {fc_emb [B, 1408], attn_emb [B, T // 32, 1408], attn_emb_len [B]}
 with ``attn_emb`` the mean over the frequency axis and ``fc_emb`` the
 length-masked mean of ``attn_emb``.
+
+The pruned family (reference ``get_pruned_model``): ``build_pruned_effb2``
+ranks and slices the filters of a full encoder into a
+``PrunedEfficientNetB2``, whose blocks carry free expanded and squeeze
+widths (``oup_override`` / ``squeeze_override``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -83,12 +89,24 @@ def b2_block_plan(width: float = 1.1, depth: float = 1.2,
 
 
 class MBConvBlock(nn.Module):
-    """Inverted-residual block with squeeze-and-excitation and swish."""
+    """Inverted-residual block with squeeze-and-excitation and swish.
+
+    ``oup_override`` / ``squeeze_override`` set the expanded and squeeze
+    widths of a structurally pruned block (``build_pruned_effb2``);
+    ``plan`` keeps the constructor's arguments."""
 
     def __init__(self, in_filters: int, out_filters: int, kernel: int,
-                 stride: int, expand_ratio: int, nominal_size: int):
+                 stride: int, expand_ratio: int, nominal_size: int,
+                 oup_override: Optional[int] = None,
+                 squeeze_override: Optional[int] = None):
         super().__init__()
-        oup = in_filters * expand_ratio
+        self.plan = dict(in_filters=in_filters, out_filters=out_filters,
+                         kernel=kernel, stride=stride,
+                         expand_ratio=expand_ratio, nominal_size=nominal_size,
+                         oup_override=oup_override,
+                         squeeze_override=squeeze_override)
+        oup = (oup_override if oup_override is not None
+               else in_filters * expand_ratio)
         self.has_expand = expand_ratio != 1
         self.has_skip = stride == 1 and in_filters == out_filters
         if self.has_expand:
@@ -99,7 +117,8 @@ class MBConvBlock(nn.Module):
             padding4=tf_same_padding(nominal_size, kernel, stride))
         self._bn1 = nn.BatchNorm2d(oup, eps=_BN_EPS)
         # SE channel count comes from the block's *input* filters
-        n_squeeze = max(1, int(in_filters * _SE_RATIO))
+        n_squeeze = (squeeze_override if squeeze_override is not None
+                     else max(1, int(in_filters * _SE_RATIO)))
         self._se_reduce = Conv2dSame(oup, n_squeeze, 1, bias=True)
         self._se_expand = Conv2dSame(n_squeeze, oup, 1, bias=True)
         self._project_conv = Conv2dSame(oup, out_filters, 1)
@@ -121,29 +140,38 @@ class MBConvBlock(nn.Module):
 
 
 class EfficientNetB2(nn.Module):
-    """EfficientNet-B2 feature extractor, one input channel, no top."""
+    """EfficientNet-B2 feature extractor, one input channel, no top.
+
+    The stem and head widths and the block plan default to B2's; the
+    pruned family passes its own (``PrunedEfficientNetB2``)."""
 
     downsample_ratio = 32
 
-    def __init__(self):
+    def __init__(self, stem_filters: Optional[int] = None,
+                 head_filters: Optional[int] = None,
+                 block_plan: Optional[Sequence[Dict]] = None):
         super().__init__()
-        stem = round_filters(32, 1.1)
+        stem = stem_filters or round_filters(32, 1.1)
         self._conv_stem = Conv2dSame(1, stem, 3, stride=2,
                                      padding4=tf_same_padding(260, 3, 2))
         self._bn0 = nn.BatchNorm2d(stem, eps=_BN_EPS)
-        self._blocks = nn.ModuleList(MBConvBlock(**a) for a in b2_block_plan())
-        head = round_filters(1280, 1.1)
-        self._conv_head = Conv2dSame(self._blocks[-1]._project_conv.out_channels,
-                                     head, 1)
+        self._blocks = nn.ModuleList(
+            MBConvBlock(**a) for a in (block_plan or b2_block_plan()))
+        head = head_filters or round_filters(1280, 1.1)
+        self._conv_head = Conv2dSame(
+            self._blocks[-1]._project_conv.out_channels, head, 1)
         self._bn1 = nn.BatchNorm2d(head, eps=_BN_EPS)
         self.fc_emb_size = head
 
-    def forward(self, lms: torch.Tensor, feat_len: torch.Tensor
+    def forward(self, lms: torch.Tensor, feat_len: torch.Tensor,
+                blocks: Optional[Sequence[Callable]] = None
                 ) -> Dict[str, torch.Tensor]:
-        """lms [B, T, n_mels], feat_len [B] -> encoder outputs."""
+        """lms [B, T, n_mels], feat_len [B] -> encoder outputs.  ``blocks``,
+        one callable per block, stands in for the block modules (the
+        folded walk of ``ops/fused_mbconv.py``)."""
         x = lms.transpose(1, 2)[:, None]                  # [B, 1, F, T]
         x = F.silu(self._bn0(self._conv_stem(x)))
-        for block in self._blocks:
+        for block in (self._blocks if blocks is None else blocks):
             x = block(x)
         x = F.silu(self._bn1(self._conv_head(x)))
         attn_emb = x.mean(dim=2).transpose(1, 2)          # [B, T', C]
@@ -151,3 +179,115 @@ class EfficientNetB2(nn.Module):
                             rounding_mode="floor")
         return {"fc_emb": mean_with_lens(attn_emb, out_len),
                 "attn_emb": attn_emb, "attn_emb_len": out_len}
+
+
+class PrunedEfficientNetB2(EfficientNetB2):
+    """EfficientNet-B2 with explicit per-layer widths, as
+    ``build_pruned_effb2`` produces it (reference ``get_pruned_model``)."""
+
+    def __init__(self, stem_filters: int, head_filters: int,
+                 block_plan: Sequence[Dict]):
+        super().__init__(stem_filters, head_filters, block_plan)
+
+    @property
+    def block_plan(self) -> Tuple[Dict, ...]:
+        return tuple(b.plan for b in self._blocks)
+
+
+def _flax_view(weight: np.ndarray) -> np.ndarray:
+    """torch conv weight [O, I, kh, kw] -> flax kernel [kh, kw, I, O]."""
+    return np.ascontiguousarray(weight.transpose(2, 3, 1, 0))
+
+
+@torch.no_grad()
+def build_pruned_effb2(encoder: EfficientNetB2, prune_ratio: float,
+                       prune_start_layer: int = 0, prune_se: bool = True,
+                       method: str = "operator_norm", prune_head: bool = True
+                       ) -> PrunedEfficientNetB2:
+    """Structured filter pruning of a full ``EfficientNetB2`` (counterpart
+    of the JAX ``build_pruned_effb2``; reference ``get_pruned_model``).
+
+    The chain stem -> (expand -> depthwise -> se_reduce -> se_expand ->
+    project)* -> head is walked as the reference walks it: each prunable
+    conv keeps ``round(n * (1 - ratio))`` of its output filters, ranked on
+    its full (unsliced) weight; the next conv's inputs follow the previous
+    keep set; the depthwise inherits the previous keep set.  Blocks from
+    ``max(prune_start_layer - 1, 0)`` on are pruned.  ``se_expand`` keeps
+    the first ``oup`` of its own ranking and the projection's inputs follow
+    that set, so the SE gate multiplies the depthwise channels by position.
+    ``prune_head=False`` keeps the 1408-wide output.  Returns the pruned
+    encoder, loaded, in eval mode, on ``encoder``'s device."""
+    from audiocaption_tpu_torch.utils.pruning import select_filters
+
+    sd = {k: v.detach().cpu().numpy() for k, v in encoder.state_dict().items()}
+    plan = [b.plan for b in encoder._blocks]
+    ratio = prune_ratio
+    out: Dict[str, np.ndarray] = {}
+
+    def rank(name: str) -> np.ndarray:
+        return select_filters(_flax_view(sd[f"{name}.weight"]), ratio, method)
+
+    def conv(name: str, keep_out, keep_in=None) -> None:
+        w = sd[f"{name}.weight"][keep_out]
+        out[f"{name}.weight"] = w if keep_in is None else w[:, keep_in]
+        if f"{name}.bias" in sd:
+            out[f"{name}.bias"] = sd[f"{name}.bias"][keep_out]
+
+    def bn(name: str, keep) -> None:
+        for p in ("weight", "bias", "running_mean", "running_var"):
+            out[f"{name}.{p}"] = sd[f"{name}.{p}"][keep]
+        out[f"{name}.num_batches_tracked"] = sd[f"{name}.num_batches_tracked"]
+
+    def n_out(name: str) -> int:
+        return sd[f"{name}.weight"].shape[0]
+
+    keep_prev = (rank("_conv_stem") if prune_start_layer <= 0
+                 else np.arange(n_out("_conv_stem")))
+    conv("_conv_stem", keep_prev)
+    bn("_bn0", keep_prev)
+    stem_filters = len(keep_prev)
+
+    block_plan: List[Dict] = []
+    for idx, args in enumerate(plan):
+        tp = f"_blocks.{idx}"
+        prune_this = (idx >= max(prune_start_layer - 1, 0)
+                      if prune_start_layer > 0 else True)
+        if args["expand_ratio"] != 1:
+            keep = (rank(f"{tp}._expand_conv") if prune_this
+                    else np.arange(n_out(f"{tp}._expand_conv")))
+            conv(f"{tp}._expand_conv", keep, keep_prev)
+            bn(f"{tp}._bn0", keep)
+            keep_prev = keep
+        # the depthwise inherits the previous conv's keep set
+        conv(f"{tp}._depthwise_conv", keep_prev)
+        bn(f"{tp}._bn1", keep_prev)
+        oup = len(keep_prev)
+        keep_sq = (rank(f"{tp}._se_reduce") if prune_se and prune_this
+                   else np.arange(n_out(f"{tp}._se_reduce")))
+        conv(f"{tp}._se_reduce", keep_sq, keep_prev)
+        keep_se_out = (rank(f"{tp}._se_expand")[:oup] if prune_this
+                       else np.arange(oup))
+        conv(f"{tp}._se_expand", keep_se_out, keep_sq)
+        keep_out = (rank(f"{tp}._project_conv") if prune_this
+                    else np.arange(n_out(f"{tp}._project_conv")))
+        conv(f"{tp}._project_conv", keep_out, keep_se_out)
+        bn(f"{tp}._bn2", keep_out)
+        block_plan.append(dict(
+            in_filters=stem_filters if idx == 0
+            else block_plan[-1]["out_filters"],
+            out_filters=len(keep_out), kernel=args["kernel"],
+            stride=args["stride"], expand_ratio=args["expand_ratio"],
+            nominal_size=args["nominal_size"], oup_override=oup,
+            squeeze_override=len(keep_sq)))
+        keep_prev = keep_out
+
+    keep_head = (rank("_conv_head") if prune_head
+                 else np.arange(n_out("_conv_head")))
+    conv("_conv_head", keep_head, keep_prev)
+    bn("_bn1", keep_head)
+
+    pruned = PrunedEfficientNetB2(stem_filters, len(keep_head), block_plan)
+    pruned.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
+                            for k, v in out.items()})
+    device = next(encoder.parameters()).device
+    return pruned.to(device).eval()

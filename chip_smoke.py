@@ -43,13 +43,28 @@ Phases, each of which must pass (none is caught and skipped):
      version within 1e-3 dB first) and its bound at B=64 x 10 s (a real
      FFT's operations against the bytes in and out), the split of one
      temporal-model batch (frontend, SED network, host tag step, captioner
-     encoder, decode), and end-to-end clips/s, greedy and beam 3.
+     encoder, decode), and end-to-end clips/s, greedy and beam 3;
+ 10. walk the flagship EffB2 encoder of phase 4 (BN jittered, so the
+     folded expand biases are not zero) block by block on folded weights
+     at B=64 x 10 s: the 19 stride-1 blocks through the MBConv kernel, the
+     4 stride-2 blocks through ``mbconv_plain``.  Each kernel block is
+     held against ``mbconv_plain`` on the same input (1e-4 * max(1,
+     max |plain|)), the walk's ``attn_emb`` against the unfolded cuDNN
+     encoder (1e-3 * max |ref|), and greedy and beam-3 captions of 8
+     mixed-length clips from both encoder outputs (at most 1% of tokens
+     differ).  The same block checks on the pruned encoder
+     (``build_pruned_effb2``, ratio 0.3, 1408-wide head);
+ 11. time, per stride-1 block and summed over the 19 at B=64 x 10 s, the
+     kernel, ``mbconv_plain``, the port's cuDNN ``MBConvBlock`` (its
+     library yardstick) and the bound (``mbconv_work``), and the walked
+     encoder against the cuDNN encoder.
 
 Every kernel's launch counter is set to 0 just before each path is
-driven (phases 4-5, the EffB2 serving path; phase 8, the temporal path)
-and read just after; the run fails if a kernel of that path was not
-launched there.  The second-to-last line is the kernels JSON object, the
-last line ``{"ok": true, "device": {...}}``.
+driven (phases 4-5, the EffB2 serving path; phase 8, the temporal path;
+phase 10, the folded encoder walks) and read just after; the run fails if
+a kernel of that path was not launched there.  The second-to-last line
+is the kernels JSON object, the last line ``{"ok": true, "device":
+{...}}``.
 
 The script imports nothing of JAX.  It exits non-zero, printing no
 result, where CUDA is unavailable or the package is not beside it.
@@ -75,6 +90,8 @@ MISMATCH_LIMIT = 0.01
 SCORE_ATOL = 1e-4
 LOGMEL_DB_ATOL = 1e-3
 SED_ATOL = 1e-4
+MBCONV_RTOL = 1e-4            # kernel vs plain, times max(1, max |plain|)
+ENCODER_RTOL = 1e-3           # walked vs cuDNN attn_emb, times max |ref|
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -405,6 +422,172 @@ def temporal_times(api, dev, card):
     return timing
 
 
+def mbconv_work(spec, batch: int, H: int, W: int, squeeze: int):
+    """(float ops, bytes) one folded MBConv block with ``squeeze`` SE
+    channels needs on a [batch, C, H, W] input, whatever algorithm
+    computes it: expand, depthwise, SE and project once (a multiply-add is
+    2 ops; a bias add 1; swish and sigmoid 4 each; the SE mean and the
+    gate 1 per expanded value), per sample the SE MLP.  Bytes: x read
+    once, the output written once, the folded weights read once."""
+    C, E, Co, k, S = spec.in_ch, spec.exp_ch, spec.out_ch, spec.kernel, \
+        squeeze
+    pt, pb, pl, pr = spec.pad
+    Ho = (H + pt + pb - k) // spec.stride + 1
+    Wo = (W + pl + pr - k) // spec.stride + 1
+    per_px = ((2 * C * E + 5 * E) if spec.has_expand else 0) \
+        + 2 * k * k * E + 5 * E + 2 * E + 2 * E * Co + Co \
+        + (Co if spec.has_residual else 0)
+    per_sample = 2 * E * S + 5 * S + 2 * S * E + 5 * E
+    flops = batch * (Ho * Wo * per_px + per_sample)
+    n_weights = (C * E + E if spec.has_expand else 0) + k * k * E + E \
+        + E * S + S + S * E + E + E * Co + Co
+    nbytes = 4 * (batch * C * H * W + batch * Co * Ho * Wo + n_weights)
+    return flops, nbytes
+
+
+def checked_walk(encoder, lms, feat_len, errs, inputs=None):
+    """Walk ``encoder`` on folded weights: each stride-1 block through the
+    kernel, held against ``mbconv_plain`` on the same input (max |diff|
+    and max |plain| appended to ``errs``; each block's input kept in
+    ``inputs`` when given); stride-2 blocks through ``mbconv_plain``."""
+    import functools
+    import torch
+    from audiocaption_tpu_torch.ops import fused_mbconv as FM
+
+    def check(x, fn, weights, spec):
+        if inputs is not None:
+            inputs.append(x)
+        got = fn(x, weights=weights, spec=spec)
+        want = FM.mbconv_plain(x, weights, spec)
+        errs.append((float((got - want).abs().max()),
+                     float(want.abs().max())))
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        return got
+
+    blocks = []
+    for fn in FM.folded_blocks(encoder):
+        if fn.func is FM.fused_mbconv_s1:
+            fn = functools.partial(check, fn=fn.func, **fn.keywords)
+        blocks.append(fn)
+    with torch.no_grad():
+        return encoder(lms, feat_len, blocks=blocks)
+
+
+def folded_path(api, wav64, len64, audio, lens, dev, card):
+    """Phase 10: the EffB2 encoders walked on folded weights, stride-1
+    blocks through the MBConv kernel -> (launches, max |diff|, inputs of
+    the stride-1 blocks, lms, feat_len)."""
+    import numpy as np
+    import torch
+    from audiocaption_tpu_torch.hf_api import pad_bucket
+    from audiocaption_tpu_torch.models.captioner import generate
+    from audiocaption_tpu_torch.models.effb2 import build_pruned_effb2
+    from audiocaption_tpu_torch.ops import fused_mbconv as FM
+    model, enc = api.model, api.model.encoder
+    pruned = build_pruned_effb2(enc, prune_ratio=0.3, prune_head=False)
+    with torch.no_grad():
+        lms = model.frontend(wav64)
+        feat_len = model.mel.feat_len(len64)
+        ref = enc(lms, feat_len)
+        pruned_ref = pruned(lms, feat_len)
+        wav8 = torch.from_numpy(pad_bucket(audio, SR)).to(dev)
+        len8 = torch.from_numpy(lens).to(dev)
+        lms8, feat8 = model.frontend(wav8), model.mel.feat_len(len8)
+        ref8 = enc(lms8, feat8)
+    torch.cuda.synchronize()
+
+    FM.fused_mbconv_s1.launches = 0
+    errs, inputs, pruned_errs = [], [], []
+    got = checked_walk(enc, lms, feat_len, errs, inputs)
+    got8 = checked_walk(enc, lms8, feat8, [])
+    got_pruned = checked_walk(pruned, lms, feat_len, pruned_errs)
+    torch.cuda.synchronize()
+    launches = FM.fused_mbconv_s1.launches
+    log(f"folded-path launches: fused_mbconv {launches}")
+    assert launches > 0, "the MBConv kernel was not launched"
+
+    for name, e in (("flagship", errs), ("pruned 0.3", pruned_errs)):
+        rel = [d / max(1.0, m) for d, m in e]
+        log(f"MBConv kernel vs plain, {name} EffB2, {len(e)} stride-1 blocks "
+            f"at B={lms.shape[0]} x 10 s: max |diff| per block "
+            f"{[f'{d:.3g}' for d, _ in e]}, max relative {max(rel):.3g} "
+            f"(limit {MBCONV_RTOL}) on {card}")
+        assert len(e) == 19 and max(rel) <= MBCONV_RTOL, \
+            f"MBConv kernel disagrees ({name})"
+    for name, a, b in (("flagship", got, ref), ("pruned", got_pruned,
+                                                pruned_ref),
+                       ("flagship, 8 clips", got8, ref8)):
+        err = float((a["attn_emb"] - b["attn_emb"]).abs().max())
+        scale = float(b["attn_emb"].abs().max())
+        log(f"walked encoder ({name}) vs cuDNN encoder: attn_emb "
+            f"{tuple(a['attn_emb'].shape)} max |diff| {err:.3g}, max |ref| "
+            f"{scale:.3g} (limit {ENCODER_RTOL} relative)")
+        assert scale > 0.1 and err <= ENCODER_RTOL * scale, \
+            f"walked encoder disagrees ({name})"
+    for method in ("greedy", "beam"):
+        ids = {}
+        for name, e in (("walked", got8), ("cuDNN", ref8)):
+            ids[name] = generate(model, enc=e, sample_method=method,
+                                 beam_size=3, max_length=L)["seq"]
+        ids = {k: v.cpu().numpy() for k, v in ids.items()}
+        mis = int((ids["walked"] != ids["cuDNN"]).sum())
+        log(f"captions from the walked vs cuDNN encoder, {method}: "
+            f"{mis}/{ids['cuDNN'].size} tokens differ; "
+            f"{len(np.unique(ids['cuDNN']))} distinct tokens; first caption "
+            f"{ids['walked'][0][:8]} on {card}")
+        assert mis <= MISMATCH_LIMIT * ids["cuDNN"].size, \
+            f"{method} captions disagree"
+    return launches, max(d for d, _ in errs), inputs, lms, feat_len
+
+
+def mbconv_times(api, inputs, lms, feat_len, card):
+    """Phase 11: per stride-1 block and summed over the 19, at B=64 x 10 s:
+    the kernel, ``mbconv_plain``, the cuDNN block and the bound; the walked
+    encoder against the cuDNN encoder."""
+    import torch
+    from audiocaption_tpu_torch.ops import fused_mbconv as FM
+    enc = api.model.encoder
+    blocks = [b for b in enc._blocks if b.plan["stride"] == 1]
+    tot = dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0, t_bytes=0.0,
+               t_ops=0.0)
+    with torch.no_grad():
+        for block, x in zip(blocks, inputs):
+            spec, weights = FM.spec_of(block), FM.pack_mbconv(block)
+            k_ms = cuda_ms(lambda: FM.fused_mbconv_s1(x, weights, spec), 10)
+            p_ms = cuda_ms(lambda: FM.mbconv_plain(x, weights, spec), 10)
+            c_ms = cuda_ms(lambda: block(x), 10)
+            flops, nbytes = mbconv_work(spec, x.shape[0], x.shape[2],
+                                        x.shape[3],
+                                        weights["w_ser"].shape[1])
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / FP32_FLOPS * 1e3
+            idx = list(enc._blocks).index(block)
+            log(f"fused_mbconv block {idx} {tuple(x.shape)} E={spec.exp_ch} "
+                f"k={spec.kernel}: {k_ms:.4f} ms (plain {p_ms:.4f}, cuDNN "
+                f"block {c_ms:.4f}, bound {max(t_bytes, t_ops):.4f} ms: "
+                f"{nbytes} bytes, {flops} fp32 ops)")
+            for key, v in (("ms", k_ms), ("plain", p_ms), ("lib", c_ms),
+                           ("bound", max(t_bytes, t_ops)),
+                           ("t_bytes", t_bytes), ("t_ops", t_ops)):
+                tot[key] += v
+        folded = FM.folded_blocks(enc)
+        plain = FM.folded_blocks(enc, kernel=False)
+        walk_ms = cuda_ms(lambda: enc(lms, feat_len, blocks=folded), 5)
+        plain_walk_ms = cuda_ms(lambda: enc(lms, feat_len, blocks=plain), 5)
+        cudnn_ms = cuda_ms(lambda: enc(lms, feat_len), 5)
+    B = lms.shape[0]
+    log(f"fused_mbconv, 19 stride-1 blocks summed, B={B} x 10 s: "
+        f"{tot['ms']:.3f} ms (plain {tot['plain']:.3f}, cuDNN blocks "
+        f"{tot['lib']:.3f}, bound {tot['bound']:.4f} ms) on {card}")
+    log(f"EffB2 encoder, B={B} x 10 s log-mel in: walked with the "
+        f"kernel {walk_ms:.3f} ms, walked all plain {plain_walk_ms:.3f} ms, "
+        f"cuDNN modules {cudnn_ms:.3f} ms on {card}")
+    return {"ms": tot["ms"], "plain_ms": tot["plain"],
+            "library_ms": tot["lib"], "bound_ms": tot["bound"],
+            "bound_by": ("bytes" if tot["t_bytes"] >= tot["t_ops"]
+                         else "operations")}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -584,6 +767,18 @@ def main() -> int:
         "replaces": "audiocaption_tpu/ops/pallas_logmel.py:44",
         "launches": t_launches["fused_logmel"],
         "max_abs_err": logmel_errs["CNN14_MEL_32K"], **timing})
+
+    # -- 10. the folded EffB2 encoders through the MBConv kernel -----------
+    m_launches, m_err, m_inputs, lms64, feat64 = folded_path(
+        api, wav64, len64, audio, lens, dev, card)
+
+    # -- 11. MBConv times --------------------------------------------------
+    m_timing = mbconv_times(api, m_inputs, lms64, feat64, card)
+    kernels.append({
+        "name": "fused_mbconv", "route": "cuda",
+        "source": "audiocaption_tpu_torch/csrc/fused_mbconv.cu",
+        "replaces": "audiocaption_tpu/ops/pallas_mbconv.py:102",
+        "launches": m_launches, "max_abs_err": m_err, **m_timing})
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,14 +1,16 @@
-"""The port's CUDA kernels (decode loops, log-mel) against their plain
-PyTorch versions, on the card.  Every test here needs an NVIDIA GPU and skips elsewhere (a
-CUDA kernel has no CPU mode).  This file imports torch only, so it also
-runs where JAX is absent:
+"""The port's CUDA kernels (decode loops, log-mel, MBConv) against their
+plain PyTorch versions, on the card.  Every test here needs an NVIDIA GPU
+and skips elsewhere (a CUDA kernel has no CPU mode).  This file imports
+torch only, so it also runs where JAX is absent:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 
 Tolerances: greedy tokens exact at the small width; at the flagship
 width at most 1% of tokens may differ (float32 sums in another order can
 flip a near-tie); n-best beam scores of matching sequences within 1e-4;
-log-mel within 1e-3 dB (1024-term float32 DFT sums in another order).
+log-mel within 1e-3 dB (1024-term float32 DFT sums in another order);
+MBConv within 1e-4 * max(1, max |plain|) (float32 1x1 and depthwise sums
+in another order than cuDNN's).
 """
 
 import numpy as np
@@ -17,11 +19,13 @@ import torch
 
 from audiocaption_tpu_torch.decoding import fused_beam as TB
 from audiocaption_tpu_torch.decoding import fused_greedy as TG
+from audiocaption_tpu_torch.models.effb2 import MBConvBlock
 from audiocaption_tpu_torch.models.transformer_decoder import (
     TransformerDecoder)
 from audiocaption_tpu_torch.models.zoo import random_init
 from audiocaption_tpu_torch.ops import frontend as TF
 from audiocaption_tpu_torch.ops import fused_logmel as FL
+from audiocaption_tpu_torch.ops import fused_mbconv as FM
 
 torch.set_num_threads(1)
 
@@ -121,3 +125,48 @@ def test_frontend_sends_32k_cuda_waveforms_to_the_kernel(cuda):
     assert FL.fused_logmel.launches == n0 + 1
     TF.LogMelFrontend(TF.EFFB2_MEL_16K).to(cuda)(wav)   # plain version
     assert FL.fused_logmel.launches == n0 + 1
+
+
+def jittered_block(seed, **kwargs):
+    """An eval MBConvBlock with random weights and BN statistics (the
+    folded expand bias is not zero)."""
+    gen = torch.Generator().manual_seed(seed)
+    block = MBConvBlock(**kwargs).eval()
+    with torch.no_grad():
+        for p in block.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.3)
+        for m in block.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                m.running_mean.copy_(torch.randn(n, generator=gen) * 0.1)
+                m.running_var.copy_(0.5 + torch.rand(n, generator=gen))
+                m.weight.add_(1.0)
+    return block
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kwargs,shape", [
+    (dict(in_filters=24, out_filters=24, kernel=3, stride=1, expand_ratio=6,
+          nominal_size=65), (5, 24, 16, 63)),
+    (dict(in_filters=48, out_filters=37, kernel=5, stride=1, expand_ratio=6,
+          nominal_size=33, oup_override=203, squeeze_override=9),
+     (3, 48, 7, 125)),
+    (dict(in_filters=32, out_filters=16, kernel=3, stride=1, expand_ratio=1,
+          nominal_size=130), (2, 32, 11, 31))],
+    ids=["expand_residual_k3", "pruned_k5_odd", "no_expand"])
+def test_mbconv_kernel_matches_plain(cuda, kwargs, shape):
+    block = jittered_block(5, **kwargs).to(cuda)
+    spec, weights = FM.spec_of(block), FM.pack_mbconv(block)
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn(shape, generator=gen).to(cuda)
+    n0 = FM.fused_mbconv_s1.launches
+    got = FM.fused_mbconv_s1(x, weights, spec)
+    torch.cuda.synchronize()
+    assert FM.fused_mbconv_s1.launches == n0 + 1
+    want = FM.mbconv_plain(x, weights, spec)
+    with torch.no_grad():
+        ref = block(x)
+    assert got.shape == want.shape == ref.shape
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+    assert float((want - ref).abs().max()) <= 1e-4 * scale
