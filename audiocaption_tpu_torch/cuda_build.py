@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Mapping, Tuple
+from typing import Collection, Dict, Iterable, Mapping, Tuple, Union
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -48,18 +48,23 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build_all(names: Iterable[str] = KERNELS, verbose: bool = False
+def build_all(names: Iterable[str] = KERNELS,
+              verbose: Union[bool, Collection[str]] = False
               ) -> Dict[str, Path]:
     """Compile every named kernel that is not built yet, in parallel.
+    ``verbose`` (all, or the names given) adds ``-Xptxas -v`` and prints
+    nvcc's output: registers, shared memory and spills per kernel.
     Raises with nvcc's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = {n: library_path(n) for n in names}
+    loud = set(todo) if verbose is True else set(verbose or ())
     procs = {}
     for name, out in todo.items():
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+        cmd = [_nvcc(), *NVCC_FLAGS,
+               *(["-Xptxas", "-v"] if name in loud else []),
                "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -70,7 +75,7 @@ def build_all(names: Iterable[str] = KERNELS, verbose: bool = False
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
-        if verbose and log.strip():
+        if name in loud and log.strip():
             print(f"[nvcc {name}]\n{log.strip()}")
         tmp.replace(out)
     if errors:

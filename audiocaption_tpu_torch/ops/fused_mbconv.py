@@ -19,6 +19,11 @@ biases.  ``mbconv_plain`` computes the block from them for any stride;
 and runs ``mbconv_plain`` only for a CPU tensor.  ``folded_blocks`` walks
 a whole (full or pruned) EffB2 encoder that way.
 
+The kernel stores the depthwise output once and runs both 1x1 products
+on the tensor cores in a 3xTF32 split (float32 accuracy from TF32
+operands); ``mbconv_split_tf32`` emulates that split on the CPU and
+``plan_tiles`` picks the kernel's tiles, both in pure Python.
+
 The JAX kernel zero-pads the block's *input* and expands the padded map,
 so its border holds ``swish(b_exp)`` where the block pads the expanded map
 with zeros; it agrees with the block only where the folded expand bias is
@@ -102,38 +107,90 @@ def pack_mbconv(block) -> Dict[str, torch.Tensor]:
     return out
 
 
-def mbconv_plain(x: torch.Tensor, weights: Dict[str, torch.Tensor],
-                 spec: MBConvSpec) -> torch.Tensor:
-    """Plain PyTorch version of the folded block, any stride:
-    x [B, C, H, W] -> [B, Co, Ho, Wo] (counterpart of ``xla_mbconv``)."""
+def _conv1x1(x: torch.Tensor, w: torch.Tensor,
+             bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """x [B, I, H, W], w [I, O] -> [B, O, H, W] (+ bias)."""
+    return F.conv2d(x, w.t()[:, :, None, None], bias)
+
+
+def _mbconv(x, weights, spec, expand: Callable, project: Callable):
+    """The folded block with its two 1x1 products given: ``expand(x, w,
+    b)`` and ``project(d, g, w, b)`` (``g`` the SE gate [B, E])."""
     pt, pb, pl, pr = spec.pad
     e = x
     if spec.has_expand:
-        e = F.silu(F.conv2d(x, weights["w_exp"].t()[:, :, None, None],
-                            weights["b_exp"]))
+        e = F.silu(expand(x, weights["w_exp"], weights["b_exp"]))
     d = F.conv2d(F.pad(e, (pl, pr, pt, pb)),
                  weights["w_dw"].permute(2, 0, 1)[:, None], weights["b_dw"],
                  stride=spec.stride, groups=spec.exp_ch)
     d = F.silu(d)
     s = F.silu(d.mean(dim=(2, 3)) @ weights["w_ser"] + weights["b_ser"])
     g = torch.sigmoid(s @ weights["w_see"] + weights["b_see"])
-    p = F.conv2d(d * g[:, :, None, None],
-                 weights["w_proj"].t()[:, :, None, None], weights["b_proj"])
+    p = project(d, g, weights["w_proj"], weights["b_proj"])
     return p + x if spec.has_residual else p
+
+
+def mbconv_plain(x: torch.Tensor, weights: Dict[str, torch.Tensor],
+                 spec: MBConvSpec) -> torch.Tensor:
+    """Plain PyTorch version of the folded block, any stride:
+    x [B, C, H, W] -> [B, Co, Ho, Wo] (counterpart of ``xla_mbconv``)."""
+    return _mbconv(x, weights, spec, _conv1x1,
+                   lambda d, g, w, b: _conv1x1(d * g[:, :, None, None], w, b))
+
+
+def round_tf32(v: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as ``cvt.rna.tf32.f32``: add half of the 13 dropped mantissa
+    bits, then mask them."""
+    bits = v.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """v -> (big, small): big = tf32(v), small = tf32(v - big)."""
+    big = round_tf32(v)
+    return big, round_tf32(v.float() - big)
+
+
+def _einsum_3xtf32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernel's 3xTF32 product: a_small b_big + a_big b_small +
+    a_big b_big, each product and sum in float32."""
+    ab, as_ = split_tf32(a)
+    bb, bs = split_tf32(b)
+    return (torch.einsum(eq, as_, bb) + torch.einsum(eq, ab, bs)
+            + torch.einsum(eq, ab, bb))
+
+
+def mbconv_split_tf32(x: torch.Tensor, weights: Dict[str, torch.Tensor],
+                      spec: MBConvSpec) -> torch.Tensor:
+    """``mbconv_plain`` with both 1x1 products in the kernel's 3xTF32 split,
+    the gate scaling ``w_proj`` as the kernel applies it: the CPU evidence
+    that the tensor-core route keeps float32 accuracy."""
+    def expand(v, w, b):
+        return _einsum_3xtf32("bihw,io->bohw", v, w) + b[:, None, None]
+
+    def project(d, g, w, b):
+        return (_einsum_3xtf32("behw,beo->bohw", d, w[None] * g[:, :, None])
+                + b[:, None, None])
+
+    return _mbconv(x, weights, spec, expand, project)
 
 
 # -- the kernel ---------------------------------------------------------------
 
 NT = 256                        # threads per block (csrc/fused_mbconv.cu)
+SE_NT = 1024                    # threads of the SE block
 SMEM_LIMIT = 232448             # bytes of shared memory a Hopper block can use
+KC = 32                         # projection: expanded channels per chunk
 _PTRS = ("x", "out", "w_exp", "b_exp", "w_dw", "b_dw", "w_ser", "b_ser",
-         "w_see", "b_see", "w_proj", "b_proj", "partial", "gate")
+         "w_see", "b_see", "w_proj", "b_proj", "d", "partial", "gate")
 _INTS = ("C", "E", "S", "Co", "H", "W", "Ho", "Wo", "k", "pt", "pl",
-         "has_expand", "has_residual", "TH", "TW", "Ec", "tiles_w", "n_tiles")
+         "has_expand", "has_residual", "TH", "TW", "Ec", "Eg", "tiles_w",
+         "n_tiles", "WM")
 
 
 class _Params(ctypes.Structure):
-    """Mirror of ``struct Params`` in ``csrc/fused_mbconv.cu``."""
+    """Mirror of ``struct MBConvParams`` in ``csrc/fused_mbconv.cu``."""
     _fields_ = ([(n, ctypes.c_void_p) for n in _PTRS]
                 + [(n, ctypes.c_int) for n in _INTS])
 
@@ -144,8 +201,8 @@ _SIGNATURES = {
 }
 
 
-def _round4(n: int) -> int:
-    return (n + 3) // 4 * 4
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
 def _out_hw(spec: MBConvSpec, H: int, W: int) -> Tuple[int, int]:
@@ -157,74 +214,116 @@ def _out_hw(spec: MBConvSpec, H: int, W: int) -> Tuple[int, int]:
 class TilePlan(NamedTuple):
     TH: int          # output rows per tile
     TW: int          # output columns per tile
-    Ec: int          # expanded channels per chunk (a multiple of 8)
-    smem: int        # bytes of shared memory per block
+    Ec: int          # expanded channels per chunk (a multiple of 16)
+    Eg: int          # expanded channels per block (a multiple of Ec)
+    WM: int          # projection: warps along the output channels (1, 2, 4)
+    smem: int        # bytes of shared memory of the expand/depthwise block
+    proj_smem: int   # bytes of shared memory of the projection block
 
 
 def tile_smem(spec: MBConvSpec, H: int, W: int, TH: int, TW: int,
               Ec: int) -> int:
-    """Shared memory of one block, as the kernel lays it out: the input
-    tile with its halo clipped to the map (all C channels with expand, the
-    chunk's otherwise), the chunk's expanded tile, its depthwise tile."""
-    k = spec.kernel
-    ph = _round4(min(TH + k - 1, H) * min(TW + k - 1, W))
-    x_rows = spec.in_ch if spec.has_expand else Ec
-    return 4 * (x_rows * ph + (Ec * ph if spec.has_expand else 0)
-                + Ec * _round4(TH * TW))
+    """Shared memory of one expand/depthwise block, as the kernel lays it
+    out (``Pass1Layout``): x over the largest clipped halo for all C
+    channels (rounded to 8 with expand), the chunk's expanded halo, two
+    w_exp and two w_dw chunks, the depthwise's column sums."""
+    k, C = spec.kernel, spec.in_ch
+    ld = _up(min(TH + k - 1, H) * min(TW + k - 1, W), 32) + 8
+    c8 = _up(C, 8)
+    floats = (c8 * ld + Ec * ld + 2 * c8 * (Ec + 8) if spec.has_expand
+              else C * ld)
+    return 4 * (floats + 2 * k * k * Ec + Ec * TW)
+
+
+def se_smem(spec: MBConvSpec, squeeze: int) -> int:
+    """Shared memory of the SE block: the mean, the hidden layer and the
+    reduce product's row-slice sums."""
+    return 4 * (spec.exp_ch + squeeze + SE_NT)
+
+
+def project_warps(spec: MBConvSpec) -> int:
+    """Warps along the output channels of a projection block (the block
+    tile is 16 WM x 32 (8 / WM))."""
+    return 1 if spec.out_ch <= 16 else 2 if spec.out_ch <= 32 else 4
+
+
+def project_smem(spec: MBConvSpec, WM: int) -> int:
+    """Shared memory of one projection block: two w_proj and two d chunks
+    of KC rows, the sample's gate."""
+    return 4 * (2 * KC * (16 * WM + 8) + 2 * KC * (32 * (8 // WM) + 8)
+                + _up(spec.exp_ch, KC))
+
+
+def _pass1_cost(spec: MBConvSpec, B: int, H: int, W: int, TH: int, TW: int,
+                Ec: int, G: int, smem: int) -> float:
+    """Rough time of the expand/depthwise launch, in warp instructions per
+    SM scheduler: per block, x staged once and per chunk the expand (one
+    16 x 32 warp tile takes ~60 instructions a k-step of 8: fragment loads,
+    TF32 splits, 12 mma), the weights' copies and the depthwise (a thread
+    a channel and column: ~k * k + 2 k + 30 instructions an output row);
+    blocks per SM from shared memory (at most two by registers), waves
+    over 132 SMs, and a penalty below 16 warps an SM."""
+    k, C, E = spec.kernel, spec.in_ch, spec.exp_ch
+    Ho, Wo = _out_hw(spec, H, W)
+    ph = _up(min(TH + k - 1, H) * min(TW + k - 1, W), 32)
+    c8 = _up(C, 8)
+    n_tiles = -(-Ho // TH) * -(-Wo // TW)
+    chunks = -(-(-(-E // Ec)) // G)
+    expand = (-(-(Ec // 16) * (ph // 32) // 8) * 8 * (c8 // 8) * 60
+              if spec.has_expand else 0)
+    dw = NT // 32 * -(-Ec * TW // NT) * (TH * (k * k + 2 * k + 30)
+                                          + k * k + 10)
+    weights = -(-((c8 * Ec if spec.has_expand else 0) + k * k * Ec) // NT) * 32
+    stage = -(-(c8 if spec.has_expand else C) * (ph + 8) // NT) * 8 * 6
+    per_block = stage + chunks * (expand + dw + weights + 200)
+    per_sm = max(1, min(2, SMEM_LIMIT // (smem + 1024)))
+    waves = -(-B * n_tiles * G // (132 * per_sm))
+    return waves * per_sm * per_block / 4 / min(1.0, per_sm * 8 / 16)
 
 
 @functools.lru_cache(maxsize=None)
 def plan_tiles(spec: MBConvSpec, B: int, H: int, W: int) -> TilePlan:
-    """Pick the tile (TH x TW output pixels) and channel chunk Ec for one
-    block shape from a rough cost model of the kernel: per tile and pass,
-    the expand over the clipped halo (recomputed in both passes), the
-    depthwise, the projection, in thread steps; blocks per SM from shared
-    memory (at most two of 256 threads by registers); waves over 132 SMs.
-    The projection keeps one 8 x 4 tile of sums per thread, so
-    ceil(Co / 8) * ceil(TH * TW / 4) <= 256."""
-    k, C, E, Co = spec.kernel, spec.in_ch, spec.exp_ch, spec.out_ch
+    """Pick the expand/depthwise tile (TH x TW output pixels), chunk Ec and
+    channel group Eg of one block shape by :func:`_pass1_cost`, within
+    shared memory, and the projection's warp layout by the output width."""
+    k, E = spec.kernel, spec.exp_ch
     Ho, Wo = _out_hw(spec, H, W)
-    ths = sorted({-(-Ho // m) for m in range(1, Ho + 1)})
-    tws = sorted({-(-Wo // m) for m in range(1, 17)})
-    ecs = range(8, min(-(-E // 8) * 8, 512) + 1, 8)
+    ths = sorted({-(-Ho // m) for m in range(1, min(Ho, 8) + 1)})
+    tws = sorted({-(-Wo // m) for m in range(1, min(Wo, 16) + 1)})
+    ecs = [e for e in (16, 32, 48, 64, 96, 128) if e <= _up(E, 16)]
     best, best_cost = None, math.inf
     for TH in ths:
         for TW in tws:
-            p_pad = _round4(TH * TW)
-            if -(-Co // 8) * (p_pad // 4) > NT:
-                continue
-            ph = _round4(min(TH + k - 1, H) * min(TW + k - 1, W))
-            n_tiles = -(-Ho // TH) * -(-Wo // TW)
             for Ec in ecs:
                 smem = tile_smem(spec, H, W, TH, TW, Ec)
                 if smem > SMEM_LIMIT:
                     continue
-                chunks = -(-E // Ec)
-                expand = (-(-(Ec // 8) * (ph // 4) // NT) * C * 41
-                          if spec.has_expand else 0)
-                dw = -(-Ec * p_pad // NT) * 4 * k * k
-                load = -(-(C if spec.has_expand else Ec) * ph // NT) * 8
-                per_tile = (2 * load + chunks * (2 * (expand + dw) + Ec * 41)
-                            + (0 if spec.has_expand else chunks * load))
-                per_sm = max(1, min(2, SMEM_LIMIT // (smem + 1024)))
-                waves = -(-B * n_tiles // (132 * per_sm))
-                cost = waves * per_sm * per_tile / (1.0 if per_sm == 2
-                                                    else 0.6)
-                if cost < best_cost:
-                    best, best_cost = TilePlan(TH, TW, Ec, smem), cost
+                n_chunks = -(-E // Ec)
+                for G in (1, 2, 3, 4, 6, 8, 12, 16):
+                    if G > n_chunks:
+                        break
+                    Eg = -(-n_chunks // G) * Ec
+                    cost = _pass1_cost(spec, B, H, W, TH, TW, Ec,
+                                       -(-E // Eg), smem)
+                    if cost < best_cost:
+                        best, best_cost = (TH, TW, Ec, Eg, smem), cost
     if best is None:
         raise ValueError(f"no tile of {spec} at {H}x{W} fits the kernel")
-    return best
+    WM = project_warps(spec)
+    return TilePlan(*best[:4], WM, best[4], project_smem(spec, WM))
 
 
 def fused_mbconv_s1(x: torch.Tensor, weights: Dict[str, torch.Tensor],
                     spec: MBConvSpec) -> torch.Tensor:
     """Stride-1 folded MBConv block, x [B, C, H, W] float32 -> [B, Co, Ho,
-    Wo].  CUDA tensors launch ``csrc/fused_mbconv.cu`` (three launches: an
-    SE partial-sum pass, the SE MLP, the output pass); CPU tensors run
-    :func:`mbconv_plain`."""
+    Wo].  CUDA tensors launch ``csrc/fused_mbconv.cu`` (three launches:
+    expand + depthwise storing d and the SE partial sums, the SE MLP, the
+    gated projection); CPU tensors run :func:`mbconv_plain`."""
     if spec.stride != 1:
         raise ValueError("fused_mbconv_s1 runs stride-1 blocks only")
+    if spec.kernel not in (3, 5):
+        raise ValueError("the MBConv kernel runs 3x3 and 5x5 depthwise "
+                         f"convolutions, got {spec.kernel}")
     if x.ndim != 4 or x.shape[1] != spec.in_ch:
         raise ValueError(f"x must be [B, {spec.in_ch}, H, W], "
                          f"got {tuple(x.shape)}")
@@ -246,17 +345,24 @@ def fused_mbconv_s1(x: torch.Tensor, weights: Dict[str, torch.Tensor],
     if not spec.has_expand and E != C:
         raise ValueError("a block without expand has exp_ch == in_ch")
     plan = plan_tiles(spec, B, H, W)
+    squeeze = weights["w_ser"].shape[1]
+    if squeeze > SE_NT or max(plan.smem, plan.proj_smem,
+                              se_smem(spec, squeeze)) > SMEM_LIMIT:
+        raise ValueError(f"{spec} at {H}x{W} needs more shared memory (or "
+                         "SE threads) than a block has")
     tiles_w = -(-Wo // plan.TW)
     n_tiles = -(-Ho // plan.TH) * tiles_w
     out = torch.empty(B, Co, Ho, Wo, dtype=torch.float32, device=x.device)
+    d = torch.empty(B, E, Ho, Wo, dtype=torch.float32, device=x.device)
     partial = torch.empty(B, n_tiles, E, dtype=torch.float32, device=x.device)
     gate = torch.empty(B, E, dtype=torch.float32, device=x.device)
-    ptrs = dict(x=x, out=out, partial=partial, gate=gate, **weights)
+    ptrs = dict(x=x, out=out, d=d, partial=partial, gate=gate, **weights)
     params = _Params(
         *[ptrs[n].data_ptr() if n in ptrs else None for n in _PTRS],
-        C, E, weights["w_ser"].shape[1], Co, H, W, Ho, Wo, spec.kernel,
+        C, E, squeeze, Co, H, W, Ho, Wo, spec.kernel,
         spec.pad[0], spec.pad[2], int(spec.has_expand),
-        int(spec.has_residual), plan.TH, plan.TW, plan.Ec, tiles_w, n_tiles)
+        int(spec.has_residual), plan.TH, plan.TW, plan.Ec, plan.Eg, tiles_w,
+        n_tiles, plan.WM)
     lib = cuda_build.load("fused_mbconv", _SIGNATURES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.fused_mbconv_launch(ctypes.byref(params), B, stream)

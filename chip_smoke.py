@@ -8,7 +8,8 @@ Phases, each of which must pass (none is caught and skipped):
 
   1. print the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the port from ``csrc/`` with nvcc (one
-     process per source, all started together);
+     process per source, all started together), printing ``-Xptxas -v``
+     (registers, shared memory, spills) for the log-mel and MBConv kernels;
   3. hold each decode kernel against its plain PyTorch version on the
      card, at the flagship decoder width (E=256, 4 heads, 2 layers,
      V=4981), L=20, S=31, B=64, on random jittered decoder weights and
@@ -28,9 +29,10 @@ Phases, each of which must pass (none is caught and skipped):
      clips;
   7. hold the log-mel kernel against its plain version at B=64 x 10 s, for
      the 32 kHz Cnn14 preset and the 16 kHz EffB2 preset (the kernel is
-     config-general).  Limit 1e-3 dB: the JAX package holds its own kernel
-     to 2e-4 dB of its conv path, and here 1024-term float32 DFT sums run
-     in another order on the card, on 10 s of audio instead of 1 s;
+     config-general: any power-of-two n_fft from 256 to 2048).  Limit
+     1e-3 dB: the JAX package holds its own kernel to 2e-4 dB of its conv
+     path, and here a float32 FFT is held against the plain version's
+     dense float32 DFT, on 10 s of audio instead of 1 s;
   8. drive the temporal path end to end through
      ``Cnn14RnnTempAttnGruModel`` at full width (vocab 4981; random weights
      from a seed, decoder jittered, BN statistics jittered): 8 clips of
@@ -38,10 +40,12 @@ Phases, each of which must pass (none is caught and skipped):
      with and without a user temporal tag, and compare with the same
      modules fed by the plain log-mel on the same card.  Limits: at most 1%
      of tokens differ; SED framewise probabilities within 1e-4;
-  9. time the log-mel kernel, its plain version, the same log-mel through
-     cuFFT (``torch.stft``, its library yardstick, held to the plain
-     version within 1e-3 dB first) and its bound at B=64 x 10 s (a real
-     FFT's operations against the bytes in and out), the split of one
+  9. time the log-mel kernel (its wrapper's call, as the path runs it;
+     its device time alone from a ``torch.profiler`` trace), its plain
+     version, the same log-mel through cuFFT (``torch.stft``,
+     its library yardstick, held to the plain version within 1e-3 dB
+     first) and its bound at B=64 x 10 s (a real FFT's operations against
+     the bytes in and out), the split of one
      temporal-model batch (frontend, SED network, host tag step, captioner
      encoder, decode), and end-to-end clips/s, greedy and beam 3;
  10. walk the flagship EffB2 encoder of phase 4 (BN jittered, so the
@@ -55,9 +59,13 @@ Phases, each of which must pass (none is caught and skipped):
      differ).  The same block checks on the pruned encoder
      (``build_pruned_effb2``, ratio 0.3, 1408-wide head);
  11. time, per stride-1 block and summed over the 19 at B=64 x 10 s, the
-     kernel, ``mbconv_plain``, the port's cuDNN ``MBConvBlock`` (its
-     library yardstick) and the bound (``mbconv_work``), and the walked
-     encoder against the cuDNN encoder.
+     kernel (its wrapper's call; the device time of each of its three
+     launches from a ``torch.profiler`` trace), ``mbconv_plain``, the
+     port's cuDNN ``MBConvBlock`` (its library yardstick) and the bound
+     (``mbconv_work``: the 1x1 products at the 3xTF32 tensor-core rate,
+     the rest at the float32 rate, against the bytes; the float32-only
+     bound printed beside it), and the walked encoder against the cuDNN
+     encoder.
 
 Every kernel's launch counter is set to 0 just before each path is
 driven (phases 4-5, the EffB2 serving path; phase 8, the temporal path;
@@ -92,9 +100,11 @@ LOGMEL_DB_ATOL = 1e-3
 SED_ATOL = 1e-4
 MBCONV_RTOL = 1e-4            # kernel vs plain, times max(1, max |plain|)
 ENCODER_RTOL = 1e-3           # walked vs cuDNN attn_emb, times max |ref|
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor FLOP/s,
+# and float32 products through the TF32 tensor cores in a 3xTF32 split
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32X3_FLOPS = 495e12 / 3
 
 
 def log(msg: str) -> None:
@@ -121,6 +131,33 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_split(fn, iters: int = 5) -> dict:
+    """Device time per kernel (ms per call of ``fn``), from a
+    ``torch.profiler`` trace of ``iters`` calls after one warm-up: the
+    launches of a multi-kernel call apart, and the kernels' time without
+    the host's.  Empty if the profiler records no device time."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = ev.cuda_time_total
+        if us > 0:
+            names = re.findall(r"[A-Za-z_]\w*_kernel\b", ev.key)
+            name = names[0] if names else ev.key[:40]
+            out[name] = out.get(name, 0.0) + us / 1e3 / iters
+    return {k: round(v, 4) for k, v in sorted(out.items(),
+                                              key=lambda kv: -kv[1])}
 
 
 def jittered_decoder_inputs(device):
@@ -243,6 +280,20 @@ def stft_logmel(wav, front):
     return amplitude_to_db(torch.matmul(power, front.mel_fb), cfg.top_db)
 
 
+def float64_logmel(wav, front):
+    """The log-mel in float64 (``torch.fft.rfft`` of the reflect-padded,
+    windowed frames): the yardstick of both float32 versions' rounding."""
+    import torch
+    from audiocaption_tpu_torch.ops.fused_logmel import amplitude_to_db
+    cfg = front.config
+    frames = torch.nn.functional.pad(
+        wav.double()[:, None], (cfg.n_fft // 2,) * 2, mode="reflect")[:, 0]
+    frames = frames.unfold(1, cfg.n_fft, cfg.hop) * torch.hann_window(
+        cfg.n_fft, dtype=torch.float64, device=wav.device)
+    power = torch.fft.rfft(frames, dim=-1).abs() ** 2
+    return amplitude_to_db(power @ front.mel_fb.double(), cfg.top_db)
+
+
 def logmel_check(dev, card):
     """Phase 7: the log-mel kernel against its plain version at
     B=64 x 10 s, 32 kHz and 16 kHz presets -> max |diff| per preset."""
@@ -259,12 +310,15 @@ def logmel_check(dev, card):
         wav = wav.to(dev)
         got = FL.fused_logmel(wav, front.basis, front.mel_fb, cfg)
         want = FL.fused_logmel_plain(wav, front.basis, front.mel_fb, cfg)
+        ref = float64_logmel(wav, front)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         errs[name] = err
         log(f"log-mel kernel vs plain, {name}, B={B_LOGMEL} x 10 s "
             f"{tuple(got.shape)}: max |diff| {err:.3g} dB (limit "
-            f"{LOGMEL_DB_ATOL}) on {card}")
+            f"{LOGMEL_DB_ATOL}); against a float64 FFT: kernel "
+            f"{float((got.double() - ref).abs().max()):.3g} dB, plain "
+            f"{float((want.double() - ref).abs().max()):.3g} dB on {card}")
         assert got.shape == want.shape and bool(torch.isfinite(got).all())
         assert err <= LOGMEL_DB_ATOL, f"log-mel kernel disagrees on {name}"
     return errs
@@ -370,6 +424,8 @@ def temporal_times(api, dev, card):
     flops, nbytes = logmel_work(front, B, wav.shape[1])
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
+    log(f"fused_logmel device time by kernel (torch.profiler): "
+        f"{device_split(lambda: FL.fused_logmel(wav, *tables))}")
     log(f"fused_logmel: {k_ms:.4f} ms/call (again {k_ms2:.4f}; plain "
         f"{p_ms:.3f} ms, torch.stft yardstick {lib_ms:.4f} ms, bound "
         f"{max(t_bytes, t_ops):.4f} ms: {nbytes} bytes, {flops} fp32 ops) "
@@ -423,26 +479,40 @@ def temporal_times(api, dev, card):
 
 
 def mbconv_work(spec, batch: int, H: int, W: int, squeeze: int):
-    """(float ops, bytes) one folded MBConv block with ``squeeze`` SE
-    channels needs on a [batch, C, H, W] input, whatever algorithm
-    computes it: expand, depthwise, SE and project once (a multiply-add is
-    2 ops; a bias add 1; swish and sigmoid 4 each; the SE mean and the
-    gate 1 per expanded value), per sample the SE MLP.  Bytes: x read
-    once, the output written once, the folded weights read once."""
+    """(1x1 product ops, other float ops, bytes) one folded MBConv block
+    with ``squeeze`` SE channels needs on a [batch, C, H, W] input,
+    whatever algorithm computes it: the expand and project products once
+    (a multiply-add is 2 ops); besides them the bias adds (1), swish and
+    sigmoid (4 each), the depthwise, the SE mean and the gate (1 per
+    expanded value), the residual, and per sample the SE MLP.  Bytes: x
+    read once, the output written once, the folded weights read once."""
     C, E, Co, k, S = spec.in_ch, spec.exp_ch, spec.out_ch, spec.kernel, \
         squeeze
     pt, pb, pl, pr = spec.pad
     Ho = (H + pt + pb - k) // spec.stride + 1
     Wo = (W + pl + pr - k) // spec.stride + 1
-    per_px = ((2 * C * E + 5 * E) if spec.has_expand else 0) \
-        + 2 * k * k * E + 5 * E + 2 * E + 2 * E * Co + Co \
-        + (Co if spec.has_residual else 0)
+    mm_px = (2 * C * E if spec.has_expand else 0) + 2 * E * Co
+    other_px = (5 * E if spec.has_expand else 0) + 2 * k * k * E + 5 * E \
+        + 2 * E + Co + (Co if spec.has_residual else 0)
     per_sample = 2 * E * S + 5 * S + 2 * S * E + 5 * E
-    flops = batch * (Ho * Wo * per_px + per_sample)
+    mm = batch * Ho * Wo * mm_px
+    other = batch * (Ho * Wo * other_px + per_sample)
     n_weights = (C * E + E if spec.has_expand else 0) + k * k * E + E \
         + E * S + S + S * E + E + E * Co + Co
     nbytes = 4 * (batch * C * H * W + batch * Co * Ho * Wo + n_weights)
-    return flops, nbytes
+    return mm, other, nbytes
+
+
+def mbconv_bound_ms(mm: int, other: int, nbytes: int):
+    """(bound ms, bound ms with every op at the float32 CUDA-core rate,
+    bound_by): the larger of the bytes at the HBM rate and the operations,
+    the 1x1 products at the 3xTF32 tensor-core rate (the kernel's route)
+    and the rest at the float32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (mm / TF32X3_FLOPS + other / FP32_FLOPS) * 1e3
+    t_fp32 = (mm + other) / FP32_FLOPS * 1e3
+    return (max(t_bytes, t_ops), max(t_bytes, t_fp32),
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def checked_walk(encoder, lms, feat_len, errs, inputs=None):
@@ -548,27 +618,31 @@ def mbconv_times(api, inputs, lms, feat_len, card):
     from audiocaption_tpu_torch.ops import fused_mbconv as FM
     enc = api.model.encoder
     blocks = [b for b in enc._blocks if b.plan["stride"] == 1]
-    tot = dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0, t_bytes=0.0,
-               t_ops=0.0)
+    tot = dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0, fp32=0.0, mm=0,
+               other=0, nbytes=0)
     with torch.no_grad():
         for block, x in zip(blocks, inputs):
             spec, weights = FM.spec_of(block), FM.pack_mbconv(block)
             k_ms = cuda_ms(lambda: FM.fused_mbconv_s1(x, weights, spec), 10)
             p_ms = cuda_ms(lambda: FM.mbconv_plain(x, weights, spec), 10)
             c_ms = cuda_ms(lambda: block(x), 10)
-            flops, nbytes = mbconv_work(spec, x.shape[0], x.shape[2],
-                                        x.shape[3],
-                                        weights["w_ser"].shape[1])
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / FP32_FLOPS * 1e3
+            mm, other, nbytes = mbconv_work(spec, x.shape[0], x.shape[2],
+                                            x.shape[3],
+                                            weights["w_ser"].shape[1])
+            bound, fp32, by = mbconv_bound_ms(mm, other, nbytes)
             idx = list(enc._blocks).index(block)
+            plan = FM.plan_tiles(spec, x.shape[0], x.shape[2], x.shape[3])
+            split = device_split(lambda: FM.fused_mbconv_s1(x, weights,
+                                                             spec))
             log(f"fused_mbconv block {idx} {tuple(x.shape)} E={spec.exp_ch} "
                 f"k={spec.kernel}: {k_ms:.4f} ms (plain {p_ms:.4f}, cuDNN "
-                f"block {c_ms:.4f}, bound {max(t_bytes, t_ops):.4f} ms: "
-                f"{nbytes} bytes, {flops} fp32 ops)")
+                f"block {c_ms:.4f}, bound {bound:.4f} ms by {by}, float32-"
+                f"only bound {fp32:.4f} ms: {nbytes} bytes, {mm} 1x1 ops, "
+                f"{other} other ops; plan {tuple(plan)}; device ms by "
+                f"launch {split})")
             for key, v in (("ms", k_ms), ("plain", p_ms), ("lib", c_ms),
-                           ("bound", max(t_bytes, t_ops)),
-                           ("t_bytes", t_bytes), ("t_ops", t_ops)):
+                           ("bound", bound), ("fp32", fp32), ("mm", mm),
+                           ("other", other), ("nbytes", nbytes)):
                 tot[key] += v
         folded = FM.folded_blocks(enc)
         plain = FM.folded_blocks(enc, kernel=False)
@@ -576,16 +650,18 @@ def mbconv_times(api, inputs, lms, feat_len, card):
         plain_walk_ms = cuda_ms(lambda: enc(lms, feat_len, blocks=plain), 5)
         cudnn_ms = cuda_ms(lambda: enc(lms, feat_len), 5)
     B = lms.shape[0]
+    _, _, by = mbconv_bound_ms(tot["mm"], tot["other"], tot["nbytes"])
     log(f"fused_mbconv, 19 stride-1 blocks summed, B={B} x 10 s: "
         f"{tot['ms']:.3f} ms (plain {tot['plain']:.3f}, cuDNN blocks "
-        f"{tot['lib']:.3f}, bound {tot['bound']:.4f} ms) on {card}")
+        f"{tot['lib']:.3f}, bound {tot['bound']:.4f} ms, float32-only "
+        f"bound {tot['fp32']:.4f} ms; {tot['mm']} 1x1 ops, {tot['other']} "
+        f"other ops, {tot['nbytes']} bytes) on {card}")
     log(f"EffB2 encoder, B={B} x 10 s log-mel in: walked with the "
         f"kernel {walk_ms:.3f} ms, walked all plain {plain_walk_ms:.3f} ms, "
         f"cuDNN modules {cudnn_ms:.3f} ms on {card}")
     return {"ms": tot["ms"], "plain_ms": tot["plain"],
             "library_ms": tot["lib"], "bound_ms": tot["bound"],
-            "bound_by": ("bytes" if tot["t_bytes"] >= tot["t_ops"]
-                         else "operations")}
+            "bound_by": by}
 
 
 def main() -> int:
@@ -620,7 +696,8 @@ def main() -> int:
 
     # -- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    cuda_build.build_all()
+    # registers and spills (-Xptxas -v) of the kernels redesigned last
+    cuda_build.build_all(verbose=("fused_logmel", "fused_mbconv"))
     log(f"build: {time.perf_counter() - t0:.2f} s for {list(cuda_build.KERNELS)}")
 
     # -- 3. kernels vs plain versions --------------------------------------

@@ -8,9 +8,10 @@ torch only, so it also runs where JAX is absent:
 Tolerances: greedy tokens exact at the small width; at the flagship
 width at most 1% of tokens may differ (float32 sums in another order can
 flip a near-tie); n-best beam scores of matching sequences within 1e-4;
-log-mel within 1e-3 dB (1024-term float32 DFT sums in another order);
-MBConv within 1e-4 * max(1, max |plain|) (float32 1x1 and depthwise sums
-in another order than cuDNN's).
+log-mel within 1e-3 dB (an FFT against the plain version's dense DFT,
+both float32), and within 0.05-0.1 dB on a wave with an 80 dB range;
+MBConv within 1e-4 * max(1, max |plain|) (1x1 products in 3xTF32, ~2^-22
+relative a product, and sums in another order than cuDNN's).
 """
 
 import numpy as np
@@ -95,12 +96,21 @@ def test_beam_kernel_matches_plain(cuda, shape, L, limit, K):
                                want_score[same].cpu().numpy(), atol=1e-4)
 
 
+# n_fft 256 and 2048: the kernel takes any power of two in between
+WIN_16K_256 = TF.MelConfig(sample_rate=16000, win_ms=16, f_min=0.0,
+                           f_max=None, norm=None, mel_scale="htk")
+WIN_32K_2048 = TF.MelConfig(sample_rate=32000, win_ms=64)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("preset,seconds", [
-    ("CNN14_MEL_32K", 1.0), ("CNN14_MEL_32K", 2.3), ("EFFB2_MEL_16K", 1.7)],
-    ids=["32k_1s", "32k_ragged_tile", "16k_top_db"])
-def test_logmel_kernel_matches_plain(cuda, preset, seconds):
-    cfg = getattr(TF, preset)
+@pytest.mark.parametrize("cfg,seconds", [
+    (TF.CNN14_MEL_32K, 1.0), (TF.CNN14_MEL_32K, 2.3), (TF.EFFB2_MEL_16K, 1.7),
+    (WIN_16K_256, 1.3), (WIN_32K_2048, 1.1)],
+    ids=["32k_1s", "32k_ragged_tile", "16k_top_db", "n_fft_256",
+         "n_fft_2048"])
+def test_logmel_kernel_matches_plain(cuda, cfg, seconds):
+    """n_fft 1024 and 512 (the presets), 256 and 2048; a ragged last tile
+    and a half-silent clip (the 1e-10 floor, top_db at 16 kHz)."""
     gen = torch.Generator().manual_seed(3)
     wav = (torch.randn(3, int(seconds * cfg.sample_rate), generator=gen)
            * 0.1).to(cuda)
@@ -115,6 +125,43 @@ def test_logmel_kernel_matches_plain(cuda, preset, seconds):
     assert got.shape == want.shape == (3, wav.shape[1] // cfg.hop + 1,
                                        cfg.n_mels)
     assert float((got - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [TF.CNN14_MEL_32K, TF.EFFB2_MEL_16K],
+                         ids=["32k", "16k"])
+def test_logmel_kernel_wide_dynamic_range(cuda, cfg):
+    """Three tones at 0 dB plus noise 80 dB down.  Float32 rounding spreads
+    ~1e-7 of the tones' amplitude into every bin, ~1e-3 of the noise's, so
+    the quietest mel bands of any float32 version (the kernel's FFT and
+    the plain version's dense DFT alike) sit a few hundredths of a dB off
+    a float64 reference.  Limits: 0.05 dB against float64, 0.1 dB against
+    the plain version (the two float32 errors may add)."""
+    sr = cfg.sample_rate
+    t = np.arange(int(2.3 * sr)) / sr
+    wav = sum(0.5 * np.sin(2 * np.pi * f * t + ph)
+              for f, ph in ((440.0, 0.3), (1250.7, 1.1), (5003.3, 2.0))) / 3
+    wav = wav + np.random.RandomState(7).randn(len(t)) * 0.5e-4
+    wav = np.stack([wav, wav[::-1]])
+    front = TF.LogMelFrontend(cfg)
+    w64 = torch.from_numpy(wav)
+    frames = torch.nn.functional.pad(
+        w64[:, None], (cfg.n_fft // 2,) * 2, mode="reflect")[:, 0].unfold(
+        1, cfg.n_fft, cfg.hop)
+    spec = torch.fft.rfft(frames * torch.from_numpy(
+        TF.hann_window(cfg.n_fft)).double(), dim=-1)
+    ref = FL.amplitude_to_db(spec.abs() ** 2 @ front.mel_fb.double(),
+                             cfg.top_db)
+    front = front.to(cuda)
+    x = w64.float().to(cuda)
+    n0 = FL.fused_logmel.launches
+    got = FL.fused_logmel(x, front.basis, front.mel_fb, cfg)
+    torch.cuda.synchronize()
+    assert FL.fused_logmel.launches == n0 + 1
+    want = FL.fused_logmel_plain(x, front.basis, front.mel_fb, cfg)
+    assert float(ref.min()) < -80.0 and float(ref.max()) > 10.0
+    assert float((got.double().cpu() - ref).abs().max()) <= 0.05
+    assert float((got - want).abs().max()) <= 0.1
 
 
 @pytest.mark.cuda
@@ -152,8 +199,10 @@ def jittered_block(seed, **kwargs):
           nominal_size=33, oup_override=203, squeeze_override=9),
      (3, 48, 7, 125)),
     (dict(in_filters=32, out_filters=16, kernel=3, stride=1, expand_ratio=1,
-          nominal_size=130), (2, 32, 11, 31))],
-    ids=["expand_residual_k3", "pruned_k5_odd", "no_expand"])
+          nominal_size=130), (2, 32, 11, 31)),
+    (dict(in_filters=208, out_filters=208, kernel=5, stride=1,
+          expand_ratio=6, nominal_size=9), (4, 208, 2, 32))],
+    ids=["expand_residual_k3", "pruned_k5_odd", "no_expand", "wide_late_k5"])
 def test_mbconv_kernel_matches_plain(cuda, kwargs, shape):
     block = jittered_block(5, **kwargs).to(cuda)
     spec, weights = FM.spec_of(block), FM.pack_mbconv(block)

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: no module of ``audiocaption_tpu_torch``
-(nor ``chip_smoke.py``) imports ``jax``, ``flax`` or ``audiocaption_tpu``,
-not even a module of the JAX package that is itself free of JAX."""
+(nor ``chip_smoke.py``, nor the test files that also run where JAX is
+absent: the card-only kernel tests and the log-mel kernel's host-side
+tests) imports ``jax``, ``flax`` or ``audiocaption_tpu``, not even a
+module of the JAX package that is itself free of JAX."""
 
 import ast
 import subprocess
@@ -12,7 +14,9 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "audiocaption_tpu_torch"
 BLOCKED = ("jax", "flax", "audiocaption_tpu")
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PKG.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
+    ROOT / "tests" / "test_torch_logmel_fft.py"]
 
 
 def _imported_roots(path: Path):

@@ -198,21 +198,95 @@ def test_jax_kernel_border_fault_is_not_ported(PM):
     assert float(np.abs(kernel - ref).max()) > 1e-3
 
 
-def test_plan_tiles_fits_the_kernel():
-    """Every tile plan of the flagship's stride-1 blocks (and a pruned
-    one) keeps one projection tile per thread and fits shared memory."""
-    H, W = 32, 500
-    blocks = list(TE.EfficientNetB2()._blocks) + [TE.MBConvBlock(
-        48, 37, 5, 1, 6, 33, oup_override=203, squeeze_override=9)]
-    for block in blocks:
+def _stride1_shapes(encoder, H=32, W=500):
+    """(spec, H, W, squeeze) of every stride-1 block of an encoder on a
+    10 s log-mel (H mels x W frames at the stem's output)."""
+    out = []
+    for block in encoder._blocks:
         spec = FM.spec_of(block)
         if spec.stride == 2:
             pt, pb, pl_, pr = spec.pad
             H = (H + pt + pb - spec.kernel) // 2 + 1
             W = (W + pl_ + pr - spec.kernel) // 2 + 1
             continue
-        plan = FM.plan_tiles(spec, 64, H, W)
-        assert plan.Ec % 8 == 0 and plan.TH <= H and plan.TW <= W
-        assert -(-spec.out_ch // 8) * -(-plan.TH * plan.TW // 4) <= FM.NT
-        assert plan.smem == FM.tile_smem(spec, H, W, plan.TH, plan.TW,
-                                         plan.Ec) <= FM.SMEM_LIMIT
+        out.append((spec, H, W, block._se_reduce.weight.shape[0]))
+    return out
+
+
+@pytest.fixture(scope="module")
+def encoders():
+    torch.manual_seed(0)
+    full = TE.EfficientNetB2().eval()
+    return {"flagship": full,
+            "pruned_0.3": TE.build_pruned_effb2(full, 0.3, prune_head=False),
+            "pruned_0.5": TE.build_pruned_effb2(full, 0.5, prune_head=False)}
+
+
+def test_plan_tiles_fits_the_kernel(encoders):
+    """Every tile plan of the flagship's stride-1 blocks and of the pruned
+    0.3 / 0.5 encoders (and an odd pruned block) fits the kernel: Ec a
+    multiple of 16 (the mma tile), Eg of Ec, the tile inside the map, 256
+    threads (at most 1024), and the three launches' shared memory within
+    227 KB as the kernel lays it out (the SE block's 1024 threads at
+    least the squeeze width); every depthwise is 3x3 or 5x5."""
+    shapes = [s for enc in encoders.values() for s in _stride1_shapes(enc)]
+    assert len(shapes) == 3 * 19
+    shapes.append((FM.spec_of(TE.MBConvBlock(
+        48, 37, 5, 1, 6, 33, oup_override=203, squeeze_override=9)),
+        7, 125, 9))
+    assert FM.NT <= 1024 and FM.NT % 32 == 0
+    for spec, H, W, squeeze in shapes:
+        for B in (1, 8, 64):
+            assert spec.kernel in (3, 5)
+            plan = FM.plan_tiles(spec, B, H, W)
+            Ho, Wo = FM._out_hw(spec, H, W)
+            assert plan.Ec % 16 == 0 and plan.Eg % plan.Ec == 0
+            assert plan.Ec <= -(-spec.exp_ch // 16) * 16
+            assert 0 < plan.TH <= Ho and 0 < plan.TW <= Wo
+            assert plan.WM in (1, 2, 4)
+            assert plan.smem == FM.tile_smem(spec, H, W, plan.TH, plan.TW,
+                                             plan.Ec) <= FM.SMEM_LIMIT
+            assert plan.proj_smem == FM.project_smem(spec, plan.WM) \
+                <= FM.SMEM_LIMIT
+            assert squeeze <= FM.SE_NT
+            assert FM.se_smem(spec, squeeze) <= FM.SMEM_LIMIT
+
+
+def test_round_tf32_keeps_ten_mantissa_bits():
+    """Round to nearest, ties away from zero, as ``cvt.rna.tf32.f32``."""
+    one_ulp = 2.0 ** -10                          # TF32 spacing at 1.0
+    v = torch.tensor([1.0, 1 + one_ulp / 2, 1 + one_ulp / 2 - 2 ** -20,
+                      -(1 + one_ulp / 2), 3.0e-3, -7.5e5], dtype=torch.float32)
+    got = FM.round_tf32(v)
+    assert got.tolist()[:4] == [1.0, 1 + one_ulp, 1.0, -(1 + one_ulp)]
+    assert not (got.view(torch.int32) & 0x1FFF).any()
+    assert float(((got - v) / v).abs().max()) <= 2.0 ** -11
+    big, small = FM.split_tf32(v)
+    assert float(((big + small - v) / v).abs().max()) <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("index", [0, 1, 3, 6, 9, 12, 13, 17, 21, 22])
+def test_split_tf32_keeps_float32_parity(encoders, index):
+    """Both 1x1 products in the kernel's 3xTF32 split (big = tf32(v), small
+    = tf32(v - big), a_small b_big + a_big b_small + a_big b_big) stay
+    within 1e-5 relative of ``mbconv_plain`` on each distinct stride-1
+    block shape of the flagship (its widths, a small map, BN jittered):
+    the tensor-core route keeps float32 parity with TF32 off."""
+    block = encoders["flagship"]._blocks[index]
+    spec = FM.spec_of(block)
+    assert spec.stride == 1
+    weights = FM.pack_mbconv(block)
+    gen = torch.Generator().manual_seed(index)
+    for name in ("w_exp", "b_exp", "b_dw", "b_proj"):   # jittered BN, folded
+        if name in weights:
+            weights[name] = weights[name] * (
+                1 + 0.2 * torch.randn(weights[name].shape, generator=gen))
+            if name.startswith("b_"):
+                weights[name] = weights[name] + 0.2 * torch.randn(
+                    weights[name].shape, generator=gen)
+    x = torch.randn(2, spec.in_ch, 5, 11, generator=gen)
+    want = FM.mbconv_plain(x, weights, spec)
+    got = FM.mbconv_split_tf32(x, weights, spec)
+    scale = float(want.abs().max())
+    assert got.shape == want.shape and scale > 0.1
+    assert float((got - want).abs().max()) <= 1e-5 * scale
