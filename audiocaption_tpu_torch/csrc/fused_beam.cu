@@ -3,220 +3,211 @@
 // Replaces the TPU kernel audiocaption_tpu/decoding/fused_beam.py
 // (_make_beam_kernel :126-384, launched by _fused_beam_call :387-447).
 //
-// One thread block owns one sample and its K beams (K <= 4) for all
-// max_length steps, so the top-K over [K*V], the parent-beam gather and
-// the done-beam merge never leave the block.  Per step: the decoder
-// layers of decoder_common.cuh on K rows (the memory K/V is stored once
-// per sample and shared by the beams), tied logits, log-softmax, running
-// beam score (only beam 0 competes at t=0), K rounds of block arg-max with
-// the picked entry masked (ties -> lower flat index k*V + w, as lax.top_k),
-// parent gather of the self K/V caches (ping-pong pair in global scratch),
-// of the sequences and of the pad flags, harvest of ended beams with score
-// / (t+1) (every beam is harvested at t=L-1), stable best-K merge of done
-// beams and candidates, -1000 on ended beams.  A sample stops once K beams
-// are done: later steps could not change its result.
+// A cluster of C blocks owns a tile of ns samples with their K beams
+// (R = ns * K rows, K <= 8) for all max_length steps.  Per step: the
+// decoder layers of decoder_common.cuh on the R rows (each sample's memory
+// K/V is read by its beams), then the pick on the split vocabulary:
+//   1. each block computes its slice's logits and, per row, (max, sum of
+//      exp) over the slice, pushed to every block; cluster sync;
+//   2. every block merges them into each row's log-sum-exp (slice order),
+//      scores its candidates (k, w in slice) as log-softmax plus the
+//      running beam score (only beam 0 competes at t=0), takes a local
+//      top-K per sample by (value, flat index k*V + w; ties -> lower flat
+//      index, as lax.top_k) and pushes it to every block; cluster sync;
+//   3. every block merges the C*K candidates per sample in the same order.
+//      The global top-K is a subset of the union of the local ones, so
+//      this is exactly the top-K over [K*V].
+// Then, identically in every block: the parent gather of the sequences,
+// the pad flags and the ancestry table (which beam slot holds each past
+// position's K/V; the caches are never copied), the harvest of ended beams
+// with score / (t+1) (every beam at t=L-1), the stable best-K merge of done
+// beams and candidates, -1000 on ended beams.  A sample's state stops
+// changing once K beams are done; the tile stops when all its samples
+// have.  Samples past B are masked: stopped from the start, never written.
 //
-// What bounds it: as the greedy kernel, every step reads all decoder
-// weights (~12.5 MB float32 at the flagship width) once per block, now
-// applied to K rows, plus the sample's memory K/V and the K cache
-// prefixes; the parent gather copies 2 * nlayers * K * (t+1) * E floats of
-// cache per step.  The weights stay in the 50 MB L2; the unique HBM bytes
-// are about 13 MB at B=64, S=31 (~4 us at 3.35 TB/s), the L2 traffic is
-// B * L * 12.5 MB.  One block per sample keeps the search logic in shared
-// memory with no grid-wide sync; wgmma over many samples per block is the
-// way to fewer L2 bytes per token.
+// What bounds it on an H100 (NVIDIA H100 80GB HBM3, 700 W; beam 3, B=64,
+// S=31, L=20): as the greedy kernel, the products of a step's 13 phases of
+// products and 4 of attention, now on K rows a sample, plus 2 syncs for
+// the pick.  The first design streamed all ~12.4 MB of float32 weights
+// from L2 per sample and step on one block each, and copied the cache
+// prefix at every step: 16.0 ms.  Here 5.4 ms (13 clusters of 8 blocks,
+// 15 rows each); beam 5 and 8 need two waves of clusters at B=64.
 #include "decoder_common.cuh"
 
-#define ACD_NEG (-3.0e38f)  // the TPU kernel's stand-in for float32 min
-
-struct BeamSmem {
-  float* logits;      // [K, V]  logits, then log-probabilities
-  float* red_v;       // [32]
-  int* red_i;         // [32]
-  float* topk_lp;     // [RMAX]  running beam scores
-  float* new_lp;      // [RMAX]
-  float* done_score;  // [RMAX]
-  int* word;          // [RMAX]  fed tokens
-  int* prev_beam;     // [RMAX]
-  int* new_word;      // [RMAX]
-  int* picks;         // [RMAX]  flat indices picked this step
-  int* flags;         // [2]     done_count, stopped
-  int* seq;           // [RMAX, L]
-  int* seq_tmp;       // [RMAX, L]
-  int* done_seq;      // [RMAX, L]
-  unsigned char* valid_tmp;  // [RMAX, L]
-};
-
-__host__ __device__ inline long carve_beam(char* base, BeamSmem* bs, long p,
-                                           int K, int V, int L) {
-  auto take = [&](long n_words) {
-    char* ptr = base + p;
-    p += ((n_words + 3) / 4) * 16;
-    return ptr;
-  };
-  BeamSmem s;
-  s.logits = reinterpret_cast<float*>(take((long)K * V));
-  s.red_v = reinterpret_cast<float*>(take(32));
-  s.red_i = reinterpret_cast<int*>(take(32));
-  s.topk_lp = reinterpret_cast<float*>(take(ACD_RMAX));
-  s.new_lp = reinterpret_cast<float*>(take(ACD_RMAX));
-  s.done_score = reinterpret_cast<float*>(take(ACD_RMAX));
-  s.word = reinterpret_cast<int*>(take(ACD_RMAX));
-  s.prev_beam = reinterpret_cast<int*>(take(ACD_RMAX));
-  s.new_word = reinterpret_cast<int*>(take(ACD_RMAX));
-  s.picks = reinterpret_cast<int*>(take(ACD_RMAX));
-  s.flags = reinterpret_cast<int*>(take(4));
-  s.seq = reinterpret_cast<int*>(take((long)ACD_RMAX * L));
-  s.seq_tmp = reinterpret_cast<int*>(take((long)ACD_RMAX * L));
-  s.done_seq = reinterpret_cast<int*>(take((long)ACD_RMAX * L));
-  s.valid_tmp = reinterpret_cast<unsigned char*>(take(((long)ACD_RMAX * L + 3) / 4));
-  if (bs) *bs = s;
-  return p;
-}
-
-__global__ void __launch_bounds__(ACD_NT)
-fused_beam_kernel(const float* __restrict__ emb, const float* __restrict__ cls,
-                  const float* __restrict__ pe,
-                  const float* __restrict__ layers, const float* memkv,
-                  const unsigned char* mem_valid, float* self_kv,
-                  int* out_seq, float* out_score, int B, int S, int L, int E,
-                  int H, int F, int V, int nlayers, int K, int bos, int eos,
-                  int pad, float sqrt_e) {
+__global__ void __launch_bounds__(ACD_NT, 1) fused_beam_kernel(DecodeArgs a) {
   extern __shared__ __align__(16) char smem_raw[];
+  cg::cluster_group cl = cg::this_cluster();
   Smem sm;
-  BeamSmem bs;
-  const long used = carve_smem(smem_raw, &sm, K, E, F, H, L, S);
-  carve_beam(smem_raw, &bs, used, K, V, L);
+  const long bytes = carve_smem(smem_raw, &sm, a.R, a.E, a.F, a.V, a.L, a.S,
+                                a.C, true);
+  zero_smem(smem_raw, bytes);
+  WStream ws;
 
-  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const LayerOffsets off = layer_offsets(E, F);
-  const long LE = (long)L * E, SE = (long)S * E;
-  // self caches [2 (ping-pong)][nlayers][2][B][K][L][E]
-  const long layer_stride = 2L * B * K * LE;
-  const long pp_stride = (long)nlayers * layer_stride;
-  const float* mem_k = memkv + (long)b * SE;
-  const float* mem_v = memkv + ((long)B + b) * SE;
-  const unsigned char* mvalid = mem_valid + (long)b * S;
+  TileCtx tc;
+  tc.rank = (int)cl.block_rank();
+  tc.C = a.C;
+  tc.R = a.R;
+  tc.Rp = sm.Rp;
+  tc.ns = a.ns;
+  tc.K = a.K;
+  ws_start(gemm_args(a), tc.rank, ws, sm.rings);
+  const int tile = blockIdx.x / a.C;
+  tc.row0 = (long)tile * a.R;
+  tc.sample0 = tile * a.ns;
+  tc.rows_total = (long)a.tiles * a.R;
+  const int R = a.R, L = a.L, K = a.K, V = a.V, ns = a.ns;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tid = threadIdx.x;
 
-  for (int i = tid; i < ACD_RMAX * L; i += nt) {
-    bs.seq[i] = eos;
-    bs.done_seq[i] = eos;
+  for (int i = tid; i < R * L; i += ACD_NT) {
+    sm.seq[i] = a.eos;
+    sm.done_seq[i] = a.eos;
   }
-  if (tid < ACD_RMAX) {
-    bs.word[tid] = bos;
-    bs.topk_lp[tid] = 0.f;
-    bs.done_score[tid] = ACD_NEG;
+  for (int r = tid; r < R; r += ACD_NT) {
+    sm.word[r] = a.bos;
+    sm.topk_lp[r] = 0.f;
+    sm.done_score[r] = ACD_NEG;
   }
-  if (tid == 0) {
-    bs.flags[0] = 0;  // done_count
-    bs.flags[1] = 0;  // stopped
+  for (int s = tid; s < ns; s += ACD_NT) {
+    sm.done_count[s] = 0;
+    sm.stopped[s] = tc.sample0 + s >= a.B;  // masked samples
   }
   __syncthreads();
+  cl.sync();
 
-  int pp = 0;
   for (int t = 0; t < L; ++t) {
-    float* cache = self_kv + pp * pp_stride;
-    float* self_k = cache + (long)b * K * LE;
-    float* self_v = cache + ((long)B + b) * K * LE;
-    if (tid < K) sm.self_valid[tid * L + t] = bs.word[tid] != pad;
-    embed_rows(emb, pe, bs.word, sm.x, K, E, t, sqrt_e);
-    decoder_layers(layers, off, sm, self_k, self_v, layer_stride, LE, mem_k,
-                   mem_v, 2L * B * SE, mvalid, nlayers, t, L, S, K, E, H, F);
+    stamp(a, t, 0);
+    for (int r = tid; r < R; r += ACD_NT) {
+      sm.valid[r * L + t] = sm.word[r] != a.pad;
+      sm.anc[r * L + t] = (unsigned char)(r % K);
+    }
+    embed_rows(a.emb, a.pe, sm.word, sm.x, sm.ldE, R, a.E, t, a.sqrt_e);
+    decoder_layers(a, cl, tc, sm, ws, t);
 
-    // tied logits, then log-softmax per beam row
-    matvec(cls, nullptr, sm.x, E, bs.logits, V, K, V, E, false);
-    for (int r = 0; r < K; ++r) {
-      float* lr = bs.logits + (long)r * V;
+    // 1. the slice's logits; per row (max, sum exp) over the slice
+    int nv;
+    const int v0 = vocab_logits(a, tc, sm, ws, nv);
+    stamp(a, t, 10 * a.nl + 1);
+    for (int r = warp; r < R; r += ACD_NW) {
+      const float* lr = sm.logits + r * sm.ldV;
       float m = -INFINITY;
-      for (int v = tid; v < V; v += nt) m = fmaxf(m, lr[v]);
-      m = block_reduce(m, bs.red_v, true);
-      float s = 0.f;
-      for (int v = tid; v < V; v += nt) s += expf(lr[v] - m);
-      s = block_reduce(s, bs.red_v, false);
-      const float lse = logf(s);
-      for (int v = tid; v < V; v += nt) lr[v] = (lr[v] - m) - lse;
-      __syncthreads();
-    }
-
-    // top-K over the K*V totals; picked entries fall back to ACD_NEG
-    for (int sel = 0; sel < K; ++sel) {
-      float best = -INFINITY;
-      int best_i = 0x7fffffff;
-      for (int f = tid; f < K * V; f += nt) {
-        const int k = f / V;
-        float val = (t == 0 && k > 0) ? ACD_NEG : bs.logits[f] + bs.topk_lp[k];
-        for (int q = 0; q < sel; ++q)
-          if (bs.picks[q] == f) val = ACD_NEG;
-        if (val > best) {
-          best = val;
-          best_i = f;
-        }
+      for (int v = lane; v < nv; v += 32) m = fmaxf(m, lr[v]);
+      m = warp_max(m);
+      double s = 0.0;
+      if (nv > 0)
+        for (int v = lane; v < nv; v += 32) s += expf(lr[v] - m);
+      s = warp_sum_d(s);
+      if (lane == 0) {
+        const long o = ((long)tc.rank * sm.Rp + r) * 2;
+        push_all(cl, sm.xa, o, m, a.C);
+        push_all(cl, sm.xa, o + 1, (float)s, a.C);
       }
-      block_argmax(best, best_i, bs.red_v, bs.red_i);
-      if (best_i >= K * V) best_i = 0;  // all-NaN row: keep indices valid
-      if (tid == 0) {
-        bs.picks[sel] = best_i;
-        bs.new_lp[sel] = best;
-        bs.prev_beam[sel] = best_i / V;
-        bs.new_word[sel] = best_i % V;
-      }
-      __syncthreads();
     }
+    cl.sync();
+    stamp(a, t, 10 * a.nl + 2);
 
-    // parent-beam gather of caches (rows <= t), sequences and pad flags
-    const int pong = 1 - pp;
-    float* dst_cache = self_kv + pong * pp_stride;
-    const long rows = (long)(t + 1) * E;
-    const long n_copy = (long)nlayers * 2 * K * rows;
-    for (long c = tid; c < n_copy; c += nt) {
-      const long within = c % rows;
-      const int kt = (int)((c / rows) % K);
-      const long ikv = c / (rows * K);  // layer * 2 + (0: K, 1: V)
-      const long base = (ikv / 2) * layer_stride +
-                        ((ikv % 2) * B + b) * K * LE;
-      dst_cache[base + kt * LE + within] =
-          cache[base + bs.prev_beam[kt] * LE + within];
-    }
-    for (int c = tid; c < K * L; c += nt) {
-      const int kt = c / L, j = c % L, src = bs.prev_beam[kt];
-      bs.seq_tmp[c] = j < t ? bs.seq[src * L + j]
-                            : (j == t ? bs.new_word[kt] : eos);
-      bs.valid_tmp[c] = j <= t ? sm.self_valid[src * L + j] : 1;
+    // 2. log-sum-exp per row, then the slice's top-K per sample
+    for (int r = tid; r < R; r += ACD_NT) {
+      float m = -INFINITY;
+      for (int c = 0; c < a.C; ++c) m = fmaxf(m, sm.xa[((long)c * sm.Rp + r) * 2]);
+      double s = 0.0;
+      for (int c = 0; c < a.C; ++c) {
+        const float* p = sm.xa + ((long)c * sm.Rp + r) * 2;
+        if (p[1] > 0.f) s += (double)p[1] * exp((double)p[0] - m);
+      }
+      sm.row_m[r] = m;
+      sm.row_l[r] = (float)log(s);
     }
     __syncthreads();
-    for (int c = tid; c < K * L; c += nt) {
-      bs.seq[c] = bs.seq_tmp[c];
-      sm.self_valid[c] = bs.valid_tmp[c];
+    for (int s = warp; s < ns; s += ACD_NW) {
+      float lv[ACD_KMAX];
+      int li[ACD_KMAX];
+#pragma unroll
+      for (int i = 0; i < ACD_KMAX; ++i) {
+        lv[i] = -INFINITY;
+        li[i] = 0x7fffffff;
+      }
+      for (int i = lane; i < K * nv; i += 32) {
+        const int k = i / nv, w = i - k * nv, r = s * K + k;
+        const float val =
+            (t == 0 && k > 0)
+                ? ACD_NEG
+                : ((sm.logits[r * sm.ldV + w] - sm.row_m[r]) - sm.row_l[r]) +
+                      sm.topk_lp[r];
+        topk_insert(lv, li, val, k * V + v0 + w);
+      }
+      warp_merge_lists(lv, li, K, [&](int sel, float v, int f) {
+        const long o = (((long)tc.rank * ns + s) * K + sel) * 2;
+        push_all(cl, sm.xb, o, v, a.C);
+        push_all(cl, sm.xb, o + 1, __int_as_float(f), a.C);
+      });
     }
-    pp = pong;
+    cl.sync();
+    stamp(a, t, 10 * a.nl + 3);
+
+    // 3. merge the C local top-K lists per sample
+    for (int s = warp; s < ns; s += ACD_NW) {
+      float lv[ACD_KMAX];
+      int li[ACD_KMAX];
+#pragma unroll
+      for (int i = 0; i < ACD_KMAX; ++i) {
+        const bool have = lane < a.C && i < K;
+        const float* p = sm.xb + (((long)lane * ns + s) * K + i) * 2;
+        lv[i] = have ? p[0] : -INFINITY;
+        li[i] = have ? __float_as_int(p[1]) : 0x7fffffff;
+      }
+      warp_merge_lists(lv, li, K, [&](int sel, float v, int f) {
+        if (f < 0 || f >= K * V) f = 0;  // all-NaN row: keep indices valid
+        sm.new_lp[s * K + sel] = v;
+        sm.prev_beam[s * K + sel] = f / V;
+        sm.new_word[s * K + sel] = f % V;
+      });
+    }
+    __syncthreads();
+
+    // parent gather of sequences, pad flags and ancestry (positions <= t)
+    for (int c = tid; c < R * L; c += ACD_NT) {
+      const int r = c / L, j = c - r * L;
+      const int src = (r / K) * K + sm.prev_beam[r];
+      sm.seq_tmp[c] = j < t ? sm.seq[src * L + j] : (j == t ? sm.new_word[r] : a.eos);
+      sm.valid_tmp[c] = j <= t ? sm.valid[src * L + j] : 1;
+      sm.anc_tmp[c] = j <= t ? sm.anc[src * L + j] : 0;
+    }
+    __syncthreads();
+    for (int c = tid; c < R * L; c += ACD_NT) {
+      sm.seq[c] = sm.seq_tmp[c];
+      sm.valid[c] = sm.valid_tmp[c];
+      sm.anc[c] = sm.anc_tmp[c];
+    }
     __syncthreads();
 
     // harvest ended beams and merge them into the K best done beams
-    if (tid == 0) {
+    for (int s = tid; s < ns; s += ACD_NT) {
+      const int o = s * K;
       const bool last = t == L - 1;
       const float inv_len = 1.0f / (float)(t + 1);
-      const bool stopped = bs.flags[1] != 0;
-      float srcs[2 * ACD_RMAX];
-      bool is_end[ACD_RMAX], chosen[2 * ACD_RMAX];
+      const bool stopped = sm.stopped[s] != 0;
+      float srcs[2 * ACD_KMAX];
+      bool is_end[ACD_KMAX], chosen[2 * ACD_KMAX];
       int n_harvest = 0;
       for (int k = 0; k < K; ++k) {
-        is_end[k] = bs.new_word[k] == eos || last;
+        is_end[k] = sm.new_word[o + k] == a.eos || last;
         const bool hv = is_end[k] && !stopped;
-        srcs[k] = bs.done_score[k];
-        srcs[K + k] = hv ? bs.new_lp[k] * inv_len : ACD_NEG;
+        srcs[k] = sm.done_score[o + k];
+        srcs[K + k] = hv ? sm.new_lp[o + k] * inv_len : ACD_NEG;
         n_harvest += srcs[K + k] > ACD_NEG / 2 ? 1 : 0;
       }
-      for (int s = 0; s < 2 * K; ++s) chosen[s] = false;
-      int slot_src[ACD_RMAX];
-      float slot_score[ACD_RMAX];
+      for (int q = 0; q < 2 * K; ++q) chosen[q] = false;
+      int slot_src[ACD_KMAX];
+      float slot_score[ACD_KMAX];
       for (int slot = 0; slot < K; ++slot) {
         float best = ACD_NEG;
         int best_src = 0;
-        for (int s = 0; s < 2 * K; ++s) {
-          const float c = chosen[s] ? ACD_NEG : srcs[s];
+        for (int q = 0; q < 2 * K; ++q) {
+          const float c = chosen[q] ? ACD_NEG : srcs[q];
           if (c > best) {
             best = c;
-            best_src = s;
+            best_src = q;
           }
         }
         slot_src[slot] = best_src;
@@ -224,49 +215,52 @@ fused_beam_kernel(const float* __restrict__ emb, const float* __restrict__ cls,
         chosen[best_src] = true;
       }
       for (int slot = 0; slot < K; ++slot) {
-        const int s = slot_src[slot];
-        const int* from = s < K ? bs.done_seq + s * L : bs.seq + (s - K) * L;
-        for (int j = 0; j < L; ++j) bs.seq_tmp[slot * L + j] = from[j];
+        const int q = slot_src[slot];
+        const int* from = q < K ? sm.done_seq + (o + q) * L
+                                : sm.seq + (o + q - K) * L;
+        for (int j = 0; j < L; ++j) sm.seq_tmp[(o + slot) * L + j] = from[j];
       }
-      for (int i = 0; i < K * L; ++i) bs.done_seq[i] = bs.seq_tmp[i];
-      for (int slot = 0; slot < K; ++slot) bs.done_score[slot] = slot_score[slot];
-      bs.flags[0] += n_harvest;
-      if (bs.flags[0] >= K) bs.flags[1] = 1;
+      for (int i = 0; i < K * L; ++i) sm.done_seq[o * L + i] = sm.seq_tmp[o * L + i];
+      for (int slot = 0; slot < K; ++slot) sm.done_score[o + slot] = slot_score[slot];
+      sm.done_count[s] += n_harvest;
+      if (sm.done_count[s] >= K) sm.stopped[s] = 1;
       for (int k = 0; k < K; ++k) {
-        bs.word[k] = bs.new_word[k];
-        bs.topk_lp[k] = is_end[k] ? bs.new_lp[k] - 1000.0f : bs.new_lp[k];
+        sm.word[o + k] = sm.new_word[o + k];
+        sm.topk_lp[o + k] =
+            is_end[k] ? sm.new_lp[o + k] - 1000.0f : sm.new_lp[o + k];
       }
     }
-    __syncthreads();
-    if (bs.flags[1]) break;
+    stamp(a, t, 10 * a.nl + 4);
+    int alive = 0;
+    for (int s = tid; s < ns; s += ACD_NT) alive |= !sm.stopped[s];
+    if (__syncthreads_or(alive) == 0) break;
   }
 
-  for (int i = tid; i < K * L; i += nt)
-    out_seq[(long)b * K * L + i] = bs.done_seq[i];
-  if (tid < K) out_score[(long)b * K + tid] = bs.done_score[tid];
+  if (tc.rank == 0) {
+    for (int i = tid; i < R * L; i += ACD_NT) {
+      const int b = tc.sample0 + i / (K * L);
+      if (b < a.B) a.out_seq[(long)tc.sample0 * K * L + i] = sm.done_seq[i];
+    }
+    for (int r = tid; r < R; r += ACD_NT) {
+      const int b = tc.sample0 + r / K;
+      if (b < a.B) a.out_score[(long)tc.sample0 * K + r] = sm.done_score[r];
+    }
+  }
+  // no block may leave while a peer could still write into its memory,
+  // nor with its own weight copies in flight
+  asm volatile("cp.async.wait_all;\n" ::);
+  cl.sync();
 }
 
-extern "C" int fused_beam_launch(const float* emb, const float* cls,
-                                 const float* pe, const float* layers,
-                                 const float* memkv,
-                                 const unsigned char* mem_valid,
-                                 float* self_kv, int* out_seq,
-                                 float* out_score, int B, int S, int L, int E,
-                                 int H, int F, int V, int nlayers, int K,
-                                 int bos, int eos, int pad, float sqrt_e,
-                                 void* stream) {
-  if (K < 1 || K > ACD_RMAX) return (int)cudaErrorInvalidValue;
-  const long smem = carve_beam(nullptr, nullptr,
-                               carve_smem(nullptr, nullptr, K, E, F, H, L, S),
-                               K, V, L);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_beam_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  fused_beam_kernel<<<B, ACD_NT, smem, (cudaStream_t)stream>>>(
-      emb, cls, pe, layers, memkv, mem_valid, self_kv, out_seq, out_score, B,
-      S, L, E, H, F, V, nlayers, K, bos, eos, pad, sqrt_e);
-  return (int)cudaGetLastError();
+extern "C" int fused_beam_launch(const DecodeArgs* a, void* stream) {
+  return launch_clusters(fused_beam_kernel, *a, decode_smem_bytes(*a, true),
+                         (cudaStream_t)stream);
+}
+
+extern "C" long fused_beam_smem(const DecodeArgs* a) {
+  return decode_smem_bytes(*a, true);
+}
+
+extern "C" int fused_beam_max_clusters(int C, long smem) {
+  return max_active_clusters(fused_beam_kernel, C, smem);
 }

@@ -3,107 +3,197 @@
 // Replaces the TPU kernel audiocaption_tpu/decoding/fused_greedy.py
 // (_make_kernel :209-310, launched by _fused_decode_call :313-359).
 //
-// One thread block decodes one row (sample) for all max_length steps:
-// embedding * sqrt(E) + PE, then per layer self attention over the row's
-// KV cache (positions <= t, pad tokens masked), cross attention over the
-// precomputed memory K/V (memory mask), ReLU FFN and three post-LNs
-// (eps 1e-5), then tied vocabulary logits and arg-max (ties -> lower id).
-// Finished rows emit <eos>; a row stops early once it has emitted <eos>,
-// since every later output is <eos> by definition.
+// A cluster of C blocks decodes a tile of R samples for all max_length
+// steps (decoder_common.cuh): embedding * sqrt(E) + PE, then per layer self
+// attention over the row's KV cache (positions <= t, pad tokens masked),
+// cross attention over the precomputed memory K/V (memory mask), ReLU FFN
+// and three post-LNs (eps 1e-5), then tied vocabulary logits and arg-max.
+// The pick is split with the vocabulary: each block takes the arg-max of
+// its slice (ties -> lower id), pushes (value, id) per row to every block,
+// and after one cluster sync every block merges the C partials in slice
+// order, so every block feeds the same token.  Finished rows emit <eos>;
+// the tile stops once all its rows have emitted <eos>, since every later
+// output is <eos> by definition.  Rows past B (a tile that does not fill)
+// are masked: finished from the start, never written.
 //
-// What bounds it: every step of every row reads all decoder weights
-// (~12.5 MB in float32 at E=256, FFN 1024, V=4981, 2 layers: 3.7 MB per
-// layer + 5.1 MB vocabulary), its memory K/V (2 * S * E floats per layer)
-// and its cache prefix.  The weights fit the 50 MB L2, so after the first
-// touch the blocks stream them from L2, not HBM: the unique HBM bytes are
-// the weights once plus the memory K/V, about 13 MB at B=64, S=31
-// (~4 us at 3.35 TB/s); the L2 traffic is B * L * 12.5 MB.  With one block
-// per row the kernel is latency- and L2-bound; rows-per-block batching
-// that reuses each weight load across rows (and wgmma) is the way down.
+// What bounds it on an H100 (NVIDIA H100 80GB HBM3, 700 W; B=64, S=31,
+// L=20, flagship width): the work is ~8.0 GFLOP of products and 12.4 MB of
+// float32 weights a step, a 0.12 ms bound at the float32 peak.  The first
+// design gave one block one sample and streamed all weights from L2 every
+// step for one row: 8.1 ms.  Here a cluster of C blocks shares each
+// weight matrix by output columns and applies each weight tile to its R
+// rows (decoder_common.cuh), 3.1 ms: a step is 17 serial phases of ~1 to
+// ~29 us.  The cluster syncs themselves cost ~0.5 us (1 us with a 1 KB
+// exchange); the products take ~72% of a step and attention ~24%.  The
+// products run on the FP64 tensor cores, for float32 parity, and are
+// bound by the FP64 pipe (the float32 -> float64 conversions of each tile
+// and the m8n8k4 products), not by L2: neither a deeper weight ring nor
+// skipping its waits moved them.
 #include "decoder_common.cuh"
 
-__global__ void __launch_bounds__(ACD_NT)
-fused_greedy_kernel(const float* __restrict__ emb, const float* __restrict__ cls,
-                    const float* __restrict__ pe,
-                    const float* __restrict__ layers, const float* memkv,
-                    const unsigned char* mem_valid, float* self_kv, int* out,
-                    int B, int S, int L, int E, int H, int F, int V,
-                    int nlayers, int bos, int eos, int pad, float sqrt_e) {
+__global__ void __launch_bounds__(ACD_NT, 1) fused_greedy_kernel(DecodeArgs a) {
   extern __shared__ __align__(16) char smem_raw[];
+  cg::cluster_group cl = cg::this_cluster();
   Smem sm;
-  const long used = carve_smem(smem_raw, &sm, 1, E, F, H, L, S);
-  float* red_v = reinterpret_cast<float*>(smem_raw + used);
-  int* red_i = reinterpret_cast<int*>(red_v + 32);
-  int* word = red_i + 32;
+  const long bytes = carve_smem(smem_raw, &sm, a.R, a.E, a.F, a.V, a.L, a.S,
+                                a.C, false);
+  zero_smem(smem_raw, bytes);
+  WStream ws;
 
-  const int b = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  const LayerOffsets off = layer_offsets(E, F);
-  const long LE = (long)L * E, SE = (long)S * E;
-  // self caches [nlayers][2][B][L][E]; memory K/V [nlayers][2][B][S][E]
-  float* self_k = self_kv + (long)b * LE;
-  float* self_v = self_kv + ((long)B + b) * LE;
-  const float* mem_k = memkv + (long)b * SE;
-  const float* mem_v = memkv + ((long)B + b) * SE;
+  TileCtx tc;
+  tc.rank = (int)cl.block_rank();
+  tc.C = a.C;
+  tc.R = a.R;
+  tc.Rp = sm.Rp;
+  tc.ns = a.ns;
+  tc.K = 1;
+  ws_start(gemm_args(a), tc.rank, ws, sm.rings);
+  const int tile = blockIdx.x / a.C;
+  tc.row0 = (long)tile * a.R;
+  tc.sample0 = tile * a.ns;
+  tc.rows_total = (long)a.tiles * a.R;
+  const int R = a.R, L = a.L;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool writer = tc.rank == 0;
 
-  if (threadIdx.x == 0) word[0] = bos;
+  for (int r = threadIdx.x; r < R; r += ACD_NT) {
+    sm.word[r] = a.bos;
+    sm.flag[r] = tc.sample0 + r >= a.B;  // masked rows count as finished
+  }
   __syncthreads();
+  cl.sync();
+
   int t = 0;
   for (; t < L; ++t) {
-    if (threadIdx.x == 0) sm.self_valid[t] = word[0] != pad;
-    embed_rows(emb, pe, word, sm.x, 1, E, t, sqrt_e);
-    decoder_layers(layers, off, sm, self_k, self_v, 2L * B * LE, 0, mem_k,
-                   mem_v, 2L * B * SE, mem_valid + (long)b * S, nlayers, t, L,
-                   S, 1, E, H, F);
-    // tied logits and arg-max: one warp per vocabulary row, ascending ids
-    float best = -INFINITY;
-    int best_i = 0x7fffffff;
-    for (int v = warp; v < V; v += nw) {
-      const float* wr = cls + (long)v * E;
-      float s = 0.f;
-      for (int i = lane * 4; i < E; i += 128) {
-        const float4 wv = __ldg(reinterpret_cast<const float4*>(wr + i));
-        const float4 xv = *reinterpret_cast<const float4*>(sm.x + i);
-        s += wv.x * xv.x + wv.y * xv.y + wv.z * xv.z + wv.w * xv.w;
+    stamp(a, t, 0);
+    for (int r = threadIdx.x; r < R; r += ACD_NT) {
+      sm.valid[r * L + t] = sm.word[r] != a.pad;
+      sm.anc[r * L + t] = 0;
+    }
+    embed_rows(a.emb, a.pe, sm.word, sm.x, sm.ldE, R, a.E, t, a.sqrt_e);
+    decoder_layers(a, cl, tc, sm, ws, t);
+
+    // the slice's logits, a warp a row for its arg-max, partials to all
+    int nv;
+    const int v0 = vocab_logits(a, tc, sm, ws, nv);
+    stamp(a, t, 10 * a.nl + 1);
+    for (int r = warp; r < R; r += ACD_NW) {
+      float best = -INFINITY;
+      int best_i = 0x7fffffff;
+      const float* lr = sm.logits + r * sm.ldV;
+      for (int v = lane; v < nv; v += 32) {
+        if (lr[v] > best) {
+          best = lr[v];
+          best_i = v0 + v;
+        }
       }
-      s = warp_sum(s);
-      if (s > best) {
-        best = s;
-        best_i = v;
+      warp_argmax(best, best_i);
+      if (lane == 0) {
+        const long o = ((long)tc.rank * sm.Rp + r) * 2;
+        push_all(cl, sm.xa, o, best, a.C);
+        push_all(cl, sm.xa, o + 1, __int_as_float(best_i), a.C);
       }
     }
-    block_argmax(best, best_i, red_v, red_i);
-    const int new_word = best_i < V ? best_i : 0;
-    if (threadIdx.x == 0) {
-      out[(long)b * L + t] = new_word;
-      word[0] = new_word;
+    cl.sync();
+    stamp(a, t, 10 * a.nl + 2);
+
+    // merge the slices in order; the same in every block
+    int alive = 0;
+    for (int r = threadIdx.x; r < R; r += ACD_NT) {
+      float best = -INFINITY;
+      int best_i = 0x7fffffff;
+      for (int c = 0; c < a.C; ++c) {
+        const float* p = sm.xa + ((long)c * sm.Rp + r) * 2;
+        argmax_merge(best, best_i, p[0], __float_as_int(p[1]));
+      }
+      const int new_word = best_i < a.V ? best_i : 0;
+      const int out_word = sm.flag[r] ? a.eos : new_word;
+      if (new_word == a.eos) sm.flag[r] = 1;
+      sm.word[r] = out_word;
+      if (writer && tc.sample0 + r < a.B)
+        a.out_seq[(long)(tc.sample0 + r) * L + t] = out_word;
+      alive |= !sm.flag[r];
     }
-    __syncthreads();
-    if (new_word == eos) break;
+    stamp(a, t, 10 * a.nl + 3);
+    if (__syncthreads_or(alive) == 0) break;
   }
-  for (int u = t + 1 + threadIdx.x; u < L; u += blockDim.x)
-    out[(long)b * L + u] = eos;
+  if (writer) {
+    for (int i = threadIdx.x; i < R * L; i += ACD_NT) {
+      const int r = i / L, u = i - r * L;
+      if (u > t && tc.sample0 + r < a.B)
+        a.out_seq[(long)(tc.sample0 + r) * L + u] = a.eos;
+    }
+  }
+  // no block may leave while a peer could still write into its memory,
+  // nor with its own weight copies in flight
+  asm volatile("cp.async.wait_all;\n" ::);
+  cl.sync();
 }
 
-extern "C" int fused_greedy_launch(const float* emb, const float* cls,
-                                   const float* pe, const float* layers,
-                                   const float* memkv,
-                                   const unsigned char* mem_valid,
-                                   float* self_kv, int* out, int B, int S,
-                                   int L, int E, int H, int F, int V,
-                                   int nlayers, int bos, int eos, int pad,
-                                   float sqrt_e, void* stream) {
-  const long smem = carve_smem(nullptr, nullptr, 1, E, F, H, L, S) +
-                    (32 + 32 + 4) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_greedy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+extern "C" int fused_greedy_launch(const DecodeArgs* a, void* stream) {
+  return launch_clusters(fused_greedy_kernel, *a, decode_smem_bytes(*a, false),
+                         (cudaStream_t)stream);
+}
+
+extern "C" long fused_greedy_smem(const DecodeArgs* a) {
+  return decode_smem_bytes(*a, false);
+}
+
+extern "C" int fused_greedy_max_clusters(int C, long smem) {
+  return max_active_clusters(fused_greedy_kernel, C, smem);
+}
+
+// Sync probe: one cluster of C blocks runs `iters` rounds of (each block
+// writes n4 float4 values into every other block's shared memory, then one
+// cluster sync); out[0] gets the mean round in ns (block 0's global timer).
+// What one exchange-and-sync of the decode kernels costs at least.
+__global__ void __launch_bounds__(ACD_NT, 1)
+cluster_sync_probe_kernel(int iters, int n4, long long* out) {
+  extern __shared__ __align__(16) float4 probe_buf[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  cl.sync();
+  unsigned long long t0, t1;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+  for (int it = 0; it < iters; ++it) {
+    for (int i = threadIdx.x; i < n4 * (C - 1); i += ACD_NT) {
+      const int qi = i / n4, e = i - qi * n4;
+      const int q = qi + (qi >= rank ? 1 : 0);
+      cl.map_shared_rank(probe_buf, q)[rank * n4 + e] =
+          make_float4((float)it, 0.f, 0.f, 0.f);
+    }
+    cl.sync();
+  }
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t1));
+  if (rank == 0 && threadIdx.x == 0) out[0] = (long long)(t1 - t0) / iters;
+}
+
+extern "C" int fused_greedy_sync_probe(int C, int iters, int n4,
+                                       long long* out, void* stream) {
+  const long smem = 16L * (n4 > 0 ? n4 : 1) * ACD_CMAX;
+  cudaError_t err;
+  if (C > 8) {
+    err = cudaFuncSetAttribute(cluster_sync_probe_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
   }
-  fused_greedy_kernel<<<B, ACD_NT, smem, (cudaStream_t)stream>>>(
-      emb, cls, pe, layers, memkv, mem_valid, self_kv, out, B, S, L, E, H, F,
-      V, nlayers, bos, eos, pad, sqrt_e);
+  err = cudaFuncSetAttribute(cluster_sync_probe_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, 1, 1);
+  cfg.blockDim = dim3(ACD_NT, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, cluster_sync_probe_kernel, iters, n4, out);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

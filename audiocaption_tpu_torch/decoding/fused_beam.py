@@ -5,15 +5,17 @@ Replaces the TPU kernel ``audiocaption_tpu/decoding/fused_beam.py``
 (``_make_beam_kernel`` :126-384, launched by ``_fused_beam_call``
 :387-447; host side ``FusedBeamDecoder`` :450-622).
 
-What bounds it on an H100: as the greedy kernel, every step reads all
-decoder weights (~12.5 MB float32 at the flagship width) per sample, now
-applied to the K beam rows at once, plus the sample's memory K/V (stored
-once and shared by its beams) and its K cache prefixes; the parent-beam
-gather copies 2 * nlayers * K * (t+1) * E cache floats per step.  Unique
-device-memory bytes per call are ~13 MB at B=64, S=31 (about 4 us at
-3.35 TB/s); the weights stay in the 50 MB L2 and are streamed from there
-B * L times.  One block per sample keeps the top-K over [K*V], the gather
-and the done-beam merge inside one block with no grid-wide sync.
+What bounds it on an H100: as the greedy kernel, the layer products, now
+on K rows a sample.  The first design gave one block a sample (K <= 4),
+streamed all ~12.4 MB of float32 weights from L2 per sample and step, and
+copied the cache prefix at every step (16.0 ms for beam 3 at B=64).  The
+kernel now runs on thread block clusters that split the weights by output
+columns (``fused_greedy.plan_clusters``; a tile holds whole samples with
+all K <= 8 beams), picks on the split vocabulary (per-slice log-sum-exp
+partials, local top-K, one merge: :func:`beam_pick_split` is the same in
+plain PyTorch) and follows each beam's history through an ancestry table
+instead of copying caches.  A step is 18 serial phases with a cluster
+sync each; beam 3 takes 5.4 ms at B=64 on the card (PERF.md).
 
 Semantics (temp 1): log-softmax plus running beam score; only beam 0
 competes at t=0; top-K over [K*V] with ties to the lower flat index
@@ -26,21 +28,19 @@ scores [B, K] float32.
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from audiocaption_tpu_torch import cuda_build
 from audiocaption_tpu_torch.decoding.fused_greedy import (
-    PackedDecoder, _ptr, check_inputs, decoder_rows_plain, memory_kv,
-    pack_decoder_weights)
+    PackedDecoder, check_inputs, decoder_rows_plain, launch_decode,
+    memory_kv, pack_decoder_weights, vocab_slices)
 from audiocaption_tpu_torch.device import DeviceLike, resolve_device
 
 NEG = -3.0e38        # the TPU kernel's stand-in for float32's lowest value
-MAX_BEAMS = 4        # ACD_RMAX in csrc/decoder_common.cuh
+MAX_BEAMS = 8        # ACD_KMAX in csrc/decoder_common.cuh; the TPU kernel's K8
 
 
 @torch.no_grad()
@@ -134,9 +134,58 @@ def fused_beam_plain(packed: PackedDecoder, memkv: torch.Tensor,
     return done_seq.to(torch.int32), done_score
 
 
-_SIGNATURES = {"fused_beam_launch": (
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
-    + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int)}
+def beam_totals(logits: torch.Tensor, topk_lp: torch.Tensor, t: int,
+                C: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The beam kernel's candidate scores, from its split log-sum-exp.
+    logits [ns, K, V], running scores topk_lp [ns, K] -> (lse [ns, K],
+    total [ns, K, V]).  Each of the C vocabulary slices gives per row
+    (max, sum exp(l - max)); the merge takes m = max and s = sum_c s_c
+    exp(m_c - m) in slice order, lse = m + log s; a candidate scores
+    ((l - m) - log s) + topk_lp, and only beam 0 competes at t=0."""
+    slices = [(a, b) for a, b in vocab_slices(logits.shape[-1], C) if b > a]
+    m_c = [logits[..., a:b].amax(-1) for a, b in slices]
+    s_c = [torch.exp(logits[..., a:b] - m[..., None]).sum(-1)
+           for (a, b), m in zip(slices, m_c)]
+    m = torch.stack(m_c).amax(0)
+    s = torch.zeros_like(m)
+    for mc, sc in zip(m_c, s_c):
+        s = s + sc * torch.exp(mc - m)
+    log_s = torch.log(s)
+    total = ((logits - m[..., None]) - log_s[..., None]) + topk_lp[..., None]
+    if t == 0:
+        total[:, 1:] = NEG
+    return m + log_s, total
+
+
+def _best_k(v: torch.Tensor, f: torch.Tensor, K: int):
+    """The K best of each row by value, ties to the lower flat index."""
+    order = torch.argsort(f, dim=-1, stable=True)
+    v, f = v.gather(1, order), f.gather(1, order)
+    top = torch.sort(v, dim=-1, descending=True, stable=True).indices[:, :K]
+    return v.gather(1, top), f.gather(1, top)
+
+
+def beam_pick_split(logits: torch.Tensor, topk_lp: torch.Tensor, t: int,
+                    C: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """The beam kernel's pick in plain PyTorch, on the vocabulary split
+    over a cluster of C blocks: :func:`beam_totals`, then each slice's K
+    best candidates by (value, then lower flat index k*V + w), then the
+    C*K survivors merged in the same order, which is the global top-K.
+    -> (lse [ns, K], values [ns, K], flat indices [ns, K])."""
+    ns, K, V = logits.shape
+    lse, total = beam_totals(logits, topk_lp, t, C)
+    flat = (torch.arange(K, device=logits.device)[:, None] * V
+            + torch.arange(V, device=logits.device)[None])      # [K, V]
+    cand_v, cand_f = [], []
+    for a, b in vocab_slices(V, C):
+        if b > a:
+            v, f = _best_k(total[..., a:b].reshape(ns, -1),
+                           flat[:, a:b].reshape(-1).expand(ns, -1), K)
+            cand_v.append(v)
+            cand_f.append(f)
+    v, f = _best_k(torch.cat(cand_v, 1), torch.cat(cand_f, 1), K)
+    return lse, v, f
 
 
 def fused_beam_decode(packed: PackedDecoder, memkv: torch.Tensor,
@@ -145,7 +194,7 @@ def fused_beam_decode(packed: PackedDecoder, memkv: torch.Tensor,
                       pad: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam search of every sample -> (seq [B, K, L] int32, score [B, K]).
     CUDA tensors launch ``csrc/fused_beam.cu``; CPU tensors run
-    :func:`fused_beam_plain`."""
+    :func:`fused_beam_plain`.  K <= 8 on both, as the TPU kernel."""
     check_inputs(packed, memkv, mem_valid, max_length)
     if not 1 <= beam_size <= MAX_BEAMS or beam_size > packed.vocab_size:
         raise ValueError(f"beam_size must be in [1, {MAX_BEAMS}]")
@@ -154,25 +203,18 @@ def fused_beam_decode(packed: PackedDecoder, memkv: torch.Tensor,
                                 beam_size, bos, eos, pad)
     if memkv.device.type != "cuda":
         raise ValueError(f"unsupported device {memkv.device}")
-    nl, _, B, S, E = memkv.shape
-    K, L = beam_size, max_length
-    fn = cuda_build.load("fused_beam", _SIGNATURES).fused_beam_launch
-    dev = memkv.device
-    seq = torch.empty(B, K, L, dtype=torch.int32, device=dev)
-    score = torch.empty(B, K, dtype=torch.float32, device=dev)
-    self_kv = torch.empty(2 * nl * 2 * B * K * L * E, dtype=torch.float32,
-                          device=dev)
-    err = fn(_ptr(packed.emb), _ptr(packed.cls), _ptr(packed.pe),
-             _ptr(packed.layers), _ptr(memkv), _ptr(mem_valid), _ptr(self_kv),
-             _ptr(seq), _ptr(score), B, S, L, E, packed.nhead, packed.ffn,
-             packed.vocab_size, nl, K, bos, eos, pad, math.sqrt(E),
-             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    cuda_build.check(err, "fused_beam")
+    B, K, L = memkv.shape[2], beam_size, max_length
+    seq = torch.empty(B, K, L, dtype=torch.int32, device=memkv.device)
+    score = torch.empty(B, K, dtype=torch.float32, device=memkv.device)
+    fused_beam_decode.last_plan = launch_decode(
+        "fused_beam", packed, memkv, mem_valid, L, K, seq, score, bos, eos,
+        pad)
     fused_beam_decode.launches += 1
     return seq, score
 
 
 fused_beam_decode.launches = 0
+fused_beam_decode.last_plan = None
 
 
 class FusedBeamDecoder:

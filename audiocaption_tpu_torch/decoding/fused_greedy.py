@@ -6,16 +6,20 @@ Replaces the TPU kernel ``audiocaption_tpu/decoding/fused_greedy.py``
 host side ``pack_decoder_weights`` :113-171, ``FusedGreedyDecoder``
 :362-530).
 
-What bounds it on an H100: every step of every row reads all decoder
-weights, about 12.5 MB in float32 at the flagship width (E=256, FFN
-1024, V=4981, 2 layers), plus the row's memory K/V (2 * S * E floats per
-layer) and its cache prefix.  Unique device-memory bytes per call are the
-weights once plus the memory K/V, ~13 MB at B=64, S=31: about 4 us at
-3.35 TB/s.  The weights fit the 50 MB L2, so the kernel streams them from
-L2 B * L times; with one block per row it is bound by L2 bandwidth and
-latency, far above that floor.  One block per row needs no grid-wide
-synchronisation and keeps the hidden state in shared memory; reusing each
-weight load across many rows per block (and ``wgmma``) is the way down.
+What bounds it on an H100: a step of one row needs ~3.2 M multiply-adds
+against ~12.4 MB of float32 decoder weights at the flagship width (E=256,
+FFN 1024, V=4981, 2 layers).  The first design gave one block one row and
+streamed all 12.4 MB from L2 every step (8.1 ms at B=64, L=20).  The
+kernel now splits every weight matrix across a thread block cluster of C
+blocks (8 or 16) by output columns and gives the cluster a tile of R rows
+(:func:`plan_clusters`): each block streams 1/C of the weights a step and
+applies each tile of them to R rows on the FP64 tensor cores (exact
+products, float64 sums: float32 parity).  The weights are packed once in
+mma fragment order (:func:`kernel_weights`).  On the card this takes
+3.1 ms at B=64: a step is 17 serial phases, ~72% of their time in the
+products (bound by the FP64 pipe, not by L2) and ~24% in attention; a
+cluster sync costs ~0.5 us (PERF.md; :func:`trace_phases` and
+:func:`cluster_sync_ns` measure both).
 
 The TPU kernel's lane-padded heads (HPAD=128) and VMEM chunking are TPU
 constraints and are not copied: the layout here is unpadded, the
@@ -25,9 +29,10 @@ the query weights.
 ``fused_greedy_decode`` launches the kernel for CUDA tensors and runs
 ``fused_greedy_plain`` (same inputs, same outputs, vectorised over rows)
 only for CPU tensors.  Semantics: greedy over max_length steps; a row
-emits <eos> at every step after its first <eos> (the kernel stops that
-row there); arg-max ties go to the lower id; masked attention scores are
--1e30.
+emits <eos> at every step after its first <eos> (the kernel stops a tile
+once all its rows have); arg-max ties go to the lower id; masked attention
+scores are -1e30.  :func:`greedy_pick_split` is the kernel's split pick
+(arg-max per vocabulary slice, then the merge) in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -57,6 +62,9 @@ class PackedDecoder:
     layers: torch.Tensor
     nhead: int
     ffn: int
+    # the kernels' fragment-packed weights, made at first launch
+    frag: Optional[torch.Tensor] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def emb_dim(self) -> int:
@@ -244,13 +252,273 @@ def check_inputs(packed: PackedDecoder, memkv: torch.Tensor,
         raise ValueError("the kernels need contiguous tensors")
 
 
-def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(x.data_ptr())
+# ------------------------------------------------- the kernels' layout --
+
+NT = 256             # threads per block (ACD_NT in csrc/decoder_common.cuh)
+NW = NT // 32
+CMAX = 16            # most blocks in a cluster (ACD_CMAX)
+RMAX = 32            # most rows in a tile (ACD_RMAX: 4 mma N tiles)
+CLUSTERS = (16, 8)   # cluster sizes the planner tries
+PHASES = 32          # trace slots a step (ACD_PHASES)
+STAGES = 8           # weight tiles in flight a warp (ACD_STAGES)
+SMEM_LIMIT = 232448  # shared memory a block can use on sm_90
 
 
-_SIGNATURES = {"fused_greedy_launch": (
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
-    + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int)}
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def frag_pack(w: torch.Tensor) -> torch.Tensor:
+    """[N, K] -> the kernels' mma fragment order, flat, in w's dtype: N
+    padded to 16 and K to 8 with zeros, then [N/16][K/8][32 lanes][4],
+    where lane g*4 + t holds (g, t), (g+8, t), (g, t+4), (g+8, t+4) of its
+    16 x 8 tile: the A fragments of the tile's four m8n8k4 products (rows
+    g and g+8, k-halves t and t+4)."""
+    N, K = w.shape
+    wp = w.new_zeros(_up(N, 16), _up(K, 8))
+    wp[:N, :K] = w
+    t = wp.view(wp.shape[0] // 16, 2, 8, wp.shape[1] // 8, 2, 4)
+    # [mt, row-half, g, kt, col-half, t] -> [mt, kt, g, t, col-half, row-half]
+    return t.permute(0, 3, 2, 5, 4, 1).reshape(-1)
+
+
+def frag_offsets(E: int, F_: int) -> Dict[str, int]:
+    """Offsets of one layer's packed matrices (FragOffsets in
+    decoder_common.cuh); the vocabulary follows the last layer."""
+    out, p = {}, 0
+    for name, (n, k) in (("wqkv", (3 * E, E)), ("wo", (E, E)),
+                         ("xwq", (E, E)), ("xwo", (E, E)), ("w1", (F_, E)),
+                         ("w2", (E, F_))):
+        out[name] = p
+        p += _up(n, 16) * _up(k, 8)
+    out["size"] = p
+    return out
+
+
+@torch.no_grad()
+def kernel_weights(packed: PackedDecoder) -> torch.Tensor:
+    """The six matrices of every layer, then the tied vocabulary, in
+    fragment order (made once per packed decoder, on its device)."""
+    if packed.frag is None:
+        E, F_ = packed.emb_dim, packed.ffn
+        parts = []
+        for i in range(packed.nlayers):
+            w = _layer_views(packed.layers[i], E, F_)
+            parts += [frag_pack(w[k]) for k in ("wqkv", "wo", "xwq", "xwo",
+                                                "w1", "w2")]
+        parts.append(frag_pack(packed.cls))
+        packed.frag = torch.cat(parts).contiguous()
+        assert packed.frag.numel() == (packed.nlayers
+                                       * frag_offsets(E, F_)["size"]
+                                       + _up(packed.vocab_size, 16) * _up(E, 8))
+    return packed.frag
+
+
+def block_tiles(n_out: int, C: int) -> List[Tuple[int, int]]:
+    """Per block of a cluster of C, its range of 16-row m-tiles of a
+    matrix with n_out output rows (block_tiles in decoder_common.cuh)."""
+    mt = -(-n_out // 16)
+    return [(c * mt // C, (c + 1) * mt // C) for c in range(C)]
+
+
+def vocab_slices(V: int, C: int) -> List[Tuple[int, int]]:
+    """Per block, its [v0, v1) slice of the vocabulary (its m-tiles)."""
+    return [(min(V, 16 * a), min(V, 16 * b)) for a, b in block_tiles(V, C)]
+
+
+def smem_bytes(R: int, E: int, F_: int, V: int, L: int, S: int, C: int,
+               beam: bool) -> int:
+    """Shared memory of one block (carve_smem in decoder_common.cuh)."""
+    Rp = _up(R, 8)
+    ldE, ldF = _up(E, 8) + 4, _up(F_, 8) + 4
+    ldV = _up(-(-V // 16), C) // C * 16 + 4
+    tmax = _up(max(L, S), 4)
+    parts = [16 * NW * STAGES * 32, 4 * Rp * ldE, 4 * Rp * ldE, 4 * Rp * max(2 * ldE, ldF, ldV),
+             8 * NW * 16 * Rp, 4 * NW * tmax, 4 * CMAX * Rp * 2,
+             4 * CMAX * Rp * 2] + [4 * Rp] * 4 + [Rp * L] * 2
+    if beam:
+        parts += [Rp * L] * 2 + [4 * Rp] * 7 + [4 * Rp * L] * 3
+    return sum(_up(p, 16) for p in parts)
+
+
+class ClusterPlan(NamedTuple):
+    C: int       # blocks in a cluster
+    ns: int      # samples in a tile
+    R: int       # rows in a tile (ns * beams)
+    tiles: int   # clusters launched
+    waves: int   # rounds of resident clusters
+    smem: int    # bytes of shared memory a block
+
+
+def plan_clusters(B: int, K: int, E: int, F_: int, V: int, L: int, S: int,
+                  beam: bool, max_clusters: Callable[[int, int], int],
+                  cluster: Optional[int] = None) -> ClusterPlan:
+    """Tiles of whole samples (K rows each) for the decode kernels.  For
+    each cluster size C (``cluster``, or each of CLUSTERS), the most
+    samples a tile may hold (R <= RMAX rows within SMEM_LIMIT), hence the
+    fewest waves of ``max_clusters(C, smem)`` resident clusters, then the
+    samples spread evenly over every cluster of those waves.  Fewest waves wins, then fewer rows a tile
+    (a step's phases are latency chains whose length grows with the rows;
+    on an H100, 13 tiles of 5 rows at C=8 beat 7 tiles of 10 rows at C=16
+    for greedy B=64), then the larger C (fewer weight bytes a block)."""
+    best = None
+    for C in ([cluster] if cluster else CLUSTERS):
+        ns_fit = 0
+        while ((ns_fit + 1) * K <= RMAX and smem_bytes(
+                (ns_fit + 1) * K, E, F_, V, L, S, C, beam) <= SMEM_LIMIT):
+            ns_fit += 1
+        if ns_fit == 0:
+            continue
+        smem = smem_bytes(ns_fit * K, E, F_, V, L, S, C, beam)
+        n_cl = max_clusters(C, smem)
+        if n_cl < 1:
+            continue
+        waves = -(-(-(-B // ns_fit)) // n_cl)
+        ns = -(-B // min(waves * n_cl, B))   # every wave full, R even
+        tiles = -(-B // ns)
+        plan = ClusterPlan(C, ns, ns * K, tiles, -(-tiles // n_cl),
+                           smem_bytes(ns * K, E, F_, V, L, S, C, beam))
+        if best is None or ((plan.waves, plan.R, -plan.C)
+                            < (best.waves, best.R, -best.C)):
+            best = plan
+    if best is None:
+        raise ValueError(f"no cluster plan fits B={B} K={K} E={E} FFN={F_} "
+                         f"V={V} L={L} S={S} in {SMEM_LIMIT} bytes")
+    return best
+
+
+class DecodeArgs(ctypes.Structure):
+    """Mirror of ``struct DecodeArgs`` in ``csrc/decoder_common.cuh``."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "emb", "pe", "layers", "frag", "memkv", "mem_valid", "cache",
+        "out_seq", "out_score", "clocks")]
+        + [(n, ctypes.c_int) for n in (
+            "B", "S", "L", "E", "H", "F", "V", "nl", "K", "ns", "R", "C",
+            "tiles", "bos", "eos", "pad")]
+        + [("sqrt_e", ctypes.c_float)])
+
+
+def signatures(name: str) -> Dict[str, Tuple[list, type]]:
+    """ctypes signatures of a decode kernel's library."""
+    args = ctypes.POINTER(DecodeArgs)
+    return {f"{name}_launch": ([args, ctypes.c_void_p], ctypes.c_int),
+            f"{name}_smem": ([args], ctypes.c_long),
+            f"{name}_max_clusters": ([ctypes.c_int, ctypes.c_long],
+                                     ctypes.c_int),
+            **({"fused_greedy_sync_probe": (
+                [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2, ctypes.c_int)}
+               if name == "fused_greedy" else {})}
+
+
+_max_clusters_seen: Dict[Tuple[str, int, int], int] = {}
+
+
+def max_clusters_on_card(name: str) -> Callable[[int, int], int]:
+    """``max_clusters`` for :func:`plan_clusters`: what
+    cudaOccupancyMaxActiveClusters says for the kernel ``name``."""
+    lib = cuda_build.load(name, signatures(name))
+
+    def query(C: int, smem: int) -> int:
+        key = (name, C, smem)
+        if key not in _max_clusters_seen:
+            n = getattr(lib, f"{name}_max_clusters")(C, smem)
+            if n < 0:
+                cuda_build.check(-n, f"{name} cluster occupancy")
+            _max_clusters_seen[key] = n
+        return _max_clusters_seen[key]
+    return query
+
+
+def launch_decode(name: str, packed: PackedDecoder, memkv: torch.Tensor,
+                  mem_valid: torch.Tensor, max_length: int, K: int,
+                  out_seq: torch.Tensor, out_score: Optional[torch.Tensor],
+                  bos: int, eos: int, pad: int,
+                  cluster: Optional[int] = None,
+                  clocks: Optional[torch.Tensor] = None) -> ClusterPlan:
+    """Plan the tiles and launch the decode kernel ``name`` (fused_greedy
+    or fused_beam) on ``memkv``'s device -> the plan it ran.  ``cluster``
+    forces the cluster size (for measuring both).  ``clocks``
+    (int64 [max_length, PHASES], zeroed) receives the phase trace of the
+    first block: the global timer in ns at each step's start (slot 0)
+    and after each cluster sync (slots 1, 2, ...)."""
+    nl, _, B, S, E = memkv.shape
+    L, V, F_ = max_length, packed.vocab_size, packed.ffn
+    beam = name == "fused_beam"
+    plan = plan_clusters(B, K, E, F_, V, L, S, beam,
+                         max_clusters_on_card(name), cluster)
+    lib = cuda_build.load(name, signatures(name))
+    frag = kernel_weights(packed)
+    cache = torch.empty(nl * 2 * plan.tiles * plan.R * L * E,
+                        dtype=torch.float32, device=memkv.device)
+    args = DecodeArgs(
+        packed.emb.data_ptr(), packed.pe.data_ptr(), packed.layers.data_ptr(),
+        frag.data_ptr(), memkv.data_ptr(), mem_valid.data_ptr(),
+        cache.data_ptr(), out_seq.data_ptr(),
+        out_score.data_ptr() if out_score is not None else None,
+        clocks.data_ptr() if clocks is not None else None,
+        B, S, L, E, packed.nhead, F_, V, nl, K, plan.ns, plan.R, plan.C,
+        plan.tiles, bos, eos, pad, math.sqrt(E))
+    stream = torch.cuda.current_stream(memkv.device).cuda_stream
+    err = getattr(lib, f"{name}_launch")(ctypes.byref(args),
+                                         ctypes.c_void_p(stream))
+    cuda_build.check(err, name)
+    return plan
+
+
+def trace_phases(name: str, packed: PackedDecoder, memkv: torch.Tensor,
+                 mem_valid: torch.Tensor, max_length: int, K: int = 1
+                 ) -> torch.Tensor:
+    """One traced launch of a decode kernel (the launch counts are not
+    touched) -> microseconds of each phase of each step of the first tile,
+    [steps run, phases] float64: the step's start to the first sync, then
+    sync to sync; the last column ends at the step's end."""
+    B = memkv.shape[2]
+    dev = memkv.device
+    clocks = torch.zeros(max_length, PHASES, dtype=torch.int64, device=dev)
+    seq = torch.empty(B, K, max_length, dtype=torch.int32, device=dev)
+    score = torch.empty(B, K, dtype=torch.float32, device=dev)
+    launch_decode(name, packed, memkv, mem_valid, max_length, K, seq,
+                  score if name == "fused_beam" else None, 1, 2, 0,
+                  clocks=clocks)
+    c = clocks.cpu()
+    used = int((c[0] != 0).sum())
+    c = c[(c[:, 0] != 0)][:, :used].double()
+    return (c[:, 1:] - c[:, :-1]) / 1e3
+
+
+def cluster_sync_ns(C: int, n4: int = 0, iters: int = 2000) -> float:
+    """Mean ns of one round of the decode kernels' exchange on the card:
+    each of C blocks writes n4 float4 values into every other block's
+    shared memory, then one cluster sync (a probe kernel in
+    csrc/fused_greedy.cu)."""
+    lib = cuda_build.load("fused_greedy", signatures("fused_greedy"))
+    out = torch.zeros(1, dtype=torch.int64, device="cuda")
+    err = lib.fused_greedy_sync_probe(
+        C, iters, n4, ctypes.c_void_p(out.data_ptr()),
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    cuda_build.check(err, "cluster sync probe")
+    return float(out.item())
+
+
+def greedy_pick_split(logits: torch.Tensor, C: int) -> torch.Tensor:
+    """The greedy kernel's pick in plain PyTorch: arg-max of each block's
+    vocabulary slice (first maximum), then the merge in slice order, a
+    larger value or, on a tie, the lower id winning.  logits [R, V] ->
+    ids [R]; equals ``argmax(logits, -1)``."""
+    R, V = logits.shape
+    best_v = torch.full((R,), -math.inf, dtype=logits.dtype,
+                        device=logits.device)
+    best_i = torch.full((R,), 2 ** 31 - 1, dtype=torch.long,
+                        device=logits.device)
+    for v0, v1 in vocab_slices(V, C):
+        if v1 <= v0:
+            continue
+        v, i = logits[:, v0:v1].max(-1)
+        i = i + v0
+        take = (v > best_v) | ((v == best_v) & (i < best_i))
+        best_v = torch.where(take, v, best_v)
+        best_i = torch.where(take, i, best_i)
+    return best_i
 
 
 def fused_greedy_decode(packed: PackedDecoder, memkv: torch.Tensor,
@@ -258,32 +526,25 @@ def fused_greedy_decode(packed: PackedDecoder, memkv: torch.Tensor,
                         bos: int = 1, eos: int = 2, pad: int = 0
                         ) -> torch.Tensor:
     """Greedy decode of every row -> token ids [B, max_length] int32.
-    CUDA tensors launch ``csrc/fused_greedy.cu``; CPU tensors run
-    :func:`fused_greedy_plain`."""
+    CUDA tensors launch ``csrc/fused_greedy.cu`` on the tiles that
+    :func:`plan_clusters` picks; CPU tensors run :func:`fused_greedy_plain`."""
     check_inputs(packed, memkv, mem_valid, max_length)
     if memkv.device.type == "cpu":
         return fused_greedy_plain(packed, memkv, mem_valid, max_length,
                                   bos, eos, pad)
     if memkv.device.type != "cuda":
         raise ValueError(f"unsupported device {memkv.device}")
-    nl, _, B, S, E = memkv.shape
-    L = max_length
-    fn = cuda_build.load("fused_greedy", _SIGNATURES).fused_greedy_launch
-    out = torch.empty(B, L, dtype=torch.int32, device=memkv.device)
-    self_kv = torch.empty(nl * 2 * B * L * E, dtype=torch.float32,
-                          device=memkv.device)
-    err = fn(_ptr(packed.emb), _ptr(packed.cls), _ptr(packed.pe),
-             _ptr(packed.layers), _ptr(memkv), _ptr(mem_valid), _ptr(self_kv),
-             _ptr(out), B, S, L, E, packed.nhead, packed.ffn,
-             packed.vocab_size, nl, bos, eos, pad, math.sqrt(E),
-             ctypes.c_void_p(
-                 torch.cuda.current_stream(memkv.device).cuda_stream))
-    cuda_build.check(err, "fused_greedy")
+    B = memkv.shape[2]
+    out = torch.empty(B, max_length, dtype=torch.int32, device=memkv.device)
+    fused_greedy_decode.last_plan = launch_decode(
+        "fused_greedy", packed, memkv, mem_valid, max_length, 1, out, None,
+        bos, eos, pad)
     fused_greedy_decode.launches += 1
     return out
 
 
 fused_greedy_decode.launches = 0
+fused_greedy_decode.last_plan = None
 
 
 class FusedGreedyDecoder:

@@ -145,6 +145,39 @@ def test_beam_plain_matches_jax_kernel(decoders, monkeypatch, lens):
                                atol=1e-4)
 
 
+def _jax_beam(decoders, monkeypatch, memkv, valid, K):
+    import audiocaption_tpu.decoding.fused_beam as FB
+    from audiocaption_tpu.decoding.fused_greedy import pack_decoder_weights
+    jdec, params, _ = decoders
+    _interpret(monkeypatch, FB, FB._fused_beam_call)
+    packed_j = {k: jnp.asarray(v)
+                for k, v in pack_decoder_weights(jdec, params).items()}
+    seq, score = FB._fused_beam_call(jdec, L, K, packed_j,
+                                     *jax_memory(memkv, valid))
+    return np.asarray(seq), np.asarray(score)
+
+
+@pytest.mark.parametrize("K", [5, 8])
+def test_wide_beam_plain_matches_jax_kernel(decoders, monkeypatch, K):
+    """Beams 5-8: the TPU kernel pads K to 8 sublanes and serves them."""
+    memkv, valid = memory(2, 17, (9, 4))
+    want_seq, want_score = _jax_beam(decoders, monkeypatch, memkv, valid, K)
+    packed, mk, mv = torch_inputs(decoders[2], memkv, valid)
+    seq, score = TB.fused_beam_plain(packed, mk, mv, L, K)
+    assert seq.shape == (2, K, L)
+    np.testing.assert_array_equal(seq.numpy(), want_seq)
+    np.testing.assert_allclose(score.numpy(), want_score, atol=1e-4)
+
+
+def test_beam_decode_takes_beam_5_on_cpu_tensors(decoders, monkeypatch):
+    memkv, valid = memory(2, 19, (9, 6))
+    want_seq, want_score = _jax_beam(decoders, monkeypatch, memkv, valid, 5)
+    seq, score = TB.fused_beam_decode(*torch_inputs(decoders[2], memkv,
+                                                    valid), L, 5)
+    np.testing.assert_array_equal(seq.numpy(), want_seq)
+    np.testing.assert_allclose(score.numpy(), want_score, atol=1e-4)
+
+
 def test_plain_versions_match_torch_engine(decoders):
     """The kernels' plain versions agree with the torch engine on the same
     memory (greedy exactly; beam n-best sequences exactly)."""
@@ -190,6 +223,6 @@ def test_wrappers_reject_bad_inputs(decoders):
     with pytest.raises(ValueError):
         TG.fused_greedy_decode(packed, mk[:1], mv, L)
     with pytest.raises(ValueError):
-        TB.fused_beam_decode(packed, mk, mv, L, beam_size=5)
+        TB.fused_beam_decode(packed, mk, mv, L, beam_size=9)
     with pytest.raises(ValueError):
         TG.fused_greedy_decode(packed, mk, mv, 1000)
