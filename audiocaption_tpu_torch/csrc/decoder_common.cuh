@@ -46,6 +46,22 @@
 // (decoding/fused_greedy.py::cluster_sync_ns); a step's phases, their
 // products and attention, cost far more (PERF.md).
 //
+// Modes (DecodeArgs.mode; the TPU kernels' bf16 options, each its own
+// instantiation of a kernel: template <typename CT, bool WB>):
+//   ACD_CACHE_BF16   the memory K/V and the self K/V caches are stored in
+//                    bf16 (CT = __nv_bfloat16): written rounded once, read
+//                    as 8-byte loads of four values and widened; the sums
+//                    stay float64 (storage only, as on the TPU).
+//   ACD_WEIGHTS_BF16 the fragment-packed matrices and the embedding table
+//                    are bf16 (WB); each product rounds its activations to
+//                    bf16 as it loads them and runs on the bf16 tensor
+//                    cores (mma.sync m16n8k16, float32 accumulators, each
+//                    16-deep tile's sum added in float64), the TPU
+//                    kernel's _dot with preferred_element_type=f32.
+//                    A 16 x 16 bf16 tile is 512 bytes, 16 a lane, like a
+//                    16 x 8 float32 tile, so the weight ring and the shared
+//                    memory carve are the same in every mode.
+//
 // Per-layer weight layout for biases and LayerNorm (float32, the
 // packed.layers row of decoding/fused_greedy.py::pack_decoder_weights):
 //   wqkv [3E, E] (q rows pre-scaled by 1/sqrt(dh))   bqkv [3E]
@@ -56,6 +72,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -71,20 +88,24 @@ namespace cg = cooperative_groups;
 #define ACD_NEG (-3.0e38f)      // the TPU kernel's stand-in for float32 min
 #define ACD_PHASES 32           // trace slots a step (decoding/fused_greedy.py)
 #define ACD_STAGES 8            // weight tiles in flight a warp (512 bytes each)
+#define ACD_CACHE_BF16 1        // DecodeArgs.mode bits (decoding/fused_greedy.py)
+#define ACD_WEIGHTS_BF16 2
+
+typedef __nv_bfloat16 bf16;
 
 // Mirrored by decoding/fused_greedy.py::DecodeArgs (ctypes).
 struct DecodeArgs {
-  const float* emb;      // [V, E]
+  const void* emb;       // [V, E] float32, or bf16 with ACD_WEIGHTS_BF16
   const float* pe;       // [max_pos, E]
   const float* layers;   // [nl, P] biases and LayerNorm (and the plain weights)
-  const float* frag;     // fragment-packed matrices (FragOffsets)
-  const float* memkv;    // [nl, 2, B, S, E]
+  const void* frag;      // fragment-packed matrices (FragOffsets), f32 or bf16
+  const void* memkv;     // [nl, 2, B, S, E] float32, or bf16 with ACD_CACHE_BF16
   const unsigned char* mem_valid;  // [B, S]
-  float* cache;          // self K/V [nl, 2, tiles * R, L, E]
+  void* cache;           // self K/V [nl, 2, tiles * R, L, E], as memkv
   int* out_seq;          // greedy [B, L]; beam [B, K, L]
   float* out_score;      // beam [B, K]
   long long* clocks;     // optional phase trace [L][ACD_PHASES] (ns), or null
-  int B, S, L, E, H, F, V, nl, K, ns, R, C, tiles, bos, eos, pad;
+  int B, S, L, E, H, F, V, nl, K, ns, R, C, tiles, bos, eos, pad, mode;
   float sqrt_e;
 };
 
@@ -116,25 +137,28 @@ __host__ __device__ __forceinline__ int acd_up(int n, int m) {
   return (n + m - 1) / m * m;
 }
 
-// Floats of one fragment-packed [N, K] matrix: N to 16, K to 8, zero-padded.
-__host__ __device__ __forceinline__ long frag_floats(int N, int K) {
-  return (long)acd_up(N, 16) * acd_up(K, 8);
+// 16-byte units of one fragment-packed [N, K] matrix: N to 16 and K to kw
+// (8 float32 values or 16 bf16 ones a tile's row), zero-padded, 32 units
+// (512 bytes) a tile.
+__host__ __device__ __forceinline__ long frag_units(int N, int K, int kw) {
+  return (long)(acd_up(N, 16) / 16) * (acd_up(K, kw) / kw) * 32;
 }
 
-// decoding/fused_greedy.py::frag_offsets mirrors this.
+// decoding/fused_greedy.py::frag_offsets mirrors this (there in elements
+// of the packed dtype: 4 float32 or 8 bf16 values a unit).
 struct FragOffsets {
   long wqkv, wo, xwq, xwo, w1, w2, size;  // per layer
 };
 
-__host__ __device__ inline FragOffsets frag_offsets(int E, int F) {
+__host__ __device__ inline FragOffsets frag_offsets(int E, int F, int kw) {
   FragOffsets o;
   long p = 0;
-  o.wqkv = p; p += frag_floats(3 * E, E);
-  o.wo = p;   p += frag_floats(E, E);
-  o.xwq = p;  p += frag_floats(E, E);
-  o.xwo = p;  p += frag_floats(E, E);
-  o.w1 = p;   p += frag_floats(F, E);
-  o.w2 = p;   p += frag_floats(E, F);
+  o.wqkv = p; p += frag_units(3 * E, E, kw);
+  o.wo = p;   p += frag_units(E, E, kw);
+  o.xwq = p;  p += frag_units(E, E, kw);
+  o.xwo = p;  p += frag_units(E, E, kw);
+  o.w1 = p;   p += frag_units(F, E, kw);
+  o.w2 = p;   p += frag_units(E, F, kw);
   o.size = p;
   return o;
 }
@@ -346,6 +370,50 @@ __device__ __forceinline__ void dmma(double& c0, double& c1, double a,
       : "d"(a), "d"(b));
 }
 
+// D (16 x 8, f32) += A (16 x 16, bf16) B (16 x 8, bf16) on the bf16
+// tensor cores.  Fragments of m16n8k16: a 32-bit register holds two bf16
+// values, the lower column in the low half; A: a0 (g, 2t..2t+1), a1
+// (g + 8, 2t..), a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..) -- the 16 bytes a
+// lane of a tile packed by fused_greedy.py::frag_pack_bf16; B: b0 (k =
+// 2t..2t+1, n = g), b1 (k = 2t + 8.., n = g); c0..c3 (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1).
+__device__ __forceinline__ void bmma(float (&c)[4], const float4 a,
+                                     unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(__float_as_uint(a.x)), "r"(__float_as_uint(a.y)),
+        "r"(__float_as_uint(a.z)), "r"(__float_as_uint(a.w)), "r"(b0),
+        "r"(b1));
+}
+
+// Two float32 values rounded (to nearest even) into one bf16 pair.
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Four consecutive K/V values from global memory through L2 (the caches
+// are written by this kernel), widened to float32; and one value.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldcg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const uint2 u = __ldcg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ float ld1(const float* p) { return __ldcg(p); }
+
+__device__ __forceinline__ float ld1(const bf16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldcg(reinterpret_cast<const unsigned short*>(p))));
+}
+
 // ------------------------------------------------------ weight stream --
 //
 // A step runs P = 6 * nl + 1 products in a fixed order (per layer wqkv, wo,
@@ -366,19 +434,20 @@ __device__ __forceinline__ void dmma(double& c0, double& c1, double a,
 
 // What a product needs of DecodeArgs.
 struct GemmArgs {
-  const float* frag;
+  const float4* frag;  // in 16-byte units
   int E, F, V, nl, C;
+  int kw;              // a tile's depth: 8 (float32) or 16 (bf16)
 };
 
 // One product's share of this block.
 struct GemmShape {
-  const float* W;  // fragment-packed [Mt][Kt][32][4]
+  const float4* W;  // fragment-packed [Mt][Kt][32 lanes][16 bytes]
   int N, Kt, mt0, nm, ksplit, items;
 };
 
 __device__ __forceinline__ GemmShape gemm_shape(const GemmArgs& a, int rank,
                                                 int p) {
-  const FragOffsets fo = frag_offsets(a.E, a.F);
+  const FragOffsets fo = frag_offsets(a.E, a.F, a.kw);
   const int E = a.E, F = a.F;
   int N = a.V, Kd = E;
   long off = (long)a.nl * fo.size;
@@ -398,7 +467,7 @@ __device__ __forceinline__ GemmShape gemm_shape(const GemmArgs& a, int rank,
   const int Mt = (N + 15) / 16;
   g.W = a.frag + off;
   g.N = N;
-  g.Kt = (Kd + 7) / 8;
+  g.Kt = (Kd + a.kw - 1) / a.kw;
   g.mt0 = rank * Mt / a.C;
   g.nm = (rank + 1) * Mt / a.C - g.mt0;
   int ks = g.nm > 0 ? ACD_NW / g.nm : 1;
@@ -436,8 +505,7 @@ __device__ __forceinline__ void ws_seek(const GemmArgs& a, int rank,
     if (ws.it < g.items) {
       const int m = ws.it / g.ksplit, s = ws.it - m * g.ksplit;
       const int k0 = s * g.Kt / g.ksplit, k1 = (s + 1) * g.Kt / g.ksplit;
-      ws.src = reinterpret_cast<const float4*>(g.W) +
-               ((long)(g.mt0 + m) * g.Kt + k0) * 32 + lane;
+      ws.src = g.W + ((long)(g.mt0 + m) * g.Kt + k0) * 32 + lane;
       ws.left = k1 - k0;
       return;
     }
@@ -496,11 +564,13 @@ struct Epi {
   float* out;          // [Rp][ld] shared
   int ld;
   const float* bias;
-  float* kc;           // EPI_QKV: this layer's self K and V caches
-  float* vc;
+  void* kc;            // EPI_QKV: this layer's self K and V caches
+  void* vc;
   long cache0;         // offset of the tile's row 0 at position t
   long LE;             // cache row stride (L * E)
   int E;
+  int cache_bf16;      // the caches are bf16 (a K/V value rounded twice,
+                       // to float32 and then to bf16, as on the TPU)
 };
 
 // out = y + bias (rounded once); EPI_QKV sends q to out and K, V to the
@@ -513,8 +583,13 @@ __device__ __forceinline__ void epi_store(const Epi& e, int n, int r, double y,
       if (n < e.E) {
         e.out[r * e.ld + n] = v;
       } else {
-        float* c = n < 2 * e.E ? e.kc : e.vc;
-        __stcg(c + e.cache0 + r * e.LE + (n % e.E), v);
+        void* c = n < 2 * e.E ? e.kc : e.vc;
+        const long o = e.cache0 + r * e.LE + (n % e.E);
+        if (e.cache_bf16)
+          __stcg(reinterpret_cast<unsigned short*>(c) + o,
+                 __bfloat16_as_ushort(__float2bfloat16_rn(v)));
+        else
+          __stcg(reinterpret_cast<float*>(c) + o, v);
       }
       break;
     }
@@ -600,10 +675,74 @@ __device__ __forceinline__ void gemm_items(const GemmArgs& a, int rank,
   }
 }
 
+// acc[j] += one packed 16 x 16 bf16 tile times X[8j:8j+8, k:k+16]^T,
+// each X value rounded to bf16 as it is read (this lane's b0 from
+// columns k + 2t, k + 2t + 1 of row 8j + g, b1 from k + 2t + 8, ...).
+// Each tile's 16 products are summed by one mma from zero, in float32;
+// the tiles' sums are added in float64, as the plain version and the
+// float32 mode sum, rather than through the tensor cores' own float32
+// accumulation across all K / 16 tiles.
+template <int NJ>
+__device__ __forceinline__ void mma_tile_bf16(double (&acc)[NJ][4],
+                                              const float4 w, const float* X,
+                                              int ldx, int k, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const float* xp = X + (j * 8 + g) * ldx + k + 2 * t;
+    const float2 lo = *reinterpret_cast<const float2*>(xp);
+    const float2 hi = *reinterpret_cast<const float2*>(xp + 8);
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    bmma(c, w, pack_bf16x2(lo.x, lo.y), pack_bf16x2(hi.x, hi.y));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] += c[i];
+  }
+}
+
+// gemm_items for bf16 weights: a 16 x 16 tile a take; outputs as
+// gemm_items.
+template <int NJ>
+__device__ __forceinline__ void gemm_items_bf16(const GemmArgs& a, int rank,
+                                                WStream& ws,
+                                                const GemmShape& g,
+                                                const float* X, int ldx,
+                                                int R, int Rp, double* red,
+                                                const Epi& e, int c0) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  for (int it = warp; it < g.items; it += ACD_NW) {
+    const int m = it / g.ksplit, s = it - m * g.ksplit;
+    const int k0 = s * g.Kt / g.ksplit, k1 = (s + 1) * g.Kt / g.ksplit;
+    double acc[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0.0;
+    for (int kt = k0; kt < k1; ++kt)
+      mma_tile_bf16<NJ>(acc, ws_take(a, rank, ws), X, ldx, kt * 16, gq, t);
+    const int n0 = (g.mt0 + m) * 16 + gq;
+    double* rp = red + (long)it * 16 * Rp;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int r0 = j * 8 + 2 * t;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const double y = acc[j][i];
+        const int n = n0 + (i >> 1) * 8, r = r0 + (i & 1);
+        if (g.ksplit > 1)
+          rp[(gq + (i >> 1) * 8) * Rp + r] = y;
+        else if (n < g.N && r < R)
+          epi_store(e, n, r, y, c0);
+      }
+    }
+  }
+}
+
 // Y[r, n] = sum_k W[n, k] X[r, k] for this block's m-tiles of product p,
-// rows r < R of X [Rp][ldx] (shared), weights from the warp's stream;
-// each output to epi_store.  Returns the block's output columns [c0, c1).
-// Ends with __syncthreads().
+// rows r < R of X [Rp][ldx] (shared), weights from the warp's stream
+// (float32 on the FP64 tensor cores, or bf16 with WB); each output to
+// epi_store.  Returns the block's output columns [c0, c1).  Ends with
+// __syncthreads().
+template <bool WB>
 __device__ __noinline__ int2 gemm_phase(const GemmArgs a, int rank,
                                         WStream& ws_state, int p,
                                         const float* X, int ldx, int R, int Rp,
@@ -614,11 +753,20 @@ __device__ __noinline__ int2 gemm_phase(const GemmArgs a, int rank,
   int c1 = (g.mt0 + g.nm) * 16;
   if (c1 > g.N) c1 = g.N;
   if (g.items > 0) {  // block-uniform
-    switch ((R + 7) >> 3) {
-      case 1: gemm_items<1>(a, rank, ws, g, X, ldx, R, Rp, red, e, c0); break;
-      case 2: gemm_items<2>(a, rank, ws, g, X, ldx, R, Rp, red, e, c0); break;
-      case 3: gemm_items<3>(a, rank, ws, g, X, ldx, R, Rp, red, e, c0); break;
-      default: gemm_items<4>(a, rank, ws, g, X, ldx, R, Rp, red, e, c0); break;
+    if (WB) {
+      switch ((R + 7) >> 3) {
+        case 1: gemm_items_bf16<1>(a, rank, ws, g, X, ldx, R, Rp, red, e, c0); break;
+        case 2: gemm_items_bf16<2>(a, rank, ws, g, X, ldx, R, Rp, red, e, c0); break;
+        case 3: gemm_items_bf16<3>(a, rank, ws, g, X, ldx, R, Rp, red, e, c0); break;
+        default: gemm_items_bf16<4>(a, rank, ws, g, X, ldx, R, Rp, red, e, c0); break;
+      }
+    } else {
+      switch ((R + 7) >> 3) {
+        case 1: gemm_items<1>(a, rank, ws, g, X, ldx, R, Rp, red, e, c0); break;
+        case 2: gemm_items<2>(a, rank, ws, g, X, ldx, R, Rp, red, e, c0); break;
+        case 3: gemm_items<3>(a, rank, ws, g, X, ldx, R, Rp, red, e, c0); break;
+        default: gemm_items<4>(a, rank, ws, g, X, ldx, R, Rp, red, e, c0); break;
+      }
     }
     if (g.ksplit > 1) {
       __syncthreads();
@@ -695,15 +843,21 @@ __device__ __noinline__ void add_layernorm(float* x, const float* y, int ld,
   __syncthreads();
 }
 
-// x[r] = emb[word[r]] * sqrt_e + pe[t]
-__device__ __forceinline__ void embed_rows(const float* __restrict__ emb,
+// x[r] = emb[word[r]] * sqrt_e + pe[t], from the bf16 table with WB
+template <bool WB>
+__device__ __forceinline__ void embed_rows(const void* __restrict__ emb,
                                            const float* __restrict__ pe,
                                            const int* word, float* x, int ld,
                                            int R, int E, int t, float sqrt_e) {
   for (int re = threadIdx.x; re < R * E; re += ACD_NT) {
     const int r = re / E, e = re - r * E;
-    x[r * ld + e] = __ldg(emb + (long)word[r] * E + e) * sqrt_e +
-                    __ldg(pe + (long)t * E + e);
+    const long i = (long)word[r] * E + e;
+    const float w =
+        WB ? __bfloat162float(__ushort_as_bfloat16(
+                 __ldg(reinterpret_cast<const unsigned short*>(emb) + i)))
+           : __ldg(reinterpret_cast<const float*>(emb) + i);
+    // two roundings, as the plain version (no fused multiply-add)
+    x[r * ld + e] = __fadd_rn(__fmul_rn(w, sqrt_e), __ldg(pe + (long)t * E + e));
   }
   __syncthreads();
 }
@@ -714,13 +868,15 @@ __device__ __forceinline__ void embed_rows(const float* __restrict__ emb,
 // (shared or global memory).  Masked keys score ACD_MASKED, so a row whose
 // keys are all masked attends uniformly, as on the TPU.  The context goes
 // to out[0:dh] (shared).  Rows are read through L2 (__ldcg): the self
-// caches are written by this kernel.  Sums are float64, scores and
-// probabilities rounded to float32 as stored.  With dh a multiple of 4,
-// P lanes share a key's dot product (float4 loads, 32/P keys a pass) and
-// the context splits the keys over G lane groups, each lane a float4 of
-// features; so a lane keeps several independent L2 loads in flight.
+// caches are written by this kernel.  K/V are CT (float32, or bf16 read
+// widened).  Sums are float64, scores and probabilities rounded to
+// float32 as stored.  With dh a multiple of 4, P lanes share a key's dot
+// product (four values a load, 32/P keys a pass) and the context splits
+// the keys over G lane groups, each lane four features; so a lane keeps
+// several independent L2 loads in flight.
+template <typename CT>
 __device__ __noinline__ void attend_warp(const float* q, int dh, int T,
-                                         const float* kb, const float* vb,
+                                         const CT* kb, const CT* vb,
                                          const unsigned char* anc, long slot,
                                          int E, const unsigned char* valid,
                                          float* sc, float* out) {
@@ -728,9 +884,9 @@ __device__ __noinline__ void attend_warp(const float* q, int dh, int T,
   float m = -INFINITY;
   if ((dh & 3) != 0) {  // scalar fallback: a lane a key, a lane a feature
     for (int j = lane; j < T; j += 32) {
-      const float* kr = kb + (anc ? anc[j] * slot : 0L) + (long)j * E;
+      const CT* kr = kb + (anc ? anc[j] * slot : 0L) + (long)j * E;
       double s = 0.0;
-      for (int d = 0; d < dh; ++d) s += (double)q[d] * __ldcg(kr + d);
+      for (int d = 0; d < dh; ++d) s += (double)q[d] * ld1(kr + d);
       const float sf = valid[j] ? (float)s : ACD_MASKED;
       sc[j] = sf;
       m = fmaxf(m, sf);
@@ -745,12 +901,10 @@ __device__ __noinline__ void attend_warp(const float* q, int dh, int T,
       const int j = j0 + kl;
       double s = 0.0;
       if (j < T) {
-        const float4* kr = reinterpret_cast<const float4*>(
-                               kb + (anc ? anc[j] * slot : 0L) + (long)j * E) +
-                           sub;
+        const CT* kr = kb + (anc ? anc[j] * slot : 0L) + (long)j * E + 4 * sub;
 #pragma unroll 4
         for (int i = 0; i < per; ++i) {
-          const float4 kv = __ldcg(kr + P * i);
+          const float4 kv = ld4(kr + 4 * P * i);
           const float4 x = qv[P * i];
           s += (double)x.x * kv.x + (double)x.y * kv.y + (double)x.z * kv.z +
                (double)x.w * kv.w;
@@ -780,7 +934,7 @@ __device__ __noinline__ void attend_warp(const float* q, int dh, int T,
       double acc = 0.0;
       for (int j = 0; j < T; ++j)
         acc += (double)sc[j] *
-               __ldcg(vb + (anc ? anc[j] * slot : 0L) + (long)j * E + d);
+               ld1(vb + (anc ? anc[j] * slot : 0L) + (long)j * E + d);
       out[d] = (float)acc;
     }
   } else {
@@ -792,9 +946,8 @@ __device__ __noinline__ void attend_warp(const float* q, int dh, int T,
 #pragma unroll 8
       for (int j = g; j < T; j += G) {
         const double p = sc[j];
-        const float4 v = __ldcg(reinterpret_cast<const float4*>(
-                                    vb + (anc ? anc[j] * slot : 0L) +
-                                    (long)j * E) + c4);
+        const float4 v =
+            ld4(vb + (anc ? anc[j] * slot : 0L) + (long)j * E + 4 * c4);
         acc[0] += p * v.x;
         acc[1] += p * v.y;
         acc[2] += p * v.z;
@@ -867,14 +1020,16 @@ __device__ __forceinline__ void share_head(cg::cluster_group& cl, float* ctx,
   }
 }
 
+template <bool WB>
 __device__ __forceinline__ GemmArgs gemm_args(const DecodeArgs& a) {
   GemmArgs g;
-  g.frag = a.frag;
+  g.frag = reinterpret_cast<const float4*>(a.frag);
   g.E = a.E;
   g.F = a.F;
   g.V = a.V;
   g.nl = a.nl;
   g.C = a.C;
+  g.kw = WB ? 16 : 8;
   return g;
 }
 
@@ -888,6 +1043,7 @@ __device__ __forceinline__ Epi make_epi(int mode, float* out, int ld,
   e.kc = e.vc = nullptr;
   e.cache0 = e.LE = 0;
   e.E = 0;
+  e.cache_bf16 = 0;
   return e;
 }
 
@@ -895,7 +1051,9 @@ __device__ __forceinline__ Epi make_epi(int mode, float* out, int ld,
 // all decoder layers, ending with the last LayerNorm.  Row r's K/V at
 // positions j < t are at beam slot anc[r][j] of its sample; this step's
 // are written at its own slot.  Each product's output columns go to
-// every block before the cluster syncs.
+// every block before the cluster syncs.  CT: the K/V storage type; WB:
+// bf16 weights.
+template <typename CT, bool WB>
 __device__ __forceinline__ void decoder_layers(const DecodeArgs& a,
                                                cg::cluster_group& cl,
                                                const TileCtx& tc,
@@ -904,7 +1062,7 @@ __device__ __forceinline__ void decoder_layers(const DecodeArgs& a,
   const int E = a.E, F = a.F, H = a.H, L = a.L, S = a.S;
   const int dh = E / H;
   const LayerOffsets off = layer_offsets(E, F);
-  const GemmArgs ga = gemm_args(a);
+  const GemmArgs ga = gemm_args<WB>(a);
   const int warp = threadIdx.x >> 5;
   const int R = tc.R, Rp = tc.Rp, C = tc.C, rank = tc.rank;
   const long LE = (long)L * E;
@@ -912,8 +1070,9 @@ __device__ __forceinline__ void decoder_layers(const DecodeArgs& a,
   int2 cols;
   for (int i = 0; i < a.nl; ++i) {
     const float* w = a.layers + (long)i * off.size;
-    float* kc = a.cache + (long)(2 * i) * tc.rows_total * LE;
-    float* vc = a.cache + (long)(2 * i + 1) * tc.rows_total * LE;
+    CT* kc = reinterpret_cast<CT*>(a.cache) + (long)(2 * i) * tc.rows_total * LE;
+    CT* vc = reinterpret_cast<CT*>(a.cache) +
+             (long)(2 * i + 1) * tc.rows_total * LE;
     if (i > 0)
       add_layernorm(sm.x, sm.tmp, sm.ldE, w - off.size + off.ln + 4 * E,
                     w - off.size + off.ln + 5 * E, R, E);
@@ -924,7 +1083,8 @@ __device__ __forceinline__ void decoder_layers(const DecodeArgs& a,
     e.cache0 = tc.row0 * LE + (long)t * E;
     e.LE = LE;
     e.E = E;
-    cols = gemm_phase(ga, rank, ws, 6 * i, sm.x, sm.ldE, R, Rp, sm.red, e);
+    e.cache_bf16 = sizeof(CT) == 2;
+    cols = gemm_phase<WB>(ga, rank, ws, 6 * i, sm.x, sm.ldE, R, Rp, sm.red, e);
     stamp(a, t, 10 * i + 1);
     broadcast_cols(cl, sm.q, sm.ldE, cols.x, cols.y < E ? cols.y : E, R, C,
                    rank);
@@ -935,21 +1095,21 @@ __device__ __forceinline__ void decoder_layers(const DecodeArgs& a,
       const int r = u / H, h = u - r * H;
       const long o = (long)r * sm.ldE + h * dh;
       const long base = (tc.row0 + (r / tc.K) * tc.K) * LE + h * dh;
-      attend_warp(sm.q + o, dh, t + 1, kc + base, vc + base, sm.anc + r * L,
+      attend_warp<CT>(sm.q + o, dh, t + 1, kc + base, vc + base, sm.anc + r * L,
                   LE, E, sm.valid + r * L, sc, sm.ctx + o);
       share_head(cl, sm.ctx, o, dh, C, rank);
     }
     cl.sync();
     stamp(a, t, 10 * i + 3);
     // 3. output projection
-    cols = gemm_phase(ga, rank, ws, 6 * i + 1, sm.ctx, sm.ldE, R, Rp, sm.red,
+    cols = gemm_phase<WB>(ga, rank, ws, 6 * i + 1, sm.ctx, sm.ldE, R, Rp, sm.red,
                       make_epi(EPI_BIAS, sm.tmp, sm.ldE, w + off.bo));
     broadcast_cols(cl, sm.tmp, sm.ldE, cols.x, cols.y, R, C, rank);
     cl.sync();
     stamp(a, t, 10 * i + 4);
     // 4. norm1, cross-attention query
     add_layernorm(sm.x, sm.tmp, sm.ldE, w + off.ln, w + off.ln + E, R, E);
-    cols = gemm_phase(ga, rank, ws, 6 * i + 2, sm.x, sm.ldE, R, Rp, sm.red,
+    cols = gemm_phase<WB>(ga, rank, ws, 6 * i + 2, sm.x, sm.ldE, R, Rp, sm.red,
                       make_epi(EPI_BIAS, sm.q, sm.ldE, w + off.xbq));
     broadcast_cols(cl, sm.q, sm.ldE, cols.x, cols.y, R, C, rank);
     cl.sync();
@@ -957,14 +1117,15 @@ __device__ __forceinline__ void decoder_layers(const DecodeArgs& a,
     // 5. cross attention on the precomputed memory K/V
     {
       const long SE = (long)S * E;
-      const float* mk = a.memkv + (long)(2 * i) * a.B * SE;
-      const float* mv = a.memkv + (long)(2 * i + 1) * a.B * SE;
+      const CT* mk = reinterpret_cast<const CT*>(a.memkv) + (long)(2 * i) * a.B * SE;
+      const CT* mv =
+          reinterpret_cast<const CT*>(a.memkv) + (long)(2 * i + 1) * a.B * SE;
       for (int u = rank * ACD_NW + warp; u < R * H; u += C * ACD_NW) {
         const int r = u / H, h = u - r * H;
         int b = tc.sample0 + r / tc.K;
         if (b >= a.B) b = a.B - 1;  // masked rows read a real sample
         const long o = (long)r * sm.ldE + h * dh;
-        attend_warp(sm.q + o, dh, S, mk + b * SE + h * dh, mv + b * SE + h * dh,
+        attend_warp<CT>(sm.q + o, dh, S, mk + b * SE + h * dh, mv + b * SE + h * dh,
                     nullptr, 0, E, a.mem_valid + (long)b * S, sc, sm.ctx + o);
         share_head(cl, sm.ctx, o, dh, C, rank);
       }
@@ -972,7 +1133,7 @@ __device__ __forceinline__ void decoder_layers(const DecodeArgs& a,
     cl.sync();
     stamp(a, t, 10 * i + 6);
     // 6. cross-attention output projection
-    cols = gemm_phase(ga, rank, ws, 6 * i + 3, sm.ctx, sm.ldE, R, Rp, sm.red,
+    cols = gemm_phase<WB>(ga, rank, ws, 6 * i + 3, sm.ctx, sm.ldE, R, Rp, sm.red,
                       make_epi(EPI_BIAS, sm.tmp, sm.ldE, w + off.xbo));
     stamp(a, t, 10 * i + 7);
     broadcast_cols(cl, sm.tmp, sm.ldE, cols.x, cols.y, R, C, rank);
@@ -981,13 +1142,13 @@ __device__ __forceinline__ void decoder_layers(const DecodeArgs& a,
     // 7. norm2, FFN up (ReLU)
     add_layernorm(sm.x, sm.tmp, sm.ldE, w + off.ln + 2 * E, w + off.ln + 3 * E,
                   R, E);
-    cols = gemm_phase(ga, rank, ws, 6 * i + 4, sm.x, sm.ldE, R, Rp, sm.red,
+    cols = gemm_phase<WB>(ga, rank, ws, 6 * i + 4, sm.x, sm.ldE, R, Rp, sm.red,
                       make_epi(EPI_RELU, sm.hid, sm.ldF, w + off.b1));
     broadcast_cols(cl, sm.hid, sm.ldF, cols.x, cols.y, R, C, rank);
     cl.sync();
     stamp(a, t, 10 * i + 9);
     // 8. FFN down
-    cols = gemm_phase(ga, rank, ws, 6 * i + 5, sm.hid, sm.ldF, R, Rp, sm.red,
+    cols = gemm_phase<WB>(ga, rank, ws, 6 * i + 5, sm.hid, sm.ldF, R, Rp, sm.red,
                       make_epi(EPI_BIAS, sm.tmp, sm.ldE, w + off.b2));
     broadcast_cols(cl, sm.tmp, sm.ldE, cols.x, cols.y, R, C, rank);
     cl.sync();
@@ -1000,10 +1161,11 @@ __device__ __forceinline__ void decoder_layers(const DecodeArgs& a,
 
 // Tied vocabulary logits of this block's slice, rows r < R, into
 // sm.logits [r][n - v0]; returns v0 and the slice width in nv.
+template <bool WB>
 __device__ __forceinline__ int vocab_logits(const DecodeArgs& a,
                                             const TileCtx& tc, const Smem& sm,
                                             WStream& ws, int& nv) {
-  const int2 cols = gemm_phase(gemm_args(a), tc.rank, ws, 6 * a.nl, sm.x,
+  const int2 cols = gemm_phase<WB>(gemm_args<WB>(a), tc.rank, ws, 6 * a.nl, sm.x,
                                sm.ldE, tc.R, tc.Rp, sm.red,
                                make_epi(EPI_LOGITS, sm.logits, sm.ldV, nullptr));
   nv = cols.y > cols.x ? cols.y - cols.x : 0;

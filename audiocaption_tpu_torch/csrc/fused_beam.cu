@@ -32,8 +32,15 @@
 // from L2 per sample and step on one block each, and copied the cache
 // prefix at every step: 16.0 ms.  Here 5.4 ms (13 clusters of 8 blocks,
 // 15 rows each); beam 5 and 8 need two waves of clusters at B=64.
+//
+// Modes, as the TPU kernel's: cache_bf16 (CT = bf16: memory K/V and self
+// caches stored in bf16) and weights_bf16 (WB: the layer matrices, the
+// tied vocabulary and the embedding in bf16, each product's activations
+// rounded to bf16 and the products on the bf16 tensor cores with float32
+// sums; decoder_common.cuh), in any combination: four instantiations.
 #include "decoder_common.cuh"
 
+template <typename CT, bool WB>
 __global__ void __launch_bounds__(ACD_NT, 1) fused_beam_kernel(DecodeArgs a) {
   extern __shared__ __align__(16) char smem_raw[];
   cg::cluster_group cl = cg::this_cluster();
@@ -50,7 +57,7 @@ __global__ void __launch_bounds__(ACD_NT, 1) fused_beam_kernel(DecodeArgs a) {
   tc.Rp = sm.Rp;
   tc.ns = a.ns;
   tc.K = a.K;
-  ws_start(gemm_args(a), tc.rank, ws, sm.rings);
+  ws_start(gemm_args<WB>(a), tc.rank, ws, sm.rings);
   const int tile = blockIdx.x / a.C;
   tc.row0 = (long)tile * a.R;
   tc.sample0 = tile * a.ns;
@@ -81,12 +88,12 @@ __global__ void __launch_bounds__(ACD_NT, 1) fused_beam_kernel(DecodeArgs a) {
       sm.valid[r * L + t] = sm.word[r] != a.pad;
       sm.anc[r * L + t] = (unsigned char)(r % K);
     }
-    embed_rows(a.emb, a.pe, sm.word, sm.x, sm.ldE, R, a.E, t, a.sqrt_e);
-    decoder_layers(a, cl, tc, sm, ws, t);
+    embed_rows<WB>(a.emb, a.pe, sm.word, sm.x, sm.ldE, R, a.E, t, a.sqrt_e);
+    decoder_layers<CT, WB>(a, cl, tc, sm, ws, t);
 
     // 1. the slice's logits; per row (max, sum exp) over the slice
     int nv;
-    const int v0 = vocab_logits(a, tc, sm, ws, nv);
+    const int v0 = vocab_logits<WB>(a, tc, sm, ws, nv);
     stamp(a, t, 10 * a.nl + 1);
     for (int r = warp; r < R; r += ACD_NW) {
       const float* lr = sm.logits + r * sm.ldV;
@@ -252,8 +259,21 @@ __global__ void __launch_bounds__(ACD_NT, 1) fused_beam_kernel(DecodeArgs a) {
   cl.sync();
 }
 
+// The kernel instantiation of a mode, or null for an unknown mode.
+static void (*beam_kernel(int mode))(DecodeArgs) {
+  switch (mode) {
+    case 0: return fused_beam_kernel<float, false>;
+    case ACD_CACHE_BF16: return fused_beam_kernel<bf16, false>;
+    case ACD_WEIGHTS_BF16: return fused_beam_kernel<float, true>;
+    case ACD_CACHE_BF16 | ACD_WEIGHTS_BF16: return fused_beam_kernel<bf16, true>;
+    default: return nullptr;
+  }
+}
+
 extern "C" int fused_beam_launch(const DecodeArgs* a, void* stream) {
-  return launch_clusters(fused_beam_kernel, *a, decode_smem_bytes(*a, true),
+  void (*kernel)(DecodeArgs) = beam_kernel(a->mode);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_clusters(kernel, *a, decode_smem_bytes(*a, true),
                          (cudaStream_t)stream);
 }
 
@@ -261,6 +281,8 @@ extern "C" long fused_beam_smem(const DecodeArgs* a) {
   return decode_smem_bytes(*a, true);
 }
 
-extern "C" int fused_beam_max_clusters(int C, long smem) {
-  return max_active_clusters(fused_beam_kernel, C, smem);
+extern "C" int fused_beam_max_clusters(int C, long smem, int mode) {
+  void (*kernel)(DecodeArgs) = beam_kernel(mode);
+  if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
+  return max_active_clusters(kernel, C, smem);
 }

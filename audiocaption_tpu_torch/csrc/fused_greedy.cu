@@ -29,8 +29,14 @@
 // bound by the FP64 pipe (the float32 -> float64 conversions of each tile
 // and the m8n8k4 products), not by L2: neither a deeper weight ring nor
 // skipping its waits moved them.
+//
+// Modes: float32 (CT = float) and cache_bf16 (CT = bf16: the memory K/V
+// and the self caches stored in bf16, as the TPU kernel's cache_bf16;
+// half the bytes of the attention reads).  The TPU greedy kernel has no
+// bf16-weight mode, so neither has this one.
 #include "decoder_common.cuh"
 
+template <typename CT>
 __global__ void __launch_bounds__(ACD_NT, 1) fused_greedy_kernel(DecodeArgs a) {
   extern __shared__ __align__(16) char smem_raw[];
   cg::cluster_group cl = cg::this_cluster();
@@ -47,7 +53,7 @@ __global__ void __launch_bounds__(ACD_NT, 1) fused_greedy_kernel(DecodeArgs a) {
   tc.Rp = sm.Rp;
   tc.ns = a.ns;
   tc.K = 1;
-  ws_start(gemm_args(a), tc.rank, ws, sm.rings);
+  ws_start(gemm_args<false>(a), tc.rank, ws, sm.rings);
   const int tile = blockIdx.x / a.C;
   tc.row0 = (long)tile * a.R;
   tc.sample0 = tile * a.ns;
@@ -70,12 +76,13 @@ __global__ void __launch_bounds__(ACD_NT, 1) fused_greedy_kernel(DecodeArgs a) {
       sm.valid[r * L + t] = sm.word[r] != a.pad;
       sm.anc[r * L + t] = 0;
     }
-    embed_rows(a.emb, a.pe, sm.word, sm.x, sm.ldE, R, a.E, t, a.sqrt_e);
-    decoder_layers(a, cl, tc, sm, ws, t);
+    embed_rows<false>(a.emb, a.pe, sm.word, sm.x, sm.ldE, R, a.E, t,
+                      a.sqrt_e);
+    decoder_layers<CT, false>(a, cl, tc, sm, ws, t);
 
     // the slice's logits, a warp a row for its arg-max, partials to all
     int nv;
-    const int v0 = vocab_logits(a, tc, sm, ws, nv);
+    const int v0 = vocab_logits<false>(a, tc, sm, ws, nv);
     stamp(a, t, 10 * a.nl + 1);
     for (int r = warp; r < R; r += ACD_NW) {
       float best = -INFINITY;
@@ -130,8 +137,19 @@ __global__ void __launch_bounds__(ACD_NT, 1) fused_greedy_kernel(DecodeArgs a) {
   cl.sync();
 }
 
+// The kernel instantiation of a mode, or null for a mode it lacks.
+static void (*greedy_kernel(int mode))(DecodeArgs) {
+  switch (mode) {
+    case 0: return fused_greedy_kernel<float>;
+    case ACD_CACHE_BF16: return fused_greedy_kernel<bf16>;
+    default: return nullptr;
+  }
+}
+
 extern "C" int fused_greedy_launch(const DecodeArgs* a, void* stream) {
-  return launch_clusters(fused_greedy_kernel, *a, decode_smem_bytes(*a, false),
+  void (*kernel)(DecodeArgs) = greedy_kernel(a->mode);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_clusters(kernel, *a, decode_smem_bytes(*a, false),
                          (cudaStream_t)stream);
 }
 
@@ -139,8 +157,10 @@ extern "C" long fused_greedy_smem(const DecodeArgs* a) {
   return decode_smem_bytes(*a, false);
 }
 
-extern "C" int fused_greedy_max_clusters(int C, long smem) {
-  return max_active_clusters(fused_greedy_kernel, C, smem);
+extern "C" int fused_greedy_max_clusters(int C, long smem, int mode) {
+  void (*kernel)(DecodeArgs) = greedy_kernel(mode);
+  if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
+  return max_active_clusters(kernel, C, smem);
 }
 
 // Sync probe: one cluster of C blocks runs `iters` rounds of (each block

@@ -24,6 +24,16 @@ ended beams with score * (1/(t+1)), every beam harvested at t=L-1;
 best-K merge of done beams and candidates by strict ">" in slot order;
 -1000 on ended beams.  Outputs: n-best sequences [B, K, L] int32 and
 scores [B, K] float32.
+
+Modes, as the TPU kernel's (``fused_beam.py:387-413`` there; see
+:mod:`fused_greedy`): ``cache_bf16`` stores the memory K/V and the
+caches in bf16; ``weights_bf16`` stores the ten large matrices
+(``_BF16_KEYS`` there: the embedding, the tied classifier, wqkv, wo,
+xwq, xwo, w1, w2) in bf16, gathers the embedding row from the bf16
+table and rounds each product's activation to bf16 (the TPU kernel's
+``_dot``), with float32 sums; biases, LayerNorm and the PE table stay
+float32.  The kernel runs those products on the bf16 tensor cores
+(``mma.sync`` m16n8k16, float32 accumulators).
 """
 
 from __future__ import annotations
@@ -35,8 +45,9 @@ import torch
 import torch.nn.functional as F
 
 from audiocaption_tpu_torch.decoding.fused_greedy import (
-    PackedDecoder, check_inputs, decoder_rows_plain, launch_decode,
-    memory_kv, pack_decoder_weights, vocab_slices)
+    PackedDecoder, check_inputs, count_launch, decode_mode,
+    decoder_rows_plain, launch_decode, memory_kv, pack_decoder_weights,
+    product, reset_launches, round_bf16, vocab_slices)
 from audiocaption_tpu_torch.device import DeviceLike, resolve_device
 
 NEG = -3.0e38        # the TPU kernel's stand-in for float32's lowest value
@@ -47,20 +58,27 @@ MAX_BEAMS = 8        # ACD_KMAX in csrc/decoder_common.cuh; the TPU kernel's K8
 def fused_beam_plain(packed: PackedDecoder, memkv: torch.Tensor,
                      mem_valid: torch.Tensor, max_length: int,
                      beam_size: int = 3, bos: int = 1, eos: int = 2,
-                     pad: int = 0, steps: Optional[torch.Tensor] = None
+                     pad: int = 0, steps: Optional[torch.Tensor] = None,
+                     cache_bf16: bool = False, weights_bf16: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the beam kernel ->
-    (seq [B, K, L] int32, score [B, K] float32).  ``steps`` ([B] int64),
-    if given, gets the number of steps each sample runs before it stops,
-    as the kernel runs them (for counting the work a call needs)."""
+    (seq [B, K, L] int32, score [B, K] float32), in the mode that
+    ``cache_bf16`` (bf16 caches; memkv is bf16 too) and ``weights_bf16``
+    select; in a bf16 mode the sums follow the kernel's
+    (``decoder_rows_plain``'s ``wide``).  ``steps`` ([B] int64), if
+    given, gets the number of steps each sample runs before it stops, as
+    the kernel runs them (for counting the work a call needs)."""
     nl, _, B, S, E = memkv.shape
     K, L, V = beam_size, max_length, packed.vocab_size
     dev = memkv.device
     f32 = dict(dtype=torch.float32, device=dev)
     neg = torch.tensor(NEG, **f32)
     sqrt_e = math.sqrt(E)
-    self_k = memkv.new_zeros(nl, B, K, L, E)
-    self_v = memkv.new_zeros(nl, B, K, L, E)
+    cache = dict(dtype=torch.bfloat16) if cache_bf16 else {}
+    self_k = memkv.new_zeros(nl, B, K, L, E, **cache)
+    self_v = memkv.new_zeros(nl, B, K, L, E, **cache)
+    emb = round_bf16(packed.emb) if weights_bf16 else packed.emb
+    wide = cache_bf16 or weights_bf16
     valid = torch.ones(B, K, L, dtype=torch.bool, device=dev)
     word = torch.full((B, K), bos, dtype=torch.long, device=dev)
     topk_lp = torch.zeros(B, K, **f32)
@@ -75,10 +93,10 @@ def fused_beam_plain(packed: PackedDecoder, memkv: torch.Tensor,
         if steps is not None:
             steps += (~stopped).long()
         valid[:, :, t] = word != pad
-        x = packed.emb[word] * sqrt_e + packed.pe[t]
+        x = emb[word] * sqrt_e + packed.pe[t]
         x = decoder_rows_plain(packed, x, t, self_k, self_v, valid, memkv,
-                               mem_valid)
-        logits = F.linear(x, packed.cls)                          # [B, K, V]
+                               mem_valid, weights_bf16, wide)
+        logits = product(x, packed.cls, None, weights_bf16, wide)  # [B, K, V]
         m = logits.amax(-1, keepdim=True)
         lp = logits - m - torch.log(torch.exp(logits - m).sum(-1, keepdim=True))
         total = lp + topk_lp[..., None]
@@ -132,6 +150,48 @@ def fused_beam_plain(packed: PackedDecoder, memkv: torch.Tensor,
         topk_lp = torch.where(is_end, new_lp - 1000.0, new_lp)
         word = new_word
     return done_seq.to(torch.int32), done_score
+
+
+@torch.no_grad()
+def sequence_scores_plain(packed: PackedDecoder, memkv: torch.Tensor,
+                          mem_valid: torch.Tensor, seq: torch.Tensor,
+                          bos: int = 1, eos: int = 2, pad: int = 0,
+                          cache_bf16: bool = False, weights_bf16: bool = False
+                          ) -> torch.Tensor:
+    """The plain version's score of given sequences seq [B, K, L], fed
+    one token a step (teacher forcing) in the same mode: each sequence's
+    log-softmax summed up to and including its first <eos> (all L tokens
+    without one), over that length, as the beam search harvests it ->
+    [B, K].  It holds a kernel's n-best scores to the model along the
+    kernel's own sequences, where a bf16 mode's rounding makes two
+    searches part ways."""
+    nl, _, B, S, E = memkv.shape
+    K, L = seq.shape[1], seq.shape[2]
+    dev = memkv.device
+    wide = cache_bf16 or weights_bf16
+    cache = dict(dtype=torch.bfloat16) if cache_bf16 else {}
+    self_k = memkv.new_zeros(nl, B, K, L, E, **cache)
+    self_v = memkv.new_zeros(nl, B, K, L, E, **cache)
+    valid = torch.ones(B, K, L, dtype=torch.bool, device=dev)
+    emb = round_bf16(packed.emb) if weights_bf16 else packed.emb
+    word = torch.full((B, K), bos, dtype=torch.long, device=dev)
+    total = torch.zeros(B, K, dtype=packed.emb.dtype, device=dev)
+    length = torch.zeros(B, K, dtype=torch.long, device=dev)
+    ended = torch.zeros(B, K, dtype=torch.bool, device=dev)
+    for t in range(L):
+        valid[:, :, t] = word != pad
+        x = emb[word] * math.sqrt(E) + packed.pe[t]
+        x = decoder_rows_plain(packed, x, t, self_k, self_v, valid, memkv,
+                               mem_valid, weights_bf16, wide)
+        logits = product(x, packed.cls, None, weights_bf16, wide)
+        m = logits.amax(-1, keepdim=True)
+        lp = logits - m - torch.log(torch.exp(logits - m).sum(-1, keepdim=True))
+        tok = seq[:, :, t].long()
+        total += torch.where(ended, 0.0, lp.gather(-1, tok[..., None])[..., 0])
+        length += (~ended).long()
+        ended |= tok == eos
+        word = tok
+    return total / length
 
 
 def beam_totals(logits: torch.Tensor, topk_lp: torch.Tensor, t: int,
@@ -191,29 +251,38 @@ def beam_pick_split(logits: torch.Tensor, topk_lp: torch.Tensor, t: int,
 def fused_beam_decode(packed: PackedDecoder, memkv: torch.Tensor,
                       mem_valid: torch.Tensor, max_length: int,
                       beam_size: int = 3, bos: int = 1, eos: int = 2,
-                      pad: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                      pad: int = 0, cache_bf16: bool = False,
+                      weights_bf16: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam search of every sample -> (seq [B, K, L] int32, score [B, K]).
     CUDA tensors launch ``csrc/fused_beam.cu``; CPU tensors run
-    :func:`fused_beam_plain`.  K <= 8 on both, as the TPU kernel."""
-    check_inputs(packed, memkv, mem_valid, max_length)
+    :func:`fused_beam_plain`, both in the mode ``cache_bf16`` (memkv
+    bf16) and ``weights_bf16`` select.  K <= 8 on both, as the TPU
+    kernel.  ``launches`` counts every launch, ``mode_launches`` those
+    of each mode."""
+    check_inputs(packed, memkv, mem_valid, max_length, cache_bf16,
+                 weights_bf16)
     if not 1 <= beam_size <= MAX_BEAMS or beam_size > packed.vocab_size:
         raise ValueError(f"beam_size must be in [1, {MAX_BEAMS}]")
     if memkv.device.type == "cpu":
         return fused_beam_plain(packed, memkv, mem_valid, max_length,
-                                beam_size, bos, eos, pad)
+                                beam_size, bos, eos, pad,
+                                cache_bf16=cache_bf16,
+                                weights_bf16=weights_bf16)
     if memkv.device.type != "cuda":
         raise ValueError(f"unsupported device {memkv.device}")
     B, K, L = memkv.shape[2], beam_size, max_length
+    mode = decode_mode(cache_bf16, weights_bf16)
     seq = torch.empty(B, K, L, dtype=torch.int32, device=memkv.device)
     score = torch.empty(B, K, dtype=torch.float32, device=memkv.device)
     fused_beam_decode.last_plan = launch_decode(
         "fused_beam", packed, memkv, mem_valid, L, K, seq, score, bos, eos,
-        pad)
-    fused_beam_decode.launches += 1
+        pad, mode=mode)
+    count_launch(fused_beam_decode, mode)
     return seq, score
 
 
-fused_beam_decode.launches = 0
+reset_launches(fused_beam_decode)
 fused_beam_decode.last_plan = None
 
 
@@ -223,14 +292,24 @@ class FusedBeamDecoder:
         fb = FusedBeamDecoder(model, beam_size=3)     # device="cuda"
         seq = fb(wav, wav_len)                        # [B, L], best beam
         seq, score = fb(wav, wav_len, n_best=True)    # [B, K, L], [B, K]
+
+    The JAX decoder's defaults: ``cache_bf16=None`` follows the
+    decoder's compute dtype (bf16 caches for a bf16 model), and
+    ``weights_bf16`` is off unless asked for.
     """
 
     def __init__(self, model, max_length: int = 20, beam_size: int = 3,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda",
+                 cache_bf16: Optional[bool] = None,
+                 weights_bf16: Optional[bool] = None):
         self.device = resolve_device(device)
         self.model = model
         self.max_length = max_length
         self.beam_size = beam_size
+        if cache_bf16 is None:
+            cache_bf16 = model.decoder.compute_dtype == torch.bfloat16
+        self.cache_bf16 = bool(cache_bf16)
+        self.weights_bf16 = bool(weights_bf16)
         self.packed = pack_decoder_weights(model.decoder).to(self.device)
 
     @torch.no_grad()
@@ -238,9 +317,11 @@ class FusedBeamDecoder:
                  n_best: bool = False):
         enc = self.model.encode(wav.to(self.device), wav_len.to(self.device))
         memkv, mem_valid = memory_kv(self.model.decoder, enc["attn_emb"],
-                                     enc["attn_emb_len"])
+                                     enc["attn_emb_len"], self.cache_bf16)
         sp = self.model.special
         seq, score = fused_beam_decode(self.packed, memkv, mem_valid,
                                        self.max_length, self.beam_size,
-                                       sp.bos, sp.eos, sp.pad)
+                                       sp.bos, sp.eos, sp.pad,
+                                       cache_bf16=self.cache_bf16,
+                                       weights_bf16=self.weights_bf16)
         return (seq, score) if n_best else seq[:, 0]

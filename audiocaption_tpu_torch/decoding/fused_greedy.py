@@ -26,13 +26,26 @@ constraints and are not copied: the layout here is unpadded, the
 embedding is indexed directly, and the 1/sqrt(dh) scale is folded into
 the query weights.
 
+Modes (the TPU kernels' bf16 options).  ``cache_bf16`` stores the memory
+K/V and the self-attention caches in bf16 (``fused_greedy.py:316-327``
+there): each K/V value is rounded once where it is written, read back
+widened, and every sum stays as in the float32 mode.  ``weights_bf16``
+(the beam kernel's only, :mod:`fused_beam`) stores the ten large
+matrices in bf16 and rounds the activations to bf16 at each product,
+on the bf16 tensor cores (each 16-deep tile summed in float32, the tiles
+added in float64).  In the bf16 modes the plain version follows the
+kernels' float64 sums and float32 rounding points (``wide``).  Each mode
+is its own instantiation of the kernel, with its own launch count
+(``mode_launches``); a mode never falls back to another.
+
 ``fused_greedy_decode`` launches the kernel for CUDA tensors and runs
 ``fused_greedy_plain`` (same inputs, same outputs, vectorised over rows)
-only for CPU tensors.  Semantics: greedy over max_length steps; a row
-emits <eos> at every step after its first <eos> (the kernel stops a tile
-once all its rows have); arg-max ties go to the lower id; masked attention
-scores are -1e30.  :func:`greedy_pick_split` is the kernel's split pick
-(arg-max per vocabulary slice, then the merge) in plain PyTorch.
+only for CPU tensors, in the same mode.  Semantics: greedy over
+max_length steps; a row emits <eos> at every step after its first <eos>
+(the kernel stops a tile once all its rows have); arg-max ties go to the
+lower id; masked attention scores are -1e30.  :func:`greedy_pick_split`
+is the kernel's split pick (arg-max per vocabulary slice, then the
+merge) in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -49,6 +62,25 @@ from audiocaption_tpu_torch import cuda_build
 from audiocaption_tpu_torch.device import DeviceLike, resolve_device
 
 MASKED = -1e30
+CACHE_BF16 = 1       # DecodeArgs.mode bits (ACD_CACHE_BF16, ACD_WEIGHTS_BF16)
+WEIGHTS_BF16 = 2
+
+
+def decode_mode(cache_bf16: bool = False, weights_bf16: bool = False) -> int:
+    return (CACHE_BF16 if cache_bf16 else 0) | (
+        WEIGHTS_BF16 if weights_bf16 else 0)
+
+
+def mode_name(mode: int) -> str:
+    """"f32", "cache_bf16", "weights_bf16" or "cache_bf16+weights_bf16"."""
+    names = [n for bit, n in ((CACHE_BF16, "cache_bf16"),
+                              (WEIGHTS_BF16, "weights_bf16")) if mode & bit]
+    return "+".join(names) or "f32"
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (to nearest even), kept in its dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
 
 
 @dataclasses.dataclass
@@ -62,8 +94,13 @@ class PackedDecoder:
     layers: torch.Tensor
     nhead: int
     ffn: int
-    # the kernels' fragment-packed weights, made at first launch
+    # the kernels' fragment-packed weights (float32; bf16 for the
+    # weights_bf16 mode) and the bf16 embedding, made at first launch
     frag: Optional[torch.Tensor] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+    frag_bf16: Optional[torch.Tensor] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+    emb_bf16: Optional[torch.Tensor] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
 
     @property
@@ -135,78 +172,127 @@ def pack_decoder_weights(dec) -> PackedDecoder:
 
 
 @torch.no_grad()
-def memory_kv(dec, attn_emb: torch.Tensor, attn_emb_len: torch.Tensor
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Encoder output -> (memkv [nlayers, 2, B, S, E] float32,
-    mem_valid [B, S] uint8), the kernels' cross-attention inputs."""
+def memory_kv(dec, attn_emb: torch.Tensor, attn_emb_len: torch.Tensor,
+              cache_bf16: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encoder output -> (memkv [nlayers, 2, B, S, E], float32 or, with
+    ``cache_bf16``, bf16; mem_valid [B, S] uint8), the kernels'
+    cross-attention inputs.  The projection runs in the decoder's
+    compute dtype, as the JAX package's ``init_cache`` does."""
     static, _ = dec.init_cache(attn_emb, attn_emb_len, 1)
     memkv = torch.stack([torch.stack([static[f"mem_k{i}"], static[f"mem_v{i}"]])
-                         for i in range(dec.nlayers)]).float().contiguous()
-    return memkv, (~static["mem_kpm"]).to(torch.uint8).contiguous()
+                         for i in range(dec.nlayers)])
+    memkv = memkv.to(torch.bfloat16 if cache_bf16 else torch.float32)
+    return memkv.contiguous(), (~static["mem_kpm"]).to(torch.uint8).contiguous()
 
 
 # ----------------------------------------------------------------- plain --
 
-def _layer_norm(x, g, b):
+def _layer_norm(x, g, b, wide: bool = False):
+    """LayerNorm (eps 1e-5) of x, in x's dtype; ``wide``: the mean, the
+    variance and the normalisation in float64, rounded once (the
+    kernels' arithmetic)."""
+    dt = x.dtype
+    if wide:
+        x, g, b = x.double(), g.double(), b.double()
     mean = x.mean(-1, keepdim=True)
     var = ((x - mean) ** 2).mean(-1, keepdim=True)
-    return (x - mean) * torch.rsqrt(var + 1e-5) * g + b
+    return ((x - mean) * torch.rsqrt(var + 1e-5) * g + b).to(dt)
 
 
-def _attend(q, k, v, valid, H):
-    """q [B, R, E]; k/v [B, R, T, E]; valid [B, R, T] -> ctx [B, R, E]."""
+def _attend(q, k, v, valid, H, wide: bool = False):
+    """q [B, R, E]; k/v [B, R, T, E] (bf16 ones read widened);
+    valid [B, R, T] -> ctx [B, R, E].  ``wide``: as the kernels sum, the
+    scores, the softmax's denominator and the context in float64, each
+    rounded to q's dtype where the kernels store it."""
     B, R, E = q.shape
     T, dh = k.shape[2], E // H
-    qh = q.reshape(B, R, H, dh)
+    dt = q.dtype
+    wd = torch.float64 if wide else dt
+    k, v = k.to(wd), v.to(wd)
+    qh = q.reshape(B, R, H, dh).to(wd)
     kh, vh = k.reshape(B, R, T, H, dh), v.reshape(B, R, T, H, dh)
-    scores = torch.einsum("brhd,brthd->brht", qh, kh)
+    scores = torch.einsum("brhd,brthd->brht", qh, kh).to(dt)
     scores = scores.masked_fill(~valid[:, :, None, :], MASKED)
     m = scores.amax(-1, keepdim=True)
-    e = torch.exp(scores - m)
-    attn = e / e.sum(-1, keepdim=True)
-    return torch.einsum("brht,brthd->brhd", attn, vh).reshape(B, R, E)
+    e = torch.exp(scores - m).to(wd)
+    attn = (e / e.sum(-1, keepdim=True)).to(dt).to(wd)
+    ctx = torch.einsum("brht,brthd->brhd", attn, vh).to(dt)
+    return ctx.reshape(B, R, E)
+
+
+def product(x, w, b=None, weights_bf16: bool = False, wide: bool = False):
+    """A layer product as the kernels take it, in x's dtype.  With
+    ``weights_bf16`` the activation and the weight are rounded to bf16
+    first (the TPU kernel's ``_dot``); ``wide``: the exact products
+    summed in float64 and rounded once, as the kernels sum."""
+    if weights_bf16:
+        x, w = round_bf16(x), round_bf16(w)
+    if not wide:
+        return F.linear(x, w, b)
+    y = F.linear(x.double(), w.double(), None if b is None else b.double())
+    return y.to(x.dtype)
 
 
 def decoder_rows_plain(packed: PackedDecoder, x, t: int, self_k, self_v,
-                       self_valid, memkv, mem_valid):
+                       self_valid, memkv, mem_valid,
+                       weights_bf16: bool = False, wide: bool = False):
     """The kernels' per-step layer stack on rows x [B, R, E] at position t.
-    self_k/self_v [nlayers, B, R, L, E] get this step's K/V at row t;
-    self_valid [B, R, L]; memkv [nlayers, 2, B, S, E]; mem_valid [B, S]."""
+    self_k/self_v [nlayers, B, R, L, E] get this step's K/V at row t
+    (rounded to bf16 where the caches are bf16); self_valid [B, R, L];
+    memkv [nlayers, 2, B, S, E]; mem_valid [B, S].
+
+    ``wide`` (the bf16 modes) follows the kernels' float64 sums and their
+    float32 rounding points exactly.  A bf16 mode rounds values to bf16
+    at many points; where two versions' float32 values differ by an ulp,
+    the bf16 rounding flips now and then, and the flip (2^-8 relative)
+    moves a beam's later choices: in the weights_bf16 mode at the
+    flagship width the float32 plain version and its own float64 run
+    differ in 39 of 3840 beam-3 tokens (chip_smoke.py phase 12)."""
     E, H, F_ = packed.emb_dim, packed.nhead, packed.ffn
     R = x.shape[1]
     mvalid = mem_valid.bool()[:, None].expand(-1, R, -1)
+
+    def mm(a, w, b=None):
+        return product(a, w, b, weights_bf16, wide)
+
+    def ln(a, g, b):
+        return _layer_norm(a, g, b, wide)
+
     for i in range(packed.nlayers):
         w = _layer_views(packed.layers[i], E, F_)
-        ln = w["ln"]
-        qkv = F.linear(x, w["wqkv"], w["bqkv"])
+        g = w["ln"]
+        qkv = mm(x, w["wqkv"], w["bqkv"])
         q, k, v = qkv[..., :E], qkv[..., E:2 * E], qkv[..., 2 * E:]
         self_k[i, :, :, t] = k
         self_v[i, :, :, t] = v
         ctx = _attend(q, self_k[i, :, :, :t + 1], self_v[i, :, :, :t + 1],
-                      self_valid[:, :, :t + 1], H)
-        x = _layer_norm(x + F.linear(ctx, w["wo"], w["bo"]), ln[0], ln[1])
-        xq = F.linear(x, w["xwq"], w["xbq"])
+                      self_valid[:, :, :t + 1], H, wide)
+        x = ln(x + mm(ctx, w["wo"], w["bo"]), g[0], g[1])
+        xq = mm(x, w["xwq"], w["xbq"])
         mk = memkv[i, 0][:, None].expand(-1, R, -1, -1)
         mv = memkv[i, 1][:, None].expand(-1, R, -1, -1)
-        ctx = _attend(xq, mk, mv, mvalid, H)
-        x = _layer_norm(x + F.linear(ctx, w["xwo"], w["xbo"]), ln[2], ln[3])
-        h = torch.relu(F.linear(x, w["w1"], w["b1"]))
-        x = _layer_norm(x + F.linear(h, w["w2"], w["b2"]), ln[4], ln[5])
+        ctx = _attend(xq, mk, mv, mvalid, H, wide)
+        x = ln(x + mm(ctx, w["xwo"], w["xbo"]), g[2], g[3])
+        h = torch.relu(mm(x, w["w1"], w["b1"]))
+        x = ln(x + mm(h, w["w2"], w["b2"]), g[4], g[5])
     return x
 
 
 @torch.no_grad()
 def fused_greedy_plain(packed: PackedDecoder, memkv: torch.Tensor,
                        mem_valid: torch.Tensor, max_length: int,
-                       bos: int = 1, eos: int = 2, pad: int = 0
-                       ) -> torch.Tensor:
-    """Plain PyTorch version of the greedy kernel -> [B, L] int32."""
+                       bos: int = 1, eos: int = 2, pad: int = 0,
+                       cache_bf16: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the greedy kernel -> [B, L] int32.  With
+    ``cache_bf16`` the self-attention caches are bf16 (memkv is too), and
+    the sums follow the kernel's (``decoder_rows_plain``'s ``wide``)."""
     nl, _, B, S, E = memkv.shape
     L = max_length
     dev = memkv.device
     sqrt_e = math.sqrt(E)
-    self_k = memkv.new_zeros(nl, B, 1, L, E)
-    self_v = memkv.new_zeros(nl, B, 1, L, E)
+    cache = dict(dtype=torch.bfloat16) if cache_bf16 else {}
+    self_k = memkv.new_zeros(nl, B, 1, L, E, **cache)
+    self_v = memkv.new_zeros(nl, B, 1, L, E, **cache)
     valid = torch.ones(B, 1, L, dtype=torch.bool, device=dev)
     word = torch.full((B,), bos, dtype=torch.long, device=dev)
     finished = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -215,8 +301,9 @@ def fused_greedy_plain(packed: PackedDecoder, memkv: torch.Tensor,
         valid[:, 0, t] = word != pad
         x = (packed.emb[word] * sqrt_e + packed.pe[t])[:, None]
         x = decoder_rows_plain(packed, x, t, self_k, self_v, valid, memkv,
-                               mem_valid)
-        new_word = torch.argmax(F.linear(x[:, 0], packed.cls), dim=-1)
+                               mem_valid, wide=cache_bf16)
+        new_word = torch.argmax(product(x[:, 0], packed.cls, wide=cache_bf16),
+                                dim=-1)
         out_word = torch.where(finished, torch.full_like(new_word, eos),
                                new_word)
         finished = finished | (new_word == eos)
@@ -228,19 +315,26 @@ def fused_greedy_plain(packed: PackedDecoder, memkv: torch.Tensor,
 # ---------------------------------------------------------------- kernel --
 
 def check_inputs(packed: PackedDecoder, memkv: torch.Tensor,
-                 mem_valid: torch.Tensor, max_length: int) -> None:
-    """Raise on inputs the kernels do not take."""
+                 mem_valid: torch.Tensor, max_length: int,
+                 cache_bf16: bool = False, weights_bf16: bool = False
+                 ) -> None:
+    """Raise on inputs the kernels do not take (memkv is bf16 exactly
+    when ``cache_bf16``)."""
     nl, two, B, S, E = memkv.shape
     if two != 2 or nl != packed.nlayers or E != packed.emb_dim:
         raise ValueError(f"memkv shape {tuple(memkv.shape)} does not match "
                          "the packed decoder")
     if tuple(mem_valid.shape) != (B, S) or mem_valid.dtype != torch.uint8:
         raise ValueError("mem_valid must be uint8 [B, S]")
-    if memkv.dtype != torch.float32:
-        raise ValueError("memkv must be float32")
+    want = torch.bfloat16 if cache_bf16 else torch.float32
+    if memkv.dtype != want:
+        raise ValueError(f"memkv must be {want} (cache_bf16={cache_bf16})")
     if E % 4 or packed.ffn % 4 or E % packed.nhead:
         raise ValueError("the kernels need E and FFN multiples of 4 and "
                          "E divisible by the head count")
+    if weights_bf16 and (E % 16 or packed.ffn % 16):
+        raise ValueError("weights_bf16 needs E and FFN multiples of 16 "
+                         "(the k depth of a bf16 mma)")
     if not 1 <= max_length <= packed.pe.shape[0]:
         raise ValueError(f"max_length {max_length} outside the PE table")
     tensors = [memkv, mem_valid, packed.emb, packed.cls, packed.pe,
@@ -282,36 +376,76 @@ def frag_pack(w: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 3, 2, 5, 4, 1).reshape(-1)
 
 
-def frag_offsets(E: int, F_: int) -> Dict[str, int]:
-    """Offsets of one layer's packed matrices (FragOffsets in
-    decoder_common.cuh); the vocabulary follows the last layer."""
+def frag_pack_bf16(w: torch.Tensor) -> torch.Tensor:
+    """[N, K] -> bf16 in the A-fragment order of the bf16 mma
+    (m16n8k16), flat: N and K padded to 16 with zeros, then
+    [N/16][K/16][32 lanes][8], where lane g*4 + t holds its four 32-bit
+    registers, each a pair of adjacent columns: (g, 2t..2t+1),
+    (g+8, 2t..2t+1), (g, 2t+8..2t+9), (g+8, 2t+8..2t+9) of its 16 x 16
+    tile.  A tile is 512 bytes, a lane's share 16 bytes, as for
+    :func:`frag_pack`."""
+    N, K = w.shape
+    wp = torch.zeros(_up(N, 16), _up(K, 16), dtype=torch.bfloat16,
+                     device=w.device)
+    wp[:N, :K] = w
+    t = wp.view(wp.shape[0] // 16, 2, 8, wp.shape[1] // 16, 2, 4, 2)
+    # [mt, row-half, g, kt, col-half, t, pair]
+    #   -> [mt, kt, g, t, col-half, row-half, pair]
+    return t.permute(0, 3, 2, 5, 4, 1, 6).reshape(-1)
+
+
+def frag_offsets(E: int, F_: int, bf16: bool = False) -> Dict[str, int]:
+    """Offsets, in elements of the packed dtype, of one layer's packed
+    matrices (FragOffsets in decoder_common.cuh counts the same in
+    16-byte units); the vocabulary follows the last layer.  A tile is
+    16 x 8 float32 values, or 16 x 16 bf16 ones with ``bf16``."""
+    kw = 16 if bf16 else 8
     out, p = {}, 0
     for name, (n, k) in (("wqkv", (3 * E, E)), ("wo", (E, E)),
                          ("xwq", (E, E)), ("xwo", (E, E)), ("w1", (F_, E)),
                          ("w2", (E, F_))):
         out[name] = p
-        p += _up(n, 16) * _up(k, 8)
+        p += _up(n, 16) * _up(k, kw)
     out["size"] = p
     return out
 
 
 @torch.no_grad()
-def kernel_weights(packed: PackedDecoder) -> torch.Tensor:
+def kernel_weights(packed: PackedDecoder, bf16: bool = False
+                   ) -> torch.Tensor:
     """The six matrices of every layer, then the tied vocabulary, in
-    fragment order (made once per packed decoder, on its device)."""
-    if packed.frag is None:
+    fragment order: float32 (:func:`frag_pack`) or, with ``bf16``, bf16
+    (:func:`frag_pack_bf16`).  Made once per packed decoder and mode, on
+    its device."""
+    attr = "frag_bf16" if bf16 else "frag"
+    if getattr(packed, attr) is None:
+        pack = frag_pack_bf16 if bf16 else frag_pack
         E, F_ = packed.emb_dim, packed.ffn
         parts = []
         for i in range(packed.nlayers):
             w = _layer_views(packed.layers[i], E, F_)
-            parts += [frag_pack(w[k]) for k in ("wqkv", "wo", "xwq", "xwo",
-                                                "w1", "w2")]
-        parts.append(frag_pack(packed.cls))
-        packed.frag = torch.cat(parts).contiguous()
-        assert packed.frag.numel() == (packed.nlayers
-                                       * frag_offsets(E, F_)["size"]
-                                       + _up(packed.vocab_size, 16) * _up(E, 8))
-    return packed.frag
+            parts += [pack(w[k]) for k in ("wqkv", "wo", "xwq", "xwo",
+                                           "w1", "w2")]
+        parts.append(pack(packed.cls))
+        frag = torch.cat(parts).contiguous()
+        assert frag.numel() == (packed.nlayers
+                                * frag_offsets(E, F_, bf16)["size"]
+                                + _up(packed.vocab_size, 16)
+                                * _up(E, 16 if bf16 else 8))
+        setattr(packed, attr, frag)
+    return getattr(packed, attr)
+
+
+@torch.no_grad()
+def kernel_embedding(packed: PackedDecoder, bf16: bool = False
+                     ) -> torch.Tensor:
+    """The embedding table the kernels gather from: float32, or a bf16
+    copy (made once) for the weights_bf16 mode."""
+    if not bf16:
+        return packed.emb
+    if packed.emb_bf16 is None:
+        packed.emb_bf16 = packed.emb.to(torch.bfloat16).contiguous()
+    return packed.emb_bf16
 
 
 def block_tiles(n_out: int, C: int) -> List[Tuple[int, int]]:
@@ -328,7 +462,12 @@ def vocab_slices(V: int, C: int) -> List[Tuple[int, int]]:
 
 def smem_bytes(R: int, E: int, F_: int, V: int, L: int, S: int, C: int,
                beam: bool) -> int:
-    """Shared memory of one block (carve_smem in decoder_common.cuh)."""
+    """Shared memory of one block (carve_smem in decoder_common.cuh).
+    The same in every mode: the K/V caches and the memory K/V are read
+    from global memory (L2), never staged, the activations stay float32
+    (a bf16 product rounds them as it loads them), and a slot of the
+    weight ring is 16 bytes a lane both for a float32 16 x 8 tile and for
+    a bf16 16 x 16 one."""
     Rp = _up(R, 8)
     ldE, ldF = _up(E, 8) + 4, _up(F_, 8) + 4
     ldV = _up(-(-V // 16), C) // C * 16 + 4
@@ -394,7 +533,7 @@ class DecodeArgs(ctypes.Structure):
         "out_seq", "out_score", "clocks")]
         + [(n, ctypes.c_int) for n in (
             "B", "S", "L", "E", "H", "F", "V", "nl", "K", "ns", "R", "C",
-            "tiles", "bos", "eos", "pad")]
+            "tiles", "bos", "eos", "pad", "mode")]
         + [("sqrt_e", ctypes.c_float)])
 
 
@@ -403,25 +542,27 @@ def signatures(name: str) -> Dict[str, Tuple[list, type]]:
     args = ctypes.POINTER(DecodeArgs)
     return {f"{name}_launch": ([args, ctypes.c_void_p], ctypes.c_int),
             f"{name}_smem": ([args], ctypes.c_long),
-            f"{name}_max_clusters": ([ctypes.c_int, ctypes.c_long],
-                                     ctypes.c_int),
+            f"{name}_max_clusters": ([ctypes.c_int, ctypes.c_long,
+                                      ctypes.c_int], ctypes.c_int),
             **({"fused_greedy_sync_probe": (
                 [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2, ctypes.c_int)}
                if name == "fused_greedy" else {})}
 
 
-_max_clusters_seen: Dict[Tuple[str, int, int], int] = {}
+_max_clusters_seen: Dict[Tuple[str, int, int, int], int] = {}
 
 
-def max_clusters_on_card(name: str) -> Callable[[int, int], int]:
+def max_clusters_on_card(name: str, mode: int = 0
+                         ) -> Callable[[int, int], int]:
     """``max_clusters`` for :func:`plan_clusters`: what
-    cudaOccupancyMaxActiveClusters says for the kernel ``name``."""
+    cudaOccupancyMaxActiveClusters says for the kernel ``name`` in
+    ``mode``."""
     lib = cuda_build.load(name, signatures(name))
 
     def query(C: int, smem: int) -> int:
-        key = (name, C, smem)
+        key = (name, mode, C, smem)
         if key not in _max_clusters_seen:
-            n = getattr(lib, f"{name}_max_clusters")(C, smem)
+            n = getattr(lib, f"{name}_max_clusters")(C, smem, mode)
             if n < 0:
                 cuda_build.check(-n, f"{name} cluster occupancy")
             _max_clusters_seen[key] = n
@@ -434,30 +575,35 @@ def launch_decode(name: str, packed: PackedDecoder, memkv: torch.Tensor,
                   out_seq: torch.Tensor, out_score: Optional[torch.Tensor],
                   bos: int, eos: int, pad: int,
                   cluster: Optional[int] = None,
-                  clocks: Optional[torch.Tensor] = None) -> ClusterPlan:
+                  clocks: Optional[torch.Tensor] = None,
+                  mode: int = 0) -> ClusterPlan:
     """Plan the tiles and launch the decode kernel ``name`` (fused_greedy
-    or fused_beam) on ``memkv``'s device -> the plan it ran.  ``cluster``
-    forces the cluster size (for measuring both).  ``clocks``
-    (int64 [max_length, PHASES], zeroed) receives the phase trace of the
-    first block: the global timer in ns at each step's start (slot 0)
-    and after each cluster sync (slots 1, 2, ...)."""
+    or fused_beam) in ``mode`` (:func:`decode_mode`) on ``memkv``'s
+    device -> the plan it ran.  ``cluster`` forces the cluster size (for
+    measuring both).  ``clocks`` (int64 [max_length, PHASES], zeroed)
+    receives the phase trace of the first block: the global timer in ns
+    at each step's start (slot 0) and after each cluster sync (slots 1,
+    2, ...)."""
     nl, _, B, S, E = memkv.shape
     L, V, F_ = max_length, packed.vocab_size, packed.ffn
     beam = name == "fused_beam"
+    wbf16 = bool(mode & WEIGHTS_BF16)
     plan = plan_clusters(B, K, E, F_, V, L, S, beam,
-                         max_clusters_on_card(name), cluster)
+                         max_clusters_on_card(name, mode), cluster)
     lib = cuda_build.load(name, signatures(name))
-    frag = kernel_weights(packed)
+    frag = kernel_weights(packed, wbf16)
+    emb = kernel_embedding(packed, wbf16)
     cache = torch.empty(nl * 2 * plan.tiles * plan.R * L * E,
-                        dtype=torch.float32, device=memkv.device)
+                        dtype=torch.bfloat16 if mode & CACHE_BF16
+                        else torch.float32, device=memkv.device)
     args = DecodeArgs(
-        packed.emb.data_ptr(), packed.pe.data_ptr(), packed.layers.data_ptr(),
+        emb.data_ptr(), packed.pe.data_ptr(), packed.layers.data_ptr(),
         frag.data_ptr(), memkv.data_ptr(), mem_valid.data_ptr(),
         cache.data_ptr(), out_seq.data_ptr(),
         out_score.data_ptr() if out_score is not None else None,
         clocks.data_ptr() if clocks is not None else None,
         B, S, L, E, packed.nhead, F_, V, nl, K, plan.ns, plan.R, plan.C,
-        plan.tiles, bos, eos, pad, math.sqrt(E))
+        plan.tiles, bos, eos, pad, mode, math.sqrt(E))
     stream = torch.cuda.current_stream(memkv.device).cuda_stream
     err = getattr(lib, f"{name}_launch")(ctypes.byref(args),
                                          ctypes.c_void_p(stream))
@@ -523,27 +669,43 @@ def greedy_pick_split(logits: torch.Tensor, C: int) -> torch.Tensor:
 
 def fused_greedy_decode(packed: PackedDecoder, memkv: torch.Tensor,
                         mem_valid: torch.Tensor, max_length: int,
-                        bos: int = 1, eos: int = 2, pad: int = 0
-                        ) -> torch.Tensor:
+                        bos: int = 1, eos: int = 2, pad: int = 0,
+                        cache_bf16: bool = False) -> torch.Tensor:
     """Greedy decode of every row -> token ids [B, max_length] int32.
     CUDA tensors launch ``csrc/fused_greedy.cu`` on the tiles that
-    :func:`plan_clusters` picks; CPU tensors run :func:`fused_greedy_plain`."""
-    check_inputs(packed, memkv, mem_valid, max_length)
+    :func:`plan_clusters` picks; CPU tensors run :func:`fused_greedy_plain`.
+    ``cache_bf16`` (memkv bf16) selects that mode on both.  ``launches``
+    counts every launch, ``mode_launches[mode_name(...)]`` those of a
+    mode."""
+    check_inputs(packed, memkv, mem_valid, max_length, cache_bf16)
     if memkv.device.type == "cpu":
         return fused_greedy_plain(packed, memkv, mem_valid, max_length,
-                                  bos, eos, pad)
+                                  bos, eos, pad, cache_bf16)
     if memkv.device.type != "cuda":
         raise ValueError(f"unsupported device {memkv.device}")
     B = memkv.shape[2]
+    mode = decode_mode(cache_bf16)
     out = torch.empty(B, max_length, dtype=torch.int32, device=memkv.device)
     fused_greedy_decode.last_plan = launch_decode(
         "fused_greedy", packed, memkv, mem_valid, max_length, 1, out, None,
-        bos, eos, pad)
-    fused_greedy_decode.launches += 1
+        bos, eos, pad, mode=mode)
+    count_launch(fused_greedy_decode, mode)
     return out
 
 
-fused_greedy_decode.launches = 0
+def count_launch(wrapper, mode: int) -> None:
+    wrapper.launches += 1
+    name = mode_name(mode)
+    wrapper.mode_launches[name] = wrapper.mode_launches.get(name, 0) + 1
+
+
+def reset_launches(wrapper) -> None:
+    """Set a decode wrapper's launch counts to 0."""
+    wrapper.launches = 0
+    wrapper.mode_launches = {}
+
+
+reset_launches(fused_greedy_decode)
 fused_greedy_decode.last_plan = None
 
 
@@ -552,13 +714,23 @@ class FusedGreedyDecoder:
 
         fd = FusedGreedyDecoder(model, max_length=20)   # device="cuda"
         seq = fd(wav, wav_len)                          # [B, L] int32
-    """
+
+    ``cache_bf16=None`` follows the decoder's compute dtype, as the JAX
+    decoder does: a bf16 model (the serving configuration) decodes with
+    bf16 memory K/V and caches; the kernel's weights stay float32.  The
+    JAX decoder also doubles its kernel batch under bf16, which only
+    frees TPU VMEM; here the planner tiles any batch, so nothing of that
+    is copied."""
 
     def __init__(self, model, max_length: int = 20,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda",
+                 cache_bf16: Optional[bool] = None):
         self.device = resolve_device(device)
         self.model = model
         self.max_length = max_length
+        if cache_bf16 is None:
+            cache_bf16 = model.decoder.compute_dtype == torch.bfloat16
+        self.cache_bf16 = bool(cache_bf16)
         self.packed = pack_decoder_weights(model.decoder).to(self.device)
 
     @torch.no_grad()
@@ -566,7 +738,8 @@ class FusedGreedyDecoder:
                  ) -> torch.Tensor:
         enc = self.model.encode(wav.to(self.device), wav_len.to(self.device))
         memkv, mem_valid = memory_kv(self.model.decoder, enc["attn_emb"],
-                                     enc["attn_emb_len"])
+                                     enc["attn_emb_len"], self.cache_bf16)
         sp = self.model.special
         return fused_greedy_decode(self.packed, memkv, mem_valid,
-                                   self.max_length, sp.bos, sp.eos, sp.pad)
+                                   self.max_length, sp.bos, sp.eos, sp.pad,
+                                   cache_bf16=self.cache_bf16)

@@ -17,6 +17,13 @@ the CPU, and for other settings, through the torch decoding engine.
 Temporal model: the 32 kHz log-mel goes through the fused log-mel kernel
 on CUDA (``ops/fused_logmel.py``) and is shared by the SED branch and the
 captioner; decoding is the torch engine's, as in the JAX package.
+
+``compute_dtype=torch.bfloat16`` serves either model in bf16, as the JAX
+package's APIs do: the networks compute in bf16 (``models/layers.py``),
+the log-mel stays float32, and on CUDA the EffB2 model's decode kernels
+run with bf16 memory K/V and self-attention caches (``cache_bf16``, the
+JAX "serving configuration"; bf16 kernel weights, ``weights_bf16``, are
+an opt-in of ``FusedBeamDecoder``).  Parameters stay float32.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ from torch import nn
 
 from audiocaption_tpu_torch.device import DeviceLike, resolve_device
 from audiocaption_tpu_torch.models.captioner import generate
-from audiocaption_tpu_torch.models.convert import load_reference_state_dict
+from audiocaption_tpu_torch.models.convert import (
+    load_known, load_reference_state_dict)
 from audiocaption_tpu_torch.models.sed import (
     Cnn8RnnSedModel, framewise_to_temporal_tags)
 from audiocaption_tpu_torch.models.zoo import (
@@ -74,19 +82,23 @@ class Effb2TrmCaptioningModel:
 
     ``state_dict`` takes reference-key-space weights (see
     ``models/convert.py``); without it the weights are random, drawn
-    from ``torch.Generator().manual_seed(seed)``."""
+    from ``torch.Generator().manual_seed(seed)``.  ``compute_dtype``:
+    float32 or bfloat16 (see the module docstring)."""
 
     def __init__(self, config: Effb2TrmConfig = Effb2TrmConfig(),
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                 seed: int = 0, device: DeviceLike = "cuda"):
+                 seed: int = 0, device: DeviceLike = "cuda",
+                 compute_dtype: torch.dtype = torch.float32):
         self.device = resolve_device(device)
         self.config = config
+        self.compute_dtype = compute_dtype
         self.model = effb2_trm(
             vocab_size=config.vocab_size,
             decoder_emb_dim=config.decoder_emb_dim,
             decoder_n_layers=config.decoder_n_layers,
             decoder_dropout=config.decoder_dropout,
-            tie_weights=config.decoder_we_tie_weights)
+            tie_weights=config.decoder_we_tie_weights,
+            compute_dtype=compute_dtype)
         random_init(self.model, torch.Generator().manual_seed(seed))
         if state_dict is not None:
             load_reference_state_dict(self.model, state_dict)
@@ -102,6 +114,10 @@ class Effb2TrmCaptioningModel:
         self.load_torch_state_dict(ckpt)
 
     def load_torch_state_dict(self, sd: Mapping[str, torch.Tensor]) -> None:
+        """Load reference-key-space weights.  The bf16 copies of the
+        weights are made again from the new ones at their next use
+        (``layers.as_compute``), and the fused decoders, which hold
+        packed copies of the old ones, are dropped."""
         load_reference_state_dict(self.model, sd)
         self.model.to(self.device).eval()
         self._decode = {}   # drop decoders bound to the old weights
@@ -109,6 +125,8 @@ class Effb2TrmCaptioningModel:
     def _decode_fn(self, key):
         if key not in self._decode:
             sample_method, beam_size, max_length, temp = key
+            # on CUDA the fused kernels take the mode the model's
+            # compute dtype implies (bf16 caches for a bf16 model)
             on_cuda = self.device.type == "cuda"
             if sample_method == "greedy" and on_cuda:
                 from audiocaption_tpu_torch.decoding.fused_greedy import (
@@ -166,15 +184,17 @@ class TemporalCaptionModel(nn.Module):
     """The temporal model's two networks under the reference checkpoint's
     names: ``cap_model`` (Cnn14-BiGRU captioner) and ``sed_model``."""
 
-    def __init__(self, config: Cnn14RnnTempAttnGruConfig):
+    def __init__(self, config: Cnn14RnnTempAttnGruConfig,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cap_model = cnn14rnn_tempgru(
             vocab_size=config.vocab_size, sample_rate=config.sample_rate,
             encoder_rnn_hidden_size=config.encoder_rnn_hidden_size,
             encoder_rnn_num_layers=config.encoder_rnn_num_layers,
             decoder_emb_dim=config.decoder_emb_dim,
-            decoder_d_model=config.decoder_d_model)
-        self.sed_model = Cnn8RnnSedModel()
+            decoder_d_model=config.decoder_d_model,
+            compute_dtype=compute_dtype)
+        self.sed_model = Cnn8RnnSedModel(compute_dtype=compute_dtype)
 
 
 class Cnn14RnnTempAttnGruModel:
@@ -186,15 +206,19 @@ class Cnn14RnnTempAttnGruModel:
 
     ``state_dict`` takes the reference checkpoint's key space (see
     ``models/convert.py``); without it the weights are random, drawn from
-    ``torch.Generator().manual_seed(seed)``."""
+    ``torch.Generator().manual_seed(seed)``.  ``compute_dtype``: float32
+    or bfloat16, for the Cnn14 and the SED network (the log-mel, the
+    BiGRUs and the GRU decoder stay float32, as in the JAX package)."""
 
     def __init__(self, config: Cnn14RnnTempAttnGruConfig =
                  Cnn14RnnTempAttnGruConfig(),
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                 seed: int = 0, device: DeviceLike = "cuda"):
+                 seed: int = 0, device: DeviceLike = "cuda",
+                 compute_dtype: torch.dtype = torch.float32):
         self.device = resolve_device(device)
         self.config = config
-        self.model = TemporalCaptionModel(config)
+        self.compute_dtype = compute_dtype
+        self.model = TemporalCaptionModel(config, compute_dtype)
         random_init(self.model, torch.Generator().manual_seed(seed))
         if state_dict is not None:
             self.load_torch_state_dict(state_dict)
@@ -208,9 +232,9 @@ class Cnn14RnnTempAttnGruModel:
             torch.load(path, map_location="cpu", weights_only=False))
 
     def load_torch_state_dict(self, sd: Mapping[str, torch.Tensor]) -> None:
-        self.model.load_state_dict({
-            k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
-            for k, v in sd.items()})
+        """Load the reference key space; keys the model has no tensor for
+        are dropped and a missing one raises (``convert.load_known``)."""
+        load_known(self.model, sd)
         self.model.to(self.device).eval()
 
     @torch.no_grad()

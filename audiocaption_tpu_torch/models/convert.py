@@ -170,21 +170,39 @@ def state_dict_from_jax(variables: Mapping, nlayers: int = 2,
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 
+def load_known(module: torch.nn.Module,
+               sd: Mapping[str, torch.Tensor]) -> None:
+    """Load ``sd`` into ``module`` as the JAX converters read a
+    checkpoint: keys the module has no tensor for are dropped (a
+    reference checkpoint also carries, for instance, the unused
+    classifier ``eff_net._fc.*`` and the feature extractor's
+    ``melspec_extractor.*`` buffers); a tensor the module needs and
+    ``sd`` lacks raises."""
+    own = module.state_dict()
+    missing = sorted(set(own) - set(sd))
+    if missing:
+        raise RuntimeError(f"Missing key(s) in state_dict: {len(missing)} "
+                           f"tensor(s) the model needs, {missing[:8]}")
+    module.load_state_dict({
+        k: v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+        for k, v in sd.items() if k in own})
+
+
 def load_reference_state_dict(model: torch.nn.Module,
                               sd: Mapping[str, torch.Tensor]) -> None:
-    """Load a reference-key-space state dict into a ``Captioner``
-    (strict: every encoder and decoder tensor must be present)."""
+    """Load a reference-key-space state dict into a ``Captioner``: every
+    encoder and decoder tensor must be present; keys outside them are
+    dropped (:func:`load_known`)."""
     enc, dec = {}, {}
     for k, v in sd.items():
-        v = torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v) else v
         if k.startswith(ENCODER_PREFIX):
             enc[k[len(ENCODER_PREFIX):]] = v
         elif k.startswith(DECODER_PREFIX):
             dec[k[len(DECODER_PREFIX):]] = v
     if "pos_encoder.pe" not in dec:   # older trees without a PE table
         dec["pos_encoder.pe"] = model.decoder.pos_encoder.pe
-    model.encoder.load_state_dict(enc)
-    model.decoder.load_state_dict(dec)
+    load_known(model.encoder, enc)
+    load_known(model.decoder, dec)
 
 
 def _cnn(params, stats, prefix, n_blocks, out):

@@ -13,7 +13,10 @@ checkpoint loads with a plain ``load_state_dict``.
 
 Output: {fc_emb [B, 1408], attn_emb [B, T // 32, 1408], attn_emb_len [B]}
 with ``attn_emb`` the mean over the frequency axis and ``fc_emb`` the
-length-masked mean of ``attn_emb``.
+length-masked mean of ``attn_emb``, both float32.  ``compute_dtype``
+(float32 or bfloat16) is the convolutions' and the activations' dtype,
+as in the JAX package (``layers.py``'s rules); the mean is taken in it
+and cast to float32.
 
 The pruned family (reference ``get_pruned_model``): ``build_pruned_effb2``
 ranks and slices the filters of a full encoder into a
@@ -31,7 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from audiocaption_tpu_torch.models.layers import Conv2dSame
+from audiocaption_tpu_torch.models.layers import (
+    BatchNorm2d, Conv2dSame, sigmoid, silu, widen)
 from audiocaption_tpu_torch.ops.masking import mean_with_lens
 
 # EfficientNet-B0 block args: (repeats, kernel, stride, expand, in, out)
@@ -98,41 +102,47 @@ class MBConvBlock(nn.Module):
     def __init__(self, in_filters: int, out_filters: int, kernel: int,
                  stride: int, expand_ratio: int, nominal_size: int,
                  oup_override: Optional[int] = None,
-                 squeeze_override: Optional[int] = None):
+                 squeeze_override: Optional[int] = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.plan = dict(in_filters=in_filters, out_filters=out_filters,
                          kernel=kernel, stride=stride,
                          expand_ratio=expand_ratio, nominal_size=nominal_size,
                          oup_override=oup_override,
                          squeeze_override=squeeze_override)
+        cd = self.compute_dtype = compute_dtype
         oup = (oup_override if oup_override is not None
                else in_filters * expand_ratio)
         self.has_expand = expand_ratio != 1
         self.has_skip = stride == 1 and in_filters == out_filters
         if self.has_expand:
-            self._expand_conv = Conv2dSame(in_filters, oup, 1)
-            self._bn0 = nn.BatchNorm2d(oup, eps=_BN_EPS)
+            self._expand_conv = Conv2dSame(in_filters, oup, 1,
+                                           compute_dtype=cd)
+            self._bn0 = BatchNorm2d(oup, eps=_BN_EPS, compute_dtype=cd)
         self._depthwise_conv = Conv2dSame(
             oup, oup, kernel, stride=stride, groups=oup,
-            padding4=tf_same_padding(nominal_size, kernel, stride))
-        self._bn1 = nn.BatchNorm2d(oup, eps=_BN_EPS)
+            padding4=tf_same_padding(nominal_size, kernel, stride),
+            compute_dtype=cd)
+        self._bn1 = BatchNorm2d(oup, eps=_BN_EPS, compute_dtype=cd)
         # SE channel count comes from the block's *input* filters
         n_squeeze = (squeeze_override if squeeze_override is not None
                      else max(1, int(in_filters * _SE_RATIO)))
-        self._se_reduce = Conv2dSame(oup, n_squeeze, 1, bias=True)
-        self._se_expand = Conv2dSame(n_squeeze, oup, 1, bias=True)
-        self._project_conv = Conv2dSame(oup, out_filters, 1)
-        self._bn2 = nn.BatchNorm2d(out_filters, eps=_BN_EPS)
+        self._se_reduce = Conv2dSame(oup, n_squeeze, 1, bias=True,
+                                     compute_dtype=cd)
+        self._se_expand = Conv2dSame(n_squeeze, oup, 1, bias=True,
+                                     compute_dtype=cd)
+        self._project_conv = Conv2dSame(oup, out_filters, 1, compute_dtype=cd)
+        self._bn2 = BatchNorm2d(out_filters, eps=_BN_EPS, compute_dtype=cd)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         inputs = x
         if self.has_expand:
-            x = F.silu(self._bn0(self._expand_conv(x)))
-        x = F.silu(self._bn1(self._depthwise_conv(x)))
+            x = silu(self._bn0(self._expand_conv(x)))
+        x = silu(self._bn1(self._depthwise_conv(x)))
         # SE mean over the whole padded map (not length-masked)
         s = x.mean(dim=(2, 3), keepdim=True)
-        s = self._se_expand(F.silu(self._se_reduce(s)))
-        x = torch.sigmoid(s) * x
+        s = self._se_expand(silu(self._se_reduce(s)))
+        x = sigmoid(s) * x
         x = self._bn2(self._project_conv(x))
         if self.has_skip:
             x = x + inputs
@@ -149,18 +159,23 @@ class EfficientNetB2(nn.Module):
 
     def __init__(self, stem_filters: Optional[int] = None,
                  head_filters: Optional[int] = None,
-                 block_plan: Optional[Sequence[Dict]] = None):
+                 block_plan: Optional[Sequence[Dict]] = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        cd = self.compute_dtype = compute_dtype
         stem = stem_filters or round_filters(32, 1.1)
         self._conv_stem = Conv2dSame(1, stem, 3, stride=2,
-                                     padding4=tf_same_padding(260, 3, 2))
-        self._bn0 = nn.BatchNorm2d(stem, eps=_BN_EPS)
+                                     padding4=tf_same_padding(260, 3, 2),
+                                     compute_dtype=cd)
+        self._bn0 = BatchNorm2d(stem, eps=_BN_EPS, compute_dtype=cd)
         self._blocks = nn.ModuleList(
-            MBConvBlock(**a) for a in (block_plan or b2_block_plan()))
+            MBConvBlock(**a, compute_dtype=cd)
+            for a in (block_plan or b2_block_plan()))
         head = head_filters or round_filters(1280, 1.1)
         self._conv_head = Conv2dSame(
-            self._blocks[-1]._project_conv.out_channels, head, 1)
-        self._bn1 = nn.BatchNorm2d(head, eps=_BN_EPS)
+            self._blocks[-1]._project_conv.out_channels, head, 1,
+            compute_dtype=cd)
+        self._bn1 = BatchNorm2d(head, eps=_BN_EPS, compute_dtype=cd)
         self.fc_emb_size = head
 
     def forward(self, lms: torch.Tensor, feat_len: torch.Tensor,
@@ -170,11 +185,11 @@ class EfficientNetB2(nn.Module):
         one callable per block, stands in for the block modules (the
         folded walk of ``ops/fused_mbconv.py``)."""
         x = lms.transpose(1, 2)[:, None]                  # [B, 1, F, T]
-        x = F.silu(self._bn0(self._conv_stem(x)))
+        x = silu(self._bn0(self._conv_stem(x)))
         for block in (self._blocks if blocks is None else blocks):
             x = block(x)
-        x = F.silu(self._bn1(self._conv_head(x)))
-        attn_emb = x.mean(dim=2).transpose(1, 2)          # [B, T', C]
+        x = silu(self._bn1(self._conv_head(x)))
+        attn_emb = widen(x.mean(dim=2).transpose(1, 2))   # [B, T', C]
         out_len = torch.div(feat_len, self.downsample_ratio,
                             rounding_mode="floor")
         return {"fc_emb": mean_with_lens(attn_emb, out_len),
@@ -186,8 +201,10 @@ class PrunedEfficientNetB2(EfficientNetB2):
     ``build_pruned_effb2`` produces it (reference ``get_pruned_model``)."""
 
     def __init__(self, stem_filters: int, head_filters: int,
-                 block_plan: Sequence[Dict]):
-        super().__init__(stem_filters, head_filters, block_plan)
+                 block_plan: Sequence[Dict],
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(stem_filters, head_filters, block_plan,
+                         compute_dtype)
 
     @property
     def block_plan(self) -> Tuple[Dict, ...]:
@@ -216,7 +233,8 @@ def build_pruned_effb2(encoder: EfficientNetB2, prune_ratio: float,
     the first ``oup`` of its own ranking and the projection's inputs follow
     that set, so the SE gate multiplies the depthwise channels by position.
     ``prune_head=False`` keeps the 1408-wide output.  Returns the pruned
-    encoder, loaded, in eval mode, on ``encoder``'s device."""
+    encoder, loaded, in eval mode, on ``encoder``'s device, in its
+    ``compute_dtype``."""
     from audiocaption_tpu_torch.utils.pruning import select_filters
 
     sd = {k: v.detach().cpu().numpy() for k, v in encoder.state_dict().items()}
@@ -286,7 +304,8 @@ def build_pruned_effb2(encoder: EfficientNetB2, prune_ratio: float,
     conv("_conv_head", keep_head, keep_prev)
     bn("_bn1", keep_head)
 
-    pruned = PrunedEfficientNetB2(stem_filters, len(keep_head), block_plan)
+    pruned = PrunedEfficientNetB2(stem_filters, len(keep_head), block_plan,
+                                  encoder.compute_dtype)
     pruned.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
                             for k, v in out.items()})
     device = next(encoder.parameters()).device

@@ -4,6 +4,10 @@
 The GRU has the reference's pack-padded semantics (``layers.GRU``); its
 parameters keep ``nn.GRU``'s names under ``network``, so the reference key
 space ``encoder.rnn.network.weight_ih_l{k}[_reverse]`` loads as it is.
+
+``compute_dtype`` is the Cnn14's only, as in the JAX package: the Cnn14
+hands the GRU a float32 ``attn_emb``, so the BiGRU runs in float32 in
+both modes (see ``layers.GRU``).
 """
 
 from __future__ import annotations
@@ -38,9 +42,10 @@ class RnnEncoder(nn.Module):
 class Cnn14RnnEncoder(nn.Module):
     """Cnn14 -> RnnEncoder (the HF temporal model's encoder)."""
 
-    def __init__(self, rnn_hidden_size: int = 256, rnn_num_layers: int = 3):
+    def __init__(self, rnn_hidden_size: int = 256, rnn_num_layers: int = 3,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.cnn = Cnn14Encoder()
+        self.cnn = Cnn14Encoder(compute_dtype=compute_dtype)
         self.rnn = RnnEncoder(self.cnn.fc_emb_size, rnn_hidden_size,
                               rnn_num_layers)
         self.fc_emb_size = 2 * rnn_hidden_size

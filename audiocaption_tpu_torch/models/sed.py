@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from audiocaption_tpu_torch.models.layers import (
-    GRU, ConvBlock, batch_norm_mels, pool_2d)
+    GRU, ConvBlock, Linear, batch_norm_mels, pool_2d, widen)
 
 POOLS = ((2, 2), (2, 2), (1, 2), (1, 2))
 CHANNELS = (64, 128, 256, 512)
@@ -25,16 +25,23 @@ CHANNELS = (64, 128, 256, 512)
 class Cnn8RnnSedModel(nn.Module):
     """4 double-conv blocks with "avg+max" pooling -> mel mean -> fc1 +
     ReLU -> BiGRU(256) over the whole padded length -> sigmoid framewise
-    probabilities, time downsample 4 undone by repetition."""
+    probabilities, time downsample 4 undone by repetition.
+
+    ``compute_dtype`` (float32 or bfloat16) is the conv blocks', the
+    pooling's and fc1's, as in the JAX package; ``bn0`` stays float32,
+    and the GRU and the classifier run in float32 on fc1's output cast
+    back."""
 
     def __init__(self, classes_num: int = 447, n_mels: int = 64,
-                 interpolate_ratio: int = 4):
+                 interpolate_ratio: int = 4,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        cd = self.compute_dtype = compute_dtype
         self.bn0 = nn.BatchNorm2d(n_mels)
         ins = (1,) + CHANNELS[:-1]
         for i, (cin, cout) in enumerate(zip(ins, CHANNELS)):
-            setattr(self, f"conv_block{i + 1}", ConvBlock(cin, cout))
-        self.fc1 = nn.Linear(CHANNELS[-1], 512)
+            setattr(self, f"conv_block{i + 1}", ConvBlock(cin, cout, cd))
+        self.fc1 = Linear(CHANNELS[-1], 512, compute_dtype=cd)
         self.rnn = GRU(512, 256, bidirectional=True)
         self.fc_audioset = nn.Linear(512, classes_num)
         self.interpolate_ratio = interpolate_ratio
@@ -43,11 +50,12 @@ class Cnn8RnnSedModel(nn.Module):
         """lms [B, T, 64] -> {segmentwise_output [B, T', C],
         framewise_output [B, T, C]}."""
         frames_num = lms.shape[1]
-        x = batch_norm_mels(self.bn0, lms)
+        x = batch_norm_mels(self.bn0, lms, self.compute_dtype)
         for i, pool in enumerate(POOLS):
             x = pool_2d(getattr(self, f"conv_block{i + 1}")(x), pool,
                         "avg+max")
-        x = F.relu(self.fc1(x.mean(dim=3).transpose(1, 2)))   # [B, T/4, 512]
+        x = self.fc1(x.mean(dim=3).transpose(1, 2))          # [B, T/4, 512]
+        x = widen(F.relu(x))
         seg = torch.clamp(torch.sigmoid(self.fc_audioset(self.rnn(x))),
                           1e-7, 1.0)
         frame = torch.repeat_interleave(seg, self.interpolate_ratio, dim=1)

@@ -13,6 +13,12 @@ Semantics:
   * n post-norm ``TransformerDecoderLayer``s (nhead = d/64, ff = 4d);
   * classifier without bias, optionally tied to the embedding.
 
+``compute_dtype`` (float32 or bfloat16) follows the JAX package: the
+embedding (float32 table, * sqrt(E) + PE) is cast to it, the memory
+projection, the layers and an untied classifier run in it, the KV caches
+are allocated in it, and ``step`` / ``forward`` return float32 logits of
+a float32 hidden state (a tied classifier is a float32 product).
+
 Module names follow the reference (``word_embedding``, ``attn_proj.0/3``,
 ``pos_encoder.pe`` [max_len, 1, E], ``model.layers.{i}.*``,
 ``classifier``) so its checkpoints load with ``load_state_dict``.  The
@@ -30,7 +36,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from audiocaption_tpu_torch.models.layers import (
-    TransformerDecoderLayer, causal_mask, sinusoidal_positions)
+    LayerNorm, Linear, TransformerDecoderLayer, causal_mask,
+    check_compute_dtype, narrow, sinusoidal_positions, widen)
 from audiocaption_tpu_torch.ops.masking import length_mask
 
 
@@ -54,8 +61,10 @@ class TransformerDecoder(nn.Module):
                  nlayers: int = 2, nhead: Optional[int] = None,
                  dim_feedforward: Optional[int] = None,
                  tie_weights: bool = False, max_pos: int = 100,
-                 dropout: float = 0.2):
+                 dropout: float = 0.2,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        cd = self.compute_dtype = check_compute_dtype(compute_dtype)
         self.emb_dim, self.vocab_size = emb_dim, vocab_size
         self.nlayers = nlayers
         self.nhead = nhead if nhead is not None else emb_dim // 64
@@ -65,14 +74,17 @@ class TransformerDecoder(nn.Module):
         self.word_embedding = nn.Embedding(vocab_size, emb_dim)
         nn.init.xavier_uniform_(self.word_embedding.weight)
         self.attn_proj = nn.Sequential(
-            nn.Linear(attn_emb_dim, emb_dim), nn.ReLU(), nn.Dropout(dropout),
-            nn.LayerNorm(emb_dim, eps=1e-5))
+            Linear(attn_emb_dim, emb_dim, compute_dtype=cd), nn.ReLU(),
+            nn.Dropout(dropout),
+            LayerNorm(emb_dim, eps=1e-5, compute_dtype=cd))
         self.pos_encoder = PositionalEncoding(max_pos, emb_dim)
         self.model = _LayerStack(
-            TransformerDecoderLayer(emb_dim, self.nhead, self.dim_feedforward)
+            TransformerDecoderLayer(emb_dim, self.nhead, self.dim_feedforward,
+                                    cd)
             for _ in range(nlayers))
         if not tie_weights:
-            self.classifier = nn.Linear(emb_dim, vocab_size, bias=False)
+            self.classifier = Linear(emb_dim, vocab_size, bias=False,
+                                     compute_dtype=cd)
 
     @property
     def layers(self):
@@ -89,7 +101,10 @@ class TransformerDecoder(nn.Module):
                 else self.classifier.weight)
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
-        return F.linear(h, self.classifier_weight)
+        """Float32 logits of the float32 hidden state ``h``."""
+        if self.tie_weights:
+            return F.linear(h, self.word_embedding.weight)
+        return widen(self.classifier(h))
 
     def project_memory(self, attn_emb: torch.Tensor) -> torch.Tensor:
         return self.attn_proj(attn_emb)
@@ -97,7 +112,8 @@ class TransformerDecoder(nn.Module):
     def embed(self, word: torch.Tensor, pos_offset: int = 0) -> torch.Tensor:
         e = self.word_embedding(word) * math.sqrt(self.emb_dim)
         T = word.shape[-1]
-        return e + self.pe[pos_offset:pos_offset + T][None]
+        return narrow(e + self.pe[pos_offset:pos_offset + T][None],
+                      self.compute_dtype)
 
     def forward(self, word: torch.Tensor, attn_emb: torch.Tensor,
                 attn_emb_len: torch.Tensor,
@@ -112,6 +128,7 @@ class TransformerDecoder(nn.Module):
             x = layer(x, memory, tgt_mask=tgt_mask,
                       tgt_key_padding_mask=cap_padding_mask,
                       memory_key_padding_mask=mem_kpm)
+        x = widen(x)
         return {"logit": self.logits(x), "embed": x}
 
     # ---------------------------------------------------------- decode ----
@@ -124,6 +141,7 @@ class TransformerDecoder(nn.Module):
         ``dynamic`` is the per-step state the engine threads and reorders.
         """
         B = attn_emb.shape[0]
+        cache_dtype = narrow(attn_emb[:0], self.compute_dtype).dtype
         memory = self.project_memory(attn_emb)
         static = {"mem_kpm": ~length_mask(attn_emb_len, attn_emb.shape[1])}
         dyn = {}
@@ -131,8 +149,8 @@ class TransformerDecoder(nn.Module):
             static[f"mem_k{i}"], static[f"mem_v{i}"] = \
                 layer.precompute_memory(memory)
             for name in ("self_k", "self_v"):
-                dyn[f"{name}{i}"] = attn_emb.new_zeros(B, max_length,
-                                                       self.emb_dim)
+                dyn[f"{name}{i}"] = attn_emb.new_zeros(
+                    B, max_length, self.emb_dim, dtype=cache_dtype)
         dyn["self_pad"] = torch.zeros(B, max_length, dtype=torch.bool,
                                       device=attn_emb.device)
         return static, dyn
@@ -153,4 +171,4 @@ class TransformerDecoder(nn.Module):
             x = layer.step(x, t, dyn[f"self_k{i}"], dyn[f"self_v{i}"], kpm,
                            static[f"mem_k{i}"], static[f"mem_v{i}"],
                            static["mem_kpm"])
-        return self.logits(x), dyn
+        return self.logits(widen(x)), dyn

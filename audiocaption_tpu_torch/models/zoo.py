@@ -22,14 +22,19 @@ from audiocaption_tpu_torch.ops.frontend import (
 
 def effb2_trm(vocab_size: int = 4981, decoder_emb_dim: int = 256,
               decoder_n_layers: int = 2, decoder_dropout: float = 0.2,
-              tie_weights: bool = True, max_length: int = 20) -> Captioner:
+              tie_weights: bool = True,
+              compute_dtype: torch.dtype = torch.float32,
+              max_length: int = 20) -> Captioner:
     """The HF Effb2TrmCaptioningModel dims: EffB2 encoder (16 kHz mel),
-    2-layer transformer decoder, emb 256, 4 heads, FFN 1024, tied."""
-    encoder = EfficientNetB2()
+    2-layer transformer decoder, emb 256, 4 heads, FFN 1024, tied.
+    ``compute_dtype`` goes to the encoder and the decoder (the log-mel
+    frontend stays float32), as in the JAX zoo."""
+    encoder = EfficientNetB2(compute_dtype=compute_dtype)
     decoder = TransformerDecoder(
         emb_dim=decoder_emb_dim, vocab_size=vocab_size,
         attn_emb_dim=encoder.fc_emb_size, nlayers=decoder_n_layers,
-        tie_weights=tie_weights, dropout=decoder_dropout)
+        tie_weights=tie_weights, dropout=decoder_dropout,
+        compute_dtype=compute_dtype)
     return Captioner(encoder=encoder, decoder=decoder, mel=EFFB2_MEL_16K,
                      special=SpecialTokens(max_length=max_length))
 
@@ -38,12 +43,16 @@ def cnn14rnn_tempgru(vocab_size: int = 4981, sample_rate: int = 32000,
                      encoder_rnn_hidden_size: int = 256,
                      encoder_rnn_num_layers: int = 3,
                      decoder_emb_dim: int = 512, decoder_d_model: int = 512,
+                     compute_dtype: torch.dtype = torch.float32,
                      max_length: int = 20) -> Captioner:
     """The HF Cnn14RnnTempAttnGruModel captioner: Cnn14 -> 3-layer
     BiGRU(256) encoder (32 kHz mel), temporal Bahdanau-attention GRU
-    decoder (emb 512, d_model 512, attention size d_model)."""
+    decoder (emb 512, d_model 512, attention size d_model).
+    ``compute_dtype`` goes to the encoder's Cnn14 only: the GRU decoder
+    has none, as in the JAX zoo."""
     encoder = Cnn14RnnEncoder(rnn_hidden_size=encoder_rnn_hidden_size,
-                              rnn_num_layers=encoder_rnn_num_layers)
+                              rnn_num_layers=encoder_rnn_num_layers,
+                              compute_dtype=compute_dtype)
     decoder = TemporalBahAttnDecoder(
         emb_dim=decoder_emb_dim, vocab_size=vocab_size,
         fc_emb_dim=encoder.fc_emb_size, attn_emb_dim=encoder.fc_emb_size,

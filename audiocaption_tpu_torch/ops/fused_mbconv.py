@@ -379,7 +379,12 @@ def folded_blocks(encoder, kernel: bool = True) -> List[Callable]:
     BN folded once here: stride-1 blocks through :func:`fused_mbconv_s1`
     when ``kernel``, every other block (and all of them otherwise) through
     :func:`mbconv_plain`.  Pass the list as ``encoder(lms, feat_len,
-    blocks=...)``."""
+    blocks=...)``.  The walk is float32: the kernel's bf16 work dtype
+    (the TPU kernel's, ``pallas_mbconv.py:122``) is not ported, so a
+    bf16 encoder raises."""
+    if encoder.compute_dtype != torch.float32:
+        raise ValueError("the folded MBConv walk runs float32 encoders only "
+                         "(the kernel's bf16 work dtype is not ported)")
     fns = []
     for block in encoder._blocks:
         spec = spec_of(block)

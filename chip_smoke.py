@@ -72,12 +72,45 @@ Phases, each of which must pass (none is caught and skipped):
      (``mbconv_work``: the 1x1 products at the 3xTF32 tensor-core rate,
      the rest at the float32 rate, against the bytes; the float32-only
      bound printed beside it), and the walked encoder against the cuDNN
-     encoder.
+     encoder;
+ 12. hold the decode kernels' bf16 modes against their plain versions in
+     the same mode at the width of phase 3: greedy and beams 3, 5, 8 with
+     ``cache_bf16`` (at most 1% of tokens differ; scores within 1e-4 or
+     ``float64_floor_check`` in the same mode), and beam 3 with
+     ``weights_bf16``.  In that mode every product rounds its inputs to
+     bf16, so a float32-level difference between two versions (the bf16
+     mma's own float32 sums) flips a rounding now and then and two
+     searches part ways (the float32 plain version and its own float64
+     run differ in a few percent of tokens too); it is held by the
+     kernel's n-best scores against the float64 plain version's scores
+     of the kernel's own sequences (``sequence_scores_plain``, limit
+     WEIGHTS_SCORE_ATOL, below the JAX package's own 5e-2), and the
+     share of differing tokens is printed;
+ 13. drive ``Effb2TrmCaptioningModel(compute_dtype=torch.bfloat16)`` (the
+     weights of phase 4) end to end: 8 clips, greedy, beam 3 and beam 5,
+     against the bf16 torch engine (at most 1% of tokens differ, or no
+     more than the float32 engine differs from the bf16 one: the fused
+     decoders run the decoder's products in float32, as the JAX
+     package's do); greedy against the plain version on the same bf16
+     memory K/V (at most 1%); the opt-in ``FusedBeamDecoder(weights_bf16=
+     True)`` on the float32 model; 16 clips through ``MicroBatchServer``
+     (equal to a direct decode); no float32 kernel may launch there;
+ 14. drive ``Cnn14RnnTempAttnGruModel(compute_dtype=torch.bfloat16)`` as
+     phase 8 (kernel log-mel vs plain log-mel; SED within 1e-4 or the
+     float32-vs-bf16 gap; tokens at most 1% or the float32-vs-bf16
+     count); the log-mel kernel must launch there;
+ 15. time each bf16 mode's kernel (warm, cold L2, B=1) beside the float32
+     kernel, its plain version and its bound (``decode_bound_ms`` at the
+     mode's product rate, bytes with 2-byte K/V and weights); bf16
+     clips/s of both models at B=64 x 10 s beside float32, greedy and
+     beam 3; the bf16 EffB2 encode beside the float32 one.
 
 Every kernel's launch counter is set to 0 just before each path is
 driven (phases 4-5, the EffB2 serving path; phase 8, the temporal path;
-phase 10, the folded encoder walks) and read just after; the run fails if
-a kernel of that path was not launched there.  The second-to-last line
+phase 10, the folded encoder walks; phase 13, the bf16 EffB2 path, whose
+counts by mode fill the bf16 entries; phase 14, the bf16 temporal path)
+and read just after; the run fails if a kernel of that path was not
+launched there.  The second-to-last line
 is the kernels JSON object, the last line ``{"ok": true, "device":
 {...}}``.
 
@@ -113,6 +146,10 @@ ENCODER_RTOL = 1e-3           # walked vs cuDNN attn_emb, times max |ref|
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32X3_FLOPS = 495e12 / 3
+BF16_FLOPS = 989e12           # dense bf16 tensor-core peak
+# phase 12, weights_bf16: a kernel n-best score against the plain version's
+# float64 score of the same sequence (see bf16_kernels)
+WEIGHTS_SCORE_ATOL = 2e-2
 
 
 def log(msg: str) -> None:
@@ -209,7 +246,7 @@ def decode_flops(E_, F_, V_, S_valid, steps_per_row, rows_per_sample):
 
 
 def float64_floor_check(packed, memkv, valid, K, seq, score, p_seq,
-                        p_score) -> bool:
+                        p_score, **mode) -> bool:
     """Beam scores of the wider beams against the float32 plain version,
     with the float32 floor beside them.  At the flagship width with these
     jittered weights some of the float32 plain version's own n-best scores
@@ -225,13 +262,15 @@ def float64_floor_check(packed, memkv, valid, K, seq, score, p_seq,
     p64 = dataclasses.replace(packed, **{
         k: getattr(packed, k).double() for k in ("emb", "cls", "pe",
                                                   "layers")})
-    s64, sc64 = FB.fused_beam_plain(p64, memkv.double(), valid, L, K)
+    mem64 = memkv if mode.get("cache_bf16") else memkv.double()
+    s64, sc64 = FB.fused_beam_plain(p64, mem64, valid, L, K, **mode)
     same = (seq == p_seq).all(-1) & (seq == s64).all(-1)
     err = (score[same].double() - p_score[same].double()).abs()
     dev_k = (score[same].double() - sc64[same]).abs()
     dev_p = (p_score[same].double() - sc64[same]).abs()
     ok = (err <= SCORE_ATOL) | (dev_k <= dev_p)
-    log(f"beam {K} scores on {int(same.sum())} shared sequences: kernel vs "
+    log(f"beam {K} {mode or ''} scores on {int(same.sum())} shared "
+        f"sequences: kernel vs "
         f"float32 plain max {float(err.max()):.3g}; float32 plain vs float64 "
         f"plain max {float(dev_p.max()):.3g} ({int((dev_p > SCORE_ATOL).sum())}"
         f" above {SCORE_ATOL}); kernel vs float64 plain max "
@@ -239,14 +278,16 @@ def float64_floor_check(packed, memkv, valid, K, seq, score, p_seq,
     return bool(ok.all()) and int(same.sum()) > 0
 
 
-def decode_bound_ms(mm: int, attn: int, nbytes: int):
+def decode_bound_ms(mm: int, attn: int, nbytes: int,
+                    mm_flops: float = FP32_FLOPS):
     """(bound ms, bound ms with the products at the 3xTF32 rate, bound_by):
     the bytes at the HBM rate against the operations at the float32 peak,
     67 TFLOP/s, which is also the FP64 tensor-core rate that the kernels'
     products run at (float32 products are exact in float64).  The 3xTF32
-    figure is what the products would need at a third of the TF32 peak."""
+    figure is what the products would need at a third of the TF32 peak.
+    ``mm_flops``: the products' rate (BF16_FLOPS for weights_bf16)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (mm + attn) / FP32_FLOPS * 1e3
+    t_ops = (mm / mm_flops + attn / FP32_FLOPS) * 1e3
     t_tf32 = (mm / TF32X3_FLOPS + attn / FP32_FLOPS) * 1e3
     return (max(t_bytes, t_ops), max(t_bytes, t_tf32),
             "bytes" if t_bytes >= t_ops else "operations")
@@ -272,14 +313,21 @@ def cold_ms(fn, iters: int) -> float:
     return total / iters
 
 
-def input_bytes(packed, memkv, valid, out_bytes):
+def input_bytes(packed, memkv, valid, out_bytes, weights_bf16=False):
     """Each input read once (the tied classifier is the embedding),
-    each output written once."""
-    n = packed.emb.numel() * 4 + packed.layers.numel() * 4
+    each output written once.  The memory K/V at their element size (2
+    bytes with cache_bf16); with weights_bf16 the embedding and the layer
+    matrices at 2 bytes (biases and LayerNorm stay 4)."""
+    wb = 2 if weights_bf16 else 4
+    E_, F_ = packed.emb_dim, packed.ffn
+    # wqkv, wo, xwq, xwo, w1, w2 of every layer
+    n_mat = packed.nlayers * (6 * E_ * E_ + 2 * E_ * F_)
+    n = packed.emb.numel() * wb + n_mat * wb
+    n += (packed.layers.numel() - n_mat) * 4
     if packed.cls.data_ptr() != packed.emb.data_ptr():
-        n += packed.cls.numel() * 4
-    n += L * packed.pe.shape[1] * 4 + memkv.numel() * 4 + valid.numel()
-    return n + out_bytes
+        n += packed.cls.numel() * wb
+    n += L * packed.pe.shape[1] * 4 + memkv.numel() * memkv.element_size()
+    return n + valid.numel() + out_bytes
 
 
 def jitter_model(api, gen) -> None:
@@ -418,8 +466,8 @@ def temporal_path(dev, card, rng):
         audio[i, n:] = 0.0                        # zero-padded clips
     user_tag = np.asarray([0, 1, 2, 3, 3, 2, 1, 0], np.int32)
     runs = [(m, t) for m in ("greedy", "beam") for t in (None, user_tag)]
-    FG.fused_greedy_decode.launches = 0
-    FB.fused_beam_decode.launches = 0
+    FG.reset_launches(FG.fused_greedy_decode)
+    FG.reset_launches(FB.fused_beam_decode)
     FL.fused_logmel.launches = 0
     out = {}
     for method, tag in runs:
@@ -832,6 +880,387 @@ def decode_times(packed, memkv, valid, g_kernel, beams, launches,
     return kernels
 
 
+def bf16_kernels(packed, memkv, valid, card):
+    """Phase 12: the bf16 modes of the decode kernels against their plain
+    versions in the same mode, flagship width, B=64, S=31, L=20 ->
+    {name: dict(err, plain inputs ...)} for the JSON line and phase 15."""
+    import dataclasses
+    import torch
+    from audiocaption_tpu_torch.decoding import fused_beam as FB
+    from audiocaption_tpu_torch.decoding import fused_greedy as FG
+    mk16 = memkv.to(torch.bfloat16)
+    out = {}
+    g = FG.fused_greedy_decode(packed, mk16, valid, L, cache_bf16=True)
+    gp = FG.fused_greedy_plain(packed, mk16, valid, L, cache_bf16=True)
+    torch.cuda.synchronize()
+    mis = int((g != gp).sum())
+    log(f"fused_greedy[cache_bf16] vs plain, B={B_KERNEL} S={S_KERNEL} L={L} "
+        f"V={V}: {mis}/{g.numel()} tokens differ (plan "
+        f"{FG.fused_greedy_decode.last_plan}) on {card}")
+    assert mis <= MISMATCH_LIMIT * g.numel(), "greedy cache_bf16 disagrees"
+    assert len(torch.unique(gp)) > 10, "degenerate greedy trajectories"
+    out["fused_greedy[cache_bf16]"] = dict(err=float((g - gp).abs().max()),
+                                           seq=g, mem=mk16, cache_bf16=True,
+                                           weights_bf16=False)
+    for K in BEAMS:
+        seq, score = FB.fused_beam_decode(packed, mk16, valid, L, K,
+                                          cache_bf16=True)
+        steps = torch.zeros(B_KERNEL, dtype=torch.long, device=memkv.device)
+        p_seq, p_score = FB.fused_beam_plain(packed, mk16, valid, L, K,
+                                             steps=steps, cache_bf16=True)
+        torch.cuda.synchronize()
+        mis = int((seq != p_seq).sum())
+        same = (seq == p_seq).all(-1)
+        err = float((score[same] - p_score[same]).abs().max())
+        log(f"fused_beam[cache_bf16] beam {K} vs plain: {mis}/{seq.numel()} "
+            f"tokens differ, max |score diff| on matching sequences "
+            f"{err:.3g} (plan {FB.fused_beam_decode.last_plan}) on {card}")
+        assert mis <= MISMATCH_LIMIT * seq.numel(), \
+            f"beam-{K} cache_bf16 disagrees"
+        assert err <= SCORE_ATOL or float64_floor_check(
+            packed, mk16, valid, K, seq, score, p_seq, p_score,
+            cache_bf16=True), f"beam-{K} cache_bf16 scores disagree"
+        if K == 3:
+            out["fused_beam[cache_bf16]"] = dict(
+                err=err, seq=seq, score=score, steps=steps, mem=mk16,
+                cache_bf16=True, weights_bf16=False)
+
+    # weights_bf16: every activation is rounded to bf16 at each product,
+    # so a float32-level difference between two versions (here the bf16
+    # mma's own float32 sums) flips a rounding now and then and the two
+    # beams part ways.  Held: each kernel n-best score against the plain
+    # version's float64 score of the kernel's own sequence.
+    seq, score = FB.fused_beam_decode(packed, memkv, valid, L, 3,
+                                      weights_bf16=True)
+    steps = torch.zeros(B_KERNEL, dtype=torch.long, device=memkv.device)
+    p_seq, p_score = FB.fused_beam_plain(packed, memkv, valid, L, 3,
+                                         steps=steps, weights_bf16=True)
+    p64 = dataclasses.replace(packed, **{
+        k: getattr(packed, k).double() for k in ("emb", "cls", "pe",
+                                                  "layers")})
+    s64, sc64 = FB.fused_beam_plain(p64, memkv.double(), valid, L, 3,
+                                    weights_bf16=True)
+    rescored = FB.sequence_scores_plain(p64, memkv.double(), valid, seq,
+                                        weights_bf16=True)
+    torch.cuda.synchronize()
+    real = score > -100               # not a -1000 beam filling a slot
+    r_err = float((score[real].double() - rescored[real]).abs().max())
+    mis = int((seq != p_seq).sum())
+    same = (seq == p_seq).all(-1)
+    err = float((score[same] - p_score[same]).abs().max())
+    mis64 = int((p_seq != s64).sum())
+    log(f"fused_beam[weights_bf16] beam 3 vs plain: {mis}/{seq.numel()} "
+        f"tokens differ (the float32 plain version vs its float64 run: "
+        f"{mis64}), max |score diff| on matching sequences {err:.3g}; "
+        f"kernel scores vs the float64 plain version's scores of the "
+        f"kernel's {int(real.sum())} sequences: max |diff| {r_err:.3g} "
+        f"(limit {WEIGHTS_SCORE_ATOL}); best-beam mean score kernel "
+        f"{float(score[:, 0].mean()):.4f}, plain "
+        f"{float(p_score[:, 0].mean()):.4f}"
+        f" (plan {FB.fused_beam_decode.last_plan}) on {card}")
+    assert int(real.sum()) > 0 and r_err <= WEIGHTS_SCORE_ATOL, \
+        "beam-3 weights_bf16 scores disagree with the model"
+    out["fused_beam[weights_bf16]"] = dict(
+        err=r_err, seq=seq, score=score, steps=steps, mem=memkv,
+        cache_bf16=False, weights_bf16=True)
+    return out
+
+
+def same_weights(api, compute_dtype):
+    """A second API of the same class and weights in ``compute_dtype``."""
+    other = type(api)(api.config, seed=SEED, device="cuda",
+                      compute_dtype=compute_dtype)
+    other.model.load_state_dict(api.model.state_dict())
+    return other
+
+
+def bf16_effb2_path(api32, audio, lens, dev, card, rng):
+    """Phase 13: ``Effb2TrmCaptioningModel(compute_dtype=bf16)`` end to end
+    on 8 clips (greedy, beam 3, beam 5), the opt-in bf16-weight beam
+    decoder (``FusedBeamDecoder(weights_bf16=True)`` on the float32
+    model), and 16 clips through ``MicroBatchServer`` -> (api, launches
+    by kernel and mode)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from audiocaption_tpu_torch.decoding import fused_beam as FB
+    from audiocaption_tpu_torch.decoding import fused_greedy as FG
+    from audiocaption_tpu_torch.hf_api import pad_bucket
+    from audiocaption_tpu_torch.models.captioner import generate
+    from audiocaption_tpu_torch.serving import MicroBatchServer, wire_decoder
+    api = same_weights(api32, torch.bfloat16)
+    wav = torch.from_numpy(pad_bucket(audio, SR)).to(dev)
+    lens_t = torch.from_numpy(lens).to(dev)
+    FG.reset_launches(FG.fused_greedy_decode)
+    FG.reset_launches(FB.fused_beam_decode)
+    ids = {}
+    for method, K in (("greedy", 3), ("beam", 3), ("beam", 5)):
+        ids[method, K] = api(audio, lens, sample_method=method, beam_size=K,
+                             max_length=L)
+    fb_w = FB.FusedBeamDecoder(api32.model, max_length=L, beam_size=3,
+                               device="cuda", weights_bf16=True)
+    assert fb_w.weights_bf16 and not fb_w.cache_bf16
+    w_seq, w_score = fb_w(wav, lens_t, n_best=True)
+
+    clips = [(rng.randn(n) * 0.1).astype(np.float32)
+             for n in rng.randint(SR, 10 * SR + 1, 16)]
+    serve_fn = wire_decoder(functools.partial(
+        api.decode, sample_method="beam", beam_size=3, max_length=L),
+        "f32", device="cuda")
+    with MicroBatchServer(serve_fn, max_batch=16, max_wait_ms=5000.0,
+                          max_samples=10 * SR) as srv:
+        futs = [srv.submit(c) for c in clips]
+        served = np.stack([f.result(timeout=300) for f in futs])
+        n_batches = srv.dispatched_batches
+    batch = np.zeros((16, 10 * SR), np.float32)
+    for i, c in enumerate(clips):
+        batch[i, :len(c)] = c
+    direct = serve_fn(batch, np.asarray([len(c) for c in clips],
+                                        np.int32)).cpu().numpy()
+    torch.cuda.synchronize()
+    launches = {f"fused_greedy[{k}]": n for k, n in
+                FG.fused_greedy_decode.mode_launches.items()}
+    launches.update({f"fused_beam[{k}]": n for k, n in
+                     FB.fused_beam_decode.mode_launches.items()})
+    log(f"bf16 EffB2-path launches: {launches}")
+    for name in ("fused_greedy[cache_bf16]", "fused_beam[cache_bf16]",
+                 "fused_beam[weights_bf16]"):
+        assert launches.get(name, 0) > 0, f"{name} was not launched"
+    assert "fused_greedy[f32]" not in launches and \
+        "fused_beam[f32]" not in launches, "a bf16 path ran a float32 kernel"
+    log(f"bf16 serving: 16 clips in {n_batches} dispatch(es); "
+        f"{int((served != direct).sum())} tokens differ from direct decode")
+    assert n_batches == 1 and np.array_equal(served, direct)
+
+    # held: the kernel path against the plain version in the same mode on
+    # the same bf16 encoder output.  Printed: the bf16 and the float32
+    # torch engines, and the float32 engine against the bf16 one.  The
+    # fused decoders, as the JAX package's, run the decoder's products in
+    # float32 on bf16 memory K/V and caches, where the bf16 engine rounds
+    # every layer: two other functions, whose captions part at near ties.
+    with torch.no_grad():
+        enc = api.model.encode(wav, lens_t)
+        memkv, mem_valid = FG.memory_kv(api.model.decoder, enc["attn_emb"],
+                                        enc["attn_emb_len"], cache_bf16=True)
+        packed = FG.pack_decoder_weights(api.model.decoder)
+        plain = {("greedy", 3): FG.fused_greedy_plain(
+            packed, memkv, mem_valid, L, cache_bf16=True)}
+        for K in (3, 5):
+            plain["beam", K] = FB.fused_beam_plain(
+                packed, memkv, mem_valid, L, K, cache_bf16=True)[0][:, 0]
+    for (method, K), got in ids.items():
+        assert got.shape == (8, L) and ((got >= 0) & (got < V)).all()
+        with torch.no_grad():
+            ref16, ref32 = (generate(a.model, wav, lens_t, sample_method=method,
+                                     beam_size=K, max_length=L)["seq"]
+                            .cpu().numpy() for a in (api, api32))
+        want = plain[method, K].cpu().numpy()
+        mis = int((got != want).sum())
+        log(f"bf16 end to end {method} {K}: kernel path vs plain version in "
+            f"the same mode {mis}/{got.size} tokens differ (limit "
+            f"{MISMATCH_LIMIT}); vs the bf16 torch engine "
+            f"{int((got != ref16).sum())}, vs the float32 engine "
+            f"{int((got != ref32).sum())}, float32 vs bf16 engine "
+            f"{int((ref32 != ref16).sum())}; first caption {got[0][:8]} "
+            f"on {card}")
+        assert mis <= MISMATCH_LIMIT * got.size, \
+            f"bf16 {method} {K} path disagrees"
+
+    # the bf16-weight decoder: its n-best scores against the float64 plain
+    # version's scores of its own sequences (see bf16_kernels)
+    with torch.no_grad():
+        enc32 = api32.model.encode(wav, lens_t)
+        mem32, valid32 = FG.memory_kv(api32.model.decoder,
+                                      enc32["attn_emb"], enc32["attn_emb_len"])
+        p64 = dataclasses.replace(fb_w.packed, **{
+            k: getattr(fb_w.packed, k).double()
+            for k in ("emb", "cls", "pe", "layers")})
+        rescored = FB.sequence_scores_plain(p64, mem32.double(), valid32,
+                                            w_seq, weights_bf16=True)
+        w_plain = FB.fused_beam_plain(fb_w.packed, mem32, valid32, L, 3,
+                                      weights_bf16=True)[0]
+    real = w_score > -100
+    r_err = float((w_score[real].double() - rescored[real]).abs().max())
+    log(f"bf16-weight beam 3 decoder on the float32 model: n-best scores vs "
+        f"the float64 plain version's scores of its sequences max |diff| "
+        f"{r_err:.3g} (limit {WEIGHTS_SCORE_ATOL}); "
+        f"{int((w_seq != w_plain).sum())}/{w_seq.numel()} tokens differ "
+        f"from the plain version in the same mode on {card}")
+    assert int(real.sum()) > 0 and r_err <= WEIGHTS_SCORE_ATOL, \
+        "the bf16-weight decoder's scores disagree with the model"
+    return api, launches
+
+
+def bf16_temporal_path(api32, dev, card, rng):
+    """Phase 14: ``Cnn14RnnTempAttnGruModel(compute_dtype=bf16)`` end to
+    end, kernel log-mel vs the same bf16 modules fed by the plain log-mel
+    -> (api, log-mel launches)."""
+    import numpy as np
+    import torch
+    from audiocaption_tpu_torch.hf_api import pad_bucket
+    from audiocaption_tpu_torch.ops import fused_logmel as FL
+    api = same_weights(api32, torch.bfloat16)
+    sr = SR_32K
+    lens = np.asarray([10 * sr, 9 * sr, 7 * sr + 123, 5 * sr, 3 * sr + 7,
+                       2 * sr, sr, sr + 4000])
+    audio = (rng.randn(8, 10 * sr) * 0.1).astype(np.float32)
+    for i, n in enumerate(lens):
+        audio[i, n:] = 0.0
+    user_tag = np.asarray([0, 1, 2, 3, 3, 2, 1, 0], np.int32)
+    runs = [(m, t) for m in ("greedy", "beam") for t in (None, user_tag)]
+    FL.fused_logmel.launches = 0
+    out = {}
+    for method, tag in runs:
+        out[method, tag is None] = api(audio, lens, temporal_tag=tag,
+                                       sample_method=method, beam_size=3,
+                                       max_length=L)
+    launches = FL.fused_logmel.launches
+    log(f"bf16 temporal-path launches: fused_logmel {launches}")
+    assert launches > 0, "the log-mel kernel was not launched"
+
+    wav = torch.from_numpy(pad_bucket(audio, sr)).to(dev)
+    front = api.model.cap_model.frontend
+    lms_kernel = api.log_mel(wav)
+    lms_plain = FL.fused_logmel_plain(wav, front.basis, front.mel_fb, api.mel)
+    with torch.no_grad():
+        fw_k = api.model.sed_model(lms_kernel)["framewise_output"]
+        fw_p = api.model.sed_model(lms_plain)["framewise_output"]
+        fw_32 = api32.model.sed_model(lms_kernel)["framewise_output"]
+    sed_err = float((fw_k - fw_p).abs().max())
+    sed_floor = float((fw_k - fw_32).abs().max())
+    log(f"bf16 temporal path: SED framewise, kernel vs plain log-mel max "
+        f"|diff| {sed_err:.3g} (limit {SED_ATOL}, or the float32-vs-bf16 "
+        f"gap {sed_floor:.3g}) on {card}")
+    assert sed_err <= max(SED_ATOL, sed_floor), "bf16 SED output disagrees"
+    for (method, no_tag), ids in out.items():
+        tag = None if no_tag else user_tag
+        assert ids.shape == (8, L) and ((ids >= 0) & (ids < V)).all()
+        ref = api.decode_lms(lms_plain, lens, tag, sample_method=method,
+                             beam_size=3, max_length=L).cpu().numpy()
+        ref32 = api32.decode_lms(lms_kernel, lens, tag, sample_method=method,
+                                 beam_size=3, max_length=L).cpu().numpy()
+        mis, floor = int((ids != ref).sum()), int((ids != ref32).sum())
+        log(f"bf16 temporal end to end {method}, "
+            f"{'SED tag' if no_tag else 'user tag'}: kernel vs plain log-mel "
+            f"{mis}/{ids.size} tokens differ; float32 vs bf16 {floor}/"
+            f"{ids.size}; first caption {ids[0][:8]} on {card}")
+        assert mis <= max(MISMATCH_LIMIT * ids.size, floor), \
+            f"bf16 temporal {method} path disagrees"
+    return api, launches
+
+
+def e2e_clips_per_s(decode, wav, lens, method, reps):
+    """Clips/s of ``decode`` on a batch, greedy or beam 3, after a warm-up."""
+    import torch
+    fn = functools.partial(decode, wav, lens, sample_method=method,
+                           beam_size=3, max_length=L)
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / reps
+    return wav.shape[0] / dt, dt * 1e3
+
+
+def bf16_times(packed, memkv, valid, checks, f32_kernels, api16, api32,
+               t_api16, t_api32, wav64, len64, launches, card):
+    """Phase 15: each bf16 mode's kernel (warm, cold L2, B=1) beside the
+    float32 kernel and its bound; bf16 clips/s of both models at B=64 x
+    10 s beside float32; the bf16 EffB2 encode beside float32 -> JSON
+    entries of the bf16 modes."""
+    import torch
+    from audiocaption_tpu_torch.decoding import fused_beam as FB
+    from audiocaption_tpu_torch.decoding import fused_greedy as FG
+    f32_ms = {k["name"]: k["ms"] for k in f32_kernels}
+    kernels = []
+    for name, c in checks.items():
+        base = name.split("[")[0]
+        cache_bf16, weights_bf16 = c["cache_bf16"], c["weights_bf16"]
+        mem = c["mem"]
+        one = (mem[:, :, :1].contiguous(), valid[:1].contiguous())
+        if base == "fused_greedy":
+            def fn(m=mem, v=valid):
+                return FG.fused_greedy_decode(packed, m, v, L,
+                                              cache_bf16=cache_bf16)
+
+            def plain():
+                return FG.fused_greedy_plain(packed, mem, valid, L,
+                                             cache_bf16=cache_bf16)
+            seq = c["seq"]
+            eos_pos = [(row == 2).nonzero() for row in seq.cpu()]
+            steps = [int(p[0]) + 1 if len(p) else L for p in eos_pos]
+            K, out_bytes = 1, seq.numel() * 4
+        else:
+            def fn(m=mem, v=valid):
+                return FB.fused_beam_decode(packed, m, v, L, 3,
+                                            cache_bf16=cache_bf16,
+                                            weights_bf16=weights_bf16)
+
+            def plain():
+                return FB.fused_beam_plain(packed, mem, valid, L, 3,
+                                           cache_bf16=cache_bf16,
+                                           weights_bf16=weights_bf16)
+            steps = c["steps"].tolist()
+            K = 3
+            out_bytes = c["seq"].numel() * 4 + c["score"].numel() * 4
+        ms = cuda_ms(fn, 10)
+        cold = cold_ms(fn, 10)
+        b1 = cuda_ms(functools.partial(fn, *one), 10)
+        plain_ms = cuda_ms(plain, 2, warmup=1)
+        mm, attn = decode_flops(E, FFN, V, valid.sum(1).tolist(), steps, K)
+        nbytes = input_bytes(packed, mem, valid, out_bytes, weights_bf16)
+        bound, _, by = decode_bound_ms(
+            mm, attn, nbytes, BF16_FLOPS if weights_bf16 else FP32_FLOPS)
+        log(f"{name}: {ms:.4f} ms/call warm ({base} float32 "
+            f"{f32_ms[base]:.4f}), {cold:.4f} ms with the L2 cold, B=1 "
+            f"{b1:.4f} ms; plain {plain_ms:.3f} ms; bound {bound:.4f} ms by "
+            f"{by} ({nbytes} bytes, {mm} product ops at "
+            f"{'the bf16' if weights_bf16 else 'the FP64 / float32'} rate, "
+            f"{attn} attention ops); B={B_KERNEL} S={S_KERNEL} L={L} on "
+            f"{card}")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"audiocaption_tpu_torch/csrc/{base}.cu",
+            "replaces": ("audiocaption_tpu/decoding/fused_greedy.py:209"
+                         if base == "fused_greedy" else
+                         "audiocaption_tpu/decoding/fused_beam.py:126"),
+            "launches": launches.get(name, 0),
+            "max_abs_err": c["err"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None})
+
+    with torch.no_grad():
+        enc32 = cuda_ms(lambda: api32.model.encode(wav64, len64), 5)
+        enc16 = cuda_ms(lambda: api16.model.encode(wav64, len64), 5)
+    log(f"encode (log-mel + EffB2), B=64 x 10 s: bf16 {enc16:.2f} ms, "
+        f"float32 {enc32:.2f} ms on {card}")
+    for label, api in (("bf16", api16), ("float32", api32)):
+        with torch.no_grad():
+            split = device_split(lambda: api.model.encode(wav64, len64), 3)
+        log(f"encode device ms by kernel, {label}: total "
+            f"{sum(split.values()):.2f}; {dict(list(split.items())[:10])}")
+    for method in ("greedy", "beam"):
+        for label, api in (("bf16", api16), ("float32", api32)):
+            cps, ms = e2e_clips_per_s(api.decode, wav64, len64, method, 5)
+            log(f"EffB2 end to end {method}, {label}: {cps:.1f} clips/s "
+                f"({ms:.2f} ms per batch of 64 x 10 s) on {card}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    wav = torch.randn(64, 10 * SR_32K, generator=gen, device="cuda") * 0.1
+    lens = torch.full((64,), 10 * SR_32K, dtype=torch.long, device="cuda")
+
+    def temporal(api):
+        def decode(w, n, **kw):
+            return api.decode_lms(api.log_mel(w), n, **kw)
+        return decode
+    for method in ("greedy", "beam"):
+        for label, api in (("bf16", t_api16), ("float32", t_api32)):
+            cps, ms = e2e_clips_per_s(temporal(api), wav, lens, method, 2)
+            log(f"temporal end to end {method}, {label}: {cps:.1f} clips/s "
+                f"({ms:.1f} ms per batch of 64 x 10 s) on {card}")
+    return kernels
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -914,8 +1343,8 @@ def main() -> int:
     audio = (rng.randn(8, 10 * SR) * 0.1).astype(np.float32)
     lens = np.asarray([10 * SR, 9 * SR, 7 * SR + 123, 5 * SR, 3 * SR + 7,
                        2 * SR, 16000, 4000])
-    FG.fused_greedy_decode.launches = 0
-    FB.fused_beam_decode.launches = 0
+    FG.reset_launches(FG.fused_greedy_decode)
+    FG.reset_launches(FB.fused_beam_decode)
     e2e = {}
     for method in ("greedy", "beam"):
         ids = api(audio, lens, sample_method=method, beam_size=3,
@@ -1019,6 +1448,20 @@ def main() -> int:
         "source": "audiocaption_tpu_torch/csrc/fused_mbconv.cu",
         "replaces": "audiocaption_tpu/ops/pallas_mbconv.py:102",
         "launches": m_launches, "max_abs_err": m_err, **m_timing})
+
+    # -- 12. the decode kernels' bf16 modes vs their plain versions -------
+    checks = bf16_kernels(packed, memkv, valid, card)
+
+    # -- 13. the bf16 EffB2 serving path end to end ------------------------
+    api16, b_launches = bf16_effb2_path(api, audio, lens, dev, card, rng)
+
+    # -- 14. the bf16 temporal path end to end -----------------------------
+    t_api16, _ = bf16_temporal_path(temporal_api, dev, card, rng)
+
+    # -- 15. bf16 times ----------------------------------------------------
+    kernels += bf16_times(packed, memkv, valid, checks, kernels, api16, api,
+                          t_api16, temporal_api, wav64, len64, b_launches,
+                          card)
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -11,7 +11,8 @@ flip a near-tie); n-best beam scores of matching sequences within 1e-4;
 log-mel within 1e-3 dB (an FFT against the plain version's dense DFT,
 both float32), and within 0.05-0.1 dB on a wave with an 80 dB range;
 MBConv within 1e-4 * max(1, max |plain|) (1x1 products in 3xTF32, ~2^-22
-relative a product, and sums in another order than cuDNN's).
+relative a product, and sums in another order than cuDNN's).  The decode
+kernels' bf16 modes: see BF16_BEAM_MODES below.
 """
 
 import numpy as np
@@ -160,6 +161,107 @@ def test_smem_formula_matches_the_kernels(cuda):
             a.R, a.E, a.F, a.V, a.L, a.S, a.C = R, E, F_, V, L, S, C
             assert getattr(lib, f"{name}_smem")(ctypes.byref(a)) == \
                 TG.smem_bytes(R, E, F_, V, L, S, C, name == "fused_beam")
+
+
+# the bf16 modes (cache_bf16: bf16 memory K/V and caches; weights_bf16:
+# bf16 matrices on the bf16 tensor cores), each against its plain version
+# in the same mode.  cache_bf16 as the float32 kernels: the plain version
+# follows the kernel's float64 sums, so tokens agree and scores within
+# 1e-4.  weights_bf16 rounds every product's inputs to bf16, so the bf16
+# mma's own float32 sums flip a rounding now and then and the searches
+# part ways; it is held by its n-best scores against the float64 plain
+# version's scores of its own sequences, within 2e-2 (chip_smoke.py's
+# WEIGHTS_SCORE_ATOL, below the JAX package's 5e-2 for its bf16 beam).
+BF16_BEAM_MODES = [dict(cache_bf16=True), dict(weights_bf16=True),
+                   dict(cache_bf16=True, weights_bf16=True)]
+BF16_MODE_IDS = ["cache_bf16", "weights_bf16", "both"]
+
+
+def check_bf16_beam(args, L, K, mode, seq, score):
+    import dataclasses
+    packed, memkv, valid = args
+    if not mode.get("weights_bf16"):
+        want_seq, want_score = TB.fused_beam_plain(*args, L, K, **mode)
+        assert torch.equal(seq, want_seq)
+        np.testing.assert_allclose(score.cpu().numpy(),
+                                   want_score.cpu().numpy(), atol=1e-4)
+        return
+    p64 = dataclasses.replace(packed, **{
+        k: getattr(packed, k).double() for k in ("emb", "cls", "pe",
+                                                  "layers")})
+    mem64 = memkv if mode.get("cache_bf16") else memkv.double()
+    rescored = TB.sequence_scores_plain(p64, mem64, valid, seq, **mode)
+    real = score > -100
+    assert bool(real.any())
+    err = (score[real].double() - rescored[real]).abs().max().item()
+    assert err <= 2e-2, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 7, 64])
+def test_greedy_cache_bf16_matches_plain(cuda, B):
+    packed, memkv, valid = make_inputs(seed=1, device=cuda,
+                                       **dict(SMALL, B=B))
+    args = (packed, memkv.to(torch.bfloat16), valid)
+    n0 = TG.fused_greedy_decode.mode_launches.get("cache_bf16", 0)
+    got = TG.fused_greedy_decode(*args, 7, cache_bf16=True)
+    torch.cuda.synchronize()
+    assert TG.fused_greedy_decode.mode_launches["cache_bf16"] == n0 + 1
+    assert torch.equal(got, TG.fused_greedy_plain(*args, 7, cache_bf16=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", BF16_BEAM_MODES, ids=BF16_MODE_IDS)
+@pytest.mark.parametrize("B", [1, 7, 64])
+def test_beam_bf16_modes_match_plain(cuda, B, mode):
+    packed, memkv, valid = make_inputs(seed=2, device=cuda,
+                                       **dict(SMALL, B=B))
+    if mode.get("cache_bf16"):
+        memkv = memkv.to(torch.bfloat16)
+    name = TG.mode_name(TG.decode_mode(**mode))
+    n0 = TB.fused_beam_decode.mode_launches.get(name, 0)
+    seq, score = TB.fused_beam_decode(packed, memkv, valid, 7, 3, **mode)
+    torch.cuda.synchronize()
+    assert TB.fused_beam_decode.mode_launches[name] == n0 + 1
+    check_bf16_beam((packed, memkv, valid), 7, 3, mode, seq, score)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [8, 16])
+def test_bf16_modes_at_each_cluster_size(cuda, C):
+    """Both cluster sizes in every bf16 mode (a forced C changes the
+    split, not the result)."""
+    packed, memkv, valid = make_inputs(seed=3, device=cuda,
+                                       **dict(SMALL, B=13))
+    mk16 = memkv.to(torch.bfloat16)
+    got = torch.empty(13, 7, dtype=torch.int32, device=cuda)
+    plan = TG.launch_decode("fused_greedy", packed, mk16, valid, 7, 1, got,
+                            None, 1, 2, 0, cluster=C, mode=TG.CACHE_BF16)
+    torch.cuda.synchronize()
+    assert plan.C == C
+    assert torch.equal(got, TG.fused_greedy_plain(packed, mk16, valid, 7,
+                                                  cache_bf16=True))
+    for mode in BF16_BEAM_MODES:
+        mem = mk16 if mode.get("cache_bf16") else memkv
+        seq = torch.empty(13, 3, 7, dtype=torch.int32, device=cuda)
+        score = torch.empty(13, 3, device=cuda)
+        plan = TG.launch_decode("fused_beam", packed, mem, valid, 7, 3, seq,
+                                score, 1, 2, 0, cluster=C,
+                                mode=TG.decode_mode(**mode))
+        torch.cuda.synchronize()
+        assert plan.C == C
+        check_bf16_beam((packed, mem, valid), 7, 3, mode, seq, score)
+
+
+@pytest.mark.cuda
+def test_bf16_mode_errors_raise(cuda):
+    """No fallback: a mode the greedy kernel lacks is refused at launch."""
+    packed, memkv, valid = make_inputs(seed=1, device=cuda,
+                                       **dict(SMALL, B=2))
+    out = torch.empty(2, 7, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        TG.launch_decode("fused_greedy", packed, memkv, valid, 7, 1, out,
+                         None, 1, 2, 0, mode=TG.WEIGHTS_BF16)
 
 
 # n_fft 256 and 2048: the kernel takes any power of two in between

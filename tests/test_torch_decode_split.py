@@ -194,3 +194,61 @@ def test_kernel_weights_follow_frag_offsets():
     cls = TG.frag_pack(packed.cls)
     assert torch.equal(frag[NL * offs["size"]:], cls)
     assert packed.to("cpu").frag is None               # not carried across
+
+
+def test_frag_pack_bf16_puts_each_weight_at_its_mma_fragment_slot():
+    """The bf16 mma's A fragments (m16n8k16): register j of lane g*4 + t
+    holds columns 2t, 2t + 1 (+ 8 for j >= 2) of row g (+ 8 for odd j),
+    the lower column in the lower half; every value rounded to bf16."""
+    gen = torch.Generator().manual_seed(4)
+    N, K = 37, 45                                 # ragged in both
+    w = torch.randn(N, K, generator=gen)
+    packed = TG.frag_pack_bf16(w)
+    assert packed.dtype == torch.bfloat16
+    Mt, Kt = math.ceil(N / 16), math.ceil(K / 16)
+    assert packed.numel() == Mt * 16 * Kt * 16
+    tiles = packed.view(Mt, Kt, 32, 4, 2)         # [.., lane, register, half]
+    wb = w.to(torch.bfloat16)
+    for mt in range(Mt):
+        for kt in range(Kt):
+            for lane in range(32):
+                g, t = lane // 4, lane % 4
+                for j in range(4):
+                    for half in range(2):
+                        row = mt * 16 + g + 8 * (j & 1)
+                        col = kt * 16 + 2 * t + half + 8 * (j >> 1)
+                        want = (wb[row, col] if row < N and col < K
+                                else torch.tensor(0, dtype=torch.bfloat16))
+                        assert tiles[mt, kt, lane, j, half] == want
+
+
+def test_bf16_kernel_weights_follow_frag_offsets():
+    E, H, F_, V, NL = 32, 2, 48, 40, 2
+    dec = TransformerDecoder(E, V, 16, nlayers=NL, nhead=H,
+                             dim_feedforward=F_, tie_weights=True)
+    random_init(dec, torch.Generator().manual_seed(1))
+    packed = TG.pack_decoder_weights(dec.eval())
+    frag = TG.kernel_weights(packed, bf16=True)
+    assert frag.dtype == torch.bfloat16 and packed.frag is None
+    assert TG.kernel_weights(packed, bf16=True) is frag   # made once
+    offs = TG.frag_offsets(E, F_, bf16=True)
+    for i in range(NL):
+        w = TG._layer_views(packed.layers[i], E, F_)
+        for name in ("wqkv", "wo", "xwq", "xwo", "w1", "w2"):
+            want = TG.frag_pack_bf16(w[name])
+            at = i * offs["size"] + offs[name]
+            assert torch.equal(frag[at:at + want.numel()], want), name
+    assert torch.equal(frag[NL * offs["size"]:], TG.frag_pack_bf16(packed.cls))
+    emb = TG.kernel_embedding(packed, bf16=True)
+    assert emb.dtype == torch.bfloat16
+    assert torch.equal(emb, packed.emb.to(torch.bfloat16))
+    assert TG.kernel_embedding(packed) is packed.emb
+
+
+def test_decode_modes_are_named_as_the_kernels_take_them():
+    assert TG.decode_mode() == 0 and TG.mode_name(0) == "f32"
+    assert TG.decode_mode(cache_bf16=True) == TG.CACHE_BF16 == 1
+    assert TG.decode_mode(weights_bf16=True) == TG.WEIGHTS_BF16 == 2
+    assert TG.mode_name(3) == "cache_bf16+weights_bf16"
+    names = [n for n, _ in TG.DecodeArgs._fields_]
+    assert names[names.index("pad") + 1] == "mode"

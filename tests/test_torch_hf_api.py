@@ -111,3 +111,41 @@ def test_cuda_requested_without_cuda_raises():
         pytest.skip("this machine has CUDA")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TorchAPI(TorchConfig(vocab_size=48))
+
+
+def _exported(jax_api):
+    from audiocaption_tpu.models import export
+    return {k: torch.from_numpy(np.array(x)) for k, x in
+            export.effb2_trm_hf_state_dict(jax_api.variables).items()}
+
+
+def test_load_drops_keys_the_port_has_no_module_for(jax_api, jax_tokens):
+    """A reference checkpoint also carries tensors the JAX converter never
+    reads (EfficientNet's unused classifier, the feature extractor's
+    buffers); the port drops them as well and decodes the same tokens."""
+    gen = torch.Generator().manual_seed(0)
+    extra = {
+        "model.model.encoder.backbone.eff_net._fc.weight":
+            torch.randn(10, 1408, generator=gen),
+        "model.model.encoder.backbone.eff_net._fc.bias": torch.zeros(10),
+        "model.model.encoder.melspec_extractor.mel_scale.fb":
+            torch.rand(257, 64, generator=gen),
+        "model.model.encoder.melspec_extractor.spectrogram.window":
+            torch.hann_window(512)}
+    port = TorchAPI(TorchConfig(vocab_size=48), seed=99, device="cpu")
+    port.load_torch_state_dict({**_exported(jax_api), **extra})
+    for method in ("greedy", "beam"):
+        np.testing.assert_array_equal(
+            port(AUDIO, LENS, sample_method=method, max_length=8),
+            jax_tokens[method])
+
+
+@pytest.mark.parametrize("key", [
+    "model.model.decoder.model.layers.1.linear2.weight",
+    "model.model.encoder.backbone.eff_net._blocks.3._bn1.running_var"])
+def test_load_raises_on_a_missing_key(jax_api, key):
+    sd = _exported(jax_api)
+    del sd[key]
+    port = TorchAPI(TorchConfig(vocab_size=48), device="cpu")
+    with pytest.raises(RuntimeError, match=key.split(".")[-2]):
+        port.load_torch_state_dict(sd)

@@ -130,3 +130,30 @@ def test_load_torch_checkpoint_token_parity(jax_api, port, state_dict,
     torch.save({"state_dict": state_dict}, path)
     with pytest.raises(RuntimeError, match="state_dict"):
         fresh.load_torch_checkpoint(str(path))
+
+
+def test_load_drops_keys_the_port_has_no_module_for(port, state_dict):
+    """Keys the JAX converter never reads (the captioner's and the SED's
+    feature-extractor buffers) are dropped; the tokens stay the same."""
+    gen = torch.Generator().manual_seed(0)
+    extra = {"cap_model.encoder.cnn.melspec_extractor.mel_scale.fb":
+             torch.rand(513, 64, generator=gen),
+             "sed_model.spectrogram_extractor.stft.conv_real.weight":
+             torch.randn(513, 1, 1024, generator=gen)}
+    fresh = TorchAPI(TorchConfig(vocab_size=48), seed=77, device="cpu")
+    fresh.load_torch_state_dict({**state_dict, **extra})
+    audio = _audio()
+    for method in ("greedy", "beam"):
+        np.testing.assert_array_equal(
+            fresh(audio, LENS, sample_method=method, max_length=MAX_LEN),
+            port(audio, LENS, sample_method=method, max_length=MAX_LEN))
+
+
+@pytest.mark.parametrize("key", ["sed_model.fc1.weight",
+                                 "cap_model.decoder.attn.v"])
+def test_load_raises_on_a_missing_key(state_dict, key):
+    sd = dict(state_dict)
+    del sd[key]
+    fresh = TorchAPI(TorchConfig(vocab_size=48), device="cpu")
+    with pytest.raises(RuntimeError, match=key.split(".")[-2]):
+        fresh.load_torch_state_dict(sd)
