@@ -1,0 +1,363 @@
+"""Training CLI of the port (counterpart of the flagship branch of
+``audiocaption_tpu/cli/run.py``: ``Runner.train`` and its per-epoch
+greedy validation score).
+
+    python -m audiocaption_tpu_torch.cli.run train CONFIG [key=value ...]
+
+CONFIG is a reference-layout YAML (``configs/*/effb2_trm.yaml``): model,
+data, optimizer, lr_scheduler, trainer, scheduled_sampling, loss and swa
+nodes.  Overrides are dotted ``key=value`` pairs with YAML values.  The
+run is on the card; ``device=cpu`` (an override, or a ``device:`` key in
+the config) runs it on the CPU.  Written under
+``{experiment_path}/seed_{seed}/``: ``config.yaml``, ``train.log`` (a
+line an epoch: loss, val_cider, ss ratio), ``last.pth`` every epoch,
+``best.pth`` when ``val_cider`` improves, and ``swa.pth`` at the end
+(the average from epoch ``swa.start``, or the last weights without SWA).
+
+The validation score greedy-decodes the val set and scores CIDEr-D
+against its captions.  On CUDA the decode runs the hand-written greedy
+kernel (``decoding/fused_greedy.py::FusedGreedyDecoder``), its weights
+packed anew at each score because the optimizer has moved them; on the
+CPU it runs the torch engine (``models/captioner.py::generate``).
+
+The JAX runner's other paths (SCST, knowledge distillation, augmented
+and SED training, the device-resident corpus, data parallelism) are not
+ported (ROADMAP Queue 1 items 6-7).
+"""
+
+from __future__ import annotations
+
+import argparse
+import random
+import shutil
+import time
+from pathlib import Path
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from audiocaption_tpu_torch.data.collate import TextCollate, VarLenPadCollate
+from audiocaption_tpu_torch.data.dataset import (
+    CaptionDataset, InferenceDataset, load_caption_json)
+from audiocaption_tpu_torch.data.tokenizer import DictTokenizer
+from audiocaption_tpu_torch.device import resolve_device
+from audiocaption_tpu_torch.losses.loss import build_loss
+from audiocaption_tpu_torch.metrics.cider import CiderD
+from audiocaption_tpu_torch.metrics.tokenize import ptb_tokenize
+from audiocaption_tpu_torch.models.captioner import generate
+from audiocaption_tpu_torch.models.convert import load_reference_state_dict
+from audiocaption_tpu_torch.models.zoo import random_init
+from audiocaption_tpu_torch.optim.schedules import build_schedule
+from audiocaption_tpu_torch.training.checkpoint import (
+    AsyncCheckpointer, MetricImprover, load_checkpoint, merge_variables,
+    model_variables, save_checkpoint)
+from audiocaption_tpu_torch.training.swa import swa_init, swa_update
+from audiocaption_tpu_torch.training.trainer import (
+    create_train_state, train_step)
+from audiocaption_tpu_torch.utils.config import (
+    build_model_from_config, load_config, parse_overrides, short_type)
+
+
+def set_seed(seed: int) -> None:
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def build_tokenizer(cfg: Dict) -> DictTokenizer:
+    t = short_type(cfg.get("type", "DictTokenizer"))
+    if t != "DictTokenizer":
+        raise ValueError(f"tokenizer {t!r} is not ported yet")
+    args = cfg.get("args", {}) or {}
+    return DictTokenizer(args.get("tokenizer_path"),
+                         args.get("max_length", 20))
+
+
+def build_dataset(cfg: Dict):
+    t = short_type(cfg["type"])
+    args = dict(cfg.get("args", {}) or {})
+    transforms = args.pop("transforms", None)
+    if isinstance(transforms, dict):     # the reference's {wav: [...]}
+        transforms = [s for chain in transforms.values() if chain
+                      for s in chain]
+    if transforms:
+        raise ValueError("dataset transforms (the augment registry) are "
+                         "not ported yet (ROADMAP Queue 1 item 6)")
+    if t == "CaptionDataset":
+        return CaptionDataset(**args)
+    if t == "InferenceDataset":
+        return InferenceDataset(**args)
+    raise ValueError(f"dataset {t!r} is not ported yet")
+
+
+def build_collate(cfg: Dict, tokenizer=None, wav_bucket: int = 16000):
+    t = short_type(cfg["type"])
+    args = dict(cfg.get("args", {}) or {})
+    kw = dict(sort_key=args.get("sort_key"), buckets={"wav": wav_bucket},
+              wire_dtype=args.get("wire_dtype"))
+    if t == "TextCollate":
+        return TextCollate(tokenizer, text_key=args.get("text_key", "cap"),
+                           pad_keys=args.get("pad_keys", []), **kw)
+    if t == "VarLenPadCollate":
+        return VarLenPadCollate(pad_keys=args.get("pad_keys", []), **kw)
+    raise ValueError(f"collate {t!r} is not ported yet")
+
+
+def build_dataloader(data_cfg: Dict, tokenizer=None, train: bool = True):
+    from torch.utils.data import DataLoader
+    dataset = build_dataset(data_cfg["dataset"])
+    collate = build_collate(data_cfg["collate_fn"], tokenizer)
+    dl_args = dict(data_cfg.get("dataloader_args", {}) or {})
+    if dl_args.pop("num_samples", None):
+        raise ValueError("dataloader_args.num_samples (the iteration "
+                         "batch sampler) is not ported yet")
+    dl_args.setdefault("batch_size", 32)
+    if not train:
+        dl_args["shuffle"] = False
+    return DataLoader(dataset, collate_fn=collate, drop_last=train,
+                      **dl_args)
+
+
+def to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
+    """A collated batch (numpy arrays or tensors) -> the train step's
+    tensors on ``device``: the wave widened to float32 (a float16 wire as
+    is, int16 / 32768), lengths and ids as int64."""
+    wav = torch.as_tensor(batch["wav"]).to(device)
+    if wav.dtype == torch.int16:
+        wav = wav.float() / 32768.0
+    out = {"wav": wav.float()}
+    for k in ("wav_len", "cap", "cap_len"):
+        if k in batch:
+            out[k] = torch.as_tensor(batch[k]).to(device, torch.long)
+    return out
+
+
+def _make_logger(path: Path) -> Callable[[str], None]:
+    def log(msg: str) -> None:
+        line = f"[{time.strftime('%Y-%m-%d %H:%M:%S')}] {msg}"
+        print(line, flush=True)
+        with open(path, "a") as f:
+            f.write(line + "\n")
+    return log
+
+
+def _load_pretrained(model, spec) -> None:
+    """A plain (or ``{"model": ...}``-wrapped) state dict into the encoder
+    or the decoder, entries of matching name and shape only."""
+    part, path = spec
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(sd, dict) and "model" in sd:
+        sd = sd["model"]
+    module = getattr(model, part)
+    module.load_state_dict(merge_variables(module.state_dict(), sd))
+
+
+class ValScorer:
+    """Greedy-decodes the val set with the model's current weights and
+    returns the CIDEr-D score (the JAX runner's ``_make_val_scorer``).
+    The model is in ``eval()`` while it decodes and back in ``train()``
+    after.  ``last_seq`` holds the ids that the last call decoded, an
+    int array [B, max_length] per val batch in the loader's order."""
+
+    def __init__(self, model, tokenizer, val_loader, key2refs: Dict,
+                 device: torch.device):
+        self.model, self.tokenizer = model, tokenizer
+        self.val_loader, self.key2refs = val_loader, key2refs
+        self.device = device
+        self.scorer = CiderD()
+        self.last_seq: List[np.ndarray] = []
+
+    def __call__(self) -> float:
+        model, device = self.model, self.device
+        max_length = model.special.max_length
+        model.eval()
+        fused = None
+        if device.type == "cuda":
+            from audiocaption_tpu_torch.decoding.fused_greedy import (
+                FusedGreedyDecoder)
+            fused = FusedGreedyDecoder(model, max_length, device=device)
+        key2pred: Dict[str, List[str]] = {}
+        self.last_seq = []
+        with torch.no_grad():
+            for batch in self.val_loader:
+                b = to_device(batch, device)
+                if fused is not None:
+                    seq = fused(b["wav"], b["wav_len"])
+                else:
+                    seq = generate(model, b["wav"], b["wav_len"],
+                                   sample_method="greedy",
+                                   max_length=max_length)["seq"]
+                seq = seq.cpu().numpy()
+                self.last_seq.append(seq)
+                caps = self.tokenizer.decode(seq)
+                for aid, cap in zip(batch["audio_id"], caps):
+                    key2pred.setdefault(aid, [cap])
+        model.train()
+        refs = {k: v for k, v in self.key2refs.items() if k in key2pred}
+        preds = {k: v for k, v in key2pred.items() if k in refs}
+        return self.scorer.compute_score(ptb_tokenize(refs),
+                                         ptb_tokenize(preds))[0]
+
+
+class Runner:
+
+    def train(self, config: str, *overrides: str) -> str:
+        """Train from a config; returns the experiment directory."""
+        import yaml
+        cfg = load_config(config, parse_overrides(overrides))
+        device = resolve_device(cfg.get("device", "cuda"))
+        seed = cfg.get("seed", 1)
+        set_seed(seed)
+        exp_dir = Path(cfg["experiment_path"]) / f"seed_{seed}"
+        exp_dir.mkdir(parents=True, exist_ok=True)
+        with open(exp_dir / "config.yaml", "w") as f:
+            yaml.safe_dump(cfg, f)
+        log = _make_logger(exp_dir / "train.log")
+
+        # data
+        tokenizer = build_tokenizer(
+            cfg["data"]["train"]["collate_fn"]["tokenizer"])
+        if not tokenizer.loaded:
+            raise ValueError("tokenizer has no vocabulary; point "
+                             "tokenizer_path at a vocab.pkl")
+        train_loader = build_dataloader(cfg["data"]["train"], tokenizer)
+        val_cfg = cfg["data"]["val"]
+        val_loader = build_dataloader(val_cfg, train=False)
+        val_key2refs = load_caption_json(val_cfg["caption"],
+                                         zh=cfg.get("zh", False))
+
+        # model: seeded random weights, then any pretrained parts
+        model_cfg = cfg["model"]
+        model, pretrained = build_model_from_config(
+            model_cfg, vocab_size=len(tokenizer))
+        random_init(model, torch.Generator().manual_seed(seed))
+        for spec in pretrained:
+            _load_pretrained(model, spec)
+        model.to(device)
+
+        # optimisation
+        trainer_cfg = cfg.get("trainer", {})
+        epochs = trainer_cfg.get("epochs", 25)
+        total_iters = epochs * len(train_loader)
+        opt_args = cfg.get("optimizer", {}).get("args", {})
+        base_lr = opt_args.get("lr", 5e-4)
+        schedule = build_schedule(cfg.get("lr_scheduler", {}), base_lr,
+                                  total_iters, total_iters // 5)
+        state = create_train_state(
+            model, base_lr, schedule,
+            weight_decay=opt_args.get("weight_decay", 0.0),
+            max_grad_norm=trainer_cfg.get("max_grad_norm", 1.0))
+        loss_fn = build_loss(cfg.get("loss", {}))
+
+        # scheduled sampling: on, the step gets a tensor ratio (the cached
+        # path even at 1.0); off, the float 1.0 (teacher forcing)
+        ss_cfg = cfg.get("scheduled_sampling", {"use": False})
+        use_ss = bool(ss_cfg.get("use"))
+        linear_ss = ss_cfg.get("mode", "linear") == "linear"
+        ss_per_iter = (1.0 - ss_cfg.get("final_ratio", 0.7)) / total_iters
+        ss_ratio = 1.0
+        ss_gen = torch.Generator().manual_seed(seed + 1)
+
+        swa_cfg = cfg.get("swa", {"use": False})
+        swa_state = None
+        monitor = MetricImprover(
+            trainer_cfg.get("monitor_metric", {}).get("mode", "max"))
+        not_improve = 0
+        early_stop = trainer_cfg.get("early_stop", 10)
+
+        # resume: the weights of a checkpoint (this package's or the JAX
+        # package's), entries of matching name and shape ("finetune")
+        if cfg.get("resume"):
+            if not trainer_cfg.get("finetune", True):
+                raise ValueError("a full resume (trainer.finetune: False) "
+                                 "is not ported yet (ROADMAP Queue 1 item 6)")
+            ckpt = load_checkpoint(cfg["resume"])
+            load_reference_state_dict(model, merge_variables(
+                model_variables(model), ckpt["variables"]))
+            log(f"weights from {cfg['resume']}")
+
+        val_score = ValScorer(model, tokenizer, val_loader, val_key2refs,
+                              device)
+        ckpt_writer = AsyncCheckpointer()
+        variables = model_variables(model)
+        try:
+            for epoch in range(1, epochs + 1):
+                t0 = time.time()
+                losses = []
+                for batch in train_loader:
+                    if use_ss:
+                        if linear_ss:
+                            ss_ratio -= ss_per_iter
+                        else:
+                            ss_ratio *= 0.01 ** (1.0 / total_iters)
+                    ss_arg = (torch.tensor(ss_ratio, dtype=torch.float32)
+                              if use_ss else 1.0)
+                    metrics = train_step(state, loss_fn,
+                                         to_device(batch, device),
+                                         ss_ratio=ss_arg, generator=ss_gen)
+                    losses.append(metrics["loss"])
+                train_loss = (float(torch.stack(losses).mean())
+                              if losses else float("nan"))
+                t_steps = time.time() - t0
+
+                score = val_score()
+                t_val = time.time() - t0 - t_steps
+                improved = monitor(score)
+                not_improve = 0 if improved else not_improve + 1
+                # a host copy now; pickling and SWA on the worker thread
+                variables = model_variables(model)
+                ckpt_kw = dict(
+                    epoch=epoch, monitor_state=monitor.state_dict(),
+                    not_improve_cnt=not_improve,
+                    tokenizer_state=tokenizer.state_dict(),
+                    lr_count=state.lr_count)
+                swa_due = (swa_cfg.get("use")
+                           and epoch >= swa_cfg.get("start", 21))
+
+                def ckpt_job(snap=variables, improved=improved,
+                             ckpt_kw=ckpt_kw, swa_due=swa_due):
+                    nonlocal swa_state
+                    save_checkpoint(str(exp_dir / "last.pth"), snap,
+                                    **ckpt_kw)
+                    if improved:
+                        shutil.copyfile(exp_dir / "last.pth",
+                                        exp_dir / "best.pth")
+                    if swa_due:
+                        if swa_state is None:
+                            swa_state = swa_init(snap)
+                        swa_state = swa_update(swa_state, snap)
+
+                t_blocked = ckpt_writer.submit(ckpt_job)
+                log(f"epoch {epoch}: loss {train_loss:.4f} "
+                    f"val_cider {score:.4f} ss {ss_ratio:.3f} "
+                    f"({time.time() - t0:.0f}s: steps {t_steps:.0f} "
+                    f"val {t_val:.0f} ckpt_wait {t_blocked:.0f})")
+                if not_improve >= early_stop:
+                    log(f"early stop at epoch {epoch}")
+                    break
+            ckpt_writer.wait()
+        finally:
+            ckpt_writer.close()
+        final = swa_state[0] if swa_state is not None else variables
+        save_checkpoint(str(exp_dir / "swa.pth"), final, epoch=epochs,
+                        monitor_state=monitor.state_dict(),
+                        tokenizer_state=tokenizer.state_dict())
+        log(f"done; best val score {monitor.best:.4f}")
+        return str(exp_dir)
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    parser = argparse.ArgumentParser(prog="audiocaption_tpu_torch.cli.run")
+    sub = parser.add_subparsers(dest="command", required=True)
+    p = sub.add_parser("train", help="train from a YAML config")
+    p.add_argument("config")
+    p.add_argument("overrides", nargs="*",
+                   help="key.sub=value (YAML value), e.g. device=cpu")
+    args = parser.parse_args(argv)
+    if args.command == "train":
+        print(Runner().train(args.config, *args.overrides))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,145 @@
+"""HDF5-backed audio (caption) datasets (counterpart of
+``audiocaption_tpu/data/dataset.py``; reference
+``captioning/datasets/caption_dataset.py``).
+
+Map-style datasets for ``torch.utils.data.DataLoader``; items are plain
+numpy.  As in the reference:
+
+  * ``wav.csv`` maps audio_id -> hdf5_path (tab-separated); AudioCaps
+    ids fall back to "Y{id}.wav" keys;
+  * h5 handles open lazily, once per process (re-opened after a fork);
+  * resample orig_sr -> target_sr (scipy polyphase);
+  * ``CaptionDataset`` yields one item per (audio_id, cap_id), the
+    caption string tokenized later by the collate.
+
+``h5py`` and ``scipy`` are imported where they are used.
+"""
+
+from __future__ import annotations
+
+import csv
+import json
+import os
+from fractions import Fraction
+from typing import Dict, List, Optional
+
+import numpy as np
+
+
+def read_wav_csv(path: str) -> Dict[str, str]:
+    """wav.csv (tab-separated: audio_id, hdf5_path | file_name)."""
+    mapping = {}
+    with open(path) as f:
+        for row in csv.DictReader(f, delimiter="\t"):
+            mapping[row["audio_id"]] = (row.get("hdf5_path")
+                                        or row.get("file_name"))
+    return mapping
+
+
+def load_caption_json(path: str, zh: bool = False) -> Dict[str, List[str]]:
+    """caption json -> {audio_id: [caption strings]}."""
+    with open(path) as f:
+        data = json.load(f)
+    key2refs: Dict[str, List[str]] = {}
+    for audio in data["audios"]:
+        refs = []
+        for cap in audio["captions"]:
+            if zh:
+                refs.append(cap.get("tokens", cap.get("caption", "")))
+            else:
+                refs.append(cap.get("caption", cap.get("tokens", "")))
+        key2refs[audio["audio_id"]] = refs
+    return key2refs
+
+
+def resample(wav: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
+    if orig_sr == target_sr:
+        return wav
+    from scipy.signal import resample_poly
+    frac = Fraction(target_sr, orig_sr)
+    return resample_poly(wav, frac.numerator, frac.denominator
+                         ).astype(np.float32)
+
+
+class _H5Cache:
+    """Lazy per-process h5 file handles."""
+
+    def __init__(self):
+        self._handles: Dict = {}
+        self._pid = None
+
+    def read(self, h5_path: str, key: str) -> np.ndarray:
+        import h5py
+        if self._pid != os.getpid():
+            self._handles = {}
+            self._pid = os.getpid()
+        if h5_path not in self._handles:
+            self._handles[h5_path] = h5py.File(h5_path, "r")
+        f = self._handles[h5_path]
+        if key not in f and not key.startswith("Y"):
+            alt = f"Y{key}.wav"   # AudioCaps packing quirk
+            if alt in f:
+                key = alt
+        # read in the stored dtype (a plain copy), then convert in numpy
+        arr = f[key][...]
+        if arr.dtype == np.int16:
+            return arr.astype(np.float32) / 32768.0
+        if arr.dtype != np.float32:
+            return arr.astype(np.float32)
+        return arr
+
+
+class InferenceDataset:
+    """Audio only: {audio_id, wav} items."""
+
+    def __init__(self, features: Dict[str, str],
+                 orig_sr: Optional[int] = None,
+                 target_sr: Optional[int] = None):
+        wav_csv = features["wav"] if isinstance(features, dict) else features
+        self.aid_to_h5 = read_wav_csv(wav_csv)
+        self.audio_ids = list(self.aid_to_h5.keys())
+        self.orig_sr = orig_sr
+        self.target_sr = target_sr
+        self.cache = _H5Cache()
+
+    def __len__(self) -> int:
+        return len(self.audio_ids)
+
+    def get_audio(self, audio_id: str) -> np.ndarray:
+        wav = self.cache.read(self.aid_to_h5[audio_id], audio_id)
+        if self.orig_sr and self.target_sr:
+            wav = resample(wav, self.orig_sr, self.target_sr)
+        return np.asarray(wav, np.float32)
+
+    def __getitem__(self, index: int) -> Dict:
+        aid = self.audio_ids[index]
+        return {"audio_id": aid, "wav": self.get_audio(aid)}
+
+
+class CaptionDataset(InferenceDataset):
+    """One item per (audio_id, cap_id), with the raw caption string."""
+
+    def __init__(self, features: Dict[str, str], caption: str,
+                 zh: bool = False, **kwargs):
+        super().__init__(features, **kwargs)
+        with open(caption) as f:
+            data = json.load(f)
+        self.items: List[Dict] = []
+        for audio in data["audios"]:
+            aid = audio["audio_id"]
+            if aid not in self.aid_to_h5:
+                continue
+            for cap in audio["captions"]:
+                self.items.append({
+                    "audio_id": aid,
+                    "cap_id": str(cap.get("cap_id", 0)),
+                    "cap": cap.get("tokens", cap.get("caption", "")),
+                })
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def __getitem__(self, index: int) -> Dict:
+        item = dict(self.items[index])
+        item["wav"] = self.get_audio(item["audio_id"])
+        return item

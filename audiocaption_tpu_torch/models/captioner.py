@@ -1,12 +1,32 @@
-"""Caption model: frontend + encoder + decoder, and greedy / beam
-generation (counterpart of the inference half of
-``audiocaption_tpu/models/captioner.py``)."""
+"""Caption model: frontend + encoder + decoder, its training forward,
+and greedy / beam generation (counterpart of
+``audiocaption_tpu/models/captioner.py``).
+
+Training forward (``Captioner.forward``), for the transformer decoder:
+
+  * ``ss_ratio`` the Python float 1.0: full teacher forcing, one causal
+    pass over ``cap[:, :-1]``;
+  * any other value (a float or a tensor, 1.0 included): scheduled
+    sampling on the KV cache.  One teacher pass serves every step whose
+    coin says "teacher" (the prefix is then exactly ``cap[:, :t+1]``);
+    the model prefix (<bos> + the words picked so far) only ever
+    appends, so a KV cache over it advances one step at a time.  Each
+    step draws one whole-batch coin ``U < ss_ratio``, U uniform from the
+    caller's ``torch.Generator`` on the host.  :func:`ss_forward_recompute`
+    re-runs the decoder over the selected prefix every step instead (the
+    reference's shape), kept as the oracle the tests hold the cached path
+    to.
+
+The frontend runs without autograd; the encoder and decoder follow their
+``train()`` / ``eval()`` mode (batch statistics, dropout, drop-connect).
+"""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from audiocaption_tpu_torch.decoding.engine import (
@@ -36,6 +56,104 @@ class Captioner(nn.Module):
         """Encode a log-mel computed elsewhere (the temporal model computes
         it once for its SED branch and its captioner)."""
         return self.encoder(lms, feat_len)
+
+    def forward(self, wav: torch.Tensor, wav_len: torch.Tensor,
+                cap: torch.Tensor, cap_len: torch.Tensor,
+                ss_ratio: Union[float, torch.Tensor] = 1.0,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """Training forward: wav [B, T], cap [B, Lc] ids (<bos> ... <eos>,
+        padded) -> {logit [B, Lc-1, V], embed [B, Lc-1, E], encoder
+        outputs; on the scheduled-sampling path also seq and
+        sampled_logprob [B, Lc-1]}.  ``cap_len`` is the loss's, not this
+        forward's."""
+        if isinstance(self.decoder, BahAttnCatFcDecoder):
+            raise NotImplementedError(
+                "training an RNN decoder (the JAX _ss_forward_rnn) is not "
+                "ported yet (ROADMAP Queue 1 item 6)")
+        with torch.no_grad():
+            lms = self.frontend(wav)
+        enc = self.encode_lms(lms, self.mel.feat_len(wav_len))
+        if isinstance(ss_ratio, float) and ss_ratio == 1.0:
+            word = cap[:, :-1]
+            out = self.decoder(word, enc["attn_emb"], enc["attn_emb_len"],
+                               cap_padding_mask=word == self.special.pad)
+        else:
+            out = self._ss_forward(enc, cap, ss_ratio, generator)
+        out.update(enc)
+        return out
+
+    def _ss_forward(self, enc: Dict[str, torch.Tensor], cap: torch.Tensor,
+                    ss_ratio, generator: Optional[torch.Generator]
+                    ) -> Dict[str, torch.Tensor]:
+        """Scheduled sampling on the KV cache (the JAX
+        ``_ss_forward_transformer``).  Eval-mode logits equal
+        :func:`ss_forward_recompute`'s at the same coins; under dropout
+        the two draw different noise (cached K/V keep the noise of the
+        step that wrote them)."""
+        dec, sp = self.decoder, self.special
+        B, Lc = cap.shape
+        word = cap[:, :-1]
+        t_out = dec(word, enc["attn_emb"], enc["attn_emb_len"],
+                    cap_padding_mask=word == sp.pad)
+        static, dyn = dec.init_cache(enc["attn_emb"], enc["attn_emb_len"],
+                                     Lc - 1)
+        prev = torch.full((B,), sp.bos, dtype=torch.long, device=cap.device)
+        steps = []
+        for t in range(Lc - 1):
+            teacher = ss_coin(ss_ratio, generator)
+            hidden, dyn = dec.step_hidden(prev, t, static, dyn,
+                                          is_pad_t=prev == sp.pad)
+            if teacher:
+                logit_t, embed_t = t_out["logit"][:, t], t_out["embed"][:, t]
+            else:
+                logit_t, embed_t = dec.logits(hidden), hidden
+            prev, step = _greedy_pick(logit_t, embed_t)
+            steps.append(step)
+        return _stack_steps(steps)
+
+
+def ss_coin(ss_ratio, generator: Optional[torch.Generator]) -> bool:
+    """One scheduled-sampling coin: True (feed the teacher's word) when
+    U < ``ss_ratio``, U uniform in [0, 1) in float32 from ``generator``
+    on the host (no device sync unless ``ss_ratio`` is a device tensor)."""
+    u = torch.rand((), generator=generator, dtype=torch.float32)
+    return bool(u < torch.as_tensor(ss_ratio, dtype=torch.float32).cpu())
+
+
+def _greedy_pick(logit_t: torch.Tensor, embed_t: torch.Tensor):
+    lp = F.log_softmax(logit_t, dim=-1)
+    lp_max, w_t = lp.max(-1)
+    return w_t, {"logit": logit_t, "embed": embed_t, "seq": w_t,
+                 "sampled_logprob": lp_max}
+
+
+def _stack_steps(steps) -> Dict[str, torch.Tensor]:
+    return {k: torch.stack([s[k] for s in steps], 1) for k in steps[0]}
+
+
+def ss_forward_recompute(model: Captioner, enc: Dict[str, torch.Tensor],
+                         cap: torch.Tensor, ss_ratio,
+                         generator: Optional[torch.Generator] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """The reference-shaped scheduled-sampling forward (the JAX
+    ``_ss_forward_transformer_recompute``): every step re-runs the decoder
+    over the whole selected prefix, ``cap[:, :t+1]`` or <bos> + the words
+    picked so far.  The oracle of :meth:`Captioner._ss_forward`."""
+    dec, sp = model.decoder, model.special
+    B, Lc = cap.shape
+    prefix = torch.full((B, Lc), sp.bos, dtype=torch.long, device=cap.device)
+    steps = []
+    for t in range(Lc - 1):
+        teacher = ss_coin(ss_ratio, generator)
+        word = cap[:, :t + 1] if teacher else prefix[:, :t + 1]
+        out = dec(word, enc["attn_emb"], enc["attn_emb_len"],
+                  cap_padding_mask=word == sp.pad)
+        w_t, step = _greedy_pick(out["logit"][:, -1], out["embed"][:, -1])
+        prefix = prefix.clone()
+        prefix[:, t + 1] = w_t
+        steps.append(step)
+    return _stack_steps(steps)
 
 
 @torch.no_grad()

@@ -1,4 +1,4 @@
-"""EfficientNet-B2 audio encoder, inference only (counterpart of
+"""EfficientNet-B2 audio encoder (counterpart of
 ``audiocaption_tpu/models/effb2.py``).
 
 Spectrograms enter as one-channel images with mel bins on H and time on
@@ -50,6 +50,9 @@ _B0_BLOCKS = [
 ]
 _SE_RATIO = 0.25
 _BN_EPS = 1e-3
+# torch momentum of every EffB2 BN: the JAX blocks' flax 0.99
+# (audiocaption_tpu/models/effb2.py:89,174,190)
+_BN_MOMENTUM = 0.01
 
 
 def round_filters(filters: float, width: float, divisor: int = 8) -> int:
@@ -93,18 +96,24 @@ def b2_block_plan(width: float = 1.1, depth: float = 1.2,
 
 
 class MBConvBlock(nn.Module):
-    """Inverted-residual block with squeeze-and-excitation and swish.
+    """Inverted-residual block with squeeze-and-excitation, swish and
+    drop-connect.
 
     ``oup_override`` / ``squeeze_override`` set the expanded and squeeze
     widths of a structurally pruned block (``build_pruned_effb2``);
-    ``plan`` keeps the constructor's arguments."""
+    ``plan`` keeps the constructor's arguments but ``drop_rate``, which
+    the encoder sets from the block's index.  In ``train()`` a skip
+    block drops its residual branch per sample at ``drop_rate`` (the
+    JAX block's mask ``floor(keep + U)``, branch scaled by 1 / keep)."""
 
     def __init__(self, in_filters: int, out_filters: int, kernel: int,
                  stride: int, expand_ratio: int, nominal_size: int,
                  oup_override: Optional[int] = None,
                  squeeze_override: Optional[int] = None,
+                 drop_rate: float = 0.0,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.drop_rate = drop_rate
         self.plan = dict(in_filters=in_filters, out_filters=out_filters,
                          kernel=kernel, stride=stride,
                          expand_ratio=expand_ratio, nominal_size=nominal_size,
@@ -118,12 +127,14 @@ class MBConvBlock(nn.Module):
         if self.has_expand:
             self._expand_conv = Conv2dSame(in_filters, oup, 1,
                                            compute_dtype=cd)
-            self._bn0 = BatchNorm2d(oup, eps=_BN_EPS, compute_dtype=cd)
+            self._bn0 = BatchNorm2d(oup, eps=_BN_EPS, momentum=_BN_MOMENTUM,
+                                    compute_dtype=cd)
         self._depthwise_conv = Conv2dSame(
             oup, oup, kernel, stride=stride, groups=oup,
             padding4=tf_same_padding(nominal_size, kernel, stride),
             compute_dtype=cd)
-        self._bn1 = BatchNorm2d(oup, eps=_BN_EPS, compute_dtype=cd)
+        self._bn1 = BatchNorm2d(oup, eps=_BN_EPS, momentum=_BN_MOMENTUM,
+                                compute_dtype=cd)
         # SE channel count comes from the block's *input* filters
         n_squeeze = (squeeze_override if squeeze_override is not None
                      else max(1, int(in_filters * _SE_RATIO)))
@@ -132,7 +143,8 @@ class MBConvBlock(nn.Module):
         self._se_expand = Conv2dSame(n_squeeze, oup, 1, bias=True,
                                      compute_dtype=cd)
         self._project_conv = Conv2dSame(oup, out_filters, 1, compute_dtype=cd)
-        self._bn2 = BatchNorm2d(out_filters, eps=_BN_EPS, compute_dtype=cd)
+        self._bn2 = BatchNorm2d(out_filters, eps=_BN_EPS,
+                                momentum=_BN_MOMENTUM, compute_dtype=cd)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         inputs = x
@@ -145,37 +157,57 @@ class MBConvBlock(nn.Module):
         x = sigmoid(s) * x
         x = self._bn2(self._project_conv(x))
         if self.has_skip:
+            if self.training and self.drop_rate > 0:
+                x = drop_connect(x, self.drop_rate)
             x = x + inputs
         return x
+
+
+def drop_connect(x: torch.Tensor, rate: float) -> torch.Tensor:
+    """Per-sample drop of the residual branch ``x`` [B, C, H, W]: a
+    sample's branch is zeroed with probability ``rate``, else scaled by
+    1 / (1 - rate)."""
+    keep = 1.0 - rate
+    u = torch.rand(x.shape[0], 1, 1, 1, device=x.device, dtype=torch.float32)
+    mask = torch.floor(keep + u)
+    return x / keep * mask.to(x.dtype)
 
 
 class EfficientNetB2(nn.Module):
     """EfficientNet-B2 feature extractor, one input channel, no top.
 
     The stem and head widths and the block plan default to B2's; the
-    pruned family passes its own (``PrunedEfficientNetB2``)."""
+    pruned family passes its own (``PrunedEfficientNetB2``).  Block
+    ``idx`` of ``n`` drops its residual branch at ``drop_connect_rate *
+    idx / n`` in ``train()``, as the JAX encoder does (its :184)."""
 
     downsample_ratio = 32
 
     def __init__(self, stem_filters: Optional[int] = None,
                  head_filters: Optional[int] = None,
                  block_plan: Optional[Sequence[Dict]] = None,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 drop_connect_rate: float = 0.2):
         super().__init__()
         cd = self.compute_dtype = compute_dtype
         stem = stem_filters or round_filters(32, 1.1)
         self._conv_stem = Conv2dSame(1, stem, 3, stride=2,
                                      padding4=tf_same_padding(260, 3, 2),
                                      compute_dtype=cd)
-        self._bn0 = BatchNorm2d(stem, eps=_BN_EPS, compute_dtype=cd)
+        self._bn0 = BatchNorm2d(stem, eps=_BN_EPS, momentum=_BN_MOMENTUM,
+                                compute_dtype=cd)
+        self.drop_connect_rate = drop_connect_rate
+        plan = block_plan or b2_block_plan()
         self._blocks = nn.ModuleList(
-            MBConvBlock(**a, compute_dtype=cd)
-            for a in (block_plan or b2_block_plan()))
+            MBConvBlock(**a, compute_dtype=cd,
+                        drop_rate=drop_connect_rate * idx / len(plan))
+            for idx, a in enumerate(plan))
         head = head_filters or round_filters(1280, 1.1)
         self._conv_head = Conv2dSame(
             self._blocks[-1]._project_conv.out_channels, head, 1,
             compute_dtype=cd)
-        self._bn1 = BatchNorm2d(head, eps=_BN_EPS, compute_dtype=cd)
+        self._bn1 = BatchNorm2d(head, eps=_BN_EPS, momentum=_BN_MOMENTUM,
+                                compute_dtype=cd)
         self.fc_emb_size = head
 
     def forward(self, lms: torch.Tensor, feat_len: torch.Tensor,
@@ -202,9 +234,10 @@ class PrunedEfficientNetB2(EfficientNetB2):
 
     def __init__(self, stem_filters: int, head_filters: int,
                  block_plan: Sequence[Dict],
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 drop_connect_rate: float = 0.2):
         super().__init__(stem_filters, head_filters, block_plan,
-                         compute_dtype)
+                         compute_dtype, drop_connect_rate)
 
     @property
     def block_plan(self) -> Tuple[Dict, ...]:
@@ -305,7 +338,8 @@ def build_pruned_effb2(encoder: EfficientNetB2, prune_ratio: float,
     bn("_bn1", keep_head)
 
     pruned = PrunedEfficientNetB2(stem_filters, len(keep_head), block_plan,
-                                  encoder.compute_dtype)
+                                  encoder.compute_dtype,
+                                  encoder.drop_connect_rate)
     pruned.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
                             for k, v in out.items()})
     device = next(encoder.parameters()).device

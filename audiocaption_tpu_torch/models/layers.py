@@ -142,12 +142,16 @@ class LayerNorm(nn.LayerNorm):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` (inference) computed in float32 from float32
-    statistics, output in ``compute_dtype``."""
+    """``nn.BatchNorm2d`` computed in float32 from float32 statistics,
+    output in ``compute_dtype``.  ``momentum`` is torch's (the weight of
+    the batch statistic): flax ``BatchNorm(momentum=m)`` is torch
+    ``1 - m``, so the EffB2 blocks' flax 0.99 is 0.01 here and the
+    PANNs blocks' flax 0.9 is torch's default 0.1."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1,
                  compute_dtype: torch.dtype = torch.float32):
-        super().__init__(num_features, eps=eps)
+        super().__init__(num_features, eps=eps, momentum=momentum)
         self.compute_dtype = check_compute_dtype(compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -182,12 +186,15 @@ class MultiheadAttention(nn.Module):
     row whose keys are all masked attends uniformly, as in the JAX
     package.  Projections run in ``compute_dtype``; scores and softmax in
     float32; with bf16, probabilities and values are rounded to bf16 for
-    the float32-summed context product."""
+    the float32-summed context product.  In ``train()`` the
+    probabilities take dropout at ``dropout``."""
 
     def __init__(self, embed_dim: int, num_heads: int,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.dropout = dropout
         self.compute_dtype = check_compute_dtype(compute_dtype)
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
@@ -215,7 +222,9 @@ class MultiheadAttention(nn.Module):
         if key_padding_mask is not None:
             scores = scores.masked_fill(key_padding_mask[:, None, None, :],
                                         NEG_MASK)
-        probs = widen(narrow(torch.softmax(scores, dim=-1), cd))
+        probs = F.dropout(torch.softmax(scores, dim=-1), self.dropout,
+                          self.training)
+        probs = widen(narrow(probs, cd))
         out = torch.matmul(probs, v).transpose(1, 2).reshape(B, Tq, E)
         return self.out_proj(out)
 
@@ -234,32 +243,40 @@ class MultiheadAttention(nn.Module):
 
 
 class TransformerDecoderLayer(nn.Module):
-    """torch ``nn.TransformerDecoderLayer`` (post-norm, ReLU), inference:
+    """torch ``nn.TransformerDecoderLayer`` (post-norm, ReLU):
     self-attn -> add&norm -> cross-attn -> add&norm -> FFN -> add&norm,
-    in ``compute_dtype`` (residual sums in it too)."""
+    in ``compute_dtype`` (residual sums in it too).  In ``train()``,
+    dropout at ``dropout`` on the attention probabilities, the three
+    residual branches and the FFN's inner activation (the JAX layer's
+    placements)."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         cd = compute_dtype
-        self.self_attn = MultiheadAttention(d_model, nhead, cd)
-        self.multihead_attn = MultiheadAttention(d_model, nhead, cd)
+        self.dropout = dropout
+        self.self_attn = MultiheadAttention(d_model, nhead, cd, dropout)
+        self.multihead_attn = MultiheadAttention(d_model, nhead, cd, dropout)
         self.linear1 = Linear(d_model, dim_feedforward, compute_dtype=cd)
         self.linear2 = Linear(dim_feedforward, d_model, compute_dtype=cd)
         self.norm1 = LayerNorm(d_model, eps=1e-5, compute_dtype=cd)
         self.norm2 = LayerNorm(d_model, eps=1e-5, compute_dtype=cd)
         self.norm3 = LayerNorm(d_model, eps=1e-5, compute_dtype=cd)
 
+    def _drop(self, x):
+        return F.dropout(x, self.dropout, self.training)
+
     def _ffn(self, x):
-        return self.linear2(F.relu(self.linear1(x)))
+        return self.linear2(self._drop(F.relu(self.linear1(x))))
 
     def forward(self, x, memory, tgt_mask=None, tgt_key_padding_mask=None,
                 memory_key_padding_mask=None) -> torch.Tensor:
-        x = self.norm1(x + self.self_attn(x, x, x, tgt_key_padding_mask,
-                                          tgt_mask))
-        x = self.norm2(x + self.multihead_attn(x, memory, memory,
-                                               memory_key_padding_mask))
-        return self.norm3(x + self._ffn(x))
+        x = self.norm1(x + self._drop(self.self_attn(
+            x, x, x, tgt_key_padding_mask, tgt_mask)))
+        x = self.norm2(x + self._drop(self.multihead_attn(
+            x, memory, memory, memory_key_padding_mask)))
+        return self.norm3(x + self._drop(self._ffn(x)))
 
     def precompute_memory(self, memory):
         """Project the cross-attention K/V once per decoded sequence."""
@@ -267,17 +284,31 @@ class TransformerDecoderLayer(nn.Module):
 
     def step(self, x_t, t: int, self_k, self_v, self_kpm, mem_k, mem_v,
              memory_key_padding_mask):
-        """One decode step at position ``t``.  Writes this step's K/V into
-        row ``t`` of the caches in place; the caller keeps ``self_kpm``
-        masking positions > t and pad tokens."""
+        """One decode step at position ``t`` -> (out_t, self_k, self_v).
+        This step's K/V go into row ``t`` of the caches: in place when
+        autograd is off (decoding), else into new tensors (:func:`put_row`),
+        so that a training step can differentiate through earlier steps.
+        The caller keeps ``self_kpm`` masking positions > t and pad
+        tokens."""
         k_t, v_t = self.self_attn.project_kv(x_t, x_t)
-        self_k[:, t] = k_t
-        self_v[:, t] = v_t
-        x = self.norm1(x_t + self.self_attn.attend_step(x_t, self_k, self_v,
-                                                        self_kpm))
-        x = self.norm2(x + self.multihead_attn.attend_step(
-            x, mem_k, mem_v, memory_key_padding_mask))
-        return self.norm3(x + self._ffn(x))
+        self_k, self_v = put_row(self_k, t, k_t), put_row(self_v, t, v_t)
+        x = self.norm1(x_t + self._drop(self.self_attn.attend_step(
+            x_t, self_k, self_v, self_kpm)))
+        x = self.norm2(x + self._drop(self.multihead_attn.attend_step(
+            x, mem_k, mem_v, memory_key_padding_mask)))
+        return self.norm3(x + self._drop(self._ffn(x))), self_k, self_v
+
+
+def put_row(cache: torch.Tensor, t: int, row: torch.Tensor) -> torch.Tensor:
+    """``cache`` [B, L, ...] with ``row`` [B, ...] at position ``t``:
+    written in place when autograd is off, else a new tensor (autograd
+    refuses an in-place write to a tensor an earlier step saved)."""
+    if not torch.is_grad_enabled():
+        cache[:, t] = row
+        return cache
+    at = torch.arange(cache.shape[1], device=cache.device) == t
+    return torch.where(at.view(1, -1, *([1] * (cache.dim() - 2))),
+                       row.unsqueeze(1).to(cache.dtype), cache)
 
 
 class ConvBlock(nn.Module):

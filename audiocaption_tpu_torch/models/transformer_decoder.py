@@ -1,17 +1,24 @@
 """Transformer caption decoder (counterpart of
-``audiocaption_tpu/models/transformer_decoder.py``), inference only.
+``audiocaption_tpu/models/transformer_decoder.py``).
 
 Two execution paths over one parameter set:
 
   * ``forward`` — full-sequence causal pass over [B, L] tokens;
   * ``init_cache`` + ``step`` — KV-cached single-token decode used by
-    the decoding engine and mirrored by the fused CUDA kernels.
+    the decoding engine and mirrored by the fused CUDA kernels, and by
+    the scheduled-sampling training forward (``step_hidden``; with
+    autograd on, the caches grow out of place, ``layers.put_row``).
 
 Semantics:
-  * word embedding * sqrt(emb_dim) + positional table (max_len 100);
-  * memory projection Linear -> ReLU -> (Dropout) -> LayerNorm;
+  * word embedding -> dropout -> * sqrt(emb_dim) -> + positional table
+    (max_len 100) -> dropout;
+  * memory projection Linear -> ReLU -> Dropout -> LayerNorm (the
+    cached path's ``init_cache`` projects without the dropout, as the
+    JAX decoder does);
   * n post-norm ``TransformerDecoderLayer``s (nhead = d/64, ff = 4d);
-  * classifier without bias, optionally tied to the embedding.
+  * classifier without bias, optionally tied to the embedding;
+  * every dropout (rate ``dropout``, also inside the layers) acts only
+    in ``train()``.
 
 ``compute_dtype`` (float32 or bfloat16) follows the JAX package: the
 embedding (float32 table, * sqrt(E) + PE) is cast to it, the memory
@@ -37,7 +44,7 @@ from torch import nn
 
 from audiocaption_tpu_torch.models.layers import (
     LayerNorm, Linear, TransformerDecoderLayer, causal_mask,
-    check_compute_dtype, narrow, sinusoidal_positions, widen)
+    check_compute_dtype, narrow, put_row, sinusoidal_positions, widen)
 from audiocaption_tpu_torch.ops.masking import length_mask
 
 
@@ -71,6 +78,7 @@ class TransformerDecoder(nn.Module):
         self.dim_feedforward = (dim_feedforward if dim_feedforward is not None
                                 else emb_dim * 4)
         self.tie_weights = tie_weights
+        self.dropout = dropout
         self.word_embedding = nn.Embedding(vocab_size, emb_dim)
         nn.init.xavier_uniform_(self.word_embedding.weight)
         self.attn_proj = nn.Sequential(
@@ -80,7 +88,7 @@ class TransformerDecoder(nn.Module):
         self.pos_encoder = PositionalEncoding(max_pos, emb_dim)
         self.model = _LayerStack(
             TransformerDecoderLayer(emb_dim, self.nhead, self.dim_feedforward,
-                                    cd)
+                                    cd, dropout)
             for _ in range(nlayers))
         if not tie_weights:
             self.classifier = Linear(emb_dim, vocab_size, bias=False,
@@ -106,13 +114,20 @@ class TransformerDecoder(nn.Module):
             return F.linear(h, self.word_embedding.weight)
         return widen(self.classifier(h))
 
-    def project_memory(self, attn_emb: torch.Tensor) -> torch.Tensor:
-        return self.attn_proj(attn_emb)
+    def project_memory(self, attn_emb: torch.Tensor,
+                       dropout: bool = True) -> torch.Tensor:
+        if dropout:
+            return self.attn_proj(attn_emb)
+        dense, relu, _, norm = self.attn_proj
+        return norm(relu(dense(attn_emb)))
+
+    def _drop(self, x: torch.Tensor) -> torch.Tensor:
+        return F.dropout(x, self.dropout, self.training)
 
     def embed(self, word: torch.Tensor, pos_offset: int = 0) -> torch.Tensor:
-        e = self.word_embedding(word) * math.sqrt(self.emb_dim)
+        e = self._drop(self.word_embedding(word)) * math.sqrt(self.emb_dim)
         T = word.shape[-1]
-        return narrow(e + self.pe[pos_offset:pos_offset + T][None],
+        return narrow(self._drop(e + self.pe[pos_offset:pos_offset + T][None]),
                       self.compute_dtype)
 
     def forward(self, word: torch.Tensor, attn_emb: torch.Tensor,
@@ -142,7 +157,7 @@ class TransformerDecoder(nn.Module):
         """
         B = attn_emb.shape[0]
         cache_dtype = narrow(attn_emb[:0], self.compute_dtype).dtype
-        memory = self.project_memory(attn_emb)
+        memory = self.project_memory(attn_emb, dropout=False)
         static = {"mem_kpm": ~length_mask(attn_emb_len, attn_emb.shape[1])}
         dyn = {}
         for i, layer in enumerate(self.layers):
@@ -155,20 +170,30 @@ class TransformerDecoder(nn.Module):
                                       device=attn_emb.device)
         return static, dyn
 
-    def step(self, word_t: torch.Tensor, t: int, static: Dict, dyn: Dict,
-             is_pad_t: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, Dict]:
-        """One decode step: word_t [B] ids -> (logit [B, V], dyn).  The
-        caches in ``dyn`` are updated in place at row ``t``."""
+    def step_hidden(self, word_t: torch.Tensor, t: int, static: Dict,
+                    dyn: Dict, is_pad_t: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, Dict]:
+        """One decode step up to the float32 hidden state: word_t [B] ids
+        -> (hidden [B, E], dyn).  Row ``t`` of the caches is written in
+        place when autograd is off, else the returned ``dyn`` holds new
+        caches (``layers.put_row``)."""
         L = dyn["self_k0"].shape[1]
         if is_pad_t is None:
             is_pad_t = torch.zeros_like(word_t, dtype=torch.bool)
-        dyn["self_pad"][:, t] = is_pad_t
+        self_pad = put_row(dyn["self_pad"], t, is_pad_t)
         positions = torch.arange(L, device=word_t.device)
-        kpm = (positions[None, :] > t) | dyn["self_pad"]
+        kpm = (positions[None, :] > t) | self_pad
         x = self.embed(word_t[:, None], t)[:, 0]
+        dyn = dict(dyn, self_pad=self_pad)
         for i, layer in enumerate(self.layers):
-            x = layer.step(x, t, dyn[f"self_k{i}"], dyn[f"self_v{i}"], kpm,
-                           static[f"mem_k{i}"], static[f"mem_v{i}"],
-                           static["mem_kpm"])
-        return self.logits(widen(x)), dyn
+            x, dyn[f"self_k{i}"], dyn[f"self_v{i}"] = layer.step(
+                x, t, dyn[f"self_k{i}"], dyn[f"self_v{i}"], kpm,
+                static[f"mem_k{i}"], static[f"mem_v{i}"], static["mem_kpm"])
+        return widen(x), dyn
+
+    def step(self, word_t: torch.Tensor, t: int, static: Dict, dyn: Dict,
+             is_pad_t: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, Dict]:
+        """One decode step: word_t [B] ids -> (logit [B, V], dyn)."""
+        x, dyn = self.step_hidden(word_t, t, static, dyn, is_pad_t)
+        return self.logits(x), dyn

@@ -25,10 +25,11 @@ def effb2_trm(vocab_size: int = 4981, decoder_emb_dim: int = 256,
               tie_weights: bool = True,
               compute_dtype: torch.dtype = torch.float32,
               max_length: int = 20) -> Captioner:
-    """The HF Effb2TrmCaptioningModel dims: EffB2 encoder (16 kHz mel),
-    2-layer transformer decoder, emb 256, 4 heads, FFN 1024, tied.
-    ``compute_dtype`` goes to the encoder and the decoder (the log-mel
-    frontend stays float32), as in the JAX zoo."""
+    """The HF Effb2TrmCaptioningModel dims: EffB2 encoder (16 kHz mel,
+    drop-connect 0.2), 2-layer transformer decoder, emb 256, 4 heads,
+    FFN 1024, tied.  ``compute_dtype`` goes to the encoder and the
+    decoder (the log-mel frontend stays float32), as in the JAX zoo.
+    Dropout and drop-connect act in ``train()`` only."""
     encoder = EfficientNetB2(compute_dtype=compute_dtype)
     decoder = TransformerDecoder(
         emb_dim=decoder_emb_dim, vocab_size=vocab_size,

@@ -1,0 +1,176 @@
+"""Checkpoint save and resume (counterpart of
+``audiocaption_tpu/training/checkpoint.py``; the reference's
+``save_checkpoint`` / ``resume_checkpoint``).
+
+A checkpoint is one pickle of host values: {variables, epoch,
+monitor_state, not_improve_cnt, tokenizer (the word -> id dict),
+lr_count, optimizer (optional)}, the JAX package's payload.  Here
+``variables`` is a flat dict of numpy arrays in the reference
+checkpoint's key space (``model.model.encoder.backbone.eff_net.*``,
+``model.model.decoder.*``: what ``models.convert.load_reference_state_dict``
+reads), so the HF API loads it as it loads a reference checkpoint.
+:func:`load_checkpoint` also reads a checkpoint the JAX package wrote
+(its ``variables`` the flax tree {params, batch_stats}) and returns its
+weights in the same key space (``models.convert.state_dict_from_jax``).
+"""
+
+from __future__ import annotations
+
+import pickle
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Any, Callable, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from audiocaption_tpu_torch.models.convert import (
+    DECODER_PREFIX, ENCODER_PREFIX, state_dict_from_jax)
+
+
+def model_variables(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """A ``Captioner``'s encoder and decoder weights and buffers, as host
+    numpy arrays in the reference key space."""
+    out = {}
+    for prefix, module in ((ENCODER_PREFIX, model.encoder),
+                           (DECODER_PREFIX, model.decoder)):
+        for k, v in module.state_dict().items():
+            out[prefix + k] = v.detach().cpu().numpy().copy()
+    return out
+
+
+def save_checkpoint(path: str, variables: Mapping, *, epoch: int = 0,
+                    optimizer: Optional[Dict] = None,
+                    monitor_state: Optional[Dict] = None,
+                    not_improve_cnt: int = 0,
+                    tokenizer_state: Optional[Dict] = None,
+                    lr_count: int = 0) -> None:
+    """Write the payload.  ``variables``: name -> array or tensor (see
+    :func:`model_variables`); ``optimizer``: an optimizer's
+    ``state_dict()``, its tensors copied to the host."""
+    payload = {
+        "variables": {k: np.asarray(v.detach().cpu() if torch.is_tensor(v)
+                                    else v) for k, v in variables.items()},
+        "epoch": epoch,
+        "monitor_state": monitor_state,
+        "not_improve_cnt": not_improve_cnt,
+        "tokenizer": tokenizer_state,
+        "lr_count": lr_count,
+    }
+    if optimizer is not None:
+        payload["optimizer"] = _to_host(optimizer)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(payload, f, protocol=4)
+
+
+def _to_host(tree: Any) -> Any:
+    if torch.is_tensor(tree):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return tree
+
+
+def load_checkpoint(path: str) -> Dict:
+    """Read a checkpoint this package or the JAX package wrote (a pickle
+    written by a trusted run: unpickling runs code).  ``variables`` comes
+    back in the reference key space as numpy arrays either way."""
+    with open(path, "rb") as f:
+        payload = pickle.load(f)
+    variables = payload.get("variables")
+    if isinstance(variables, Mapping) and "params" in variables:
+        payload["variables"] = jax_variables_to_reference(variables)
+    return payload
+
+
+def jax_variables_to_reference(variables: Mapping) -> Dict[str, np.ndarray]:
+    """A JAX EffB2-Transformer tree {params, batch_stats} (numpy leaves)
+    -> the reference key space; the decoder's depth and weight tying are
+    read off the tree."""
+    dec = variables["params"].get("decoder", {})
+    if "encoder" not in variables["params"] or "attn_proj_dense" not in dec:
+        raise ValueError("only JAX EfficientNet-B2 + TransformerDecoder "
+                         "checkpoints convert to this package's key space")
+    nlayers = sum(k.startswith("layer") for k in dec)
+    sd = state_dict_from_jax(variables, nlayers=nlayers,
+                             tie_weights="classifier" not in dec)
+    return {k: v.numpy() for k, v in sd.items()}
+
+
+class AsyncCheckpointer:
+    """Runs checkpoint jobs on one worker thread, so pickling and the
+    SWA update overlap the next epoch's steps.  Jobs run in submission
+    order; ``submit`` first joins the previous job (at most one in
+    flight, and its exception surfaces there); ``wait`` joins before
+    anyone reads what a job wrote."""
+
+    def __init__(self):
+        self._ex = ThreadPoolExecutor(max_workers=1,
+                                      thread_name_prefix="ckpt")
+        self._fut = None
+
+    def submit(self, job: Callable[[], Any]) -> float:
+        """Queue ``job``; returns the seconds spent waiting for the
+        previous one."""
+        t0 = time.time()
+        self.wait()
+        self._fut = self._ex.submit(job)
+        return time.time() - t0
+
+    def wait(self) -> None:
+        """Join the job in flight, re-raising its exception."""
+        if self._fut is not None:
+            fut, self._fut = self._fut, None
+            fut.result()
+
+    def close(self) -> None:
+        self.wait()
+        self._ex.shutdown()
+
+
+def merge_variables(target: Dict, source: Mapping) -> Dict:
+    """``target`` (name -> array or tensor) with the ``source`` entries
+    of the same name and shape copied in, in ``target``'s dtype (the
+    reference's partial load)."""
+    out = {}
+    for k, dst in target.items():
+        src = source.get(k)
+        if src is not None and tuple(np.shape(dst)) == tuple(np.shape(src)):
+            out[k] = _cast_like(src, dst)
+        else:
+            out[k] = dst
+    return out
+
+
+def _cast_like(src, dst):
+    if torch.is_tensor(dst):
+        return torch.as_tensor(np.asarray(src)).to(dst.dtype)
+    return np.asarray(src, dtype=np.asarray(dst).dtype)
+
+
+class MetricImprover:
+    """min / max monitor of a validation metric."""
+
+    def __init__(self, mode: str = "max"):
+        if mode not in ("min", "max"):
+            raise ValueError(f"mode must be 'min' or 'max', not {mode!r}")
+        self.mode = mode
+        self.best = float("inf") if mode == "min" else float("-inf")
+
+    def __call__(self, value: float) -> bool:
+        improved = (value < self.best if self.mode == "min"
+                    else value > self.best)
+        if improved:
+            self.best = value
+        return improved
+
+    def state_dict(self) -> Dict:
+        return {"mode": self.mode, "best": self.best}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.mode = state["mode"]
+        self.best = state["best"]

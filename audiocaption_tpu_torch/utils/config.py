@@ -1,0 +1,123 @@
+"""YAML configs with the reference's ergonomics (counterpart of
+``audiocaption_tpu/utils/config.py``): ``inherit_from`` merged
+recursively, ``key.sub=value`` overrides with YAML-typed values, and
+the model built from the reference's {type, args} nodes (its dotted
+type names are accepted: only the last component is read).
+
+``yaml`` is imported where a config is read (the card machine has no
+PyYAML; it drives the trainer's API directly).
+"""
+
+from __future__ import annotations
+
+import copy
+from pathlib import Path
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+
+def merge_dicts(base: Dict, override: Dict) -> Dict:
+    """Recursive dict merge; ``override`` wins."""
+    out = copy.deepcopy(base)
+    for k, v in override.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = merge_dicts(out[k], v)
+        else:
+            out[k] = copy.deepcopy(v)
+    return out
+
+
+def load_config(path: str, overrides: Optional[Dict] = None) -> Dict:
+    """Load YAML with recursive ``inherit_from`` (relative to the file),
+    then ``overrides`` merged on top."""
+    import yaml
+    path = Path(path)
+    with open(path) as f:
+        config = yaml.safe_load(f)
+    if config and "inherit_from" in config:
+        parent_rel = config.pop("inherit_from")
+        parent = load_config(str((path.parent / parent_rel).resolve()))
+        config = merge_dicts(parent, config)
+    if overrides:
+        config = merge_dicts(config, overrides)
+    return config
+
+
+def parse_overrides(pairs) -> Dict:
+    """["a.b=1", "--c=[2,3]"] -> nested dict with YAML-typed values."""
+    import yaml
+    out: Dict = {}
+    for pair in pairs:
+        key, _, value = pair.partition("=")
+        node = out
+        parts = key.strip().lstrip("-").split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = yaml.safe_load(value)
+    return out
+
+
+def short_type(type_name: str) -> str:
+    """A dotted type name read by its last part."""
+    return type_name.split(".")[-1]
+
+
+def build_model_from_config(model_cfg: Dict,
+                            vocab_size: Optional[int] = None,
+                            compute_dtype: torch.dtype = torch.float32
+                            ) -> Tuple[torch.nn.Module, List[Tuple]]:
+    """A ``Captioner`` from a reference-style model node, for the types
+    this package has: the ``EfficientNetB2`` encoder and the
+    ``TransformerDecoder``.  Returns (captioner, pretrained specs), a spec
+    being (``"encoder"`` or ``"decoder"``, checkpoint path).  Other types
+    raise, naming the ROADMAP item that ports them.  Weights are torch's
+    defaults; the runner draws them (``zoo.random_init``)."""
+    from audiocaption_tpu_torch.decoding.engine import SpecialTokens
+    from audiocaption_tpu_torch.models.captioner import Captioner
+    from audiocaption_tpu_torch.models.effb2 import EfficientNetB2
+    from audiocaption_tpu_torch.models.transformer_decoder import (
+        TransformerDecoder)
+    from audiocaption_tpu_torch.ops.frontend import EFFB2_MEL_16K
+
+    pretrained = []
+    enc_cfg = model_cfg["encoder"]
+    enc_type = short_type(enc_cfg["type"])
+    if enc_type != "EfficientNetB2":
+        raise ValueError(f"encoder type {enc_type!r} is not ported yet "
+                         "(ROADMAP Queue 1 items 5 and 8)")
+    if (enc_cfg.get("args") or {}).get("prune_ratio"):
+        raise ValueError("training a pruned encoder (encoder.args."
+                         "prune_ratio) is not ported yet (ROADMAP Queue 1 "
+                         "item 6)")
+    encoder = EfficientNetB2(compute_dtype=compute_dtype)
+    if enc_cfg.get("pretrained"):
+        pretrained.append(("encoder", enc_cfg["pretrained"]))
+
+    dec_cfg = model_cfg["decoder"]
+    dec_type = short_type(dec_cfg["type"])
+    dec_args = dict(dec_cfg.get("args", {}) or {})
+    if dec_type != "TransformerDecoder":
+        raise ValueError(f"decoder type {dec_type!r} is not ported yet "
+                         "(ROADMAP Queue 1 items 5 and 8)")
+    vocab = vocab_size or dec_args.get("vocab_size")
+    if vocab is None:
+        raise ValueError("the decoder needs a vocab_size (from the "
+                         "tokenizer or the decoder's args)")
+    decoder = TransformerDecoder(
+        emb_dim=dec_args.get("emb_dim", 256), vocab_size=vocab,
+        attn_emb_dim=dec_args.get("attn_emb_dim", encoder.fc_emb_size),
+        nlayers=dec_args.get("nlayers", 2), nhead=dec_args.get("nhead"),
+        dim_feedforward=dec_args.get("dim_feedforward"),
+        tie_weights=dec_args.get("tie_weights", False),
+        dropout=dec_args.get("dropout", 0.2), compute_dtype=compute_dtype)
+    if dec_cfg.get("pretrained"):
+        pretrained.append(("decoder", dec_cfg["pretrained"]))
+
+    model_type = short_type(model_cfg.get("type", "TransformerModel"))
+    if model_type not in ("TransformerModel", "Captioner"):
+        raise ValueError(f"model type {model_type!r} is not ported yet "
+                         "(ROADMAP Queue 1 items 6 and 8)")
+    model = Captioner(encoder=encoder, decoder=decoder, mel=EFFB2_MEL_16K,
+                      special=SpecialTokens())
+    return model, pretrained

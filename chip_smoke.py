@@ -103,14 +103,45 @@ Phases, each of which must pass (none is caught and skipped):
      kernel, its plain version and its bound (``decode_bound_ms`` at the
      mode's product rate, bytes with 2-byte K/V and weights); bf16
      clips/s of both models at B=64 x 10 s beside float32, greedy and
-     beam 3; the bf16 EffB2 encode beside the float32 one.
+     beam 3; the bf16 EffB2 encode beside the float32 one;
+ 16. train the flagship at full width (``zoo.effb2_trm(vocab_size=4981)``,
+     random weights from a seed) with the recipe of
+     ``configs/audiocaps/effb2_trm.yaml`` through the port's trainer API
+     (``training/trainer.py``): label smoothing 0.1, Adam 5e-4 with L2
+     1e-6, clip 1.0, the exponential schedule with a fifth of warm-up,
+     dropout and drop-connect 0.2, scheduled sampling 1.0 -> 0.7, on one
+     device-made batch of 32 x 10 s (captions of 8-20 tokens from 64
+     words).  (a) 40 steps, none skipped, the mean loss of the last 5 at
+     least 10% below the first 5; (b) a batch with a NaN is skipped and
+     leaves parameters, Adam state, the lr count and BN buffers
+     bit-identical; (c) the checkpoint (``training/checkpoint.py``)
+     reloads into a fresh ``Effb2TrmCaptioningModel``, whose greedy
+     kernel decodes 8 mixed-length clips as the torch engine does (at
+     most 1% of tokens differ); (d) the per-epoch val score
+     (``cli/run.py::ValScorer``, greedy CIDEr-D) over 64 clips in batches
+     of 32 runs the greedy kernel (its launch count must be above 0), and
+     the tokens of that call differ from the torch engine's on the same
+     weights in at most 1%; the kernel is held against its plain version
+     at the same shapes (B=32, the val batches' valid memory) on phase
+     3's jittered weights and random memory K/V, where the trajectories
+     are not degenerate; (e) SWA of two
+     snapshots equals their mean within 1e-6;
+ 17. time the train step (median of 20 after 3 warm-up steps, float32,
+     TF32 off) split by CUDA events into frontend + encoder forward,
+     decoder forward with the SS loop and the loss, backward with the
+     clip, and optimizer, for the cached SS path, teacher forcing and the
+     recompute oracle; the cached step's device time by kernel
+     (``torch.profiler``) and idle share; clips/s, peak memory, model
+     FLOPs per clip (3x the forward) and TFLOP/s; the val score's time per
+     64 clips.
 
 Every kernel's launch counter is set to 0 just before each path is
 driven (phases 4-5, the EffB2 serving path; phase 8, the temporal path;
 phase 10, the folded encoder walks; phase 13, the bf16 EffB2 path, whose
-counts by mode fill the bf16 entries; phase 14, the bf16 temporal path)
-and read just after; the run fails if a kernel of that path was not
-launched there.  The second-to-last line
+counts by mode fill the bf16 entries; phase 14, the bf16 temporal path;
+phase 16, the training path's val score, whose count is the greedy
+entry's ``train_launches``) and read just after; the run fails if a
+kernel of that path was not launched there.  The second-to-last line
 is the kernels JSON object, the last line ``{"ok": true, "device":
 {...}}``.
 
@@ -150,6 +181,13 @@ BF16_FLOPS = 989e12           # dense bf16 tensor-core peak
 # phase 12, weights_bf16: a kernel n-best score against the plain version's
 # float64 score of the same sequence (see bf16_kernels)
 WEIGHTS_SCORE_ATOL = 2e-2
+# phases 16-17: the flagship recipe's train step at full width
+TRAIN_B, TRAIN_SECONDS, TRAIN_STEPS = 32, 10, 40
+TRAIN_WORDS, TRAIN_CAP_LEN = 64, (8, 20)   # caption tokens, <bos>/<eos> in
+TRAIN_LOSS_DROP = 0.10        # last 5 steps' mean loss vs the first 5
+TRAIN_VAL_CLIPS = 64
+TRAIN_WARMUP, TRAIN_TIMED = 3, 20
+SWA_ATOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -1261,6 +1299,322 @@ def bf16_times(packed, memkv, valid, checks, f32_kernels, api16, api32,
     return kernels
 
 
+def train_batch(gen, cpu_gen, dev, subset, B, seconds, full: bool = False):
+    """B device-made clips of ``seconds`` at 16 kHz (mixed lengths >= 1 s,
+    the first full) and captions <bos> w ... <eos> of TRAIN_CAP_LEN tokens
+    drawn from ``subset`` (padded to its upper end)."""
+    import torch
+    n = seconds * SR
+    wav = torch.randn(B, n, generator=gen, device=dev) * 0.1
+    wav_len = torch.randint(SR, n + 1, (B,), generator=cpu_gen)
+    wav_len[0] = n
+    if full:
+        wav_len[:] = n
+    lo, hi = TRAIN_CAP_LEN
+    cap_len = torch.randint(lo, hi + 1, (B,), generator=cpu_gen)
+    cap = torch.zeros(B, hi, dtype=torch.long)
+    for i, c in enumerate(cap_len.tolist()):
+        cap[i, 0], cap[i, c - 1] = 1, 2
+        cap[i, 1:c - 1] = subset[torch.randint(len(subset), (c - 2,),
+                                               generator=cpu_gen)]
+    return {"wav": wav, "wav_len": wav_len.to(dev), "cap": cap.to(dev),
+            "cap_len": cap_len.to(dev)}
+
+
+def train_path(dev, card):
+    """Phase 16: train the flagship (``zoo.effb2_trm(vocab_size=4981)``,
+    random weights from a seed) with its recipe (label smoothing 0.1; Adam
+    5e-4, L2 1e-6, clip 1.0; the exponential schedule, warm-up a fifth;
+    dropout and drop-connect 0.2; scheduled sampling 1.0 -> 0.7) on a fixed
+    device-made batch of TRAIN_B x TRAIN_SECONDS s: (a) the loss falls;
+    (b) a NaN batch is skipped and changes nothing; (c) a checkpoint
+    reloads into the HF API and decodes through the greedy kernel as
+    through the torch engine; (d) the per-epoch val score over
+    TRAIN_VAL_CLIPS clips launches the greedy kernel and decodes as the
+    torch engine does; (e) SWA of two
+    snapshots is their mean.  -> what phase 17 times, and the numbers."""
+    import numpy as np
+    import torch
+    from audiocaption_tpu_torch.cli.run import ValScorer
+    from audiocaption_tpu_torch.data.tokenizer import DictTokenizer
+    from audiocaption_tpu_torch.decoding import fused_greedy as FG
+    from audiocaption_tpu_torch.hf_api import (
+        Effb2TrmCaptioningModel, Effb2TrmConfig)
+    from audiocaption_tpu_torch.losses.loss import masked_token_loss
+    from audiocaption_tpu_torch.models.captioner import generate
+    from audiocaption_tpu_torch.models.zoo import effb2_trm, random_init
+    from audiocaption_tpu_torch.optim.schedules import (
+        exponential_decay_with_warmup)
+    from audiocaption_tpu_torch.training.checkpoint import (
+        load_checkpoint, model_variables, save_checkpoint)
+    from audiocaption_tpu_torch.training.swa import swa_init, swa_update
+    from audiocaption_tpu_torch.training.trainer import (
+        create_train_state, train_step)
+
+    model = effb2_trm(vocab_size=V)
+    random_init(model, torch.Generator().manual_seed(SEED + 5))
+    model.to(dev)
+    state = create_train_state(
+        model, 5e-4, exponential_decay_with_warmup(
+            5e-4, 5e-7, TRAIN_STEPS, TRAIN_STEPS // 5), 1e-6, 1.0)
+    loss_fn = masked_token_loss("label_smoothing", 0.1)
+    cpu_gen = torch.Generator().manual_seed(SEED + 6)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    subset = 3 + torch.randperm(V - 3, generator=cpu_gen)[:TRAIN_WORDS]
+    batch = train_batch(gen, cpu_gen, dev, subset, TRAIN_B, TRAIN_SECONDS)
+    ss_gen = torch.Generator().manual_seed(SEED + 7)
+
+    # (a) the loss on a fixed batch, ss_ratio 1.0 -> 0.7 per step
+    t0 = time.perf_counter()
+    losses, snaps = [], []
+    for k in range(TRAIN_STEPS):
+        ss = 1.0 - 0.3 * (k + 1) / TRAIN_STEPS
+        m = train_step(state, loss_fn, batch, torch.tensor(ss), ss_gen)
+        assert not m["skipped"], f"step {k} was skipped"
+        losses.append(float(m["loss"]))
+        if k + 1 in (TRAIN_STEPS // 2, TRAIN_STEPS):
+            snaps.append({n: v.detach().clone()
+                          for n, v in model.state_dict().items()})
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    log(f"train: {TRAIN_STEPS} steps on one batch of {TRAIN_B} x "
+        f"{TRAIN_SECONDS} s in {time.perf_counter() - t0:.1f} s; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of the first 5 "
+        f"{first:.4f}, of the last 5 {last:.4f}); lr count "
+        f"{state.lr_count}; last raw grad norm {float(m['grad_norm']):.3f}")
+    assert last <= (1 - TRAIN_LOSS_DROP) * first, "the loss did not fall"
+
+    # (b) the NaN skip
+    before = {n: v.clone() for n, v in model.state_dict().items()}
+    opt_before = [{n: v.clone() for n, v in st.items()}
+                  for st in state.optimizer.state.values()]
+    count, lr = state.lr_count, state.optimizer.param_groups[0]["lr"]
+    bad = dict(batch, wav=batch["wav"].clone())
+    bad["wav"][TRAIN_B - 1, 1000] = float("nan")
+    m = train_step(state, loss_fn, bad, torch.tensor(0.7), ss_gen)
+    after = model.state_dict()
+    same = (m["skipped"] and state.lr_count == count
+            and state.optimizer.param_groups[0]["lr"] == lr
+            and all(torch.equal(v, after[n]) for n, v in before.items())
+            and all(torch.equal(v, st[n]) for b_, st in zip(
+                opt_before, state.optimizer.state.values())
+                for n, v in b_.items()))
+    log(f"train: a NaN batch skipped {m['skipped']}; parameters, BN "
+        f"buffers, Adam state and lr count unchanged: {same}")
+    assert same, "the NaN skip changed the state"
+
+    # (c) checkpoint -> HF API -> greedy kernel vs torch engine
+    tok = DictTokenizer()
+    for i in range(4, V):
+        tok.add_word(f"w{i}")
+    out_dir = ROOT / "build" / "train_smoke"
+    save_checkpoint(str(out_dir / "last.pth"), model_variables(model),
+                    epoch=1, lr_count=state.lr_count,
+                    tokenizer_state=tok.state_dict())
+    ckpt = load_checkpoint(str(out_dir / "last.pth"))
+    api = Effb2TrmCaptioningModel(Effb2TrmConfig(vocab_size=V), device=dev)
+    api.load_torch_state_dict(ckpt["variables"])
+    rng = np.random.RandomState(SEED + 8)
+    audio = (rng.randn(8, 10 * SR) * 0.1).astype(np.float32)
+    lens = np.asarray([10 * SR, 9 * SR, 7 * SR + 123, 5 * SR, 3 * SR + 7,
+                       2 * SR, 16000, 4000])
+    FG.reset_launches(FG.fused_greedy_decode)
+    ids = api(audio, lens, sample_method="greedy", max_length=L)
+    api_launches = FG.fused_greedy_decode.launches
+    ref = generate(api.model, torch.from_numpy(audio).to(dev),
+                   torch.from_numpy(lens).to(dev), sample_method="greedy",
+                   max_length=L)["seq"].cpu().numpy()
+    mis = int((ids != ref).sum())
+    log(f"train: checkpoint ({len(ckpt['variables'])} tensors) reloaded "
+        f"into the API; greedy kernel ({api_launches} launch) vs torch "
+        f"engine: {mis}/{ids.size} tokens differ; first caption "
+        f"{ids[0][:8]}")
+    assert api_launches > 0 or dev.type != "cuda"
+    assert mis <= MISMATCH_LIMIT * ids.size, "reloaded checkpoint disagrees"
+
+    # (d) the val score through the greedy kernel
+    val = [batch] + [train_batch(gen, cpu_gen, dev, subset, TRAIN_B,
+                                 TRAIN_SECONDS)
+                     for _ in range(TRAIN_VAL_CLIPS // TRAIN_B - 1)]
+    loader, refs = [], {}
+    for j, vb in enumerate(val):
+        keys = [f"clip{j * TRAIN_B + i}" for i in range(TRAIN_B)]
+        caps = tok.decode(vb["cap"].cpu().numpy())
+        refs.update({k: [c] for k, c in zip(keys, caps)})
+        loader.append({"audio_id": keys, "wav": vb["wav"],
+                       "wav_len": vb["wav_len"]})
+    score_fn = ValScorer(model, tok, loader, refs, dev)
+    FG.reset_launches(FG.fused_greedy_decode)
+    _sync(dev)
+    t0 = time.perf_counter()
+    score = score_fn()
+    _sync(dev)
+    val_s = time.perf_counter() - t0
+    val_launches = FG.fused_greedy_decode.launches
+    # the tokens that call decoded, against the torch engine on the same
+    # weights and batches
+    model.eval()
+    with torch.no_grad():
+        val_ref = [generate(model, vb["wav"], vb["wav_len"],
+                            sample_method="greedy",
+                            max_length=model.special.max_length)["seq"]
+                   .cpu().numpy() for vb in loader]
+    model.train()
+    val_mis = sum(int((a != r).sum())
+                  for a, r in zip(score_fn.last_seq, val_ref))
+    val_tokens = sum(r.size for r in val_ref)
+    log(f"train: val score (greedy, CIDEr-D) over {len(refs)} clips "
+        f"{score:.4f} in {val_s * 1e3:.1f} ms ({val_launches} greedy kernel "
+        f"launches, batches of {TRAIN_B}); kernel vs torch engine: "
+        f"{val_mis}/{val_tokens} tokens differ on {card}")
+    assert np.isfinite(score) and score >= 0
+    assert val_launches > 0 or dev.type != "cuda", \
+        "the val score did not launch the greedy kernel"
+    assert [a.shape for a in score_fn.last_seq] == [r.shape for r in val_ref]
+    assert val_mis <= MISMATCH_LIMIT * val_tokens, \
+        "the val score's greedy kernel disagrees with the torch engine"
+    assert model.training
+    # the kernel at the val score's shapes (TRAIN_B rows, the val batches'
+    # valid memory) against its plain version, on phase 3's jittered
+    # weights and random memory K/V, where greedy trajectories are far
+    # from degenerate: the weights trained above end captions at once
+    packed_j = jittered_decoder_inputs(dev)[0]
+    kgen = torch.Generator().manual_seed(SEED + 9)
+    k_mis = k_tokens = 0
+    k_ids = []
+    model.eval()
+    with torch.no_grad():
+        for vb in val:
+            enc = model.encode(vb["wav"], vb["wav_len"])
+            mem, mem_valid = FG.memory_kv(model.decoder, enc["attn_emb"],
+                                          enc["attn_emb_len"], False)
+            mem = torch.randn(mem.shape, generator=kgen).to(dev)
+            got = FG.fused_greedy_decode(packed_j, mem, mem_valid, L)
+            want = FG.fused_greedy_plain(packed_j, mem, mem_valid, L)
+            k_mis += int((got != want).sum())
+            k_tokens += want.numel()
+            k_ids.append(want)
+    model.train()
+    k_distinct = len(torch.unique(torch.cat(k_ids)))
+    log(f"train: greedy kernel vs plain at the val score's shapes (B="
+        f"{TRAIN_B}, S={mem.shape[3]}, L={L}, jittered weights, random "
+        f"memory): {k_mis}/{k_tokens} tokens differ, {k_distinct} distinct "
+        f"(plan {getattr(FG.fused_greedy_decode, 'last_plan', None)})")
+    assert k_mis <= MISMATCH_LIMIT * k_tokens, \
+        "greedy kernel disagrees at the val score's shapes"
+    assert k_distinct > 10, "degenerate greedy trajectories"
+
+    # (e) SWA of two snapshots
+    swa = swa_update(swa_update(swa_init(snaps[0]), snaps[0]), snaps[1])
+    swa_err = max(float((swa[0][n] - (snaps[0][n] + snaps[1][n]) / 2)
+                        .abs().max()) for n in snaps[0]
+                  if snaps[0][n].is_floating_point())
+    log(f"train: SWA of steps {TRAIN_STEPS // 2} and {TRAIN_STEPS}: max "
+        f"|avg - mean| {swa_err:.3g}")
+    assert swa[1] == 2 and swa_err <= SWA_ATOL, "SWA is not the mean"
+    return dict(model=model, state=state, loss_fn=loss_fn, batch=batch,
+                ss_gen=ss_gen, val_ms=val_s * 1e3, val_launches=val_launches)
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def train_times(t, dev, card):
+    """Phase 17: the median train step (TRAIN_TIMED steps after
+    TRAIN_WARMUP) at the precision ``set_parity_precision`` sets, split by
+    CUDA events into frontend + encoder forward, decoder forward (the SS
+    loop, and the loss), backward (with the clip), optimizer; for the
+    cached scheduled-sampling path, teacher forcing (``ss_ratio`` the float
+    1.0) and the recompute oracle; the cached step's device time and idle
+    share; clips/s, peak memory, model FLOPs per clip (3x the forward) and
+    TFLOP/s."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from audiocaption_tpu_torch.models.captioner import ss_forward_recompute
+    from audiocaption_tpu_torch.training.trainer import train_step
+    model, state, batch = t["model"], t["state"], t["batch"]
+    marks = {}
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks[name] = e
+
+    def timed_loss(out):
+        loss = t["loss_fn"](out)
+        mark("decoder")
+        return loss
+    hooks = [model.encoder.register_forward_hook(
+                 lambda *a: mark("encoder")),
+             state.optimizer.register_step_pre_hook(
+                 lambda *a: mark("backward"))]
+    parts = ("encoder", "decoder", "backward", "end")
+    ss = torch.tensor(0.85)
+    results = {}
+    try:
+        for label, ratio, recompute in (("cached SS", ss, False),
+                                        ("teacher forcing", 1.0, False),
+                                        ("recompute SS", ss, True)):
+            if recompute:
+                model._ss_forward = functools.partial(ss_forward_recompute,
+                                                      model)
+            torch.cuda.reset_peak_memory_stats()
+            rows = []
+            for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+                mark("start")
+                train_step(state, timed_loss, batch, ratio, t["ss_gen"])
+                mark("end")
+                torch.cuda.synchronize()
+                prev, row = marks["start"], []
+                for p in parts:
+                    row.append(prev.elapsed_time(marks[p]))
+                    prev = marks[p]
+                rows.append(row)
+            if recompute:
+                del model._ss_forward
+            rows = np.asarray(rows[TRAIN_WARMUP:])
+            step = float(np.median(rows.sum(1)))
+            split = dict(zip(("frontend+encoder fwd", "decoder fwd + loss",
+                              "backward + clip", "optimizer"),
+                             np.median(rows, 0).tolist()))
+            results[label] = dict(step_ms=step, split=split,
+                                  peak_gb=torch.cuda.max_memory_allocated()
+                                  / 2 ** 30)
+            log(f"train step, {label}: median {step:.2f} ms over "
+                f"{TRAIN_TIMED} steps ({TRAIN_B / step * 1e3:.1f} clips/s; "
+                f"split {', '.join(f'{k} {v:.2f}' for k, v in split.items())}"
+                f" ms); peak memory {results[label]['peak_gb']:.2f} GiB; "
+                f"B={TRAIN_B} x {TRAIN_SECONDS} s, float32, TF32 off, on "
+                f"{card}")
+    finally:
+        for h in hooks:
+            h.remove()
+    busy = device_split(lambda: train_step(state, t["loss_fn"], batch, ss,
+                                           t["ss_gen"]), iters=3)
+    total = sum(busy.values())
+    step_ms = results["cached SS"]["step_ms"]
+    log(f"train step, cached SS, device time (torch.profiler): {total:.2f} "
+        f"ms a step of {step_ms:.2f} ms wall, idle share "
+        f"{1 - total / step_ms:.3f}; top kernels "
+        f"{dict(list(busy.items())[:8])} on {card}")
+    model.train()
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        model(batch["wav"], batch["wav_len"], batch["cap"], batch["cap_len"],
+              ss, t["ss_gen"])
+    fwd = fc.get_total_flops()
+    log(f"train model FLOPs: forward {fwd / TRAIN_B / 1e9:.2f} GFLOP per "
+        f"clip, training {3 * fwd / TRAIN_B / 1e9:.2f} GFLOP per clip (3x "
+        f"the forward); achieved {3 * fwd / (step_ms * 1e-3) / 1e12:.2f} "
+        f"TFLOP/s at {step_ms:.2f} ms a step (float32 non-tensor peak "
+        f"{FP32_FLOPS / 1e12:.0f}) on {card}")
+    log(f"train: val score {t['val_ms']:.1f} ms per {TRAIN_VAL_CLIPS} clips "
+        f"on {card}")
+    return results
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1462,6 +1816,19 @@ def main() -> int:
     kernels += bf16_times(packed, memkv, valid, checks, kernels, api16, api,
                           t_api16, temporal_api, wav64, len64, b_launches,
                           card)
+
+    # -- 16. train the flagship at full width ------------------------------
+    t0 = time.perf_counter()
+    trained = train_path(dev, card)
+    for k in kernels:
+        if k["name"] == "fused_greedy":
+            k["train_launches"] = trained["val_launches"]
+
+    t1 = time.perf_counter()
+    # -- 17. train step times ----------------------------------------------
+    train_times(trained, dev, card)
+    log(f"phase 16: {t1 - t0:.1f} s, phase 17: {time.perf_counter() - t1:.1f} "
+        f"s")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

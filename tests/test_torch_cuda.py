@@ -387,3 +387,84 @@ def test_mbconv_kernel_matches_plain(cuda, kwargs, shape):
     scale = max(1.0, float(want.abs().max()))
     assert float((got - want).abs().max()) <= 1e-4 * scale
     assert float((want - ref).abs().max()) <= 1e-4 * scale
+
+
+def _train_twin(device, seed=0):
+    """The narrow flagship (full EffB2, emb 64, vocab 50, dropout 0) with
+    jittered BN statistics, its recipe's train state, on ``device``."""
+    from audiocaption_tpu_torch.losses.loss import masked_token_loss
+    from audiocaption_tpu_torch.models.zoo import effb2_trm
+    from audiocaption_tpu_torch.optim.schedules import (
+        exponential_decay_with_warmup)
+    from audiocaption_tpu_torch.training.trainer import create_train_state
+    gen = torch.Generator().manual_seed(seed)
+    m = effb2_trm(vocab_size=50, decoder_emb_dim=64, decoder_dropout=0.0)
+    for block in m.encoder._blocks:
+        block.drop_rate = 0.0
+    random_init(m, gen)
+    with torch.no_grad():
+        for mod in m.encoder.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                n = mod.num_features
+                mod.running_mean.copy_(torch.randn(n, generator=gen) * 0.1)
+                mod.running_var.copy_(0.5 + torch.rand(n, generator=gen))
+    state = create_train_state(
+        m.to(device), 5e-4, exponential_decay_with_warmup(5e-4, 5e-7, 100,
+                                                          20), 1e-6, 1.0)
+    return state, masked_token_loss("label_smoothing", 0.1)
+
+
+def _train_batch(device):
+    rng = np.random.RandomState(0)
+    cap = torch.tensor([[1, 5, 9, 11, 2, 0], [1, 7, 2, 0, 0, 0],
+                        [1, 30, 31, 32, 33, 2]])
+    return {"wav": torch.from_numpy((rng.randn(3, 32000) * 0.1).astype(
+                np.float32)).to(device),
+            "wav_len": torch.tensor([32000, 20000, 16000]).to(device),
+            "cap": cap.to(device), "cap_len": torch.tensor([5, 3, 6]).to(
+                device)}
+
+
+@pytest.mark.cuda
+def test_train_step_card_matches_cpu(cuda):
+    """Two train steps (scheduled sampling at 1.0, then 0.0) of the same
+    weights on the card and on the CPU: loss within 1e-4 relative, raw
+    gradient norm within 1e-3, the NaN skip on the card."""
+    from audiocaption_tpu_torch.training.trainer import train_step
+    cpu, loss_fn = _train_twin(torch.device("cpu"))
+    card, _ = _train_twin(cuda)
+    for ss in (1.0, 0.0):
+        got = train_step(card, loss_fn, _train_batch(cuda),
+                         torch.tensor(ss), torch.Generator())
+        want = train_step(cpu, loss_fn, _train_batch(torch.device("cpu")),
+                          torch.tensor(ss), torch.Generator())
+        assert not got["skipped"] and not want["skipped"]
+        np.testing.assert_allclose(float(got["loss"]), float(want["loss"]),
+                                   rtol=1e-4)
+        np.testing.assert_allclose(float(got["grad_norm"]),
+                                   float(want["grad_norm"]), rtol=1e-3)
+    before = {k: v.clone() for k, v in card.model.state_dict().items()}
+    bad = _train_batch(cuda)
+    bad["wav"][0, 7] = float("nan")
+    assert train_step(card, loss_fn, bad, torch.tensor(0.5),
+                      torch.Generator())["skipped"]
+    after = card.model.state_dict()
+    assert all(torch.equal(v, after[k]) for k, v in before.items())
+
+
+@pytest.mark.cuda
+def test_val_score_launches_the_greedy_kernel(cuda):
+    from audiocaption_tpu_torch.cli.run import ValScorer
+    from audiocaption_tpu_torch.data.tokenizer import DictTokenizer
+    state, _ = _train_twin(cuda)
+    tok = DictTokenizer()
+    for i in range(4, 50):
+        tok.add_word(f"w{i}")
+    b = _train_batch(cuda)
+    loader = [{"audio_id": ["a", "b", "c"], "wav": b["wav"],
+               "wav_len": b["wav_len"]}]
+    refs = {k: [c] for k, c in zip("abc", tok.decode(b["cap"].cpu()))}
+    TG.reset_launches(TG.fused_greedy_decode)
+    score = ValScorer(state.model, tok, loader, refs, cuda)()
+    assert np.isfinite(score) and TG.fused_greedy_decode.launches == 1
+    assert state.model.training
