@@ -14,15 +14,26 @@ line an epoch: loss, val_cider, ss ratio), ``last.pth`` every epoch,
 ``best.pth`` when ``val_cider`` improves, and ``swa.pth`` at the end
 (the average from epoch ``swa.start``, or the last weights without SWA).
 
-The validation score greedy-decodes the val set and scores CIDEr-D
-against its captions.  On CUDA the decode runs the hand-written greedy
-kernel (``decoding/fused_greedy.py::FusedGreedyDecoder``), its weights
-packed anew at each score because the optimizer has moved them; on the
-CPU it runs the torch engine (``models/captioner.py::generate``).
+A model node of type ``ScstWrapper`` (``configs/*/scst.yaml``) trains
+the wrapped model by self-critical sequence training instead
+(``training/scst.py``), as the JAX runner's ``rl_train`` branch does: the
+``rl:`` node's ``max_length`` and ``sample_temp``, rewards by the native
+CIDEr-D scorer against the train captions, samples drawn from a
+generator seeded with ``seed + 17``; the epoch's logged loss is minus the
+mean sampled reward.  ``resume`` with ``trainer.finetune: True`` (the
+recipe's) starts from an XE run's weights.
 
-The JAX runner's other paths (SCST, knowledge distillation, augmented
-and SED training, the device-resident corpus, data parallelism) are not
-ported (ROADMAP Queue 1 items 6-7).
+The validation score greedy-decodes the val set and scores CIDEr-D
+(the native scorer) against its captions.  On CUDA the decode runs the
+hand-written greedy kernel (``decoding/fused_greedy.py::
+FusedGreedyDecoder``), its weights packed anew at each score because the
+optimizer has moved them; on the CPU it runs the torch engine
+(``models/captioner.py::generate``).  The SCST baseline runs the same
+kernel on CUDA, one decoder re-packed before each step.
+
+The JAX runner's other paths (knowledge distillation, augmented and SED
+training, the device-resident corpus, data parallelism) are not ported
+(ROADMAP Queue 1 items 6-7).
 """
 
 from __future__ import annotations
@@ -43,15 +54,16 @@ from audiocaption_tpu_torch.data.dataset import (
 from audiocaption_tpu_torch.data.tokenizer import DictTokenizer
 from audiocaption_tpu_torch.device import resolve_device
 from audiocaption_tpu_torch.losses.loss import build_loss
-from audiocaption_tpu_torch.metrics.cider import CiderD
 from audiocaption_tpu_torch.metrics.tokenize import ptb_tokenize
 from audiocaption_tpu_torch.models.captioner import generate
 from audiocaption_tpu_torch.models.convert import load_reference_state_dict
 from audiocaption_tpu_torch.models.zoo import random_init
+from audiocaption_tpu_torch.native import FastCiderD
 from audiocaption_tpu_torch.optim.schedules import build_schedule
 from audiocaption_tpu_torch.training.checkpoint import (
     AsyncCheckpointer, MetricImprover, load_checkpoint, merge_variables,
     model_variables, save_checkpoint)
+from audiocaption_tpu_torch.training.scst import scst_step
 from audiocaption_tpu_torch.training.swa import swa_init, swa_update
 from audiocaption_tpu_torch.training.trainer import (
     create_train_state, train_step)
@@ -143,19 +155,21 @@ def _make_logger(path: Path) -> Callable[[str], None]:
 
 
 def _load_pretrained(model, spec) -> None:
-    """A plain (or ``{"model": ...}``-wrapped) state dict into the encoder
-    or the decoder, entries of matching name and shape only."""
+    """A plain (or ``{"model": ...}``-wrapped) state dict into the
+    submodule at a dotted path (``encoder``, ``encoder.cnn``, ...),
+    entries of matching name and shape only."""
     part, path = spec
     sd = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(sd, dict) and "model" in sd:
         sd = sd["model"]
-    module = getattr(model, part)
+    module = model.get_submodule(part)
     module.load_state_dict(merge_variables(module.state_dict(), sd))
 
 
 class ValScorer:
     """Greedy-decodes the val set with the model's current weights and
-    returns the CIDEr-D score (the JAX runner's ``_make_val_scorer``).
+    returns the CIDEr-D score by the native scorer (the JAX runner's
+    ``_make_val_scorer``).
     The model is in ``eval()`` while it decodes and back in ``train()``
     after.  ``last_seq`` holds the ids that the last call decoded, an
     int array [B, max_length] per val batch in the loader's order."""
@@ -165,7 +179,7 @@ class ValScorer:
         self.model, self.tokenizer = model, tokenizer
         self.val_loader, self.key2refs = val_loader, key2refs
         self.device = device
-        self.scorer = CiderD()
+        self.scorer = FastCiderD()
         self.last_seq: List[np.ndarray] = []
 
     def __call__(self) -> float:
@@ -227,8 +241,10 @@ class Runner:
         val_key2refs = load_caption_json(val_cfg["caption"],
                                          zh=cfg.get("zh", False))
 
-        # model: seeded random weights, then any pretrained parts
+        # model: seeded random weights, then any pretrained parts; an
+        # ScstWrapper node trains the model it wraps by SCST
         model_cfg = cfg["model"]
+        rl_train = short_type(model_cfg.get("type", "")) == "ScstWrapper"
         model, pretrained = build_model_from_config(
             model_cfg, vocab_size=len(tokenizer))
         random_init(model, torch.Generator().manual_seed(seed))
@@ -277,6 +293,21 @@ class Runner:
                 model_variables(model), ckpt["variables"]))
             log(f"weights from {cfg['resume']}")
 
+        if rl_train:
+            rl_cfg = cfg.get("rl", {}) or {}
+            rl_len = rl_cfg.get("max_length", 20)
+            rl_temp = rl_cfg.get("sample_temp", 1.0)
+            train_key2refs = load_caption_json(
+                cfg["data"]["train"]["dataset"]["args"]["caption"],
+                zh=cfg.get("zh", False))
+            rl_scorer = FastCiderD()
+            rl_gen = torch.Generator(device=device).manual_seed(seed + 17)
+            baseline = None
+            if device.type == "cuda":
+                from audiocaption_tpu_torch.decoding.fused_greedy import (
+                    FusedGreedyDecoder)
+                baseline = FusedGreedyDecoder(model, rl_len, device=device)
+
         val_score = ValScorer(model, tokenizer, val_loader, val_key2refs,
                               device)
         ckpt_writer = AsyncCheckpointer()
@@ -286,6 +317,15 @@ class Runner:
                 t0 = time.time()
                 losses = []
                 for batch in train_loader:
+                    if rl_train:
+                        metrics = scst_step(
+                            state, to_device(batch, device),
+                            [str(k) for k in batch["audio_id"]],
+                            train_key2refs, tokenizer.idx2word, rl_len,
+                            rl_temp, rl_gen, rl_scorer, baseline)
+                        losses.append(torch.tensor(
+                            -metrics["reward_sample"]))
+                        continue
                     if use_ss:
                         if linear_ss:
                             ss_ratio -= ss_per_iter

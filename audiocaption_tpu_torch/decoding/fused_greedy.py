@@ -714,6 +714,7 @@ class FusedGreedyDecoder:
 
         fd = FusedGreedyDecoder(model, max_length=20)   # device="cuda"
         seq = fd(wav, wav_len)                          # [B, L] int32
+        fd.refresh()            # after an optimizer step moved the weights
 
     ``cache_bf16=None`` follows the decoder's compute dtype, as the JAX
     decoder does: a bf16 model (the serving configuration) decodes with
@@ -734,9 +735,27 @@ class FusedGreedyDecoder:
         self.packed = pack_decoder_weights(model.decoder).to(self.device)
 
     @torch.no_grad()
+    def refresh(self) -> None:
+        """Re-pack the decoder's current weights into the same device
+        buffers (the packed tables and the kernel's fragment-ordered
+        copy), for a decoder kept while an optimizer moves the
+        weights."""
+        new = pack_decoder_weights(self.model.decoder)
+        old = self.packed
+        for k in ("emb", "cls", "pe", "layers"):
+            getattr(old, k).copy_(getattr(new, k))
+        if old.frag is not None:      # made at the first launch
+            old.frag.copy_(kernel_weights(new))
+
+    @torch.no_grad()
     def __call__(self, wav: torch.Tensor, wav_len: torch.Tensor
                  ) -> torch.Tensor:
-        enc = self.model.encode(wav.to(self.device), wav_len.to(self.device))
+        return self.decode_enc(self.model.encode(wav.to(self.device),
+                                                 wav_len.to(self.device)))
+
+    @torch.no_grad()
+    def decode_enc(self, enc: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Greedy ids [B, max_length] int32 of the encoder's outputs."""
         memkv, mem_valid = memory_kv(self.model.decoder, enc["attn_emb"],
                                      enc["attn_emb_len"], self.cache_bf16)
         sp = self.model.special

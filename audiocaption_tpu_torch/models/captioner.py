@@ -1,5 +1,6 @@
 """Caption model: frontend + encoder + decoder, its training forward,
-and greedy / beam generation (counterpart of
+and generation: greedy, sampling, beam and diverse beam search
+(counterpart of
 ``audiocaption_tpu/models/captioner.py``).
 
 Training forward (``Captioner.forward``), for the transformer decoder:
@@ -30,7 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from audiocaption_tpu_torch.decoding.engine import (
-    SpecialTokens, beam_search, expand_to_beams, stepwise_decode)
+    NoiseFn, SpecialTokens, beam_search, diverse_beam_search,
+    expand_to_beams, stepwise_decode)
 from audiocaption_tpu_torch.models.rnn_decoder import BahAttnCatFcDecoder
 from audiocaption_tpu_torch.ops.frontend import LogMelFrontend, MelConfig
 
@@ -162,15 +164,27 @@ def generate(model: Captioner, wav: Optional[torch.Tensor] = None,
              sample_method: str = "greedy", max_length: Optional[int] = None,
              temp: float = 1.0, beam_size: Optional[int] = None,
              n_best: bool = False, n_best_size: Optional[int] = None,
+             group_size: int = 3, diversity_lambda: float = 0.5,
+             group_nbest: bool = True,
              enc: Optional[Dict[str, torch.Tensor]] = None,
              lms: Optional[torch.Tensor] = None,
              feat_len: Optional[torch.Tensor] = None,
-             temporal_tag: Optional[torch.Tensor] = None
+             temporal_tag: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None,
+             noise: Optional[NoiseFn] = None
              ) -> Dict[str, torch.Tensor]:
-    """Batched caption generation with the torch engine: greedy or beam.
-    The input is a waveform (``wav``, ``wav_len``), a log-mel (``lms``,
-    ``feat_len``) or the encoder's outputs (``enc``).  ``temporal_tag``
-    [B] conditions a temporal decoder."""
+    """Batched caption generation with the torch engine, as the JAX
+    ``generate`` routes it: "beam" (beam 3 by default), "dbs" (diverse beam
+    search, beam 6 in ``group_size`` groups by default; ``seq`` [B, K, L]
+    with ``group_nbest``, else [B, G, L]), and every method of
+    ``engine.sample_next_word`` ("greedy", "gumbel", "sample", "topN",
+    "top0.x"; ``seq`` and ``sampled_logprob`` [B, L]).  The input is a
+    waveform (``wav``, ``wav_len``), a log-mel (``lms``, ``feat_len``) or
+    the encoder's outputs (``enc``).  ``temporal_tag`` [B] conditions a
+    temporal decoder.  Sampling draws from ``generator`` (on the model's
+    device), or, without one, from a fresh generator seeded with 0, so
+    that two calls draw the same (the JAX default key is ``PRNGKey(0)``);
+    ``noise(t, shape)`` hands in step t's draws instead."""
     special = model.special
     L = max_length if max_length is not None else special.max_length
     if enc is None:
@@ -199,20 +213,30 @@ def generate(model: Captioner, wav: Optional[torch.Tensor] = None,
                             is_pad_t=word == special.pad)
         return step_fn
 
+    def expanded(n):
+        return init_cache(expand_to_beams({k: enc[k] for k in keys}, n),
+                          expand_to_beams(cond, n))
+
     if sample_method == "beam":
         K = beam_size if beam_size is not None else 3
-        static, dyn = init_cache(
-            expand_to_beams({k: enc[k] for k in keys}, K),
-            expand_to_beams(cond, K))
+        static, dyn = expanded(K)
         out = beam_search(make_step_fn(static), dyn, B, K, dec.vocab_size,
                           special, max_length=L, temp=temp, n_best=n_best,
                           n_best_size=n_best_size, device=device)
-    elif sample_method == "greedy":
+    elif sample_method == "dbs":
+        K = beam_size if beam_size is not None else 6
+        static, dyn = expanded(group_size * (K // group_size))
+        out = diverse_beam_search(
+            make_step_fn(static), dyn, B, K, dec.vocab_size, special,
+            group_size=group_size, diversity_lambda=diversity_lambda,
+            max_length=L, temp=temp, group_nbest=group_nbest, device=device)
+    else:
+        if generator is None and noise is None and sample_method != "greedy":
+            generator = torch.Generator(device=device).manual_seed(0)
         static, dyn = init_cache(enc, cond)
         out = stepwise_decode(make_step_fn(static), dyn, B, special,
-                              max_length=L, device=device)
-    else:
-        raise ValueError(f"unsupported sample_method {sample_method!r} "
-                         "(this port serves 'greedy' and 'beam')")
+                              max_length=L, device=device,
+                              method=sample_method, temp=temp,
+                              generator=generator, noise=noise)
     out.update(enc)
     return out

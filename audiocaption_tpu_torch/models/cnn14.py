@@ -29,7 +29,8 @@ CHANNELS = (64, 128, 256, 512, 1024, 2048)
 
 class Cnn14Encoder(nn.Module):
     """bn0 over the mel bins, 6 double-conv blocks 1 -> 2048 with 2x2
-    average pooling (none after the last), mean over the mel axis."""
+    average pooling (none after the last), each followed by dropout 0.2
+    in ``train()``, mean over the mel axis."""
 
     downsample_ratio = 32
 
@@ -53,6 +54,7 @@ class Cnn14Encoder(nn.Module):
             x = getattr(self, f"conv_block{i + 1}")(x)
             x = pool_2d(x, (1, 1) if i == len(CHANNELS) - 1 else (2, 2),
                         "avg")
+            x = F.dropout(x, 0.2, self.training)
         attn_emb = widen(x.mean(dim=3).transpose(1, 2))   # [B, T', 2048]
         out_len = torch.div(feat_len, self.downsample_ratio,
                             rounding_mode="floor")

@@ -15,6 +15,12 @@ HF checkpoints ship (``model.model.encoder.backbone.eff_net.*``,
 ``load_reference_state_dict`` loads such a dict (a converted JAX tree or
 a downloaded reference checkpoint) into the port's ``Captioner``.
 
+``cnn14rnn_trm_state_dict_from_jax`` converts the JAX cnn14rnn_trm
+(Cnn14 -> BiGRU encoder, transformer decoder) into the reference
+trainer's key space (``encoder.cnn.*``, ``encoder.rnn.network.*``,
+``decoder.*``); :func:`reference_prefixes` says which key space a
+``Captioner`` uses.
+
 ``tempgru_state_dict_from_jax`` does the same for the temporal captioner
 and its SED model, into the ``wsntxxn/cnn14rnn-tempgru`` key space
 (``cap_model.encoder.{cnn,rnn}.*``, ``cap_model.decoder.*``,
@@ -28,7 +34,7 @@ plain strict ``load_state_dict``.  More layout changes:
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -170,6 +176,40 @@ def state_dict_from_jax(variables: Mapping, nlayers: int = 2,
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 
+def cnn14rnn_trm_state_dict_from_jax(variables: Mapping,
+                                     rnn_num_layers: int = 3,
+                                     rnn_bidirectional: bool = True,
+                                     nlayers: int = 2,
+                                     tie_weights: bool = False
+                                     ) -> Dict[str, torch.Tensor]:
+    """JAX cnn14rnn_trm variables (nested numpy dicts) -> the reference
+    trainer's state dict of tensors (the JAX exporters
+    ``cnn14_rnn_state_dict`` and ``transformer_decoder_state_dict`` under
+    ``encoder.`` and ``decoder.``)."""
+    out: Dict[str, np.ndarray] = {}
+    enc_p = variables["params"]["encoder"]
+    enc_s = variables["batch_stats"]["encoder"]
+    _cnn(enc_p["cnn"], enc_s["cnn"], "encoder.cnn", 6, out)
+    if "fc1" in enc_p["cnn"]:
+        _linear(enc_p["cnn"]["fc1"], "encoder.cnn.fc1", out)
+    _gru(enc_p["rnn"]["network"], "encoder.rnn.network", rnn_num_layers,
+         rnn_bidirectional, out)
+    _transformer_decoder(variables["params"]["decoder"], "decoder", nlayers,
+                         tie_weights, out)
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def reference_prefixes(model: torch.nn.Module) -> Tuple[str, str]:
+    """The prefixes of a ``Captioner``'s encoder and decoder keys in its
+    reference key space: the reference trainer's ``encoder.`` /
+    ``decoder.`` for a Cnn14-GRU encoder, the HF EffB2-Transformer
+    checkpoint's otherwise."""
+    from audiocaption_tpu_torch.models.rnn_encoder import Cnn14RnnEncoder
+    if isinstance(model.encoder, Cnn14RnnEncoder):
+        return "encoder.", "decoder."
+    return ENCODER_PREFIX, DECODER_PREFIX
+
+
 def load_known(module: torch.nn.Module,
                sd: Mapping[str, torch.Tensor]) -> None:
     """Load ``sd`` into ``module`` as the JAX converters read a
@@ -190,15 +230,16 @@ def load_known(module: torch.nn.Module,
 
 def load_reference_state_dict(model: torch.nn.Module,
                               sd: Mapping[str, torch.Tensor]) -> None:
-    """Load a reference-key-space state dict into a ``Captioner``: every
-    encoder and decoder tensor must be present; keys outside them are
-    dropped (:func:`load_known`)."""
+    """Load a reference-key-space state dict (:func:`reference_prefixes`)
+    into a ``Captioner``: every encoder and decoder tensor must be
+    present; keys outside them are dropped (:func:`load_known`)."""
+    enc_prefix, dec_prefix = reference_prefixes(model)
     enc, dec = {}, {}
     for k, v in sd.items():
-        if k.startswith(ENCODER_PREFIX):
-            enc[k[len(ENCODER_PREFIX):]] = v
-        elif k.startswith(DECODER_PREFIX):
-            dec[k[len(DECODER_PREFIX):]] = v
+        if k.startswith(enc_prefix):
+            enc[k[len(enc_prefix):]] = v
+        elif k.startswith(dec_prefix):
+            dec[k[len(dec_prefix):]] = v
     if "pos_encoder.pe" not in dec:   # older trees without a PE table
         dec["pos_encoder.pe"] = model.decoder.pos_encoder.pe
     load_known(model.encoder, enc)

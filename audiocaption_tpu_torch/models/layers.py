@@ -409,9 +409,13 @@ class GRU(nn.GRU):
     every GRU of the port still runs in float32."""
 
     def __init__(self, input_size: int, hidden_size: int,
-                 num_layers: int = 1, bidirectional: bool = False):
+                 num_layers: int = 1, bidirectional: bool = False,
+                 dropout: float = 0.0):
+        """``dropout`` acts on every layer's output but the last (the JAX
+        GRU's placement), in ``train()`` only; a one-layer GRU has none."""
         super().__init__(input_size, hidden_size, num_layers=num_layers,
-                         bidirectional=bidirectional, batch_first=True)
+                         bidirectional=bidirectional, batch_first=True,
+                         dropout=dropout if num_layers > 1 else 0.0)
 
     def forward(self, x: torch.Tensor, lens: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:

@@ -180,14 +180,17 @@ class TransformerDecoder(nn.Module):
         L = dyn["self_k0"].shape[1]
         if is_pad_t is None:
             is_pad_t = torch.zeros_like(word_t, dtype=torch.bool)
-        self_pad = put_row(dyn["self_pad"], t, is_pad_t)
+        # a step past the caches (diverse beam search's later groups)
+        # writes their last row, as the JAX step's clamped update does
+        row = min(t, L - 1)
+        self_pad = put_row(dyn["self_pad"], row, is_pad_t)
         positions = torch.arange(L, device=word_t.device)
         kpm = (positions[None, :] > t) | self_pad
         x = self.embed(word_t[:, None], t)[:, 0]
         dyn = dict(dyn, self_pad=self_pad)
         for i, layer in enumerate(self.layers):
             x, dyn[f"self_k{i}"], dyn[f"self_v{i}"] = layer.step(
-                x, t, dyn[f"self_k{i}"], dyn[f"self_v{i}"], kpm,
+                x, row, dyn[f"self_k{i}"], dyn[f"self_v{i}"], kpm,
                 static[f"mem_k{i}"], static[f"mem_v{i}"], static["mem_kpm"])
         return widen(x), dyn
 

@@ -40,6 +40,33 @@ def effb2_trm(vocab_size: int = 4981, decoder_emb_dim: int = 256,
                      special=SpecialTokens(max_length=max_length))
 
 
+def cnn14rnn_trm(vocab_size: int = 4368, sample_rate: int = 32000,
+                 rnn_hidden_size: int = 256, rnn_num_layers: int = 3,
+                 rnn_dropout: float = 0.5, decoder_emb_dim: int = 256,
+                 decoder_n_layers: int = 2, decoder_dropout: float = 0.2,
+                 freeze_cnn: bool = False, freeze_cnn_bn: bool = False,
+                 compute_dtype: torch.dtype = torch.float32,
+                 max_length: int = 20) -> Captioner:
+    """The reference's cnn14rnn_trm recipe (its second public
+    architecture): Cnn14 -> 3-layer BiGRU(256) encoder (32 kHz mel),
+    2-layer transformer decoder, emb 256, 4 heads, FFN 1024, memory width
+    2 x 256, an untied classifier without bias.  Dropouts act in
+    ``train()`` only; ``freeze_cnn`` / ``freeze_cnn_bn`` as
+    ``Cnn14RnnEncoder``."""
+    encoder = Cnn14RnnEncoder(
+        rnn_hidden_size=rnn_hidden_size, rnn_num_layers=rnn_num_layers,
+        rnn_dropout=rnn_dropout, freeze_cnn=freeze_cnn,
+        freeze_cnn_bn=freeze_cnn_bn, compute_dtype=compute_dtype)
+    decoder = TransformerDecoder(
+        emb_dim=decoder_emb_dim, vocab_size=vocab_size,
+        attn_emb_dim=encoder.fc_emb_size, nlayers=decoder_n_layers,
+        tie_weights=False, dropout=decoder_dropout,
+        compute_dtype=compute_dtype)
+    mel = CNN14_MEL_32K if sample_rate == 32000 else CNN14_MEL_16K
+    return Captioner(encoder=encoder, decoder=decoder, mel=mel,
+                     special=SpecialTokens(max_length=max_length))
+
+
 def cnn14rnn_tempgru(vocab_size: int = 4981, sample_rate: int = 32000,
                      encoder_rnn_hidden_size: int = 256,
                      encoder_rnn_num_layers: int = 3,

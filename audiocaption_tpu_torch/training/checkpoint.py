@@ -5,10 +5,11 @@
 A checkpoint is one pickle of host values: {variables, epoch,
 monitor_state, not_improve_cnt, tokenizer (the word -> id dict),
 lr_count, optimizer (optional)}, the JAX package's payload.  Here
-``variables`` is a flat dict of numpy arrays in the reference
-checkpoint's key space (``model.model.encoder.backbone.eff_net.*``,
-``model.model.decoder.*``: what ``models.convert.load_reference_state_dict``
-reads), so the HF API loads it as it loads a reference checkpoint.
+``variables`` is a flat dict of numpy arrays in the model's reference
+key space (for the flagship ``model.model.encoder.backbone.eff_net.*``,
+``model.model.decoder.*``; for cnn14rnn_trm ``encoder.*``, ``decoder.*``:
+what ``models.convert.load_reference_state_dict`` reads), so the HF API
+loads it as it loads a reference checkpoint.
 :func:`load_checkpoint` also reads a checkpoint the JAX package wrote
 (its ``variables`` the flax tree {params, batch_stats}) and returns its
 weights in the same key space (``models.convert.state_dict_from_jax``).
@@ -26,15 +27,18 @@ import numpy as np
 import torch
 
 from audiocaption_tpu_torch.models.convert import (
-    DECODER_PREFIX, ENCODER_PREFIX, state_dict_from_jax)
+    cnn14rnn_trm_state_dict_from_jax, reference_prefixes,
+    state_dict_from_jax)
 
 
 def model_variables(model: torch.nn.Module) -> Dict[str, np.ndarray]:
     """A ``Captioner``'s encoder and decoder weights and buffers, as host
-    numpy arrays in the reference key space."""
+    numpy arrays in its reference key space
+    (``models.convert.reference_prefixes``)."""
     out = {}
-    for prefix, module in ((ENCODER_PREFIX, model.encoder),
-                           (DECODER_PREFIX, model.decoder)):
+    enc_prefix, dec_prefix = reference_prefixes(model)
+    for prefix, module in ((enc_prefix, model.encoder),
+                           (dec_prefix, model.decoder)):
         for k, v in module.state_dict().items():
             out[prefix + k] = v.detach().cpu().numpy().copy()
     return out
@@ -88,16 +92,27 @@ def load_checkpoint(path: str) -> Dict:
 
 
 def jax_variables_to_reference(variables: Mapping) -> Dict[str, np.ndarray]:
-    """A JAX EffB2-Transformer tree {params, batch_stats} (numpy leaves)
-    -> the reference key space; the decoder's depth and weight tying are
-    read off the tree."""
-    dec = variables["params"].get("decoder", {})
-    if "encoder" not in variables["params"] or "attn_proj_dense" not in dec:
-        raise ValueError("only JAX EfficientNet-B2 + TransformerDecoder "
-                         "checkpoints convert to this package's key space")
+    """A JAX EffB2-Transformer or cnn14rnn_trm tree {params, batch_stats}
+    (numpy leaves) -> its reference key space; the GRU's and the
+    decoder's depth and the weight tying are read off the tree."""
+    params = variables["params"]
+    dec, enc = params.get("decoder", {}), params.get("encoder", {})
+    if "attn_proj_dense" not in dec or not enc:
+        raise ValueError("only JAX EfficientNet-B2 or Cnn14-GRU + "
+                         "TransformerDecoder checkpoints convert to this "
+                         "package's key space")
     nlayers = sum(k.startswith("layer") for k in dec)
-    sd = state_dict_from_jax(variables, nlayers=nlayers,
-                             tie_weights="classifier" not in dec)
+    tie = "classifier" not in dec
+    if "cnn" in enc and "rnn" in enc:
+        gru = enc["rnn"]["network"]
+        sd = cnn14rnn_trm_state_dict_from_jax(
+            variables, rnn_num_layers=sum(
+                k.startswith("w_ih_l") and not k.endswith("_reverse")
+                for k in gru),
+            rnn_bidirectional=any(k.endswith("_reverse") for k in gru),
+            nlayers=nlayers, tie_weights=tie)
+    else:
+        sd = state_dict_from_jax(variables, nlayers=nlayers, tie_weights=tie)
     return {k: v.numpy() for k, v in sd.items()}
 
 

@@ -68,31 +68,60 @@ def build_model_from_config(model_cfg: Dict,
                             compute_dtype: torch.dtype = torch.float32
                             ) -> Tuple[torch.nn.Module, List[Tuple]]:
     """A ``Captioner`` from a reference-style model node, for the types
-    this package has: the ``EfficientNetB2`` encoder and the
-    ``TransformerDecoder``.  Returns (captioner, pretrained specs), a spec
-    being (``"encoder"`` or ``"decoder"``, checkpoint path).  Other types
+    this package has: the ``EfficientNetB2`` encoder, the ``CrnnEncoder``
+    / ``Cnn14RnnEncoder`` (a Cnn14 and a GRU, from its ``cnn`` and ``rnn``
+    nodes, with the defaults of the JAX package's
+    ``build_model_from_config``) and the ``TransformerDecoder``;
+    an ``ScstWrapper`` node is read as the model node it wraps.  Returns
+    (captioner, pretrained specs), a spec being (the dotted path of the
+    submodule, e.g. ``"encoder.cnn"``, checkpoint path).  Other types
     raise, naming the ROADMAP item that ports them.  Weights are torch's
     defaults; the runner draws them (``zoo.random_init``)."""
     from audiocaption_tpu_torch.decoding.engine import SpecialTokens
     from audiocaption_tpu_torch.models.captioner import Captioner
     from audiocaption_tpu_torch.models.effb2 import EfficientNetB2
+    from audiocaption_tpu_torch.models.rnn_encoder import Cnn14RnnEncoder
     from audiocaption_tpu_torch.models.transformer_decoder import (
         TransformerDecoder)
-    from audiocaption_tpu_torch.ops.frontend import EFFB2_MEL_16K
+    from audiocaption_tpu_torch.ops.frontend import (
+        CNN14_MEL_16K, CNN14_MEL_32K, EFFB2_MEL_16K)
 
+    if short_type(model_cfg.get("type", "")) == "ScstWrapper":
+        model_cfg = model_cfg["model"]
     pretrained = []
     enc_cfg = model_cfg["encoder"]
     enc_type = short_type(enc_cfg["type"])
-    if enc_type != "EfficientNetB2":
+    enc_args = enc_cfg.get("args") or {}
+    if enc_type in ("CrnnEncoder", "Cnn14RnnEncoder"):
+        cnn_cfg, rnn_cfg = enc_cfg.get("cnn", {}), enc_cfg.get("rnn", {})
+        cnn_args = cnn_cfg.get("args") or {}
+        rnn_args = rnn_cfg.get("args") or {}
+        mel = (CNN14_MEL_32K if cnn_args.get("sample_rate", 32000) == 32000
+               else CNN14_MEL_16K)
+        encoder = Cnn14RnnEncoder(
+            rnn_hidden_size=rnn_args.get("hidden_size", 512),
+            rnn_num_layers=rnn_args.get("num_layers", 1),
+            rnn_bidirectional=rnn_args.get("bidirectional", False),
+            rnn_dropout=rnn_args.get("dropout", 0.2),
+            rnn_pooling=rnn_args.get("pooling", "mean"),
+            freeze_cnn=enc_args.get("freeze_cnn", False),
+            freeze_cnn_bn=enc_args.get("freeze_cnn_bn", False),
+            compute_dtype=compute_dtype)
+        for part, node in (("encoder.cnn", cnn_cfg), ("encoder.rnn", rnn_cfg)):
+            if node.get("pretrained"):
+                pretrained.append((part, node["pretrained"]))
+    elif enc_type == "EfficientNetB2":
+        if enc_args.get("prune_ratio"):
+            raise ValueError("training a pruned encoder (encoder.args."
+                             "prune_ratio) is not ported yet (ROADMAP Queue "
+                             "1 item 6)")
+        encoder = EfficientNetB2(compute_dtype=compute_dtype)
+        mel = EFFB2_MEL_16K
+        if enc_cfg.get("pretrained"):
+            pretrained.append(("encoder", enc_cfg["pretrained"]))
+    else:
         raise ValueError(f"encoder type {enc_type!r} is not ported yet "
                          "(ROADMAP Queue 1 items 5 and 8)")
-    if (enc_cfg.get("args") or {}).get("prune_ratio"):
-        raise ValueError("training a pruned encoder (encoder.args."
-                         "prune_ratio) is not ported yet (ROADMAP Queue 1 "
-                         "item 6)")
-    encoder = EfficientNetB2(compute_dtype=compute_dtype)
-    if enc_cfg.get("pretrained"):
-        pretrained.append(("encoder", enc_cfg["pretrained"]))
 
     dec_cfg = model_cfg["decoder"]
     dec_type = short_type(dec_cfg["type"])
@@ -118,6 +147,6 @@ def build_model_from_config(model_cfg: Dict,
     if model_type not in ("TransformerModel", "Captioner"):
         raise ValueError(f"model type {model_type!r} is not ported yet "
                          "(ROADMAP Queue 1 items 6 and 8)")
-    model = Captioner(encoder=encoder, decoder=decoder, mel=EFFB2_MEL_16K,
+    model = Captioner(encoder=encoder, decoder=decoder, mel=mel,
                       special=SpecialTokens())
     return model, pretrained

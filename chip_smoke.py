@@ -9,7 +9,8 @@ Phases, each of which must pass (none is caught and skipped):
   1. print the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the port from ``csrc/`` with nvcc (one
      process per source, all started together), printing ``-Xptxas -v``
-     (registers, shared memory, spills) for every kernel;
+     (registers, shared memory, spills) for every kernel, and the native
+     CIDEr-D scorer (``native/cider.cc``) with g++;
   3. hold each decode kernel against its plain PyTorch version on the
      card, at the flagship decoder width (E=256, 4 heads, 2 layers,
      V=4981), L=20, S=31, B=64, on random jittered decoder weights and
@@ -133,15 +134,50 @@ Phases, each of which must pass (none is caught and skipped):
      recompute oracle; the cached step's device time by kernel
      (``torch.profiler``) and idle share; clips/s, peak memory, model
      FLOPs per clip (3x the forward) and TFLOP/s; the val score's time per
-     64 clips.
+     64 clips;
+ 18. self-critical sequence training of ``zoo.cnn14rnn_trm(vocab_size=
+     4368)`` at full width (Cnn14 at 32 kHz, 3-layer BiGRU 256, 2-layer
+     transformer decoder, untied classifier; random weights from a seed,
+     the decoder's matrices jittered by 0.15, the encoder's BN statistics
+     calibrated on the batch) with the recipe of
+     ``configs/synthetic_v2/scst.yaml`` (Adam 5e-5, L2 1e-6, clip 1.0, the
+     exponential schedule, max length 20, sample temperature 1) through
+     ``training/scst.py`` on one device-made batch of 32 x 10 s, its
+     references 5 of the model's own samples per clip ("w{id}" words), the
+     greedy baseline through the greedy kernel (a ``FusedGreedyDecoder``
+     re-packed each step): (a) 20 steps, each with a finite loss and a
+     non-zero advantage; (b) the grad pass's log-probabilities of the
+     sampled words within 1e-4 of the sampler's on every masked position,
+     and the BN running statistics bit-identical after the steps; (c) at
+     steps 1 and 20 the kernel's baseline tokens differ from the torch
+     engine's greedy tokens on the same weights in at most 1%, and the
+     kernel is held against its plain version at the baseline's shapes
+     (B=32, V=4368 untied, the batch's valid memory) on jittered weights
+     and random memory K/V; (d) one fresh-Adam step at lr 1e-5 lowers the
+     loss recomputed on the last step's samples and advantages; (e) the
+     greedy and log-mel kernels launch on this path; (f) phase 4's
+     flagship API runs "dbs", "sample", "top5", "top0.9" and "gumbel" on
+     CUDA with the JAX API's shapes, "dbs" within 1% of the tokens of the
+     same call on a CPU copy of the model.  The mean sampled reward of
+     the first and last 5 steps is printed;
+ 19. time the SCST step (median of 10 after 3 warm-up steps, float32,
+     TF32 off) split by CUDA events into the sample pass (the baseline's
+     repack, frontend + encode, the greedy kernel, the sampling loop),
+     the host rewards, the grad pass (forward, backward, clip) and the
+     optimizer; the repack alone; clips/s, peak memory, the device time
+     and idle share (``torch.profiler``); the greedy kernel at the
+     baseline's shapes beside its plain version and its bound; the native
+     CIDEr-D scorer against the Python one on the batch's rewards; the
+     flagship's "dbs" and "top0.9" through the API at B=64 x 10 s.
 
 Every kernel's launch counter is set to 0 just before each path is
 driven (phases 4-5, the EffB2 serving path; phase 8, the temporal path;
 phase 10, the folded encoder walks; phase 13, the bf16 EffB2 path, whose
 counts by mode fill the bf16 entries; phase 14, the bf16 temporal path;
 phase 16, the training path's val score, whose count is the greedy
-entry's ``train_launches``) and read just after; the run fails if a
-kernel of that path was not launched there.  The second-to-last line
+entry's ``train_launches``; phase 18, the SCST path, whose counts are the
+greedy and log-mel entries' ``scst_launches``) and read just after; the
+run fails if a kernel of that path was not launched there.  The second-to-last line
 is the kernels JSON object, the last line ``{"ok": true, "device":
 {...}}``.
 
@@ -188,6 +224,26 @@ TRAIN_LOSS_DROP = 0.10        # last 5 steps' mean loss vs the first 5
 TRAIN_VAL_CLIPS = 64
 TRAIN_WARMUP, TRAIN_TIMED = 3, 20
 SWA_ATOL = 1e-6
+# phases 18-19: SCST of zoo.cnn14rnn_trm (configs/synthetic_v2/scst.yaml)
+SCST_V, SCST_B, SCST_SECONDS, SCST_STEPS = 4368, 32, 10, 20
+SCST_LR, SCST_FINAL_LR, SCST_WD, SCST_CLIP = 5e-5, 5e-7, 1e-6, 1.0
+SCST_REFS = 5                 # references per clip, from the model's samples
+SCST_DECODER_JITTER = 0.15    # a peaked, not one-word, decoder distribution
+SCST_LOGPROB_ATOL = 1e-4      # grad pass vs sampler, on masked positions
+# (d): one fresh-Adam step from the last step's weights, read at each of
+# these learning rates (the recipe's is the last) for three parameter
+# sets, beside its first-order prediction g . dtheta.  Gated: the decoder
+# alone lowers the loss at every rate, every set at the smallest, where
+# the change is within SCST_FIRST_ORDER of its first-order prediction (a
+# gradient check of the card's path, cuDNN GRU backward included)
+SCST_PROBE_LRS = (1e-7, 1e-6, 1e-5, 5e-5)
+SCST_PROBE_SETS = {"whole model": lambda n: True,
+                   "GRU + decoder (CNN frozen)":
+                       lambda n: not n.startswith("encoder.cnn."),
+                   "decoder": lambda n: n.startswith("decoder.")}
+SCST_FIRST_ORDER = 0.1        # |change / prediction - 1| at the smallest lr
+SCST_WARMUP, SCST_TIMED = 3, 10
+NEW_METHODS = ("dbs", "sample", "top5", "top0.9", "gumbel")
 
 
 def log(msg: str) -> None:
@@ -1615,6 +1671,414 @@ def train_times(t, dev, card):
     return results
 
 
+def scst_batch(dev, gen, cpu_gen):
+    """SCST_B device-made clips of SCST_SECONDS at 32 kHz, mixed lengths
+    (each >= 1 s, the first full), each its own sound: noise at a level
+    from 0.02 to 0.63, every other clip with a tone at its own pitch
+    (100 Hz to 6.4 kHz), so that the encoder tells the clips apart and
+    each clip's samples, and so its references, have words of their own
+    (white noise alone gives every clip the same words, whose CIDEr-D
+    weight is 0)."""
+    import math
+    import torch
+    n = SCST_SECONDS * SR_32K
+    t = torch.arange(n, device=dev) / SR_32K
+    freq = 100.0 * 2 ** (torch.arange(SCST_B, device=dev) / SCST_B * 6.0)
+    level = 0.02 * 10 ** (torch.rand(SCST_B, generator=cpu_gen) * 1.5)
+    tone = (torch.sin(2 * math.pi * freq[:, None] * t[None]) * 0.3
+            * (torch.arange(SCST_B, device=dev)[:, None] % 2))
+    wav = ((tone + torch.randn(SCST_B, n, generator=gen, device=dev))
+           * level.to(dev)[:, None])
+    wav_len = torch.randint(SR_32K, n + 1, (SCST_B,), generator=cpu_gen)
+    wav_len[0] = n
+    return {"wav": wav, "wav_len": wav_len.to(dev)}
+
+
+def calibrate_encoder_bn(model, batch) -> None:
+    """Every encoder BN's running statistics from one batch (a random-init
+    Cnn14 in ``eval()`` otherwise maps every clip to one output)."""
+    import torch
+    bns = [m for m in model.encoder.modules()
+           if isinstance(m, torch.nn.BatchNorm2d)]
+    for m in bns:
+        m.reset_running_stats()
+        m.momentum = None             # a cumulative average: one batch
+    model.train()
+    with torch.no_grad():
+        model.encode(batch["wav"], batch["wav_len"])
+    for m in bns:
+        m.momentum = 0.1
+    model.eval()
+
+
+def caption_words(seq, eos: int = 2):
+    """Token ids -> the "w{id}" caption up to the first <eos>."""
+    out = []
+    for row in seq.tolist():
+        words = []
+        for w in row:
+            if w == eos:
+                break
+            words.append(f"w{w}")
+        out.append(" ".join(words))
+    return out
+
+
+def scst_path(api, audio, lens, dev, card):
+    """Phase 18: SCST of ``zoo.cnn14rnn_trm(vocab_size=4368)`` at full width
+    with the recipe of ``configs/synthetic_v2/scst.yaml`` through
+    ``training/scst.py``, the greedy baseline through the greedy kernel
+    (a ``FusedGreedyDecoder`` re-packed each step), on one device-made
+    batch of SCST_B x SCST_SECONDS s at 32 kHz; then the new decode
+    methods through phase 4's flagship API.  -> what phase 19 times, and
+    the launch counts."""
+    import numpy as np
+    import torch
+    from audiocaption_tpu_torch.decoding import fused_greedy as FG
+    from audiocaption_tpu_torch.hf_api import (
+        Effb2TrmCaptioningModel, Effb2TrmConfig)
+    from audiocaption_tpu_torch.models.captioner import generate
+    from audiocaption_tpu_torch.models.zoo import cnn14rnn_trm, random_init
+    from audiocaption_tpu_torch.native import FastCiderD
+    from audiocaption_tpu_torch.ops import fused_logmel as FL
+    from audiocaption_tpu_torch.optim.schedules import build_schedule
+    from audiocaption_tpu_torch.training.checkpoint import model_variables
+    from audiocaption_tpu_torch.training.scst import (
+        apply_scst, scst_loss, scst_mode, scst_step)
+    from audiocaption_tpu_torch.training.trainer import (
+        bn_buffers, create_train_state)
+
+    model = cnn14rnn_trm(vocab_size=SCST_V)
+    gen_w = torch.Generator().manual_seed(SEED + 20)
+    random_init(model, gen_w)
+    with torch.no_grad():
+        for p in model.decoder.parameters():
+            if p.dim() == 2:
+                p.add_(torch.randn(p.shape, generator=gen_w)
+                       * SCST_DECODER_JITTER)
+    model.to(dev)
+    cpu_gen = torch.Generator().manual_seed(SEED + 21)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    batch = scst_batch(dev, gen, cpu_gen)
+    calibrate_encoder_bn(model, batch)
+    keys = [f"clip{i}" for i in range(SCST_B)]
+    idx2word = {i: f"w{i}" for i in range(SCST_V)}
+    # references: SCST_REFS of the model's own samples per clip
+    ref_gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    refs = {k: [] for k in keys}
+    with torch.no_grad():
+        model.eval()
+        enc = model.encode(batch["wav"], batch["wav_len"])
+        for _ in range(SCST_REFS):
+            seq = generate(model, enc=enc, sample_method="sample",
+                           max_length=L, generator=ref_gen)["seq"].cpu()
+            for k, c in zip(keys, caption_words(seq)):
+                refs[k].append(c)
+    schedule = build_schedule(
+        {"type": "ExponentialDecayScheduler",
+         "args": {"final_lrs": SCST_FINAL_LR}}, SCST_LR, SCST_STEPS,
+        SCST_STEPS // 5)
+    state = create_train_state(model, SCST_LR, schedule, SCST_WD, SCST_CLIP)
+    baseline = FG.FusedGreedyDecoder(model, L, device=dev)
+    scorer = FastCiderD()
+    rl_gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    bn_before = [b.clone() for b in bn_buffers(model)]
+
+    def engine_greedy():
+        """The torch engine's greedy ids on the current weights (the
+        comparison's log-mel launches are not the path's)."""
+        n = FL.fused_logmel.launches
+        with torch.no_grad():
+            model.eval()
+            out = generate(model, batch["wav"], batch["wav_len"],
+                           sample_method="greedy", max_length=L)["seq"]
+        FL.fused_logmel.launches = n
+        return out
+
+    # (a)-(c), (e): SCST_STEPS steps, the kernels' counts from this loop
+    t0 = time.perf_counter()
+    steps, baseline_mis = [], {}
+    FG.reset_launches(FG.fused_greedy_decode)
+    FL.fused_logmel.launches = 0
+    for k in range(SCST_STEPS):
+        check = k in (0, SCST_STEPS - 1)
+        ref_greedy = engine_greedy() if check else None
+        m = scst_step(state, batch, keys, refs, idx2word, max_length=L,
+                      sample_temp=1.0, generator=rl_gen, scorer=scorer,
+                      baseline=baseline)
+        mask = m["mask"] > 0
+        lp_err = float((m["token_logprob"] - m["sampled_logprob"])[mask]
+                       .abs().max())
+        n_adv = int((m["advantage"] != 0).sum())
+        steps.append(dict(loss=m["loss"], reward=m["reward_sample"],
+                          greedy_reward=m["reward_greedy"], lp_err=lp_err,
+                          n_adv=n_adv))
+        assert np.isfinite(m["loss"]), f"step {k}: loss {m['loss']}"
+        assert n_adv > 0, f"step {k}: every advantage is 0"
+        assert lp_err <= SCST_LOGPROB_ATOL, \
+            f"step {k}: grad pass vs sampler log-probs {lp_err:.3g}"
+        if check:
+            mis = int((m["greedy"] != ref_greedy).sum())
+            baseline_mis[k + 1] = mis
+            assert mis <= MISMATCH_LIMIT * ref_greedy.numel(), \
+                f"step {k + 1}: the kernel baseline disagrees ({mis})"
+    _sync(dev)
+    loop_s = time.perf_counter() - t0
+    launches = {"fused_greedy": FG.fused_greedy_decode.launches,
+                "fused_logmel": FL.fused_logmel.launches}
+    bn_same = all(torch.equal(a, b) for a, b in
+                  zip(bn_before, bn_buffers(model)))
+    first = np.mean([s["reward"] for s in steps[:5]])
+    last = np.mean([s["reward"] for s in steps[-5:]])
+    log(f"scst: {SCST_STEPS} steps of cnn14rnn_trm (V={SCST_V}, untied) on "
+        f"one batch of {SCST_B} x {SCST_SECONDS} s at 32 kHz in "
+        f"{loop_s:.1f} s; loss {steps[0]['loss']:.4f} -> "
+        f"{steps[-1]['loss']:.4f}; mean sampled reward of the first 5 "
+        f"steps {first:.4f}, of the last 5 {last:.4f}; greedy reward "
+        f"{steps[0]['greedy_reward']:.4f} -> {steps[-1]['greedy_reward']:.4f}"
+        f"; non-zero advantages per step "
+        f"{min(s['n_adv'] for s in steps)}-{max(s['n_adv'] for s in steps)}"
+        f" of {SCST_B}")
+    log(f"scst (b): grad pass vs sampler log-probs on masked positions, "
+        f"max over steps {max(s['lp_err'] for s in steps):.3g} (limit "
+        f"{SCST_LOGPROB_ATOL}); BN running statistics bit-identical after "
+        f"the steps: {bn_same}")
+    assert bn_same, "SCST moved a BN running statistic"
+    log(f"scst (c): kernel baseline vs torch engine greedy, steps 1 and "
+        f"{SCST_STEPS}: {baseline_mis} of {SCST_B * L} tokens differ")
+    log(f"scst (e): launches on the SCST path {launches}")
+    assert dev.type != "cuda" or all(n > 0 for n in launches.values()), \
+        "a kernel of the SCST path was not launched"
+
+    # (c) the kernel against its plain version at the baseline's shapes
+    # (SCST_B rows, V=4368 untied, the batch's valid memory) on jittered
+    # weights and random memory K/V, where trajectories are far from
+    # degenerate
+    from audiocaption_tpu_torch.models.transformer_decoder import (
+        TransformerDecoder)
+    jgen = torch.Generator().manual_seed(SEED + 23)
+    jdec = TransformerDecoder(E, SCST_V, 512, tie_weights=False)
+    random_init(jdec, jgen)
+    with torch.no_grad():
+        for p in jdec.parameters():
+            if p.dim() == 2:
+                p.add_(torch.randn(p.shape, generator=jgen) * 0.3)
+    jdec.to(dev).eval()
+    packed_j = FG.pack_decoder_weights(jdec)
+    n_g = FG.fused_greedy_decode.launches
+    with torch.no_grad():
+        mem, mem_valid = FG.memory_kv(model.decoder, enc["attn_emb"],
+                                      enc["attn_emb_len"], False)
+        mem = torch.randn(mem.shape, generator=jgen).to(dev)
+        got = FG.fused_greedy_decode(packed_j, mem, mem_valid, L)
+        want = FG.fused_greedy_plain(packed_j, mem, mem_valid, L)
+    FG.fused_greedy_decode.launches = n_g
+    k_mis = int((got != want).sum())
+    k_distinct = len(torch.unique(want))
+    greedy_err = float((got - want).abs().max())
+    log(f"scst (c): greedy kernel vs plain at the baseline's shapes (B="
+        f"{SCST_B}, S={mem.shape[3]}, V={SCST_V} untied, jittered weights, "
+        f"random memory): {k_mis}/{want.numel()} tokens differ, "
+        f"{k_distinct} distinct (plan {FG.fused_greedy_decode.last_plan})")
+    assert k_mis <= MISMATCH_LIMIT * want.numel(), \
+        "greedy kernel disagrees at the SCST shapes"
+    assert k_distinct > 10, "degenerate greedy trajectories"
+
+    # (d) learning direction: one fresh-Adam step lowers the loss
+    # recomputed on the last step's own samples and advantages
+    args = (batch["wav"], batch["wav_len"], m["sampled"], m["advantage"],
+            m["mask"])
+    named = dict(model.named_parameters())
+    saved = {n: p.detach().clone() for n, p in named.items()}
+    trainable = {n: p.requires_grad for n, p in named.items()}
+    n_l = FL.fused_logmel.launches
+
+    def probe_loss():
+        with torch.no_grad(), scst_mode(model):
+            return float(scst_loss(model, *args)[0])
+    before = probe_loss()
+    probes = {}
+    for set_name, keep in SCST_PROBE_SETS.items():
+        for lr in SCST_PROBE_LRS:
+            for n, p in named.items():
+                p.requires_grad_(trainable[n] and keep(n))
+            probe = create_train_state(model, lr, lambda c, lr=lr: lr,
+                                       SCST_WD, SCST_CLIP)
+            pm = apply_scst(probe, *args)
+            coef = min(1.0, SCST_CLIP / (float(pm["grad_norm"]) + 1e-6))
+            with torch.no_grad():
+                first = sum(float((p.grad.double() * (p - saved[n]).double())
+                                  .sum()) for n, p in named.items()
+                            if p.grad is not None) / coef
+            after = probe_loss()
+            with torch.no_grad():
+                for n, p in named.items():
+                    p.copy_(saved[n])
+                    p.grad = None
+            probes[set_name, lr] = (after - before, first)
+            log(f"scst (d): one fresh-Adam step of the {set_name} at lr "
+                f"{lr:g}: loss on the step's own samples and advantages "
+                f"{before:.6f} -> {after:.6f} (change {after - before:.4g}; "
+                f"first-order prediction g . dtheta {first:.4g}, ratio "
+                f"{(after - before) / first:.4g})")
+    for n, p in named.items():
+        p.requires_grad_(trainable[n])
+    FL.fused_logmel.launches = n_l
+    low = SCST_PROBE_LRS[0]
+    for (set_name, lr), (change, first) in probes.items():
+        assert change < 0 or (set_name != "decoder" and lr != low), \
+            f"an SCST step of the {set_name} at lr {lr:g} raised its loss"
+        assert lr != low or abs(change / first - 1) <= SCST_FIRST_ORDER, \
+            f"{set_name}: the loss change is not its first-order prediction"
+
+    # (f) the new decode methods through phase 4's flagship API
+    cpu_api = Effb2TrmCaptioningModel(Effb2TrmConfig(vocab_size=V),
+                                      device="cpu")
+    cpu_api.load_torch_state_dict(model_variables(api.model))
+    for method in NEW_METHODS:
+        ids = api(audio, lens, sample_method=method, beam_size=3,
+                  max_length=L)
+        shape = (len(audio), 3, L) if method == "dbs" else (len(audio), L)
+        assert ids.shape == shape and ((ids >= 0) & (ids < V)).all(), \
+            f"{method}: shape {ids.shape}"
+        msg = f"scst (f): flagship API {method} on CUDA: shape {ids.shape}"
+        if method == "dbs":
+            ref = cpu_api(audio, lens, sample_method=method, beam_size=3,
+                          max_length=L)
+            mis = int((ids != ref).sum())
+            msg += f"; vs a CPU copy of the model {mis}/{ids.size} differ"
+            assert mis <= MISMATCH_LIMIT * ids.size, "dbs CUDA vs CPU"
+        log(msg + f"; first caption {ids[0].reshape(-1)[:8]}")
+    return dict(model=model, state=state, batch=batch, keys=keys,
+                refs=refs, idx2word=idx2word, baseline=baseline,
+                scorer=scorer, gen=rl_gen, launches=launches,
+                greedy_err=greedy_err, loop_s=loop_s)
+
+
+def scst_times(t, api, wav64, len64, card):
+    """Phase 19: the SCST step (median of SCST_TIMED after SCST_WARMUP,
+    float32, TF32 off) split by CUDA events into the sample pass (the
+    baseline's repack, frontend + encode, the greedy kernel, the sampling
+    loop), the host rewards, the grad pass (forward, backward, clip) and
+    the optimizer; the repack alone; clips/s and peak memory; the device
+    time and idle share (``torch.profiler``); the native scorer against
+    the plain one on the batch's rewards; the flagship's "dbs" and
+    "top0.9" through the API at B=64 x 10 s."""
+    import numpy as np
+    import torch
+    from audiocaption_tpu_torch.metrics.cider import CiderD
+    from audiocaption_tpu_torch.training.scst import (
+        compute_batch_score, scst_step)
+    marks = {}
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks[name] = e
+
+    def step(mark_fn=None):
+        return scst_step(t["state"], t["batch"], t["keys"], t["refs"],
+                         t["idx2word"], max_length=L, sample_temp=1.0,
+                         generator=t["gen"], scorer=t["scorer"],
+                         baseline=t["baseline"], mark=mark_fn)
+    parts = ("repack", "encode", "baseline", "sample", "rewards", "grad",
+             "optimizer")
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for i in range(SCST_WARMUP + SCST_TIMED):
+        mark("start")
+        m = step(mark)
+        torch.cuda.synchronize()
+        prev, row = marks["start"], []
+        for p in parts:
+            row.append(prev.elapsed_time(marks[p]))
+            prev = marks[p]
+        rows.append(row)
+    rows = np.asarray(rows[SCST_WARMUP:])
+    step_ms = float(np.median(rows.sum(1)))
+    split = dict(zip(parts, np.median(rows, 0).tolist()))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sample_ms = sum(split[p] for p in parts[:4])
+    log(f"scst step: median {step_ms:.2f} ms over {SCST_TIMED} steps "
+        f"({SCST_B / step_ms * 1e3:.1f} clips/s); sample pass "
+        f"{sample_ms:.2f} (repack {split['repack']:.2f}, frontend + encode "
+        f"{split['encode']:.2f}, greedy kernel {split['baseline']:.2f}, "
+        f"sampling loop {split['sample']:.2f}), host rewards "
+        f"{split['rewards']:.2f}, grad pass (forward, backward, clip) "
+        f"{split['grad']:.2f}, optimizer {split['optimizer']:.2f} ms; peak "
+        f"memory {peak:.2f} GiB; B={SCST_B} x {SCST_SECONDS} s at 32 kHz, "
+        f"float32, TF32 off, on {card}")
+    repack = cuda_ms(t["baseline"].refresh, 5)
+    log(f"scst: FusedGreedyDecoder.refresh() alone {repack:.3f} ms on {card}")
+    busy = device_split(step, iters=3)
+    total = sum(busy.values())
+    log(f"scst step, device time (torch.profiler): {total:.2f} ms a step of "
+        f"{step_ms:.2f} ms wall, idle share {1 - total / step_ms:.3f}; top "
+        f"kernels {dict(list(busy.items())[:8])} on {card}")
+    sp = t["model"].special
+    seqs = m["sampled"].cpu().numpy()
+    times = {}
+    scores = {}
+    for name, scorer in (("native", t["scorer"]), ("python", None)):
+        t0 = time.perf_counter()
+        for _ in range(5):
+            scores[name] = compute_batch_score(
+                seqs, t["refs"], t["keys"], t["idx2word"], sp.bos, sp.eos,
+                scorer if scorer is not None else CiderD())
+        times[name] = (time.perf_counter() - t0) / 5 * 1e3
+    err = float(np.abs(scores["native"] - scores["python"]).max())
+    log(f"scst rewards of {SCST_B} sampled captions: native FastCiderD "
+        f"{times['native']:.3f} ms, Python CiderD {times['python']:.3f} ms "
+        f"(host clock, mean of 5), max |diff| {err:.3g}")
+    assert err <= 1e-6 * max(1.0, float(np.abs(scores["python"]).max())), \
+        "native and Python CIDEr-D disagree"
+    # the greedy kernel at the baseline's shapes: this run's weights and
+    # the batch's memory (the launches are not the path's)
+    from audiocaption_tpu_torch.decoding import fused_greedy as FG
+    model, batch = t["model"], t["batch"]
+    packed = t["baseline"].packed
+    n_g = FG.fused_greedy_decode.launches
+    with torch.no_grad():
+        model.eval()
+        enc = model.encode(batch["wav"], batch["wav_len"])
+        memkv, valid = FG.memory_kv(model.decoder, enc["attn_emb"],
+                                    enc["attn_emb_len"], False)
+        g = FG.fused_greedy_decode(packed, memkv, valid, L)
+        k_ms = cuda_ms(lambda: FG.fused_greedy_decode(packed, memkv, valid,
+                                                      L), 10)
+        plain_ms = cuda_ms(lambda: FG.fused_greedy_plain(packed, memkv,
+                                                         valid, L), 3, 1)
+    FG.fused_greedy_decode.launches = n_g
+    eos_pos = [(row == 2).nonzero() for row in g.cpu()]
+    g_steps = [int(p_[0]) + 1 if len(p_) else L for p_ in eos_pos]
+    mm, attn = decode_flops(E, FFN, SCST_V, valid.sum(1).tolist(), g_steps,
+                            1)
+    nbytes = input_bytes(packed, memkv, valid, g.numel() * 4)
+    bound, _, by = decode_bound_ms(mm, attn, nbytes)
+    log(f"fused_greedy at the SCST baseline's shapes (B={SCST_B}, S="
+        f"{memkv.shape[3]}, V={SCST_V} untied, L={L}, steps per row "
+        f"{min(g_steps)}-{max(g_steps)}): {k_ms:.4f} ms/call warm; plain "
+        f"{plain_ms:.3f} ms; bound {bound:.4f} ms by {by} ({nbytes} bytes, "
+        f"{mm} product ops, {attn} attention ops) on {card}")
+    api_ms = {}
+    for method in ("dbs", "top0.9"):
+        def fn():
+            return api.decode(wav64, len64, sample_method=method,
+                              beam_size=3, max_length=L)
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        api_ms[method] = (time.perf_counter() - t0) / 3 * 1e3
+        log(f"flagship API {method}: {api_ms[method]:.2f} ms per batch of "
+            f"64 x 10 s (torch engine) on {card}")
+    return dict(step_ms=step_ms, split=split, repack_ms=repack, peak=peak,
+                idle=1 - total / step_ms, api_ms=api_ms, greedy_ms=k_ms,
+                greedy_bound_ms=bound)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1628,7 +2092,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import numpy as np
-    from audiocaption_tpu_torch import cuda_build
+    from audiocaption_tpu_torch import cuda_build, native
     from audiocaption_tpu_torch.decoding import fused_beam as FB
     from audiocaption_tpu_torch.decoding import fused_greedy as FG
     from audiocaption_tpu_torch.device import set_parity_precision
@@ -1650,6 +2114,10 @@ def main() -> int:
     # registers, shared memory and spills (-Xptxas -v) of every kernel
     cuda_build.build_all(verbose=True)
     log(f"build: {time.perf_counter() - t0:.2f} s for {list(cuda_build.KERNELS)}")
+    # the native CIDEr-D scorer of the val score and the SCST rewards
+    t0 = time.perf_counter()
+    lib = native.load_library()
+    log(f"build: {time.perf_counter() - t0:.2f} s for {lib._name}")
 
     # -- 3. kernels vs plain versions --------------------------------------
     packed, memkv, valid = jittered_decoder_inputs(dev)
@@ -1828,6 +2296,22 @@ def main() -> int:
     # -- 17. train step times ----------------------------------------------
     train_times(trained, dev, card)
     log(f"phase 16: {t1 - t0:.1f} s, phase 17: {time.perf_counter() - t1:.1f} "
+        f"s")
+
+    # -- 18. SCST of cnn14rnn_trm at full width ---------------------------
+    t0 = time.perf_counter()
+    scst = scst_path(api, audio, lens, dev, card)
+    for k in kernels:
+        if k["name"] in scst["launches"]:
+            k["scst_launches"] = scst["launches"][k["name"]]
+    t1 = time.perf_counter()
+    # -- 19. SCST step times -----------------------------------------------
+    scst_t = scst_times(scst, api, wav64, len64, card)
+    for k in kernels:
+        if k["name"] == "fused_greedy":
+            k["scst_ms"] = scst_t["greedy_ms"]
+            k["scst_bound_ms"] = scst_t["greedy_bound_ms"]
+    log(f"phase 18: {t1 - t0:.1f} s, phase 19: {time.perf_counter() - t1:.1f} "
         f"s")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")

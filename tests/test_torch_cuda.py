@@ -468,3 +468,99 @@ def test_val_score_launches_the_greedy_kernel(cuda):
     score = ValScorer(state.model, tok, loader, refs, cuda)()
     assert np.isfinite(score) and TG.fused_greedy_decode.launches == 1
     assert state.model.training
+
+
+def _untied_decoder(V: int, seed: int, device):
+    """The cnn14rnn_trm decoder (E=256, memory width 512, an untied
+    classifier), jittered, in eval."""
+    gen = torch.Generator().manual_seed(seed)
+    dec = TransformerDecoder(256, V, 512, tie_weights=False)
+    random_init(dec, gen)
+    with torch.no_grad():
+        for p in dec.parameters():
+            if p.dim() == 2:
+                p.add_(torch.randn(p.shape, generator=gen) * 0.3)
+    return dec.to(device).eval()
+
+
+@pytest.mark.cuda
+def test_greedy_kernel_untied_vocab_4368_matches_plain(cuda):
+    """The SCST baseline's shapes: B=32, V=4368, untied classifier."""
+    dec = _untied_decoder(4368, 3, cuda)
+    packed = TG.pack_decoder_weights(dec).to(cuda)
+    assert not torch.equal(packed.cls, packed.emb)
+    gen = torch.Generator().manual_seed(4)
+    memkv = torch.randn(2, 2, 32, 31, 256, generator=gen).to(cuda)
+    lens = torch.randint(1, 32, (32,), generator=gen)
+    valid = (torch.arange(31)[None] < lens[:, None]).to(torch.uint8).to(cuda)
+    got = TG.fused_greedy_decode(packed, memkv, valid, 20)
+    want = TG.fused_greedy_plain(packed, memkv, valid, 20)
+    assert int((got != want).sum()) <= 0.01 * want.numel()
+    assert len(torch.unique(want)) > 10
+
+
+@pytest.mark.cuda
+def test_refresh_repacks_into_the_same_buffers(cuda):
+    """After a weight change, ``refresh()`` re-packs into the buffers the
+    kernel reads, and decodes as a decoder packed anew does."""
+    from audiocaption_tpu_torch.models.zoo import cnn14rnn_trm
+    model = cnn14rnn_trm(vocab_size=300)
+    random_init(model, torch.Generator().manual_seed(5))
+    model.decoder.load_state_dict(_untied_decoder(300, 6, "cpu")
+                                  .state_dict())
+    model.to(cuda).eval()
+    fd = TG.FusedGreedyDecoder(model, 12, device=cuda)
+    gen = torch.Generator().manual_seed(7)
+    enc = {"attn_emb": torch.randn(6, 9, 512, generator=gen).to(cuda),
+           "attn_emb_len": torch.tensor([9, 8, 5, 3, 9, 1], device=cuda)}
+    before = fd.decode_enc(enc)
+    ptrs = [t.data_ptr() for t in (fd.packed.emb, fd.packed.cls,
+                                   fd.packed.layers, fd.packed.frag)]
+    with torch.no_grad():
+        for p in model.decoder.parameters():
+            if p.dim() == 2:
+                p.add_(torch.randn(p.shape, generator=gen).to(cuda) * 0.3)
+    fd.refresh()
+    after = fd.decode_enc(enc)
+    assert ptrs == [t.data_ptr() for t in (fd.packed.emb, fd.packed.cls,
+                                           fd.packed.layers, fd.packed.frag)]
+    fresh = TG.FusedGreedyDecoder(model, 12, device=cuda).decode_enc(enc)
+    assert torch.equal(after, fresh) and not torch.equal(after, before)
+
+
+@pytest.mark.cuda
+def test_scst_step_on_card(cuda):
+    """One SCST step of cnn14rnn_trm on the card with the kernel baseline:
+    the cuDNN GRU's backward runs (the grad pass keeps it in train mode),
+    the grad pass's log-probabilities equal the sampler's within 1e-4,
+    BN statistics stay, the greedy kernel launches once; the rewards come
+    from the native scorer, built with g++ where the test runs."""
+    from audiocaption_tpu_torch.models.zoo import cnn14rnn_trm
+    from audiocaption_tpu_torch.optim.schedules import (
+        exponential_decay_with_warmup)
+    from audiocaption_tpu_torch.training.scst import scst_step
+    from audiocaption_tpu_torch.training.trainer import (
+        bn_buffers, create_train_state)
+    model = cnn14rnn_trm(vocab_size=300)
+    random_init(model, torch.Generator().manual_seed(8))
+    model.to(cuda)
+    state = create_train_state(
+        model, 5e-5, exponential_decay_with_warmup(5e-5, 5e-7, 10, 2), 1e-6,
+        1.0)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    batch = {"wav": torch.randn(4, 32000, generator=gen, device=cuda) * 0.1,
+             "wav_len": torch.tensor([32000, 30000, 20000, 12000],
+                                     device=cuda)}
+    refs = {k: ["w5 w6 w7", "w8 w9 w10"] for k in "abcd"}
+    bn = [b.clone() for b in bn_buffers(model)]
+    TG.reset_launches(TG.fused_greedy_decode)
+    m = scst_step(state, batch, list("abcd"), refs,
+                  {i: f"w{i}" for i in range(300)}, max_length=12,
+                  generator=gen, baseline=TG.FusedGreedyDecoder(
+                      model, 12, device=cuda))
+    assert np.isfinite(m["loss"]) and TG.fused_greedy_decode.launches == 1
+    mask = m["mask"] > 0
+    assert float((m["token_logprob"] - m["sampled_logprob"])[mask]
+                 .abs().max()) <= 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(bn, bn_buffers(model)))
+

@@ -79,6 +79,33 @@ def test_api_tokens_match_jax(jax_api, jax_tokens, method):
     np.testing.assert_array_equal(got, jax_tokens[method])
 
 
+def test_api_dbs_matches_jax(jax_api):
+    """Diverse beam search through the API (the API's beam 3 in the
+    default 3 groups: [B, 3, L]) equals the JAX API's."""
+    want = np.asarray(jax_api(AUDIO, LENS, sample_method="dbs",
+                              max_length=8))
+    port = TorchAPI(TorchConfig(vocab_size=48),
+                    state_dict=state_dict_from_jax(jax_api.variables),
+                    device="cpu")
+    got = port(AUDIO, LENS, sample_method="dbs", max_length=8)
+    assert got.shape == want.shape == (3, 3, 8)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("method", ["sample", "top5", "top0.9", "gumbel"])
+def test_api_sampling_methods_pass_through(method):
+    """The sampling methods reach the engine with the JAX API's shape, and
+    a repeated call draws the same (a fresh generator seeded with 0); an
+    unknown method raises."""
+    port = TorchAPI(TorchConfig(vocab_size=48), device="cpu")
+    a = port(AUDIO, LENS, sample_method=method, max_length=8)
+    assert a.dtype == np.int32 and a.shape == (3, 8)
+    np.testing.assert_array_equal(
+        a, port(AUDIO, LENS, sample_method=method, max_length=8))
+    with pytest.raises(ValueError, match="sample_method"):
+        port(AUDIO, LENS, sample_method="nucleus", max_length=8)
+
+
 @pytest.mark.parametrize("wrapped", [False, True], ids=["plain", "wrapped"])
 def test_load_torch_checkpoint_token_parity(jax_api, jax_tokens, tmp_path,
                                             wrapped):

@@ -52,9 +52,22 @@ import chip_smoke
 leaked = [m for m in sys.modules
           if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None]
 assert not leaked, leaked
+for name in ("audiocaption_tpu_torch.native",
+             "audiocaption_tpu_torch.training.scst"):
+    assert name in names, name
 print(len(names))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 14
+
+
+def test_native_scorer_is_the_ports_own():
+    """The port builds its own copy of the C++ scorer, from inside its
+    package, into the repository's build directory."""
+    from audiocaption_tpu_torch import native
+    assert native.SOURCE.is_file()
+    assert native.SOURCE.parent == PKG / "native"
+    assert native.BUILD_DIR == ROOT / "build" / "native"
+    assert "audiocaption_tpu/" not in native.SOURCE.read_text()

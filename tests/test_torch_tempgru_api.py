@@ -157,3 +157,27 @@ def test_load_raises_on_a_missing_key(state_dict, key):
     fresh = TorchAPI(TorchConfig(vocab_size=48), device="cpu")
     with pytest.raises(RuntimeError, match=key.split(".")[-2]):
         fresh.load_torch_state_dict(sd)
+
+
+@pytest.mark.parametrize("tag", [None, USER_TAG], ids=["sed_tag", "user_tag"])
+def test_api_dbs_matches_jax(jax_api, port, tag):
+    """Diverse beam search through the temporal API (the API's beam 3 in
+    the default 3 groups: [B, 3, L]) equals the JAX API's."""
+    audio = _audio()
+    want = np.asarray(jax_api(audio, LENS, temporal_tag=tag,
+                              sample_method="dbs", max_length=MAX_LEN))
+    got = port(audio, LENS, temporal_tag=tag, sample_method="dbs",
+               max_length=MAX_LEN)
+    assert got.shape == want.shape == (2, 3, MAX_LEN)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("method", ["sample", "top5", "top0.9", "gumbel"])
+def test_api_sampling_methods_pass_through(port, method):
+    """The sampling methods reach the engine with the JAX API's shape, and
+    a repeated call draws the same (a fresh generator seeded with 0)."""
+    audio = _audio()
+    a = port(audio, LENS, sample_method=method, max_length=MAX_LEN)
+    assert a.dtype == np.int32 and a.shape == (2, MAX_LEN)
+    np.testing.assert_array_equal(
+        a, port(audio, LENS, sample_method=method, max_length=MAX_LEN))
