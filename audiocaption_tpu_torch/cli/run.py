@@ -31,14 +31,35 @@ optimizer has moved them; on the CPU it runs the torch engine
 (``models/captioner.py::generate``).  The SCST baseline runs the same
 kernel on CUDA, one decoder re-packed before each step.
 
-The JAX runner's other paths (knowledge distillation, augmented and SED
-training, the device-resident corpus, data parallelism) are not ported
-(ROADMAP Queue 1 items 6-7).
+Knowledge distillation (the JAX runner's ``train_kd``):
+
+    python -m audiocaption_tpu_torch.cli.run train_kd CONFIG [key=value ...]
+
+CONFIG adds a ``kd:`` node (``configs/*/kd_token.yaml``): ``type`` token,
+seq or enc; ``weight``; ``kd_loss`` (kl, l2, l1) and ``temperature`` for
+token KD; ``teacher: {experiment_path, resume}``, an experiment directory
+that either package wrote (its ``config.yaml`` and checkpoint); for enc
+KD ``teacher_emb`` (an npz of audio_id -> embedding) or the teacher's
+encoder on the fly, ``shared_dim`` and ``unsup``.  The teacher runs in
+``eval()`` without autograd: teacher-forced logits for token KD, greedy
+captions for seq KD (through the greedy kernel on CUDA, cached in
+``pseudo_captions.json``), its pooled ``fc_emb`` for enc KD
+(``training/distill.py``).  Written: ``train.log`` (``kd[type] epoch N:
+loss ... val_cider ...``), ``last.pth``, ``best.pth`` and ``swa.pth``
+(the last weights), with the JAX runner's payload.  The teacher reads
+the student's wave, as the JAX runner's does; a KD dataset's
+``teacher_wav`` is not used by it.
+
+The JAX runner's other paths (augmented and SED training, the
+device-resident corpus, data parallelism) are not ported (ROADMAP
+Queue 1 items 6-7).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import random
 import shutil
 import time
@@ -53,6 +74,7 @@ from audiocaption_tpu_torch.data.dataset import (
     CaptionDataset, InferenceDataset, load_caption_json)
 from audiocaption_tpu_torch.data.tokenizer import DictTokenizer
 from audiocaption_tpu_torch.device import resolve_device
+from audiocaption_tpu_torch.losses.kd import ContraEncoderKdHead
 from audiocaption_tpu_torch.losses.loss import build_loss
 from audiocaption_tpu_torch.metrics.tokenize import ptb_tokenize
 from audiocaption_tpu_torch.models.captioner import generate
@@ -63,6 +85,9 @@ from audiocaption_tpu_torch.optim.schedules import build_schedule
 from audiocaption_tpu_torch.training.checkpoint import (
     AsyncCheckpointer, MetricImprover, load_checkpoint, merge_variables,
     model_variables, save_checkpoint)
+from audiocaption_tpu_torch.training.distill import (
+    encoder_kd_step, generate_pseudo_captions, teacher_captions,
+    teacher_embedding, teacher_logits, token_kd_step)
 from audiocaption_tpu_torch.training.scst import scst_step
 from audiocaption_tpu_torch.training.swa import swa_init, swa_update
 from audiocaption_tpu_torch.training.trainer import (
@@ -100,6 +125,9 @@ def build_dataset(cfg: Dict):
         return CaptionDataset(**args)
     if t == "InferenceDataset":
         return InferenceDataset(**args)
+    if t in ("CaptionKdDataset", "InferKdDataset"):
+        from audiocaption_tpu_torch.data import kd_dataset
+        return getattr(kd_dataset, t)(**args)
     raise ValueError(f"dataset {t!r} is not ported yet")
 
 
@@ -121,10 +149,17 @@ def build_dataloader(data_cfg: Dict, tokenizer=None, train: bool = True):
     dataset = build_dataset(data_cfg["dataset"])
     collate = build_collate(data_cfg["collate_fn"], tokenizer)
     dl_args = dict(data_cfg.get("dataloader_args", {}) or {})
-    if dl_args.pop("num_samples", None):
-        raise ValueError("dataloader_args.num_samples (the iteration "
-                         "batch sampler) is not ported yet")
+    num_samples = dl_args.pop("num_samples", None)
     dl_args.setdefault("batch_size", 32)
+    if train and num_samples:
+        # a fixed number of samples an epoch, wraparound shuffle
+        from audiocaption_tpu_torch.data.kd_dataset import (
+            IterationBatchSampler)
+        sampler = IterationBatchSampler(
+            dataset, dl_args.pop("batch_size"), num_samples,
+            shuffle=dl_args.pop("shuffle", True))
+        return DataLoader(dataset, collate_fn=collate,
+                          batch_sampler=sampler, **dl_args)
     if not train:
         dl_args["shuffle"] = False
     return DataLoader(dataset, collate_fn=collate, drop_last=train,
@@ -214,10 +249,35 @@ class ValScorer:
                                          ptb_tokenize(preds))[0]
 
 
+@dataclasses.dataclass
+class RunSetup:
+    """What every training run of the runner starts from (``_setup``)."""
+    cfg: Dict
+    device: torch.device
+    seed: int
+    exp_dir: Path
+    log: Callable[[str], None]
+    tokenizer: DictTokenizer
+    train_loader: object
+    val_loader: object
+    val_key2refs: Dict
+    model: torch.nn.Module
+    epochs: int
+    total_iters: int
+    # create_train_state's arguments after the model
+    opt: Dict
+
+
 class Runner:
 
-    def train(self, config: str, *overrides: str) -> str:
-        """Train from a config; returns the experiment directory."""
+    def _setup(self, config: str, overrides) -> RunSetup:
+        """Load the config with the overrides, seed, write
+        ``config.yaml`` into the experiment directory, open its log, build
+        the tokenizer (it must have a vocabulary) and the loaders, the
+        model from the config (seeded random weights, then any pretrained
+        parts, on the device; an ``ScstWrapper`` node is the model it
+        wraps) and the optimiser's settings (Adam with L2 decay, the clip,
+        the schedule with a fifth of warm-up)."""
         import yaml
         cfg = load_config(config, parse_overrides(overrides))
         device = resolve_device(cfg.get("device", "cuda"))
@@ -227,9 +287,7 @@ class Runner:
         exp_dir.mkdir(parents=True, exist_ok=True)
         with open(exp_dir / "config.yaml", "w") as f:
             yaml.safe_dump(cfg, f)
-        log = _make_logger(exp_dir / "train.log")
 
-        # data
         tokenizer = build_tokenizer(
             cfg["data"]["train"]["collate_fn"]["tokenizer"])
         if not tokenizer.loaded:
@@ -238,32 +296,44 @@ class Runner:
         train_loader = build_dataloader(cfg["data"]["train"], tokenizer)
         val_cfg = cfg["data"]["val"]
         val_loader = build_dataloader(val_cfg, train=False)
-        val_key2refs = load_caption_json(val_cfg["caption"],
-                                         zh=cfg.get("zh", False))
 
-        # model: seeded random weights, then any pretrained parts; an
-        # ScstWrapper node trains the model it wraps by SCST
-        model_cfg = cfg["model"]
-        rl_train = short_type(model_cfg.get("type", "")) == "ScstWrapper"
         model, pretrained = build_model_from_config(
-            model_cfg, vocab_size=len(tokenizer))
+            cfg["model"], vocab_size=len(tokenizer))
         random_init(model, torch.Generator().manual_seed(seed))
         for spec in pretrained:
             _load_pretrained(model, spec)
-        model.to(device)
 
-        # optimisation
         trainer_cfg = cfg.get("trainer", {})
         epochs = trainer_cfg.get("epochs", 25)
         total_iters = epochs * len(train_loader)
         opt_args = cfg.get("optimizer", {}).get("args", {})
         base_lr = opt_args.get("lr", 5e-4)
-        schedule = build_schedule(cfg.get("lr_scheduler", {}), base_lr,
-                                  total_iters, total_iters // 5)
-        state = create_train_state(
-            model, base_lr, schedule,
-            weight_decay=opt_args.get("weight_decay", 0.0),
-            max_grad_norm=trainer_cfg.get("max_grad_norm", 1.0))
+        return RunSetup(
+            cfg=cfg, device=device, seed=seed, exp_dir=exp_dir,
+            log=_make_logger(exp_dir / "train.log"), tokenizer=tokenizer,
+            train_loader=train_loader, val_loader=val_loader,
+            val_key2refs=load_caption_json(val_cfg["caption"],
+                                           zh=cfg.get("zh", False)),
+            model=model.to(device), epochs=epochs, total_iters=total_iters,
+            opt=dict(base_lr=base_lr,
+                     schedule=build_schedule(cfg.get("lr_scheduler", {}),
+                                             base_lr, total_iters,
+                                             total_iters // 5),
+                     weight_decay=opt_args.get("weight_decay", 0.0),
+                     max_grad_norm=trainer_cfg.get("max_grad_norm", 1.0)))
+
+    def train(self, config: str, *overrides: str) -> str:
+        """Train from a config; returns the experiment directory."""
+        run = self._setup(config, overrides)
+        cfg, device, seed, exp_dir, log = (run.cfg, run.device, run.seed,
+                                           run.exp_dir, run.log)
+        tokenizer, train_loader, model = (run.tokenizer, run.train_loader,
+                                          run.model)
+        epochs, total_iters = run.epochs, run.total_iters
+        trainer_cfg = cfg.get("trainer", {})
+        # an ScstWrapper node trains the model it wraps by SCST
+        rl_train = short_type(cfg["model"].get("type", "")) == "ScstWrapper"
+        state = create_train_state(model, **run.opt)
         loss_fn = build_loss(cfg.get("loss", {}))
 
         # scheduled sampling: on, the step gets a tensor ratio (the cached
@@ -308,8 +378,8 @@ class Runner:
                     FusedGreedyDecoder)
                 baseline = FusedGreedyDecoder(model, rl_len, device=device)
 
-        val_score = ValScorer(model, tokenizer, val_loader, val_key2refs,
-                              device)
+        val_score = ValScorer(model, tokenizer, run.val_loader,
+                              run.val_key2refs, device)
         ckpt_writer = AsyncCheckpointer()
         variables = model_variables(model)
         try:
@@ -387,16 +457,169 @@ class Runner:
         return str(exp_dir)
 
 
+    def _load_experiment(self, experiment_path: str, resume: str,
+                         device: torch.device):
+        """An experiment directory (either package's: ``config.yaml`` and
+        the checkpoint ``resume``) -> (config, model on ``device`` in
+        ``eval()``, tokenizer).  An ``ScstWrapper`` node is read as the
+        model it wraps."""
+        exp_dir = Path(experiment_path)
+        cfg = load_config(str(exp_dir / "config.yaml"))
+        ckpt = load_checkpoint(str(exp_dir / resume))
+        tokenizer = DictTokenizer()
+        if ckpt.get("tokenizer"):
+            tokenizer.load_state_dict(ckpt["tokenizer"])
+            tokenizer.loaded = True
+        model, _ = build_model_from_config(cfg["model"],
+                                           vocab_size=len(tokenizer))
+        load_reference_state_dict(model, ckpt["variables"])
+        return cfg, model.to(device).eval(), tokenizer
+
+    def train_kd(self, config: str, *overrides: str) -> str:
+        """Knowledge distillation from a config with a ``kd`` node (see
+        the module docstring); returns the experiment directory."""
+        run = self._setup(config, overrides)
+        cfg, device, seed, exp_dir, log = (run.cfg, run.device, run.seed,
+                                           run.exp_dir, run.log)
+        tokenizer, train_loader, model = (run.tokenizer, run.train_loader,
+                                          run.model)
+        kd_cfg = cfg["kd"]
+        kd_type = kd_cfg.get("type", "token")
+        if kd_type not in ("token", "seq", "enc"):
+            raise ValueError(f"kd.type {kd_type!r}: token, seq or enc")
+
+        teacher = None
+        if kd_cfg.get("teacher"):
+            _, teacher, t_tok = self._load_experiment(
+                kd_cfg["teacher"]["experiment_path"],
+                kd_cfg["teacher"].get("resume", "swa.pth"), device)
+            log(f"teacher from {kd_cfg['teacher']['experiment_path']}")
+
+        if kd_type == "seq":
+            if teacher is None:
+                raise ValueError("seq KD needs kd.teacher")
+            fused = None
+            if device.type == "cuda":
+                from audiocaption_tpu_torch.decoding.fused_greedy import (
+                    FusedGreedyDecoder)
+                fused = FusedGreedyDecoder(teacher,
+                                           teacher.special.max_length,
+                                           device=device)
+
+            def teacher_generate(wav, wav_len):
+                b = to_device({"wav": wav, "wav_len": wav_len}, device)
+                seq = teacher_captions(teacher, b["wav"], b["wav_len"], fused)
+                return t_tok.decode(seq.cpu().numpy())
+            cache_path = exp_dir / "pseudo_captions.json"
+            cache = (json.loads(cache_path.read_text())
+                     if cache_path.exists() else {})
+            cache = generate_pseudo_captions(teacher_generate, train_loader,
+                                             cache)
+            cache_path.write_text(json.dumps(cache, indent=1))
+            log(f"{len(cache)} pseudo captions in {cache_path}")
+            state = create_train_state(model, **run.opt)
+            loss_fn = build_loss(cfg.get("loss", {}))
+
+            def run_step(batch):
+                b = to_device(batch, device)
+                enc = tokenizer([cache[a] for a in batch["audio_id"]])
+                b["cap"] = torch.as_tensor(enc["cap"]).to(device, torch.long)
+                b["cap_len"] = torch.as_tensor(enc["cap_len"]).to(
+                    device, torch.long)
+                return train_step(state, loss_fn, b)
+        elif kd_type == "enc":
+            embs = None
+            if kd_cfg.get("teacher_emb"):
+                embs = dict(np.load(kd_cfg["teacher_emb"]))
+                tchr_dim = next(iter(embs.values())).shape[-1]
+            elif teacher is not None:
+                tchr_dim = teacher.encoder.fc_emb_size
+            else:
+                raise ValueError(
+                    "enc KD needs kd.teacher_emb (npz) or kd.teacher (an "
+                    "experiment whose encoder embeds each batch)")
+            head = ContraEncoderKdHead(
+                model.encoder.fc_emb_size, tchr_dim,
+                shared_dim=kd_cfg.get("shared_dim", 1024),
+                generator=torch.Generator().manual_seed(seed)).to(device)
+            state = create_train_state(model, head=head, **run.opt)
+            unsup = kd_cfg.get("unsup", False)
+
+            def run_step(batch):
+                b = to_device(batch, device)
+                if embs is not None:
+                    b["tchr_emb"] = torch.as_tensor(np.stack(
+                        [embs[a] for a in batch["audio_id"]])).to(
+                            device, torch.float32)
+                else:
+                    b["tchr_emb"] = teacher_embedding(teacher, b["wav"],
+                                                      b["wav_len"])
+                return encoder_kd_step(state, head, b,
+                                       kd_weight=kd_cfg.get("weight", 1.0),
+                                       unsup=unsup)
+        else:
+            if teacher is None:
+                raise ValueError("token KD needs kd.teacher")
+            state = create_train_state(model, **run.opt)
+            kd_args = dict(
+                kd_weight=kd_cfg.get("weight", 0.5),
+                kd_type=kd_cfg.get("kd_loss", "kl"),
+                temperature=kd_cfg.get("temperature", 1.0),
+                smoothing=cfg.get("loss", {}).get("args", {}).get(
+                    "smoothing", 0.1))
+
+            def run_step(batch):
+                b = to_device(batch, device)
+                b["teacher_logit"] = teacher_logits(teacher, b)
+                return token_kd_step(state, b, **kd_args)
+
+        monitor = MetricImprover("max")
+        val_score = ValScorer(model, tokenizer, run.val_loader,
+                              run.val_key2refs, device)
+        ckpt_writer = AsyncCheckpointer()
+        variables = model_variables(model)
+        try:
+            for epoch in range(1, run.epochs + 1):
+                t0 = time.time()
+                losses = [run_step(batch)["loss"] for batch in train_loader]
+                train_loss = (float(torch.stack(losses).mean())
+                              if losses else float("nan"))
+                score = val_score()
+                improved = monitor(score)
+                log(f"kd[{kd_type}] epoch {epoch}: loss {train_loss:.4f} "
+                    f"val_cider {score:.4f} ({time.time() - t0:.0f}s)")
+                variables = model_variables(model)
+
+                def ckpt_job(snap=variables, epoch=epoch, improved=improved):
+                    save_checkpoint(str(exp_dir / "last.pth"), snap,
+                                    epoch=epoch,
+                                    tokenizer_state=tokenizer.state_dict())
+                    if improved:
+                        shutil.copyfile(exp_dir / "last.pth",
+                                        exp_dir / "best.pth")
+                ckpt_writer.submit(ckpt_job)
+            ckpt_writer.wait()
+        finally:
+            ckpt_writer.close()
+        save_checkpoint(str(exp_dir / "swa.pth"), variables,
+                        epoch=run.epochs,
+                        tokenizer_state=tokenizer.state_dict())
+        log(f"done; best val score {monitor.best:.4f}")
+        return str(exp_dir)
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     parser = argparse.ArgumentParser(prog="audiocaption_tpu_torch.cli.run")
     sub = parser.add_subparsers(dest="command", required=True)
-    p = sub.add_parser("train", help="train from a YAML config")
-    p.add_argument("config")
-    p.add_argument("overrides", nargs="*",
-                   help="key.sub=value (YAML value), e.g. device=cpu")
+    for name, text in (("train", "train from a YAML config"),
+                       ("train_kd", "knowledge distillation from a YAML "
+                                    "config with a kd node")):
+        p = sub.add_parser(name, help=text)
+        p.add_argument("config")
+        p.add_argument("overrides", nargs="*",
+                       help="key.sub=value (YAML value), e.g. device=cpu")
     args = parser.parse_args(argv)
-    if args.command == "train":
-        print(Runner().train(args.config, *args.overrides))
+    print(getattr(Runner(), args.command)(args.config, *args.overrides))
 
 
 if __name__ == "__main__":

@@ -9,6 +9,9 @@ numpy.  As in the reference:
     ids fall back to "Y{id}.wav" keys;
   * h5 handles open lazily, once per process (re-opened after a fork);
   * resample orig_sr -> target_sr (scipy polyphase);
+  * ``audio_duration`` (seconds at the target rate): a random crop of a
+    longer clip (Python's ``random``, as the reference), zeros after a
+    shorter one;
   * ``CaptionDataset`` yields one item per (audio_id, cap_id), the
     caption string tokenized later by the collate.
 
@@ -20,6 +23,7 @@ from __future__ import annotations
 import csv
 import json
 import os
+import random
 from fractions import Fraction
 from typing import Dict, List, Optional
 
@@ -94,22 +98,39 @@ class InferenceDataset:
 
     def __init__(self, features: Dict[str, str],
                  orig_sr: Optional[int] = None,
-                 target_sr: Optional[int] = None):
+                 target_sr: Optional[int] = None,
+                 audio_duration: Optional[float] = None):
         wav_csv = features["wav"] if isinstance(features, dict) else features
         self.aid_to_h5 = read_wav_csv(wav_csv)
         self.audio_ids = list(self.aid_to_h5.keys())
         self.orig_sr = orig_sr
         self.target_sr = target_sr
+        self.audio_duration = audio_duration
         self.cache = _H5Cache()
 
     def __len__(self) -> int:
         return len(self.audio_ids)
 
+    def read(self, audio_id: str) -> np.ndarray:
+        """The stored wave, at its own rate."""
+        return self.cache.read(self.aid_to_h5[audio_id], audio_id)
+
+    def _crop_or_pad(self, wav: np.ndarray) -> np.ndarray:
+        if self.audio_duration is None:
+            return wav
+        n = int(self.audio_duration * (self.target_sr or self.orig_sr))
+        if len(wav) > n:
+            start = random.randint(0, len(wav) - n)
+            return wav[start:start + n]
+        if len(wav) < n:
+            return np.pad(wav, (0, n - len(wav)))
+        return wav
+
     def get_audio(self, audio_id: str) -> np.ndarray:
-        wav = self.cache.read(self.aid_to_h5[audio_id], audio_id)
+        wav = self.read(audio_id)
         if self.orig_sr and self.target_sr:
             wav = resample(wav, self.orig_sr, self.target_sr)
-        return np.asarray(wav, np.float32)
+        return np.asarray(self._crop_or_pad(wav), np.float32)
 
     def __getitem__(self, index: int) -> Dict:
         aid = self.audio_ids[index]

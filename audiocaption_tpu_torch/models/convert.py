@@ -21,6 +21,13 @@ trainer's key space (``encoder.cnn.*``, ``encoder.rnn.network.*``,
 ``decoder.*``); :func:`reference_prefixes` says which key space a
 ``Captioner`` uses.
 
+``cdur5_trm_state_dict_from_jax`` converts the JAX KD student (Cdur5
+CRNN encoder, transformer decoder) into ``encoder.b{1..5}.{bn,conv}.*``,
+``encoder.gru.*``, ``decoder.*``.  Neither package has the reference's
+own Cdur5 key names, so this key space is the port's module names, which
+follow the JAX tree; ``kd_head_state_dict_from_jax`` converts an encoder-KD
+head (``stdnt_proj``, ``tchr_proj``, ``logit_scale``).
+
 ``tempgru_state_dict_from_jax`` does the same for the temporal captioner
 and its SED model, into the ``wsntxxn/cnn14rnn-tempgru`` key space
 (``cap_model.encoder.{cnn,rnn}.*``, ``cap_model.decoder.*``,
@@ -199,13 +206,50 @@ def cnn14rnn_trm_state_dict_from_jax(variables: Mapping,
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 
+def cdur5_trm_state_dict_from_jax(variables: Mapping, nlayers: int = 1,
+                                  tie_weights: bool = False
+                                  ) -> Dict[str, torch.Tensor]:
+    """JAX KD student variables (``zoo.kd_student_cdur5``, or a config's
+    ``Cdur5Encoder`` + ``TransformerDecoder``; nested numpy dicts) -> the
+    port's state dict of tensors under ``encoder.`` and ``decoder.``.
+    The encoder keys are the port's module names, which follow the JAX
+    tree (``b1`` .. ``b5``, ``gru``): the reference's own Cdur5 names are
+    in neither package."""
+    out: Dict[str, np.ndarray] = {}
+    enc_p = variables["params"]["encoder"]
+    enc_s = variables["batch_stats"]["encoder"]
+    for i in range(1, 6):
+        b = f"b{i}"
+        _batchnorm(enc_p[b]["bn"], enc_s[b]["bn"], f"encoder.{b}.bn", out)
+        _conv2d(enc_p[b]["conv"], f"encoder.{b}.conv", out)
+    _gru(enc_p["gru"], "encoder.gru", 1, True, out)
+    _transformer_decoder(variables["params"]["decoder"], "decoder", nlayers,
+                         tie_weights, out)
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def kd_head_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """An encoder-KD head's JAX params (``stdnt_proj`` and, where the
+    head has them, ``tchr_proj`` and ``logit_scale``; ``layer_weights``
+    of the weighted multi-layer head) -> the port head's state dict."""
+    out: Dict[str, np.ndarray] = {}
+    for name in ("stdnt_proj", "tchr_proj"):
+        if name in params:
+            _linear(params[name], name, out)
+    for name in ("logit_scale", "layer_weights"):
+        if name in params:
+            out[name] = _n(params[name])
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
 def reference_prefixes(model: torch.nn.Module) -> Tuple[str, str]:
     """The prefixes of a ``Captioner``'s encoder and decoder keys in its
     reference key space: the reference trainer's ``encoder.`` /
-    ``decoder.`` for a Cnn14-GRU encoder, the HF EffB2-Transformer
-    checkpoint's otherwise."""
+    ``decoder.`` for a Cnn14-GRU or a Cdur5 encoder, the HF
+    EffB2-Transformer checkpoint's otherwise."""
+    from audiocaption_tpu_torch.models.encoders_extra import Cdur5Encoder
     from audiocaption_tpu_torch.models.rnn_encoder import Cnn14RnnEncoder
-    if isinstance(model.encoder, Cnn14RnnEncoder):
+    if isinstance(model.encoder, (Cnn14RnnEncoder, Cdur5Encoder)):
         return "encoder.", "decoder."
     return ENCODER_PREFIX, DECODER_PREFIX
 

@@ -10,6 +10,7 @@ from torch import nn
 from audiocaption_tpu_torch.decoding.engine import SpecialTokens
 from audiocaption_tpu_torch.models.captioner import Captioner
 from audiocaption_tpu_torch.models.effb2 import EfficientNetB2
+from audiocaption_tpu_torch.models.encoders_extra import Cdur5Encoder
 from audiocaption_tpu_torch.models.layers import MultiheadAttention
 from audiocaption_tpu_torch.models.rnn_decoder import (
     Seq2SeqAttention, TemporalBahAttnDecoder)
@@ -85,6 +86,26 @@ def cnn14rnn_tempgru(vocab_size: int = 4981, sample_rate: int = 32000,
         emb_dim=decoder_emb_dim, vocab_size=vocab_size,
         fc_emb_dim=encoder.fc_emb_size, attn_emb_dim=encoder.fc_emb_size,
         d_model=decoder_d_model)
+    mel = CNN14_MEL_32K if sample_rate == 32000 else CNN14_MEL_16K
+    return Captioner(encoder=encoder, decoder=decoder, mel=mel,
+                     special=SpecialTokens(max_length=max_length))
+
+
+def kd_student_cdur5(vocab_size: int = 4981, sample_rate: int = 32000,
+                     decoder_emb_dim: int = 128, decoder_n_layers: int = 1,
+                     decoder_dropout: float = 0.2,
+                     compute_dtype: torch.dtype = torch.float32,
+                     max_length: int = 20) -> Captioner:
+    """The KD student recipe (``configs/*/kd_token.yaml``): the Cdur5 CRNN
+    encoder (memory width 256, a quarter of the log-mel frames) and a
+    1-layer transformer decoder, emb 128, 2 heads, FFN 512, untied (2.1M
+    parameters at V=4368).  ``compute_dtype`` is the decoder's; the
+    Cdur5 runs in float32, as in the JAX zoo."""
+    encoder = Cdur5Encoder()
+    decoder = TransformerDecoder(
+        emb_dim=decoder_emb_dim, vocab_size=vocab_size,
+        attn_emb_dim=encoder.fc_emb_size, nlayers=decoder_n_layers,
+        dropout=decoder_dropout, compute_dtype=compute_dtype)
     mel = CNN14_MEL_32K if sample_rate == 32000 else CNN14_MEL_16K
     return Captioner(encoder=encoder, decoder=decoder, mel=mel,
                      special=SpecialTokens(max_length=max_length))

@@ -7,7 +7,8 @@ monitor_state, not_improve_cnt, tokenizer (the word -> id dict),
 lr_count, optimizer (optional)}, the JAX package's payload.  Here
 ``variables`` is a flat dict of numpy arrays in the model's reference
 key space (for the flagship ``model.model.encoder.backbone.eff_net.*``,
-``model.model.decoder.*``; for cnn14rnn_trm ``encoder.*``, ``decoder.*``:
+``model.model.decoder.*``; for cnn14rnn_trm and the Cdur5 KD student
+``encoder.*``, ``decoder.*``:
 what ``models.convert.load_reference_state_dict`` reads), so the HF API
 loads it as it loads a reference checkpoint.
 :func:`load_checkpoint` also reads a checkpoint the JAX package wrote
@@ -27,8 +28,8 @@ import numpy as np
 import torch
 
 from audiocaption_tpu_torch.models.convert import (
-    cnn14rnn_trm_state_dict_from_jax, reference_prefixes,
-    state_dict_from_jax)
+    cdur5_trm_state_dict_from_jax, cnn14rnn_trm_state_dict_from_jax,
+    reference_prefixes, state_dict_from_jax)
 
 
 def model_variables(model: torch.nn.Module) -> Dict[str, np.ndarray]:
@@ -92,13 +93,14 @@ def load_checkpoint(path: str) -> Dict:
 
 
 def jax_variables_to_reference(variables: Mapping) -> Dict[str, np.ndarray]:
-    """A JAX EffB2-Transformer or cnn14rnn_trm tree {params, batch_stats}
-    (numpy leaves) -> its reference key space; the GRU's and the
-    decoder's depth and the weight tying are read off the tree."""
+    """A JAX EffB2-Transformer, cnn14rnn_trm or Cdur5 KD-student tree
+    {params, batch_stats} (numpy leaves) -> its reference key space; the
+    GRU's and the decoder's depth and the weight tying are read off the
+    tree."""
     params = variables["params"]
     dec, enc = params.get("decoder", {}), params.get("encoder", {})
     if "attn_proj_dense" not in dec or not enc:
-        raise ValueError("only JAX EfficientNet-B2 or Cnn14-GRU + "
+        raise ValueError("only JAX EfficientNet-B2, Cnn14-GRU or Cdur5 + "
                          "TransformerDecoder checkpoints convert to this "
                          "package's key space")
     nlayers = sum(k.startswith("layer") for k in dec)
@@ -111,6 +113,9 @@ def jax_variables_to_reference(variables: Mapping) -> Dict[str, np.ndarray]:
                 for k in gru),
             rnn_bidirectional=any(k.endswith("_reverse") for k in gru),
             nlayers=nlayers, tie_weights=tie)
+    elif "b1" in enc and "gru" in enc:
+        sd = cdur5_trm_state_dict_from_jax(variables, nlayers=nlayers,
+                                           tie_weights=tie)
     else:
         sd = state_dict_from_jax(variables, nlayers=nlayers, tie_weights=tie)
     return {k: v.numpy() for k, v in sd.items()}

@@ -50,9 +50,12 @@ class TrainState:
 
 
 def make_optimizer(model: nn.Module, base_lr: float, schedule: Schedule,
-                   weight_decay: float = 1e-6):
-    """-> (Adam over the trainable parameters, its LambdaLR)."""
-    params = [p for p in model.parameters() if p.requires_grad]
+                   weight_decay: float = 1e-6,
+                   head: Optional[nn.Module] = None):
+    """-> (Adam over the trainable parameters of ``model`` and of
+    ``head``, e.g. an encoder-KD head, its LambdaLR)."""
+    params = [p for m in (model, head) if m is not None
+              for p in m.parameters() if p.requires_grad]
     optimizer = torch.optim.Adam(params, lr=base_lr,
                                  weight_decay=weight_decay)
     return optimizer, lambda_lr(optimizer, schedule, base_lr)
@@ -60,9 +63,10 @@ def make_optimizer(model: nn.Module, base_lr: float, schedule: Schedule,
 
 def create_train_state(model: nn.Module, base_lr: float, schedule: Schedule,
                        weight_decay: float = 1e-6,
-                       max_grad_norm: float = 1.0) -> TrainState:
+                       max_grad_norm: float = 1.0,
+                       head: Optional[nn.Module] = None) -> TrainState:
     optimizer, scheduler = make_optimizer(model, base_lr, schedule,
-                                          weight_decay)
+                                          weight_decay, head)
     return TrainState(model, optimizer, scheduler, max_grad_norm)
 
 

@@ -71,7 +71,9 @@ def build_model_from_config(model_cfg: Dict,
     this package has: the ``EfficientNetB2`` encoder, the ``CrnnEncoder``
     / ``Cnn14RnnEncoder`` (a Cnn14 and a GRU, from its ``cnn`` and ``rnn``
     nodes, with the defaults of the JAX package's
-    ``build_model_from_config``) and the ``TransformerDecoder``;
+    ``build_model_from_config``), the ``Cdur5Encoder`` (memory width
+    256, the mel preset of its ``sample_rate``) and the
+    ``TransformerDecoder``;
     an ``ScstWrapper`` node is read as the model node it wraps.  Returns
     (captioner, pretrained specs), a spec being (the dotted path of the
     submodule, e.g. ``"encoder.cnn"``, checkpoint path).  Other types
@@ -80,6 +82,7 @@ def build_model_from_config(model_cfg: Dict,
     from audiocaption_tpu_torch.decoding.engine import SpecialTokens
     from audiocaption_tpu_torch.models.captioner import Captioner
     from audiocaption_tpu_torch.models.effb2 import EfficientNetB2
+    from audiocaption_tpu_torch.models.encoders_extra import Cdur5Encoder
     from audiocaption_tpu_torch.models.rnn_encoder import Cnn14RnnEncoder
     from audiocaption_tpu_torch.models.transformer_decoder import (
         TransformerDecoder)
@@ -110,6 +113,10 @@ def build_model_from_config(model_cfg: Dict,
         for part, node in (("encoder.cnn", cnn_cfg), ("encoder.rnn", rnn_cfg)):
             if node.get("pretrained"):
                 pretrained.append((part, node["pretrained"]))
+    elif enc_type == "Cdur5Encoder":
+        encoder = Cdur5Encoder()
+        mel = (CNN14_MEL_32K if enc_args.get("sample_rate", 32000) == 32000
+               else CNN14_MEL_16K)
     elif enc_type == "EfficientNetB2":
         if enc_args.get("prune_ratio"):
             raise ValueError("training a pruned encoder (encoder.args."

@@ -168,7 +168,25 @@ Phases, each of which must pass (none is caught and skipped):
      and idle share (``torch.profiler``); the greedy kernel at the
      baseline's shapes beside its plain version and its bound; the native
      CIDEr-D scorer against the Python one on the batch's rewards; the
-     flagship's "dbs" and "top0.9" through the API at B=64 x 10 s.
+     flagship's "dbs" and "top0.9" through the API at B=64 x 10 s;
+ 20. knowledge distillation of ``zoo.kd_student_cdur5(vocab_size=4368)``
+     (Cdur5 encoder, 1-layer decoder, emb 128) from
+     ``zoo.cnn14rnn_trm(vocab_size=4368)`` at the recipe of
+     ``configs/synthetic_v2/kd_token.yaml`` (KL at T=2, weight 0.5, Adam
+     5e-4, L2 1e-6, clip 1.0) through ``training/distill.py`` on one
+     device-made batch of 32 x 10 s at 32 kHz: (a) the greedy kernel
+     against its plain version at the student's shapes (E=128, one
+     layer, S=250, V=4368 untied); (b) a token-KD step on the card
+     against a CPU copy (relative 1e-4); (c) 20 steps lower the KD loss,
+     2 log-mel launches a step; (d) seq KD: the teacher's pseudo captions
+     through the greedy kernel against the torch engine; (e) encoder KD
+     with and without captions, the InfoNCE against a CPU copy (1e-5);
+     (f) the student's val score through the greedy kernel (``kd_path``);
+ 21. time the token-KD step (median of 10 after 3, float32, TF32 off)
+     split by CUDA events into teacher forward, student forward, KD + sup
+     loss, backward and optimizer; KD clips/s, peak memory, idle share;
+     the greedy kernel at the student's shapes warm and cold against its
+     plain version and its bound; the val score per 64 clips.
 
 Every kernel's launch counter is set to 0 just before each path is
 driven (phases 4-5, the EffB2 serving path; phase 8, the temporal path;
@@ -176,10 +194,12 @@ phase 10, the folded encoder walks; phase 13, the bf16 EffB2 path, whose
 counts by mode fill the bf16 entries; phase 14, the bf16 temporal path;
 phase 16, the training path's val score, whose count is the greedy
 entry's ``train_launches``; phase 18, the SCST path, whose counts are the
-greedy and log-mel entries' ``scst_launches``) and read just after; the
-run fails if a kernel of that path was not launched there.  The second-to-last line
-is the kernels JSON object, the last line ``{"ok": true, "device":
-{...}}``.
+greedy and log-mel entries' ``scst_launches``; phase 20, the KD path,
+whose counts are their ``kd_launches`` and whose val score's greedy
+launches are the ``fused_greedy[kd_student]`` entry's) and read just
+after; the run fails if a kernel of that path was not launched there.
+The second-to-last line is the kernels JSON object, the last line
+``{"ok": true, "device": {...}}``.
 
 The script imports nothing of JAX.  It exits non-zero, printing no
 result, where CUDA is unavailable or the package is not beside it.
@@ -187,6 +207,7 @@ result, where CUDA is unavailable or the package is not beside it.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -244,6 +265,15 @@ SCST_PROBE_SETS = {"whole model": lambda n: True,
 SCST_FIRST_ORDER = 0.1        # |change / prediction - 1| at the smallest lr
 SCST_WARMUP, SCST_TIMED = 3, 10
 NEW_METHODS = ("dbs", "sample", "top5", "top0.9", "gumbel")
+# phases 20-21: knowledge distillation (configs/synthetic_v2/kd_token.yaml):
+# zoo.kd_student_cdur5 distilled from zoo.cnn14rnn_trm
+KD_V, KD_B, KD_SECONDS, KD_STEPS = 4368, 32, 10, 20
+KD_LR, KD_FINAL_LR, KD_WD, KD_CLIP = 5e-4, 5e-7, 1e-6, 1.0
+KD_T, KD_WEIGHT, KD_SHARED = 2.0, 0.5, 1024
+KD_STEP_RTOL = 1e-4           # (b) loss and gradient norm, card vs CPU copy
+KD_NCE_ATOL = 1e-5            # (e) InfoNCE, card vs CPU copy
+KD_VAL_CLIPS = 64
+KD_WARMUP, KD_TIMED = 3, 10
 
 
 def log(msg: str) -> None:
@@ -324,18 +354,20 @@ def jittered_decoder_inputs(device):
     return packed, memkv, valid.to(device)
 
 
-def decode_flops(E_, F_, V_, S_valid, steps_per_row, rows_per_sample):
+def decode_flops(E_, F_, V_, S_valid, steps_per_row, rows_per_sample,
+                 nl=NLAYERS, S_=S_KERNEL):
     """(product ops, attention ops) one decode needs: per executed step and
-    row, the layer and vocabulary products (weights times the row), and
-    self attention over t+1 keys plus cross attention over the valid
-    memory (2 ops per multiply-add)."""
-    per_step_weights = NLAYERS * 2 * (6 * E_ * E_ + 2 * E_ * F_) + 2 * V_ * E_
+    row, the ``nl`` layers' and the vocabulary products (weights times the
+    row), and self attention over t+1 keys plus cross attention over the
+    valid memory, all S_ keys where none is valid (2 ops per
+    multiply-add)."""
+    per_step_weights = nl * 2 * (6 * E_ * E_ + 2 * E_ * F_) + 2 * V_ * E_
     mm = attn = 0
     for s_valid, steps in zip(S_valid, steps_per_row):
-        keys = s_valid if s_valid > 0 else S_KERNEL
+        keys = s_valid if s_valid > 0 else S_
         for t in range(steps):
             mm += rows_per_sample * per_step_weights
-            attn += rows_per_sample * NLAYERS * 2 * 2 * E_ * ((t + 1) + keys)
+            attn += rows_per_sample * nl * 2 * 2 * E_ * ((t + 1) + keys)
     return mm, attn
 
 
@@ -1671,9 +1703,10 @@ def train_times(t, dev, card):
     return results
 
 
-def scst_batch(dev, gen, cpu_gen):
-    """SCST_B device-made clips of SCST_SECONDS at 32 kHz, mixed lengths
-    (each >= 1 s, the first full), each its own sound: noise at a level
+def scst_batch(dev, gen, cpu_gen, B=None, seconds=None):
+    """B (SCST_B) device-made clips of ``seconds`` (SCST_SECONDS) at 32
+    kHz, mixed lengths (each >= 1 s, the first full), each its own sound:
+    noise at a level
     from 0.02 to 0.63, every other clip with a tone at its own pitch
     (100 Hz to 6.4 kHz), so that the encoder tells the clips apart and
     each clip's samples, and so its references, have words of their own
@@ -1681,15 +1714,16 @@ def scst_batch(dev, gen, cpu_gen):
     weight is 0)."""
     import math
     import torch
-    n = SCST_SECONDS * SR_32K
+    B, seconds = B or SCST_B, seconds or SCST_SECONDS
+    n = seconds * SR_32K
     t = torch.arange(n, device=dev) / SR_32K
-    freq = 100.0 * 2 ** (torch.arange(SCST_B, device=dev) / SCST_B * 6.0)
-    level = 0.02 * 10 ** (torch.rand(SCST_B, generator=cpu_gen) * 1.5)
+    freq = 100.0 * 2 ** (torch.arange(B, device=dev) / B * 6.0)
+    level = 0.02 * 10 ** (torch.rand(B, generator=cpu_gen) * 1.5)
     tone = (torch.sin(2 * math.pi * freq[:, None] * t[None]) * 0.3
-            * (torch.arange(SCST_B, device=dev)[:, None] % 2))
-    wav = ((tone + torch.randn(SCST_B, n, generator=gen, device=dev))
+            * (torch.arange(B, device=dev)[:, None] % 2))
+    wav = ((tone + torch.randn(B, n, generator=gen, device=dev))
            * level.to(dev)[:, None])
-    wav_len = torch.randint(SR_32K, n + 1, (SCST_B,), generator=cpu_gen)
+    wav_len = torch.randint(SR_32K, n + 1, (B,), generator=cpu_gen)
     wav_len[0] = n
     return {"wav": wav, "wav_len": wav_len.to(dev)}
 
@@ -2079,6 +2113,427 @@ def scst_times(t, api, wav64, len64, card):
                 greedy_bound_ms=bound)
 
 
+@contextlib.contextmanager
+def dropout_off(*models):
+    """Every dropout of ``models`` at 0 inside the block (``nn.Dropout``
+    modules and the float ``dropout`` rates the port's modules read),
+    restored after."""
+    import torch
+    saved = []
+    for model in models:
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                saved.append((m, "p", m.p))
+            elif isinstance(getattr(m, "dropout", None), float):
+                saved.append((m, "dropout", m.dropout))
+    for m, k, _ in saved:
+        setattr(m, k, 0.0)
+    try:
+        yield
+    finally:
+        for m, k, v in saved:
+            setattr(m, k, v)
+
+
+def kd_batch(dev, gen, cpu_gen, subset):
+    """KD_B clips of KD_SECONDS at 32 kHz, each its own sound
+    (``scst_batch``), with captions of TRAIN_CAP_LEN tokens from
+    ``subset``."""
+    import torch
+    b = scst_batch(dev, gen, cpu_gen, KD_B, KD_SECONDS)
+    lo, hi = TRAIN_CAP_LEN
+    cap_len = torch.randint(lo, hi + 1, (KD_B,), generator=cpu_gen)
+    cap = torch.zeros(KD_B, hi, dtype=torch.long)
+    for i, c in enumerate(cap_len.tolist()):
+        cap[i, 0], cap[i, c - 1] = 1, 2
+        cap[i, 1:c - 1] = subset[torch.randint(len(subset), (c - 2,),
+                                               generator=cpu_gen)]
+    return dict(b, cap=cap.to(dev), cap_len=cap_len.to(dev))
+
+
+def kd_path(dev, card):
+    """Phase 20: knowledge distillation at the recipe of
+    ``configs/synthetic_v2/kd_token.yaml``: the student
+    ``zoo.kd_student_cdur5(vocab_size=4368)`` (random weights from a seed,
+    its BN statistics calibrated on the batch) distilled from the teacher
+    ``zoo.cnn14rnn_trm(vocab_size=4368)`` (random weights, decoder
+    jittered by 0.15, BN calibrated) on one device-made batch of KD_B x
+    KD_SECONDS s at 32 kHz, each clip its own sound, through
+    ``training/distill.py``: KL at T=2 mixed 0.5 with label smoothing 0.1,
+    Adam 5e-4, L2 1e-6, clip 1.0, the exponential schedule.  Checks (none
+    caught): (a) the greedy kernel against its plain version at the
+    student's shapes (E=128, 2 heads, FFN 512, one layer, V=4368 untied,
+    S=250, B=KD_B; jittered weights, random memory K/V): at most 1% of
+    tokens differ, one launch a call; (b) a token-KD step's loss and raw
+    gradient norm on the card against the same step on a CPU copy of
+    student, teacher and batch, dropout off in both (``dropout_off``):
+    relative KD_STEP_RTOL; (c) KD_STEPS steps on the batch lower the KD
+    loss (the mean of the last 5 below the first 5), 2 log-mel launches a
+    step and no greedy launch; (d) seq KD: the teacher's pseudo captions
+    (``generate_pseudo_captions``) through the greedy kernel against the
+    torch engine's greedy tokens (at most 1% differ), and one train step
+    of the student on them; (e) one encoder-KD step with captions and one
+    without (``ContraEncoderKdHead``, the teacher's ``fc_emb`` on the
+    fly) are finite, and the head's InfoNCE on the card lies within
+    KD_NCE_ATOL of a CPU copy's; (f) ``ValScorer`` scores the student on
+    KD_VAL_CLIPS clips through the greedy kernel (KD_VAL_CLIPS / KD_B
+    launches), its tokens within 1% of the torch engine's.  The launch
+    counts are set to 0 before (c) and read after (f); the comparisons'
+    own launches are taken back out.  -> what phase 21 times."""
+    import copy
+    import numpy as np
+    import torch
+    from audiocaption_tpu_torch.cli.run import ValScorer
+    from audiocaption_tpu_torch.data.tokenizer import DictTokenizer
+    from audiocaption_tpu_torch.decoding import fused_greedy as FG
+    from audiocaption_tpu_torch.losses.kd import ContraEncoderKdHead
+    from audiocaption_tpu_torch.losses.loss import masked_token_loss
+    from audiocaption_tpu_torch.models.captioner import generate
+    from audiocaption_tpu_torch.models.transformer_decoder import (
+        TransformerDecoder)
+    from audiocaption_tpu_torch.models.zoo import (
+        cnn14rnn_trm, kd_student_cdur5, random_init)
+    from audiocaption_tpu_torch.ops import fused_logmel as FL
+    from audiocaption_tpu_torch.optim.schedules import build_schedule
+    from audiocaption_tpu_torch.training.distill import (
+        encoder_kd_step, generate_pseudo_captions, teacher_captions,
+        teacher_embedding, teacher_logits, token_kd_step)
+    from audiocaption_tpu_torch.training.trainer import (
+        create_train_state, train_step)
+
+    def schedule():
+        return build_schedule(
+            {"type": "ExponentialDecayScheduler",
+             "args": {"final_lrs": KD_FINAL_LR}}, KD_LR, KD_STEPS,
+            KD_STEPS // 5)
+
+    def counts():
+        return FL.fused_logmel.launches, FG.fused_greedy_decode.launches
+
+    def restore(c):
+        FL.fused_logmel.launches = c[0]
+        FG.fused_greedy_decode.launches = c[1]
+
+    gen_w = torch.Generator().manual_seed(SEED + 30)
+    teacher = cnn14rnn_trm(vocab_size=KD_V)
+    random_init(teacher, gen_w)
+    with torch.no_grad():
+        for p in teacher.decoder.parameters():
+            if p.dim() == 2:
+                p.add_(torch.randn(p.shape, generator=gen_w)
+                       * SCST_DECODER_JITTER)
+    student = kd_student_cdur5(vocab_size=KD_V)
+    random_init(student, gen_w)
+    teacher.to(dev)
+    student.to(dev)
+    cpu_gen = torch.Generator().manual_seed(SEED + 31)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    subset = 3 + torch.randperm(KD_V - 3, generator=cpu_gen)[:TRAIN_WORDS]
+    batch = kd_batch(dev, gen, cpu_gen, subset)
+    calibrate_encoder_bn(teacher, batch)
+    calibrate_encoder_bn(student, batch)
+    tok = DictTokenizer()
+    for i in range(4, KD_V):
+        tok.add_word(f"w{i}")
+    keys = [f"clip{i}" for i in range(KD_B)]
+
+    # (a) the kernel against its plain version at the student's shapes
+    jgen = torch.Generator().manual_seed(SEED + 32)
+    jdec = TransformerDecoder(128, KD_V, 256, nlayers=1, tie_weights=False)
+    random_init(jdec, jgen)
+    with torch.no_grad():
+        for p in jdec.parameters():
+            if p.dim() == 2:
+                p.add_(torch.randn(p.shape, generator=jgen) * 0.3)
+        jdec.to(dev).eval()
+        packed = FG.pack_decoder_weights(jdec)
+        c0 = counts()
+        student.eval()
+        enc = student.encode(batch["wav"], batch["wav_len"])
+        memkv, valid = FG.memory_kv(student.decoder, enc["attn_emb"],
+                                    enc["attn_emb_len"], False)
+        memkv = torch.randn(memkv.shape, generator=jgen).to(dev)
+        n_g = FG.fused_greedy_decode.launches
+        got = FG.fused_greedy_decode(packed, memkv, valid, L)
+        once = FG.fused_greedy_decode.launches - n_g
+        want = FG.fused_greedy_plain(packed, memkv, valid, L)
+        restore(c0)
+    a_mis = int((got != want).sum())
+    a_err = float((got - want).abs().max())
+    a_distinct = len(torch.unique(want))
+    log(f"kd (a): greedy kernel vs plain at the student's shapes (B={KD_B}, "
+        f"E=128, 2 heads, FFN 512, 1 layer, V={KD_V} untied, S="
+        f"{memkv.shape[3]}, L={L}, jittered weights, random memory): "
+        f"{a_mis}/{want.numel()} tokens differ, {a_distinct} distinct, "
+        f"{once} launch (plan {FG.fused_greedy_decode.last_plan})")
+    assert memkv.shape == (1, 2, KD_B, KD_SECONDS * 25, 128), memkv.shape
+    assert a_mis <= MISMATCH_LIMIT * want.numel(), \
+        "greedy kernel disagrees at the student's shapes"
+    assert a_distinct > 10, "degenerate greedy trajectories"
+    assert once == (1 if dev.type == "cuda" else 0), once
+
+    # (b) one token-KD step on the card against a CPU copy, dropout off
+    cpu = torch.device("cpu")
+    c0 = counts()
+    got_b = {}
+    for where, s_model, t_model in (
+            ("card", copy.deepcopy(student), teacher),
+            ("cpu", copy.deepcopy(student).to(cpu),
+             copy.deepcopy(teacher).to(cpu))):
+        d = next(s_model.parameters()).device
+        st = create_train_state(s_model, KD_LR, schedule(), KD_WD, KD_CLIP)
+        b = {k: v.to(d) for k, v in batch.items()}
+        b["teacher_logit"] = teacher_logits(t_model, b)
+        with dropout_off(s_model):
+            got_b[where] = {k: float(v) for k, v in token_kd_step(
+                st, b, KD_WEIGHT, "kl", KD_T, 0.1).items()}
+    restore(c0)
+    b_err = {k: abs(got_b["card"][k] / got_b["cpu"][k] - 1)
+             for k in ("loss", "grad_norm")}
+    log(f"kd (b): a token-KD step on the card {got_b['card']} vs on a CPU "
+        f"copy {got_b['cpu']}: relative {b_err} (limit {KD_STEP_RTOL})")
+    assert all(e <= KD_STEP_RTOL for e in b_err.values()), \
+        "the token-KD step on the card disagrees with its CPU copy"
+
+    # (c) KD_STEPS token-KD steps on the batch: the path's counts start
+    state = create_train_state(student, KD_LR, schedule(), KD_WD, KD_CLIP)
+    FL.fused_logmel.launches = 0
+    FG.reset_launches(FG.fused_greedy_decode)
+    t0 = time.perf_counter()
+    steps = []
+    for _ in range(KD_STEPS):
+        b = dict(batch)
+        b["teacher_logit"] = teacher_logits(teacher, b)
+        m = token_kd_step(state, b, KD_WEIGHT, "kl", KD_T, 0.1)
+        steps.append({k: float(v) for k, v in m.items()})
+        assert np.isfinite(steps[-1]["loss"]), steps[-1]
+    _sync(dev)
+    loop_s = time.perf_counter() - t0
+    c_counts = counts()
+    first = np.mean([s_["kd_loss"] for s_ in steps[:5]])
+    last = np.mean([s_["kd_loss"] for s_ in steps[-5:]])
+    log(f"kd (c): {KD_STEPS} token-KD steps of the student (V={KD_V}) on one "
+        f"batch of {KD_B} x {KD_SECONDS} s at 32 kHz in {loop_s:.1f} s; KD "
+        f"loss (KL, T={KD_T}) mean of the first 5 {first:.4f}, of the last 5 "
+        f"{last:.4f}; loss {steps[0]['loss']:.4f} -> {steps[-1]['loss']:.4f};"
+        f" launches (log-mel, greedy) {c_counts}")
+    assert last < first, "KD steps did not lower the KD loss"
+    if dev.type == "cuda":
+        assert c_counts == (2 * KD_STEPS, 0), c_counts
+
+    # (d) seq KD: the teacher's pseudo captions through the greedy kernel
+    fused = FG.FusedGreedyDecoder(teacher, L, device=dev)
+    kernel_ids = []
+
+    def teacher_generate(wav, wav_len):
+        seq = teacher_captions(teacher, wav, wav_len, fused)
+        kernel_ids.append(seq)
+        return caption_words(seq.cpu())
+    loader = [{"audio_id": keys, "wav": batch["wav"],
+               "wav_len": batch["wav_len"]}]
+    cache = generate_pseudo_captions(teacher_generate, loader)
+    c0 = counts()
+    engine = teacher_captions(teacher, batch["wav"], batch["wav_len"])
+    restore(c0)
+    d_mis = int((kernel_ids[0] != engine).sum())
+    d_distinct = len(torch.unique(engine))
+    enc_caps = tok([cache[k] for k in keys])
+    b = dict(batch, cap=torch.as_tensor(enc_caps["cap"]).to(dev),
+             cap_len=torch.as_tensor(enc_caps["cap_len"]).to(dev))
+    seq_state = create_train_state(copy.deepcopy(student), KD_LR,
+                                   schedule(), KD_WD, KD_CLIP)
+    d_loss = float(train_step(seq_state, masked_token_loss(
+        "label_smoothing", 0.1), b)["loss"])
+    log(f"kd (d): seq KD pseudo captions of {len(cache)} clips through the "
+        f"greedy kernel vs the torch engine: {d_mis}/{engine.numel()} "
+        f"tokens differ ({d_distinct} distinct); first {cache[keys[0]][:60]!r}"
+        f"; a train step on them: loss {d_loss:.4f}")
+    assert len(cache) == KD_B and len(kernel_ids) == 1
+    assert d_mis <= MISMATCH_LIMIT * engine.numel(), \
+        "the teacher's pseudo captions disagree with the torch engine"
+    assert np.isfinite(d_loss)
+
+    # (e) encoder KD, with captions and without
+    c0 = counts()
+    tchr = teacher_embedding(teacher, batch["wav"], batch["wav_len"])
+    restore(c0)
+    head = ContraEncoderKdHead(256, tchr.shape[-1], KD_SHARED,
+                               generator=torch.Generator().manual_seed(
+                                   SEED + 33)).to(dev)
+    e_student = copy.deepcopy(student)
+    e_state = create_train_state(e_student, KD_LR, schedule(), KD_WD,
+                                 KD_CLIP, head=head)
+    e_losses = {}
+    for unsup in (False, True):
+        e_losses["unsup" if unsup else "sup"] = float(encoder_kd_step(
+            e_state, head, dict(batch, tchr_emb=tchr), 1.0, 0.1,
+            unsup=unsup)["loss"])
+    c0 = counts()
+    with torch.no_grad():
+        e_student.eval()
+        fc = e_student.encode(batch["wav"], batch["wav_len"])["fc_emb"]
+        nce = float(head(fc, tchr))
+        nce_cpu = float(copy.deepcopy(head).to(cpu)(fc.cpu(), tchr.cpu()))
+    restore(c0)
+    log(f"kd (e): encoder-KD steps {e_losses}; InfoNCE on the card {nce:.7f}"
+        f", on a CPU copy {nce_cpu:.7f} (|diff| {abs(nce - nce_cpu):.3g}, "
+        f"limit {KD_NCE_ATOL})")
+    assert all(np.isfinite(v) for v in e_losses.values()), e_losses
+    assert abs(nce - nce_cpu) <= KD_NCE_ATOL, "InfoNCE card vs CPU"
+
+    # (f) the val score of the student through the greedy kernel
+    val = [batch] + [kd_batch(dev, gen, cpu_gen, subset)
+                     for _ in range(KD_VAL_CLIPS // KD_B - 1)]
+    vloader, refs = [], {}
+    for j, vb in enumerate(val):
+        vkeys = [f"val{j * KD_B + i}" for i in range(KD_B)]
+        refs.update({k: [c] for k, c in zip(vkeys, tok.decode(
+            vb["cap"].cpu().numpy()))})
+        vloader.append({"audio_id": vkeys, "wav": vb["wav"],
+                        "wav_len": vb["wav_len"]})
+    score_fn = ValScorer(student, tok, vloader, refs, dev)
+    n_g = FG.fused_greedy_decode.launches
+    _sync(dev)
+    t0 = time.perf_counter()
+    score = score_fn()
+    _sync(dev)
+    val_ms = (time.perf_counter() - t0) * 1e3
+    val_launches = FG.fused_greedy_decode.launches - n_g
+    launches = {"fused_logmel": FL.fused_logmel.launches,
+                "fused_greedy": FG.fused_greedy_decode.launches}
+    c0 = counts()
+    student.eval()
+    with torch.no_grad():
+        val_ref = [generate(student, vb["wav"], vb["wav_len"],
+                            sample_method="greedy", max_length=L)["seq"]
+                   .cpu().numpy() for vb in vloader]
+    student.train()
+    restore(c0)
+    val_mis = sum(int((a != r).sum())
+                  for a, r in zip(score_fn.last_seq, val_ref))
+    val_tokens = sum(r.size for r in val_ref)
+    log(f"kd (f): the student's val score over {len(refs)} clips {score:.4f} "
+        f"in {val_ms:.1f} ms ({val_launches} greedy kernel launches, "
+        f"batches of {KD_B}); kernel vs torch engine {val_mis}/{val_tokens} "
+        f"tokens differ on {card}")
+    log(f"kd: launches on the KD path (c)-(f) {launches}")
+    assert np.isfinite(score) and score >= 0
+    assert val_mis <= MISMATCH_LIMIT * val_tokens, \
+        "the student's val score disagrees with the torch engine"
+    if dev.type == "cuda":
+        assert val_launches == KD_VAL_CLIPS // KD_B, val_launches
+        # (c) 2 a step; (d) the teacher's encode and the seq-KD step;
+        # (e) the two encoder-KD steps; (f) one a val batch
+        assert launches == {"fused_logmel": 2 * KD_STEPS + 4 + len(val),
+                            "fused_greedy": 1 + len(val)}, launches
+    return dict(student=student, teacher=teacher, state=state, batch=batch,
+                packed=packed, memkv=memkv, valid=valid, greedy_err=a_err,
+                score_fn=score_fn, val_ms=val_ms, val_launches=val_launches,
+                launches=launches, loop_s=loop_s)
+
+
+def kd_times(t, card):
+    """Phase 21: the median token-KD step (KD_TIMED after KD_WARMUP,
+    float32, TF32 off) split by CUDA events into the teacher's forward,
+    the student's forward, the KD + supervised loss, the backward (with
+    the clip) and the optimizer; KD clips/s, peak memory, the device time
+    and idle share (``torch.profiler``); the greedy kernel at the
+    student's shapes warm and with the L2 cold, its plain version and its
+    bound; the val score per KD_VAL_CLIPS clips.  -> the kernel's JSON
+    entry at the KD shapes."""
+    import numpy as np
+    import torch
+    from audiocaption_tpu_torch.decoding import fused_greedy as FG
+    from audiocaption_tpu_torch.ops import fused_logmel as FL
+    from audiocaption_tpu_torch.training.distill import (
+        teacher_logits, token_kd_step)
+    marks = {}
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks[name] = e
+
+    def step(mark_fn=None):
+        b = dict(t["batch"])
+        b["teacher_logit"] = teacher_logits(t["teacher"], b)
+        if mark_fn:
+            mark_fn("teacher")
+        return token_kd_step(t["state"], b, KD_WEIGHT, "kl", KD_T, 0.1,
+                             mark=mark_fn)
+    c0 = FL.fused_logmel.launches, FG.fused_greedy_decode.launches
+    parts = ("teacher", "student", "loss", "backward", "optimizer")
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for _ in range(KD_WARMUP + KD_TIMED):
+        mark("start")
+        step(mark)
+        torch.cuda.synchronize()
+        prev, row = marks["start"], []
+        for p in parts:
+            row.append(prev.elapsed_time(marks[p]))
+            prev = marks[p]
+        rows.append(row)
+    rows = np.asarray(rows[KD_WARMUP:])
+    step_ms = float(np.median(rows.sum(1)))
+    split = dict(zip(parts, np.median(rows, 0).tolist()))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"kd step: median {step_ms:.2f} ms over {KD_TIMED} steps "
+        f"({KD_B / step_ms * 1e3:.1f} KD clips/s); teacher forward "
+        f"{split['teacher']:.2f}, student forward {split['student']:.2f}, "
+        f"KD + sup loss {split['loss']:.2f}, backward (with the clip) "
+        f"{split['backward']:.2f}, optimizer {split['optimizer']:.2f} ms; "
+        f"peak memory {peak:.2f} GiB; B={KD_B} x {KD_SECONDS} s at 32 kHz, "
+        f"float32, TF32 off, on {card}")
+    busy = device_split(step, iters=3)
+    total = sum(busy.values())
+    log(f"kd step, device time (torch.profiler): {total:.2f} ms a step of "
+        f"{step_ms:.2f} ms wall, idle share {1 - total / step_ms:.3f}; top "
+        f"kernels {dict(list(busy.items())[:8])} on {card}")
+    packed, memkv, valid = t["packed"], t["memkv"], t["valid"]
+
+    def fn():
+        return FG.fused_greedy_decode(packed, memkv, valid, L)
+    with torch.no_grad():
+        g = fn()
+        k_ms = cuda_ms(fn, 10)
+        cold = cold_ms(fn, 10)
+        plain_ms = cuda_ms(lambda: FG.fused_greedy_plain(
+            packed, memkv, valid, L), 3, 1)
+    eos_pos = [(row == 2).nonzero() for row in g.cpu()]
+    g_steps = [int(p_[0]) + 1 if len(p_) else L for p_ in eos_pos]
+    S_ = memkv.shape[3]
+    mm, attn = decode_flops(packed.emb_dim, packed.ffn, KD_V,
+                            valid.sum(1).tolist(), g_steps, 1,
+                            nl=packed.nlayers, S_=S_)
+    nbytes = input_bytes(packed, memkv, valid, g.numel() * 4)
+    bound, _, by = decode_bound_ms(mm, attn, nbytes)
+    log(f"fused_greedy at the KD student's shapes (B={KD_B}, E=128, 1 layer, "
+        f"S={S_}, V={KD_V} untied, L={L}, steps per row {min(g_steps)}-"
+        f"{max(g_steps)}): {k_ms:.4f} ms/call warm, {cold:.4f} ms with the "
+        f"L2 cold; plain {plain_ms:.3f} ms; bound {bound:.4f} ms by {by} "
+        f"({nbytes} bytes, {mm} product ops, {attn} attention ops; plan "
+        f"{FG.fused_greedy_decode.last_plan}) on {card}")
+    _sync(torch.device("cuda"))
+    t0 = time.perf_counter()
+    t["score_fn"]()
+    _sync(torch.device("cuda"))
+    val_ms = (time.perf_counter() - t0) * 1e3
+    log(f"kd: the student's val score {val_ms:.1f} ms per {KD_VAL_CLIPS} "
+        f"clips (first call {t['val_ms']:.1f} ms) on {card}")
+    FL.fused_logmel.launches, FG.fused_greedy_decode.launches = c0
+    return dict(step_ms=step_ms, split=split, peak=peak,
+                idle=1 - total / step_ms, entry={
+                    "name": "fused_greedy[kd_student]", "route": "cuda",
+                    "source": "audiocaption_tpu_torch/csrc/fused_greedy.cu",
+                    "replaces":
+                        "audiocaption_tpu/decoding/fused_greedy.py:209",
+                    "launches": t["val_launches"],
+                    "max_abs_err": t["greedy_err"], "ms": k_ms,
+                    "cold_ms": cold, "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": by, "library_ms": None})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2312,6 +2767,18 @@ def main() -> int:
             k["scst_ms"] = scst_t["greedy_ms"]
             k["scst_bound_ms"] = scst_t["greedy_bound_ms"]
     log(f"phase 18: {t1 - t0:.1f} s, phase 19: {time.perf_counter() - t1:.1f} "
+        f"s")
+
+    # -- 20. knowledge distillation of the Cdur5 student ---------------------
+    t0 = time.perf_counter()
+    kd = kd_path(dev, card)
+    for k in kernels:
+        if k["name"] in kd["launches"]:
+            k["kd_launches"] = kd["launches"][k["name"]]
+    t1 = time.perf_counter()
+    # -- 21. KD step times ---------------------------------------------------
+    kernels.append(kd_times(kd, card)["entry"])
+    log(f"phase 20: {t1 - t0:.1f} s, phase 21: {time.perf_counter() - t1:.1f} "
         f"s")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")

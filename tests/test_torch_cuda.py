@@ -564,3 +564,85 @@ def test_scst_step_on_card(cuda):
                  .abs().max()) <= 1e-4
     assert all(torch.equal(a, b) for a, b in zip(bn, bn_buffers(model)))
 
+
+
+def _student_decoder(seed: int, device):
+    """The KD student's decoder (E=128, 2 heads, FFN 512, one layer,
+    memory width 256, V=4368 untied), jittered, in eval."""
+    gen = torch.Generator().manual_seed(seed)
+    dec = TransformerDecoder(128, 4368, 256, nlayers=1, tie_weights=False)
+    random_init(dec, gen)
+    with torch.no_grad():
+        for p in dec.parameters():
+            if p.dim() == 2:
+                p.add_(torch.randn(p.shape, generator=gen) * 0.3)
+    return dec.to(device).eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 32, 64])
+def test_greedy_kernel_kd_student_shapes_match_plain(cuda, B):
+    """The KD student's val score: E=128 over a cluster of 8 or 16
+    blocks, one layer, a memory of S=250 (10 s through the Cdur5),
+    V=4368 untied; at most 1% of tokens differ, one launch."""
+    dec = _student_decoder(10, cuda)
+    packed = TG.pack_decoder_weights(dec).to(cuda)
+    assert (packed.emb_dim, packed.nhead, packed.ffn, packed.nlayers) == \
+        (128, 2, 512, 1)
+    gen = torch.Generator().manual_seed(11 + B)
+    memkv = torch.randn(1, 2, B, 250, 128, generator=gen).to(cuda)
+    lens = torch.randint(1, 251, (B,), generator=gen)
+    lens[0] = 250
+    valid = (torch.arange(250)[None] < lens[:, None]).to(torch.uint8).to(cuda)
+    n0 = TG.fused_greedy_decode.launches
+    got = TG.fused_greedy_decode(packed, memkv, valid, 20)
+    torch.cuda.synchronize()
+    assert TG.fused_greedy_decode.launches == n0 + 1
+    want = TG.fused_greedy_plain(packed, memkv, valid, 20)
+    assert int((got != want).sum()) <= 0.01 * want.numel()
+    assert B == 1 or len(torch.unique(want)) > 10
+
+
+def _kd_twin(device):
+    """A KD student (V=300, dropout 0) and a cnn14rnn_trm teacher with
+    their recipe's train state, the same seeded weights on any device."""
+    from audiocaption_tpu_torch.models.zoo import (
+        cnn14rnn_trm, kd_student_cdur5)
+    from audiocaption_tpu_torch.optim.schedules import (
+        exponential_decay_with_warmup)
+    from audiocaption_tpu_torch.training.trainer import create_train_state
+    student = kd_student_cdur5(vocab_size=300, decoder_dropout=0.0)
+    student.encoder.dropout = 0.0
+    random_init(student, torch.Generator().manual_seed(12))
+    teacher = cnn14rnn_trm(vocab_size=300)
+    random_init(teacher, torch.Generator().manual_seed(13))
+    state = create_train_state(
+        student.to(device), 5e-4,
+        exponential_decay_with_warmup(5e-4, 5e-7, 100, 20), 1e-6, 1.0)
+    return state, teacher.to(device).eval()
+
+
+@pytest.mark.cuda
+def test_token_kd_step_card_matches_cpu(cuda):
+    """Two token-KD steps (KL at T=2, weight 0.5) of the same student and
+    teacher on the card and on the CPU: loss within 1e-4 relative, raw
+    gradient norm within 1e-3; the teacher's log-mel goes through the
+    kernel on the card."""
+    from audiocaption_tpu_torch.training.distill import (
+        teacher_logits, token_kd_step)
+    cpu = _kd_twin(torch.device("cpu"))
+    card = _kd_twin(cuda)
+    FL.fused_logmel.launches = 0
+    for _ in range(2):
+        out = {}
+        for name, (state, teacher), dev in (("card", card, cuda),
+                                            ("cpu", cpu, torch.device("cpu"))):
+            b = _train_batch(dev)
+            b["teacher_logit"] = teacher_logits(teacher, b)
+            out[name] = token_kd_step(state, b, kd_weight=0.5,
+                                      temperature=2.0)
+        np.testing.assert_allclose(float(out["card"]["loss"]),
+                                   float(out["cpu"]["loss"]), rtol=1e-4)
+        np.testing.assert_allclose(float(out["card"]["grad_norm"]),
+                                   float(out["cpu"]["grad_norm"]), rtol=1e-3)
+    assert FL.fused_logmel.launches == 4

@@ -53,7 +53,11 @@ leaked = [m for m in sys.modules
           if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None]
 assert not leaked, leaked
 for name in ("audiocaption_tpu_torch.native",
-             "audiocaption_tpu_torch.training.scst"):
+             "audiocaption_tpu_torch.training.scst",
+             "audiocaption_tpu_torch.training.distill",
+             "audiocaption_tpu_torch.losses.kd",
+             "audiocaption_tpu_torch.data.kd_dataset",
+             "audiocaption_tpu_torch.models.encoders_extra"):
     assert name in names, name
 print(len(names))
 """
