@@ -1,8 +1,8 @@
-"""Training CLI of the port (counterpart of the flagship branch of
-``audiocaption_tpu/cli/run.py``: ``Runner.train`` and its per-epoch
-greedy validation score).
+"""The port's training and evaluation CLI (counterpart of
+``audiocaption_tpu/cli/run.py``).
 
-    python -m audiocaption_tpu_torch.cli.run train CONFIG [key=value ...]
+    python -m audiocaption_tpu_torch.cli.run train [--config] CONFIG \
+        [key=value ...]
 
 CONFIG is a reference-layout YAML (``configs/*/effb2_trm.yaml``): model,
 data, optimizer, lr_scheduler, trainer, scheduled_sampling, loss and swa
@@ -50,9 +50,40 @@ loss ... val_cider ...``), ``last.pth``, ``best.pth`` and ``swa.pth``
 the student's wave, as the JAX runner's does; a KD dataset's
 ``teacher_wav`` is not used by it.
 
-The JAX runner's other paths (augmented and SED training, the
-device-resident corpus, data parallelism) are not ported (ROADMAP
-Queue 1 items 6-7).
+Evaluation and inference (the JAX runner's, with its flag forms):
+
+    python -m audiocaption_tpu_torch.cli.run predict --experiment_path EXP \
+        --eval_config configs/*/test.yaml [key=value ...]
+    python -m audiocaption_tpu_torch.cli.run evaluate --experiment_path EXP \
+        --eval_config configs/*/test.yaml [key=value ...]
+    python -m audiocaption_tpu_torch.cli.run ensemble_predict \
+        --eval_config configs/*/ensemble.yaml   # also ensemble_evaluate,
+                                                # dcase_predict
+    python -m audiocaption_tpu_torch.cli.run export_hf --experiment_path EXP \
+        --output pytorch_model.bin [--resume swa.pth]
+    python -m audiocaption_tpu_torch.cli.run debug --config CONFIG
+
+``predict`` decodes ``data.test`` with the experiment's ``resume``
+checkpoint (default ``swa.pth``) and ``inference_args`` (default beam 3)
+and writes ``caption_output`` (``{"predictions": [{filename, caption}]}``)
+under the experiment; ``evaluate`` adds ``metrics/eval.py::
+evaluate_captions`` against ``data.test.caption`` into ``score_output``.
+On CUDA the decode runs the hand-written kernels where they serve
+(greedy; beam with temp 1 and at most 8 beams: ``decoding/select.py``),
+on the CPU the torch engine.  The ensemble commands decode with the mean
+per-step log-softmax of the members (``decoding/ensemble.py``, the torch
+engine), the members paths or ``{path, resume}``; ``dcase_predict``
+writes the ``file_name,caption_predicted`` csv.  ``export_hf`` writes an
+EffB2-Transformer experiment as the HF checkpoint's state dict.  The
+config's ``device`` (an override ``device=cpu``) picks the device, the
+card by default.  The experiment loader is split so that a model can be
+built without PyYAML: :func:`read_experiment` reads the directory,
+:func:`experiment_model` builds from a config dict and a checkpoint.
+
+The JAX runner's other paths (augmented and SED training, the temporal
+prediction and evaluation, the device-resident corpus, data
+parallelism) are not ported (ROADMAP Queue 1 items 6-7); their
+subcommands raise.
 """
 
 from __future__ import annotations
@@ -64,7 +95,7 @@ import random
 import shutil
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,12 +104,17 @@ from audiocaption_tpu_torch.data.collate import TextCollate, VarLenPadCollate
 from audiocaption_tpu_torch.data.dataset import (
     CaptionDataset, InferenceDataset, load_caption_json)
 from audiocaption_tpu_torch.data.tokenizer import DictTokenizer
+from audiocaption_tpu_torch.decoding.ensemble import ensemble_generate
+from audiocaption_tpu_torch.decoding.select import (
+    LoaderDecoder, decode_batches)
 from audiocaption_tpu_torch.device import resolve_device
 from audiocaption_tpu_torch.losses.kd import ContraEncoderKdHead
 from audiocaption_tpu_torch.losses.loss import build_loss
+from audiocaption_tpu_torch.metrics.eval import evaluate_captions
 from audiocaption_tpu_torch.metrics.tokenize import ptb_tokenize
-from audiocaption_tpu_torch.models.captioner import generate
 from audiocaption_tpu_torch.models.convert import load_reference_state_dict
+from audiocaption_tpu_torch.models.transformer_decoder import (
+    TransformerDecoder)
 from audiocaption_tpu_torch.models.zoo import random_init
 from audiocaption_tpu_torch.native import FastCiderD
 from audiocaption_tpu_torch.optim.schedules import build_schedule
@@ -201,6 +237,68 @@ def _load_pretrained(model, spec) -> None:
     module.load_state_dict(merge_variables(module.state_dict(), sd))
 
 
+def read_experiment(experiment_path: str, resume: str) -> Tuple[Dict, Dict]:
+    """An experiment directory that either package wrote -> (its
+    ``config.yaml`` as a dict, the checkpoint ``resume`` as
+    ``load_checkpoint`` reads it).  Needs PyYAML."""
+    exp_dir = Path(experiment_path)
+    return (load_config(str(exp_dir / "config.yaml")),
+            load_checkpoint(str(exp_dir / resume)))
+
+
+def experiment_model(cfg: Dict, ckpt: Dict, device: torch.device
+                     ) -> Tuple[torch.nn.Module, DictTokenizer]:
+    """A config dict and a checkpoint payload -> (the model its ``model``
+    node builds, with the checkpoint's weights, on ``device`` in
+    ``eval()``; the checkpoint's tokenizer).  An ``ScstWrapper`` node is
+    read as the model it wraps.  Needs no PyYAML."""
+    tokenizer = DictTokenizer()
+    if ckpt.get("tokenizer"):
+        tokenizer.load_state_dict(ckpt["tokenizer"])
+        tokenizer.loaded = True
+    model, _ = build_model_from_config(cfg["model"],
+                                       vocab_size=len(tokenizer))
+    load_reference_state_dict(model, ckpt["variables"])
+    return model.to(device).eval(), tokenizer
+
+
+def export_hf_checkpoint(model, output: str) -> str:
+    """An EffB2 + ``TransformerDecoder`` captioner -> the HF checkpoint's
+    state dict (``model.model.encoder.backbone.eff_net.*`` and
+    ``model.model.decoder.*``, the key space the model already has,
+    tensor for tensor what the JAX ``export_hf`` writes), saved at
+    ``output``; ``Effb2TrmCaptioningModel.load_torch_checkpoint`` of
+    either package reads it.  Other families raise."""
+    from audiocaption_tpu_torch.models.effb2 import EfficientNetB2
+    if not (isinstance(model.encoder, EfficientNetB2)
+            and type(model.decoder) is TransformerDecoder):
+        raise ValueError(
+            "export_hf supports the EffB2+TransformerDecoder family (the "
+            f"HF zoo format); got {type(model.encoder).__name__}+"
+            f"{type(model.decoder).__name__}")
+    sd = model_variables(model)
+    out_path = Path(output)
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({k: torch.as_tensor(v) for k, v in sd.items()}, out_path)
+    print(f"exported {len(sd)} tensors to {out_path}")
+    return str(out_path)
+
+
+def write_scores(path: Path, result: Dict) -> None:
+    """``metric: value`` lines, the float results only (the JAX runner's
+    scores txt)."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        for k, v in result.items():
+            if isinstance(v, float):
+                f.write(f"{k}: {v:.4f}\n")
+
+
+def _inference_args(eval_cfg: Dict) -> Dict:
+    return dict(eval_cfg.get("inference_args",
+                             {"sample_method": "beam", "beam_size": 3}))
+
+
 class ValScorer:
     """Greedy-decodes the val set with the model's current weights and
     returns the CIDEr-D score by the native scorer (the JAX runner's
@@ -218,30 +316,13 @@ class ValScorer:
         self.last_seq: List[np.ndarray] = []
 
     def __call__(self) -> float:
-        model, device = self.model, self.device
-        max_length = model.special.max_length
-        model.eval()
-        fused = None
-        if device.type == "cuda":
-            from audiocaption_tpu_torch.decoding.fused_greedy import (
-                FusedGreedyDecoder)
-            fused = FusedGreedyDecoder(model, max_length, device=device)
-        key2pred: Dict[str, List[str]] = {}
-        self.last_seq = []
-        with torch.no_grad():
-            for batch in self.val_loader:
-                b = to_device(batch, device)
-                if fused is not None:
-                    seq = fused(b["wav"], b["wav_len"])
-                else:
-                    seq = generate(model, b["wav"], b["wav_len"],
-                                   sample_method="greedy",
-                                   max_length=max_length)["seq"]
-                seq = seq.cpu().numpy()
-                self.last_seq.append(seq)
-                caps = self.tokenizer.decode(seq)
-                for aid, cap in zip(batch["audio_id"], caps):
-                    key2pred.setdefault(aid, [cap])
+        model = self.model
+        # a decoder anew each call: the optimizer has moved the weights
+        decoder = LoaderDecoder(model, self.device)
+        key2pred = decoder.decode_loader(
+            self.tokenizer, self.val_loader, sample_method="greedy",
+            max_length=model.special.max_length)
+        self.last_seq = decoder.last_seq
         model.train()
         refs = {k: v for k, v in self.key2refs.items() if k in key2pred}
         preds = {k: v for k, v in key2pred.items() if k in refs}
@@ -461,19 +542,9 @@ class Runner:
                          device: torch.device):
         """An experiment directory (either package's: ``config.yaml`` and
         the checkpoint ``resume``) -> (config, model on ``device`` in
-        ``eval()``, tokenizer).  An ``ScstWrapper`` node is read as the
-        model it wraps."""
-        exp_dir = Path(experiment_path)
-        cfg = load_config(str(exp_dir / "config.yaml"))
-        ckpt = load_checkpoint(str(exp_dir / resume))
-        tokenizer = DictTokenizer()
-        if ckpt.get("tokenizer"):
-            tokenizer.load_state_dict(ckpt["tokenizer"])
-            tokenizer.loaded = True
-        model, _ = build_model_from_config(cfg["model"],
-                                           vocab_size=len(tokenizer))
-        load_reference_state_dict(model, ckpt["variables"])
-        return cfg, model.to(device).eval(), tokenizer
+        ``eval()``, tokenizer)."""
+        cfg, ckpt = read_experiment(experiment_path, resume)
+        return (cfg,) + experiment_model(cfg, ckpt, device)
 
     def train_kd(self, config: str, *overrides: str) -> str:
         """Knowledge distillation from a config with a ``kd`` node (see
@@ -607,19 +678,230 @@ class Runner:
         log(f"done; best val score {monitor.best:.4f}")
         return str(exp_dir)
 
+    # ------------------------------------------------------ evaluation --
 
-def main(argv: Optional[List[str]] = None) -> None:
+    def predict(self, experiment_path: str, eval_config: str,
+                *overrides: str) -> Dict[str, List[str]]:
+        """Decode the eval config's ``data.test`` with the experiment's
+        checkpoint ``resume`` (default ``swa.pth``) and its
+        ``inference_args`` (default beam 3); write ``{"predictions":
+        [{filename, caption}]}`` to ``caption_output`` under the
+        experiment."""
+        eval_cfg = load_config(eval_config, parse_overrides(overrides))
+        device = resolve_device(eval_cfg.get("device", "cuda"))
+        _, model, tokenizer = self._load_experiment(
+            experiment_path, eval_cfg.get("resume", "swa.pth"), device)
+        loader = build_dataloader(eval_cfg["data"]["test"], train=False)
+        key2pred = LoaderDecoder(model, device).decode_loader(
+            tokenizer, loader, **_inference_args(eval_cfg))
+        out_path = Path(experiment_path) / eval_cfg.get(
+            "caption_output", "predictions/predictions.json")
+        out_path.parent.mkdir(parents=True, exist_ok=True)
+        with open(out_path, "w") as f:
+            json.dump({"predictions": [
+                {"filename": k, "caption": v[0]}
+                for k, v in key2pred.items()]}, f, indent=2)
+        return key2pred
+
+    def evaluate(self, experiment_path: str, eval_config: str,
+                 *overrides: str) -> Dict:
+        """``predict``, then the caption metrics against ``data.test.
+        caption``, written to ``score_output`` under the experiment."""
+        eval_cfg = load_config(eval_config, parse_overrides(overrides))
+        key2pred = self.predict(experiment_path, eval_config, *overrides)
+        key2refs = load_caption_json(eval_cfg["data"]["test"]["caption"])
+        key2refs = {k: v for k, v in key2refs.items() if k in key2pred}
+        result = evaluate_captions(key2pred, key2refs)
+        write_scores(Path(experiment_path) / eval_cfg.get(
+            "score_output", "results/scores.txt"), result)
+        return result
+
+    def export_hf(self, experiment_path: str, output: str,
+                  resume: str = "swa.pth") -> str:
+        """An experiment's checkpoint ``resume`` -> the HF checkpoint at
+        ``output`` (:func:`export_hf_checkpoint`)."""
+        _, model, _ = self._load_experiment(experiment_path, resume,
+                                            torch.device("cpu"))
+        return export_hf_checkpoint(model, output)
+
+    def _load_ensemble(self, eval_cfg: Dict, device: torch.device):
+        """The members of ``experiment_path``: paths (the global ``resume``
+        applies) or ``{path, resume}`` mappings -> (models, the first
+        member's tokenizer).  The members share one vocabulary."""
+        default_resume = eval_cfg.get("resume", "swa.pth")
+        models, tokenizer = [], None
+        for member in eval_cfg["experiment_path"]:
+            if isinstance(member, dict):
+                path = member["path"]
+                resume = member.get("resume", default_resume)
+            else:
+                path, resume = member, default_resume
+            _, model, tok = self._load_experiment(path, resume, device)
+            models.append(model)
+            tokenizer = tokenizer or tok
+        return models, tokenizer
+
+    def ensemble_predict(self, eval_config: str, *overrides: str,
+                         dump_output: bool = True) -> Dict[str, List[str]]:
+        """Decode ``data.test`` with the mean per-step log-softmax of the
+        members (``decoding/ensemble.py``, the torch engine on the
+        device); write ``{"predictions": [{filename, tokens}]}`` to
+        ``caption_output`` under ``output_path``."""
+        eval_cfg = load_config(eval_config, parse_overrides(overrides))
+        device = resolve_device(eval_cfg.get("device", "cuda"))
+        models, tokenizer = self._load_ensemble(eval_cfg, device)
+        loader = build_dataloader(eval_cfg["data"]["test"], train=False)
+        key2pred = ensemble_decode_loader(models, tokenizer, loader, device,
+                                          **_inference_args(eval_cfg))
+        if dump_output:
+            out_path = Path(eval_cfg["output_path"]) / eval_cfg.get(
+                "caption_output", "predictions.json")
+            out_path.parent.mkdir(parents=True, exist_ok=True)
+            with open(out_path, "w") as f:
+                json.dump({"predictions": [
+                    {"filename": k, "tokens": v[0]}
+                    for k, v in key2pred.items()]}, f, indent=2)
+        return key2pred
+
+    def ensemble_evaluate(self, eval_config: str, *overrides: str) -> Dict:
+        """``ensemble_predict``, then the caption metrics, written to
+        ``score_output`` under ``output_path``."""
+        eval_cfg = load_config(eval_config, parse_overrides(overrides))
+        key2pred = self.ensemble_predict(eval_config, *overrides)
+        key2refs = load_caption_json(eval_cfg["data"]["test"]["caption"],
+                                     zh=eval_cfg.get("zh", False))
+        key2refs = {k: v for k, v in key2refs.items() if k in key2pred}
+        result = evaluate_captions(key2pred, key2refs)
+        write_scores(Path(eval_cfg["output_path"]) / eval_cfg.get(
+            "score_output", "scores.txt"), result)
+        return result
+
+    def dcase_predict(self, eval_config: str, *overrides: str) -> str:
+        """The DCASE submission csv (``file_name,caption_predicted``) of
+        the ensemble's predictions, at ``dcase_output`` under
+        ``output_path``."""
+        eval_cfg = load_config(eval_config, parse_overrides(overrides))
+        key2pred = self.ensemble_predict(eval_config, *overrides,
+                                         dump_output=False)
+        out = Path(eval_cfg["output_path"]) / eval_cfg.get(
+            "dcase_output", "dcase_predictions.csv")
+        out.parent.mkdir(parents=True, exist_ok=True)
+        write_dcase_csv(out, key2pred)
+        return str(out)
+
+    def debug(self, config: str, *overrides: str) -> float:
+        """One batch of the train loader forward and backward through
+        ``train_step`` (Adam 5e-4 with the config's schedule over 100
+        steps), weights drawn from the config's seed; prints and returns
+        the loss."""
+        cfg = load_config(config, parse_overrides(overrides))
+        device = resolve_device(cfg.get("device", "cuda"))
+        seed = cfg.get("seed", 1)
+        set_seed(seed)
+        tokenizer = build_tokenizer(
+            cfg["data"]["train"]["collate_fn"]["tokenizer"])
+        loader = build_dataloader(cfg["data"]["train"], tokenizer)
+        model, _ = build_model_from_config(cfg["model"],
+                                           vocab_size=len(tokenizer))
+        random_init(model, torch.Generator().manual_seed(seed))
+        state = create_train_state(
+            model.to(device), 5e-4,
+            build_schedule(cfg.get("lr_scheduler", {}), 5e-4, 100, 20))
+        metrics = train_step(state, build_loss(cfg.get("loss", {})),
+                             to_device(next(iter(loader)), device))
+        print(f"debug: loss={float(metrics['loss']):.4f} "
+              f"grad_norm={float(metrics['grad_norm']):.4f}")
+        return float(metrics["loss"])
+
+
+def ensemble_decode_loader(models, tokenizer, loader, device: torch.device,
+                           **inference_args) -> Dict[str, List[str]]:
+    """Every batch of ``loader`` through ``ensemble_generate`` on
+    ``device`` -> {audio_id: [caption]} (``decoding/select.py::
+    decode_batches``)."""
+    def decode(wav, wav_len):
+        return ensemble_generate(models, wav.to(device), wav_len.to(device),
+                                 **inference_args)["seq"]
+    return decode_batches(decode, tokenizer, loader)[0]
+
+
+def write_dcase_csv(path: Path, key2pred: Dict[str, List[str]]) -> None:
+    import csv
+    with open(path, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=["file_name", "caption_predicted"])
+        w.writeheader()
+        for key, pred in key2pred.items():
+            w.writerow({"file_name": key, "caption_predicted": pred[0]})
+
+
+# the JAX runner's subcommands that the port does not have yet
+NOT_PORTED = {
+    "train_aug": "augmented training (the augment registry, specaug)",
+    "train_sed": "SED training",
+    "predict_temporal": "temporal prediction (the SED tag pipeline with "
+                        "an RNN decoder)",
+    "evaluate_temporal": "temporal evaluation"}
+
+
+def main(argv: Optional[List[str]] = None):
     parser = argparse.ArgumentParser(prog="audiocaption_tpu_torch.cli.run")
     sub = parser.add_subparsers(dest="command", required=True)
     for name, text in (("train", "train from a YAML config"),
                        ("train_kd", "knowledge distillation from a YAML "
-                                    "config with a kd node")):
+                                    "config with a kd node"),
+                       ("debug", "one batch forward and backward"),
+                       ("train_aug", "not ported yet"),
+                       ("train_sed", "not ported yet")):
         p = sub.add_parser(name, help=text)
-        p.add_argument("config")
+        # the config as the JAX runner takes it (--config) or positional
+        p.add_argument("--config", dest="config_flag")
+        p.add_argument("config", nargs="?")
         p.add_argument("overrides", nargs="*",
                        help="key.sub=value (YAML value), e.g. device=cpu")
+    for name in ("predict", "evaluate", "predict_temporal",
+                 "evaluate_temporal"):
+        p = sub.add_parser(name)
+        p.add_argument("--experiment_path", required=True)
+        if name.endswith("temporal"):
+            p.add_argument("--sed_experiment_path", required=True)
+        p.add_argument("--eval_config", required=True)
+        p.add_argument("overrides", nargs="*")
+    for name in ("ensemble_predict", "ensemble_evaluate", "dcase_predict"):
+        p = sub.add_parser(name)
+        p.add_argument("--eval_config", required=True)
+        p.add_argument("overrides", nargs="*")
+    p = sub.add_parser("export_hf")
+    p.add_argument("--experiment_path", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--resume", default="swa.pth")
     args = parser.parse_args(argv)
-    print(getattr(Runner(), args.command)(args.config, *args.overrides))
+
+    if args.command in NOT_PORTED:
+        raise NotImplementedError(
+            f"{args.command}: {NOT_PORTED[args.command]} is not ported yet "
+            "(ROADMAP Queue 1 item 6)")
+    runner = Runner()
+    if args.command in ("train", "train_kd", "debug"):
+        overrides = args.overrides
+        config = args.config
+        if args.config_flag is not None:
+            # with --config, a positional word is the first override
+            overrides = ([config] if config else []) + overrides
+            config = args.config_flag
+        if config is None:
+            parser.error(f"{args.command} needs a config")
+        result = getattr(runner, args.command)(config, *overrides)
+    elif args.command in ("predict", "evaluate"):
+        result = getattr(runner, args.command)(
+            args.experiment_path, args.eval_config, *args.overrides)
+    elif args.command == "export_hf":
+        return runner.export_hf(args.experiment_path, args.output,
+                                resume=args.resume)
+    else:
+        result = getattr(runner, args.command)(args.eval_config,
+                                               *args.overrides)
+    print(result)
+    return result
 
 
 if __name__ == "__main__":

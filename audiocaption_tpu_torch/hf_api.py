@@ -12,8 +12,9 @@ mirroring the reference's HF ``trust_remote_code`` models:
 
 Audio is padded up to 1 s buckets (padding is masked by
 ``audio_length``).  EffB2-Transformer: on CUDA, greedy decodes and temp-1
-beam decodes (the default) go through the whole-loop CUDA kernels; on
-the CPU, and for other settings, through the torch decoding engine.
+beam decodes of at most 8 beams (the default beam 3) go through the
+whole-loop CUDA kernels (``decoding/select.py``); on the CPU, and for
+other settings, through the torch decoding engine.
 Temporal model: the 32 kHz log-mel goes through the fused log-mel kernel
 on CUDA (``ops/fused_logmel.py``) and is shared by the SED branch and the
 captioner; decoding is the torch engine's, as in the JAX package.
@@ -36,6 +37,7 @@ import torch
 
 from torch import nn
 
+from audiocaption_tpu_torch.decoding.select import select_decoder
 from audiocaption_tpu_torch.device import DeviceLike, resolve_device
 from audiocaption_tpu_torch.models.captioner import generate
 from audiocaption_tpu_torch.models.convert import (
@@ -123,28 +125,14 @@ class Effb2TrmCaptioningModel:
         self._decode = {}   # drop decoders bound to the old weights
 
     def _decode_fn(self, key):
+        """One decoder per (sample_method, beam_size, max_length, temp):
+        on CUDA the fused kernels (``decoding/select.py``), in the mode
+        the model's compute dtype implies (bf16 caches for a bf16 model)."""
         if key not in self._decode:
             sample_method, beam_size, max_length, temp = key
-            # on CUDA the fused kernels take the mode the model's
-            # compute dtype implies (bf16 caches for a bf16 model)
-            on_cuda = self.device.type == "cuda"
-            if sample_method == "greedy" and on_cuda:
-                from audiocaption_tpu_torch.decoding.fused_greedy import (
-                    FusedGreedyDecoder)
-                fn = FusedGreedyDecoder(self.model, max_length=max_length,
-                                        device=self.device)
-            elif sample_method == "beam" and temp == 1.0 and on_cuda:
-                from audiocaption_tpu_torch.decoding.fused_beam import (
-                    FusedBeamDecoder)
-                fn = FusedBeamDecoder(self.model, max_length=max_length,
-                                      beam_size=beam_size, device=self.device)
-            else:
-                def fn(wav, wav_len):
-                    return generate(self.model, wav, wav_len,
-                                    sample_method=sample_method,
-                                    beam_size=beam_size,
-                                    max_length=max_length, temp=temp)["seq"]
-            self._decode[key] = fn
+            self._decode[key] = select_decoder(
+                self.model, self.device, sample_method=sample_method,
+                beam_size=beam_size, max_length=max_length, temp=temp)
         return self._decode[key]
 
     @torch.no_grad()

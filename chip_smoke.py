@@ -186,7 +186,28 @@ Phases, each of which must pass (none is caught and skipped):
      split by CUDA events into teacher forward, student forward, KD + sup
      loss, backward and optimizer; KD clips/s, peak memory, idle share;
      the greedy kernel at the student's shapes warm and cold against its
-     plain version and its bound; the val score per 64 clips.
+     plain version and its bound; the val score per 64 clips;
+ 22. the evaluation path of the three trained families at full width
+     (``eval_path``): the flagship ``zoo.effb2_trm`` (V=4981 tied, 16
+     kHz), ``zoo.cnn14rnn_trm`` and ``zoo.kd_student_cdur5`` (V=4368
+     untied, 32 kHz), random weights from a seed, decoders jittered by
+     0.15, BN calibrated; each written by ``save_checkpoint`` and read
+     back through ``cli/run.py::experiment_model`` from its recipe's
+     model node (no PyYAML); 64 device-made 10 s clips a family in
+     batches of 32, beam 3, max length 20, through the runner's decode:
+     (a) vs ``generate`` beam 3, (b) the beam kernel vs the plain search
+     in float64 at each family's shapes (scores within 1e-4), (c) greedy
+     through the greedy kernel, (d) ``evaluate_captions`` (every JAX key
+     without Java, finite) on the first EVAL_SCORED clips, (e) a
+     two-member ensemble on the card vs CPU copies and its dcase csv,
+     (f) the flagship's HF export decoded by the API, (g) the inference
+     core on 16 wav files at 16, 32 and 44.1 kHz (the short clip
+     skipped), (h) the launches;
+ 23. evaluation times (``eval_times``): clips/s per family at B=32 x 10 s
+     split into encode, memory K/V, beam kernel and host, the idle share;
+     the beam kernel at the cnn14rnn_trm and KD-student shapes warm and
+     cold vs its plain version and bound; the metric suite's host time
+     per scorer; the ensemble's torch-engine beam per batch.
 
 Every kernel's launch counter is set to 0 just before each path is
 driven (phases 4-5, the EffB2 serving path; phase 8, the temporal path;
@@ -196,8 +217,12 @@ phase 16, the training path's val score, whose count is the greedy
 entry's ``train_launches``; phase 18, the SCST path, whose counts are the
 greedy and log-mel entries' ``scst_launches``; phase 20, the KD path,
 whose counts are their ``kd_launches`` and whose val score's greedy
-launches are the ``fused_greedy[kd_student]`` entry's) and read just
-after; the run fails if a kernel of that path was not launched there.
+launches are the ``fused_greedy[kd_student]`` entry's; phase 22, the
+evaluation path, whose counts are the beam, greedy and log-mel entries'
+``eval_launches`` and whose beam launches by family the
+``fused_beam[cnn14rnn_trm]`` and ``fused_beam[kd_student]`` entries') and
+read just after; the run fails if a kernel of that path was not launched
+there.
 The second-to-last line is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -274,6 +299,68 @@ KD_STEP_RTOL = 1e-4           # (b) loss and gradient norm, card vs CPU copy
 KD_NCE_ATOL = 1e-5            # (e) InfoNCE, card vs CPU copy
 KD_VAL_CLIPS = 64
 KD_WARMUP, KD_TIMED = 3, 10
+
+# phases 22-23: evaluation of the three trained families, as
+# configs/*/test.yaml runs it (beam 3, max length 20, batches of 32); each
+# family's model node is its recipe's (the configs named), an experiment
+# written by save_checkpoint and read back through cli/run.py's
+# experiment_model without PyYAML
+EVAL_FAMILIES = {
+    "effb2_trm": dict(vocab=4981, sr=SR, seed=SEED + 40, node={
+        # configs/audiocaps/effb2_trm.yaml
+        "type": "captioning.models.transformer_model.TransformerModel",
+        "args": {},
+        "encoder": {"type": "captioning.models.cnn_encoder.EfficientNetB2",
+                    "args": {}},
+        "decoder": {
+            "type": "captioning.models.transformer_decoder."
+                    "TransformerDecoder",
+            "args": {"vocab_size": 4981, "emb_dim": 256, "fc_emb_dim": 1408,
+                     "attn_emb_dim": 1408, "nlayers": 2, "dropout": 0.2,
+                     "tie_weights": True}}}),
+    "cnn14rnn_trm": dict(vocab=4368, sr=SR_32K, seed=1, node={
+        # configs/synthetic_v2/cnn14rnn_trm.yaml
+        "type": "captioning.models.transformer_model.TransformerModel",
+        "args": {},
+        "encoder": {
+            "type": "captioning.models.crnn_trm_encoder.Cnn14RnnEncoder",
+            "args": {"freeze_cnn": False, "freeze_cnn_bn": False},
+            "cnn": {"type": "captioning.models.cnn_encoder.Cnn14Encoder",
+                    "args": {"sample_rate": 32000}},
+            "rnn": {"type": "captioning.models.rnn_encoder.RnnEncoder",
+                    "args": {"bidirectional": True, "hidden_size": 256,
+                             "dropout": 0.5, "num_layers": 3,
+                             "spec_dim": -1, "fc_feat_dim": 2048,
+                             "attn_feat_dim": 2048}}},
+        "decoder": {
+            "type": "captioning.models.transformer_decoder."
+                    "TransformerDecoder",
+            "args": {"emb_dim": 256, "fc_emb_dim": 512, "attn_emb_dim": 512,
+                     "nlayers": 2, "dropout": 0.2}}}),
+    "kd_student": dict(vocab=4368, sr=SR_32K, seed=SEED + 41, node={
+        # configs/synthetic_v2/kd_token.yaml
+        "type": "captioning.models.transformer_model.TransformerModel",
+        "args": {},
+        "encoder": {"type": "captioning.models.crnn_trm_encoder.Cdur5Encoder",
+                    "args": {"sample_rate": 32000}},
+        "decoder": {
+            "type": "captioning.models.transformer_decoder."
+                    "TransformerDecoder",
+            "args": {"emb_dim": 128, "nlayers": 1, "dropout": 0.2}}}),
+}
+EVAL_CLIPS, EVAL_B, EVAL_SECONDS = 64, 32, 10
+EVAL_ARGS = {"sample_method": "beam", "beam_size": 3, "max_length": L}
+EVAL_REFS = 5                 # references per clip, from the model's samples
+# (d) scores the first EVAL_SCORED clips of each family: meteor_py's chunk
+# search runs to its 100k-pairing budget on the one-word loops of these
+# random models (~0.75 s a caption-reference pair on the host)
+EVAL_SCORED = 16
+EVAL_ENSEMBLE_SEED = 2        # the second cnn14rnn_trm member (the first: 1)
+EVAL_ENSEMBLE_CPU = 4         # clips of the ensemble's card-vs-CPU check
+EVAL_WAVS = 16                # wav files of the inference core, one short
+EVAL_WAV_SECONDS = (1.0, 10.0)
+EVAL_WARMUP, EVAL_TIMED = 2, 10
+EVAL_DISTINCT = 10            # (b): distinct tokens of the plain search, above
 
 
 def log(msg: str) -> None:
@@ -371,6 +458,14 @@ def decode_flops(E_, F_, V_, S_valid, steps_per_row, rows_per_sample,
     return mm, attn
 
 
+def packed_double(packed):
+    """The packed decoder's tables in float64 (its float32 values are
+    exact there): the plain search without float32 rounding."""
+    import dataclasses
+    return dataclasses.replace(packed, **{
+        k: getattr(packed, k).double() for k in ("emb", "cls", "pe",
+                                                  "layers")})
+
 def float64_floor_check(packed, memkv, valid, K, seq, score, p_seq,
                         p_score, **mode) -> bool:
     """Beam scores of the wider beams against the float32 plain version,
@@ -382,12 +477,8 @@ def float64_floor_check(packed, memkv, valid, K, seq, score, p_seq,
     the plain version and the float64 plain version share passes if it is
     within SCORE_ATOL of the float32 plain version, or else no further
     from the float64 result than the float32 plain version is."""
-    import dataclasses
-    import torch
     from audiocaption_tpu_torch.decoding import fused_beam as FB
-    p64 = dataclasses.replace(packed, **{
-        k: getattr(packed, k).double() for k in ("emb", "cls", "pe",
-                                                  "layers")})
+    p64 = packed_double(packed)
     mem64 = memkv if mode.get("cache_bf16") else memkv.double()
     s64, sc64 = FB.fused_beam_plain(p64, mem64, valid, L, K, **mode)
     same = (seq == p_seq).all(-1) & (seq == s64).all(-1)
@@ -1703,10 +1794,10 @@ def train_times(t, dev, card):
     return results
 
 
-def scst_batch(dev, gen, cpu_gen, B=None, seconds=None):
-    """B (SCST_B) device-made clips of ``seconds`` (SCST_SECONDS) at 32
-    kHz, mixed lengths (each >= 1 s, the first full), each its own sound:
-    noise at a level
+def scst_batch(dev, gen, cpu_gen, B=None, seconds=None, sr=SR_32K):
+    """B (SCST_B) device-made clips of ``seconds`` (SCST_SECONDS) at ``sr``
+    (32 kHz), mixed lengths (each >= 1 s, the first full), each its own
+    sound: noise at a level
     from 0.02 to 0.63, every other clip with a tone at its own pitch
     (100 Hz to 6.4 kHz), so that the encoder tells the clips apart and
     each clip's samples, and so its references, have words of their own
@@ -1715,33 +1806,35 @@ def scst_batch(dev, gen, cpu_gen, B=None, seconds=None):
     import math
     import torch
     B, seconds = B or SCST_B, seconds or SCST_SECONDS
-    n = seconds * SR_32K
-    t = torch.arange(n, device=dev) / SR_32K
+    n = seconds * sr
+    t = torch.arange(n, device=dev) / sr
     freq = 100.0 * 2 ** (torch.arange(B, device=dev) / B * 6.0)
     level = 0.02 * 10 ** (torch.rand(B, generator=cpu_gen) * 1.5)
     tone = (torch.sin(2 * math.pi * freq[:, None] * t[None]) * 0.3
             * (torch.arange(B, device=dev)[:, None] % 2))
     wav = ((tone + torch.randn(B, n, generator=gen, device=dev))
            * level.to(dev)[:, None])
-    wav_len = torch.randint(SR_32K, n + 1, (B,), generator=cpu_gen)
+    wav_len = torch.randint(sr, n + 1, (B,), generator=cpu_gen)
     wav_len[0] = n
     return {"wav": wav, "wav_len": wav_len.to(dev)}
 
 
 def calibrate_encoder_bn(model, batch) -> None:
     """Every encoder BN's running statistics from one batch (a random-init
-    Cnn14 in ``eval()`` otherwise maps every clip to one output)."""
+    Cnn14 in ``eval()`` otherwise maps every clip to one output); each
+    BN's momentum is kept."""
     import torch
     bns = [m for m in model.encoder.modules()
            if isinstance(m, torch.nn.BatchNorm2d)]
+    momenta = [m.momentum for m in bns]
     for m in bns:
         m.reset_running_stats()
         m.momentum = None             # a cumulative average: one batch
     model.train()
     with torch.no_grad():
         model.encode(batch["wav"], batch["wav_len"])
-    for m in bns:
-        m.momentum = 0.1
+    for m, momentum in zip(bns, momenta):
+        m.momentum = momentum
     model.eval()
 
 
@@ -2534,6 +2627,551 @@ def kd_times(t, card):
                     "bound_by": by, "library_ms": None})
 
 
+@contextlib.contextmanager
+def timed_scorers(spent: dict):
+    """Inside the block, every scorer that ``metrics/eval.py::
+    evaluate_captions`` calls (the PTB normalisation, BLEU, ROUGE-L,
+    CIDEr-D, meteor_py, spice_py) adds its host seconds to ``spent``."""
+    from audiocaption_tpu_torch.metrics import eval as ME
+    names = ("ptb_tokenize", "corpus_bleu", "rouge_l", "meteor_py",
+             "spice_py")
+    saved = {n: getattr(ME, n) for n in names}
+    cider = ME.CiderD
+
+    def timed(key, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+        return call
+
+    class TimedCiderD(cider):
+        def compute_score(self, *args, **kwargs):
+            return timed("cider_d", super().compute_score)(*args, **kwargs)
+    for n in names:
+        setattr(ME, n, timed(n, saved[n]))
+    ME.CiderD = TimedCiderD
+    try:
+        yield spent
+    finally:
+        for n in names:
+            setattr(ME, n, saved[n])
+        ME.CiderD = cider
+
+def eval_model(name, dev, seed=None):
+    """Family ``name``'s zoo model (random weights from ``seed``, the
+    decoder's matrices jittered by SCST_DECODER_JITTER) on ``dev``."""
+    import torch
+    from audiocaption_tpu_torch.models.zoo import (
+        cnn14rnn_trm, effb2_trm, kd_student_cdur5, random_init)
+    fam = EVAL_FAMILIES[name]
+    ctor = {"effb2_trm": effb2_trm, "cnn14rnn_trm": cnn14rnn_trm,
+            "kd_student": kd_student_cdur5}[name]
+    model = ctor(vocab_size=fam["vocab"])
+    gen = torch.Generator().manual_seed(fam["seed"] if seed is None
+                                        else seed)
+    random_init(model, gen)
+    with torch.no_grad():
+        for p in model.decoder.parameters():
+            if p.dim() == 2:
+                p.add_(torch.randn(p.shape, generator=gen)
+                       * SCST_DECODER_JITTER)
+    return model.to(dev).eval()
+
+
+def word_tokenizer(vocab: int):
+    """A DictTokenizer whose id i >= 4 is the word "w{i}"."""
+    from audiocaption_tpu_torch.data.tokenizer import DictTokenizer
+    tok = DictTokenizer()
+    for i in range(4, vocab):
+        tok.add_word(f"w{i}")
+    return tok
+
+
+def write_wavs(directory, gen_seed: int):
+    """EVAL_WAVS wav files through ``scipy.io.wavfile`` at 16, 32 and
+    44.1 kHz in turn (16-bit and 32-bit PCM, float32, 8-bit unsigned, one
+    stereo), 1-10 s, each its own tone over noise; the last 0.2 s long
+    (skipped by the inference core)."""
+    import numpy as np
+    from scipy.io import wavfile
+    rng = np.random.RandomState(gen_seed)
+    rates = (16000, 32000, 44100)
+    for i in range(EVAL_WAVS):
+        sr = rates[i % 3]
+        seconds = (0.2 if i == EVAL_WAVS - 1
+                   else rng.uniform(*EVAL_WAV_SECONDS))
+        t = np.arange(int(sr * seconds)) / sr
+        x = (0.3 * np.sin(2 * np.pi * 100 * 2 ** (i / 3) * t)
+             + rng.randn(len(t)) * 0.02 * (i + 1)) * 0.8
+        kind = i % 5
+        if kind == 0:
+            data = (x * 32767).astype(np.int16)
+        elif kind == 1:
+            data = (x * 2 ** 31 * 0.9).astype(np.int32)
+        elif kind == 2:
+            data = x.astype(np.float32)
+        elif kind == 3:
+            data = (x * 127 + 128).clip(0, 255).astype(np.uint8)
+        else:
+            data = (np.stack([x, x * 0.5], 1) * 32767).astype(np.int16)
+        wavfile.write(str(directory / f"clip{i:02d}.wav"), sr, data)
+
+
+def eval_path(dev, card):
+    """Phase 22: the evaluation path at full width.  Three experiments
+    (``EVAL_FAMILIES``: the flagship ``zoo.effb2_trm``, V=4981 tied, 16
+    kHz; ``zoo.cnn14rnn_trm`` and ``zoo.kd_student_cdur5``, V=4368, 32
+    kHz), random weights from a seed, the decoder's matrices jittered by
+    0.15 and the encoder's BN statistics calibrated on the first batch,
+    written by ``save_checkpoint`` and read back through ``cli/run.py::
+    experiment_model`` from the recipe's model node; EVAL_CLIPS
+    device-made 10 s clips a family (each its own sound), decoded in
+    batches of EVAL_B with beam 3 and max length 20 as
+    ``configs/*/test.yaml`` does, through ``decoding/select.py::
+    LoaderDecoder`` (the runner's decode).  Checks (none caught):
+    (a) the runner's decode against ``generate`` beam 3 on the same
+    weights, per family: at most 1% of tokens differ; (b) the beam kernel
+    against ``fused_beam_plain`` at each family's shapes (the first
+    batch's valid memory, random memory K/V): the plain search run in
+    float64 on the same values, at most 1% of tokens differ, scores within
+    SCORE_ATOL (the float32 plain version's own distance printed beside);
+    (c) greedy ``inference_args`` through the greedy kernel against
+    ``generate`` greedy for cnn14rnn_trm; (d) ``evaluate_captions`` of each
+    family's predictions against EVAL_REFS of the model's own samples a
+    clip: every key of the JAX package's result without Java, finite;
+    ``skipped_scorers`` printed; (e) a two-member cnn14rnn_trm ensemble
+    (seeds 1 and 2) through ``ensemble_generate`` beam 3 over the test set
+    on the card, the dcase csv written and read back, and on
+    EVAL_ENSEMBLE_CPU clips against the same call on CPU copies (at most
+    1% of tokens differ); (f) ``export_hf_checkpoint`` of the flagship
+    experiment loaded by ``Effb2TrmCaptioningModel.load_torch_checkpoint``
+    decodes (a)'s tokens; (g) ``cli/inference.py::caption_files`` on
+    EVAL_WAVS wav files at 16, 32 and 44.1 kHz (cnn14rnn_trm): the 0.2 s
+    clip skipped, the captions equal to the runner's decode of the same
+    resampled waves; (h) the launch counts, set to 0 before and read
+    after, comparisons' launches taken back out: the beam kernel once a
+    batch a family in (a), the greedy kernel once a batch in (c), the
+    log-mel kernel once a 32 kHz batch.  -> what phase 23 times."""
+    import copy
+    import csv
+    import tempfile
+    import numpy as np
+    import torch
+    from audiocaption_tpu_torch.cli.inference import (
+        caption_files, collect_inputs, load_waves)
+    from audiocaption_tpu_torch.cli.run import (
+        ensemble_decode_loader, experiment_model, export_hf_checkpoint,
+        write_dcase_csv)
+    from audiocaption_tpu_torch.data.collate import pad_sequences
+    from audiocaption_tpu_torch.decoding import fused_beam as FB
+    from audiocaption_tpu_torch.decoding import fused_greedy as FG
+    from audiocaption_tpu_torch.decoding.ensemble import ensemble_generate
+    from audiocaption_tpu_torch.decoding.select import LoaderDecoder
+    from audiocaption_tpu_torch.hf_api import (
+        Effb2TrmCaptioningModel, Effb2TrmConfig)
+    from audiocaption_tpu_torch.metrics.eval import evaluate_captions
+    from audiocaption_tpu_torch.models.captioner import generate
+    from audiocaption_tpu_torch.ops import fused_logmel as FL
+    from audiocaption_tpu_torch.training.checkpoint import (
+        load_checkpoint, model_variables, save_checkpoint)
+
+    def counts():
+        return (FB.fused_beam_decode.launches,
+                FG.fused_greedy_decode.launches, FL.fused_logmel.launches)
+
+    def restore(c):
+        (FB.fused_beam_decode.launches, FG.fused_greedy_decode.launches,
+         FL.fused_logmel.launches) = c
+
+    def engine(model, loader, **args):
+        """The torch engine's ids of every batch (a comparison: its
+        log-mel launches are taken back out)."""
+        c0 = counts()
+        with torch.no_grad():
+            out = [generate(model, b["wav"], b["wav_len"], **args)["seq"]
+                   .cpu().numpy() for b in loader]
+        restore(c0)
+        return out
+
+    def mismatch(got, want):
+        return (sum(int((g != w).sum()) for g, w in zip(got, want)),
+                sum(w.size for w in want))
+
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    FB.reset_launches(FB.fused_beam_decode)
+    FG.reset_launches(FG.fused_greedy_decode)
+    FL.fused_logmel.launches = 0
+    t = {"families": {}, "beam_launches": {}, "scorer_s": {}, "scored": 0}
+    cpu_gen = torch.Generator().manual_seed(SEED + 42)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    for name, fam in EVAL_FAMILIES.items():
+        tf0 = time.perf_counter()
+        drawn = eval_model(name, dev)
+        loader = []
+        for j in range(EVAL_CLIPS // EVAL_B):
+            b = scst_batch(dev, gen, cpu_gen, EVAL_B, EVAL_SECONDS, fam["sr"])
+            b["audio_id"] = [f"{name}_{j * EVAL_B + i}"
+                             for i in range(EVAL_B)]
+            loader.append(b)
+        c0 = counts()
+        calibrate_encoder_bn(drawn, loader[0])
+        restore(c0)
+        tok = word_tokenizer(fam["vocab"])
+        path = root / f"{name}.pth"
+        save_checkpoint(str(path), model_variables(drawn), epoch=1,
+                        tokenizer_state=tok.state_dict())
+        model, exp_tok = experiment_model({"model": fam["node"]},
+                                          load_checkpoint(str(path)), dev)
+        same = model_variables(model)
+        assert all(np.array_equal(v, same[k])
+                   for k, v in model_variables(drawn).items()), name
+        assert len(exp_tok) == fam["vocab"]
+        del drawn
+
+        # (a) the runner's decode, beam 3, against the torch engine
+        decoder = LoaderDecoder(model, dev)
+        n_b = FB.fused_beam_decode.launches
+        key2pred = decoder.decode_loader(exp_tok, loader, **EVAL_ARGS)
+        t["beam_launches"][name] = FB.fused_beam_decode.launches - n_b
+        ids = decoder.last_seq
+        a_mis, a_tok = mismatch(ids, engine(model, loader, **EVAL_ARGS))
+        distinct = len(np.unique(np.concatenate(ids)))
+        log(f"eval (a) {name}: the runner's beam-3 decode of {EVAL_CLIPS} "
+            f"clips x {EVAL_SECONDS} s (batches of {EVAL_B}, "
+            f"{t['beam_launches'][name]} beam kernel launches) vs the torch "
+            f"engine: {a_mis}/{a_tok} tokens differ, {distinct} distinct; "
+            f"first caption {key2pred[loader[0]['audio_id'][0]][0][:60]!r}")
+        assert a_mis <= MISMATCH_LIMIT * a_tok, f"{name}: runner decode"
+        if dev.type == "cuda":
+            assert t["beam_launches"][name] == len(loader), name
+
+        # (b) the beam kernel against its plain version at these shapes
+        c0 = counts()
+        with torch.no_grad():
+            enc = model.encode(loader[0]["wav"], loader[0]["wav_len"])
+            memkv, valid = FG.memory_kv(model.decoder, enc["attn_emb"],
+                                        enc["attn_emb_len"], False)
+        packed = FG.pack_decoder_weights(model.decoder).to(dev)
+        bgen = torch.Generator().manual_seed(SEED + 43)
+        memkv = torch.randn(memkv.shape, generator=bgen).to(dev)
+        seq, score = FB.fused_beam_decode(packed, memkv, valid, L, 3)
+        steps = torch.zeros(EVAL_B, dtype=torch.long, device=dev)
+        p_seq, p_score = FB.fused_beam_plain(packed, memkv, valid, L, 3)
+        p64 = packed_double(packed)
+        s64, sc64 = FB.fused_beam_plain(p64, memkv.double(), valid, L, 3,
+                                        steps=steps)
+        restore(c0)
+        b_mis = int((seq != s64).sum())
+        shared = (seq == s64).all(-1)
+        b_err = float((score[shared].double() - sc64[shared]).abs().max())
+        p_same = (p_seq == s64).all(-1)
+        p_err = float((p_score[p_same].double() - sc64[p_same]).abs().max())
+        p_mis = int((p_seq != s64).sum())
+        tied = packed.cls.data_ptr() == packed.emb.data_ptr()
+        log(f"eval (b) {name}: beam kernel vs plain run in float64 at the "
+            f"family's shapes (B={EVAL_B}, E={packed.emb_dim}, "
+            f"{packed.nlayers} layer(s), S={memkv.shape[3]}, "
+            f"V={packed.vocab_size} {'tied' if tied else 'untied'}, "
+            f"the batch's valid memory, random memory K/V): {b_mis}/"
+            f"{seq.numel()} tokens differ, max |score diff| on "
+            f"{int(shared.sum())} matching sequences {b_err:.3g} (limit "
+            f"{SCORE_ATOL}); the float32 plain version vs float64: {p_mis} "
+            f"tokens, max {p_err:.3g}; {len(torch.unique(s64))} distinct "
+            f"(plan {FB.fused_beam_decode.last_plan})")
+        assert b_mis <= MISMATCH_LIMIT * seq.numel(), f"{name}: beam kernel"
+        assert b_err <= SCORE_ATOL, f"{name}: beam kernel scores"
+        assert len(torch.unique(s64)) > EVAL_DISTINCT, \
+            "degenerate beam trajectories"
+
+        # (c) greedy inference_args through the greedy kernel
+        if name == "cnn14rnn_trm":
+            n_g = FG.fused_greedy_decode.launches
+            decoder.decode_loader(exp_tok, loader, sample_method="greedy",
+                                  max_length=L)
+            g_launches = FG.fused_greedy_decode.launches - n_g
+            c_mis, c_tok = mismatch(decoder.last_seq, engine(
+                model, loader, sample_method="greedy", max_length=L))
+            log(f"eval (c) {name}: greedy through the greedy kernel "
+                f"({g_launches} launches) vs the torch engine: "
+                f"{c_mis}/{c_tok} tokens differ")
+            assert c_mis <= MISMATCH_LIMIT * c_tok, "greedy decode"
+            if dev.type == "cuda":
+                assert g_launches == len(loader), g_launches
+
+        # (d) the metric suite on the predictions
+        c0 = counts()
+        ref_gen = torch.Generator(device=dev).manual_seed(SEED + 44)
+        refs = {}
+        with torch.no_grad():
+            for b in loader:
+                enc = model.encode(b["wav"], b["wav_len"])
+                for _ in range(EVAL_REFS):
+                    s = generate(model, enc=enc, sample_method="sample",
+                                 max_length=L, generator=ref_gen)["seq"]
+                    for k, c in zip(b["audio_id"],
+                                    exp_tok.decode(s.cpu().numpy())):
+                        refs.setdefault(k, []).append(c)
+        restore(c0)
+        scored = list(key2pred)[:EVAL_SCORED]
+        t0 = time.perf_counter()
+        with timed_scorers(t["scorer_s"]):
+            result = evaluate_captions({k: key2pred[k] for k in scored},
+                                       {k: refs[k] for k in scored})
+        d_s = time.perf_counter() - t0
+        t["scored"] += len(scored)
+        want_keys = {"bleu_1", "bleu_2", "bleu_3", "bleu_4", "rouge_l",
+                     "cider", "meteor_py", "spice_py", "spider_py"}
+        scores = {k: v for k, v in result.items() if isinstance(v, float)}
+        log(f"eval (d) {name}: evaluate_captions of the first {len(scored)} "
+            f"predictions against {EVAL_REFS} sampled references each in "
+            f"{d_s:.2f} s: {scores}; skipped_scorers "
+            f"{result.get('skipped_scorers')}")
+        assert want_keys <= set(scores), sorted(scores)
+        assert all(math.isfinite(v) for v in scores.values()), scores
+        assert result.get("skipped_scorers"), "skipped scorers not reported"
+        t["families"][name] = dict(model=model, tok=exp_tok, loader=loader,
+                                   decoder=decoder, packed=packed,
+                                   memkv=memkv, valid=valid, steps=steps,
+                                   err=b_err, ids=ids, key2pred=key2pred,
+                                   refs=refs, seconds=time.perf_counter()
+                                   - tf0)
+
+    # (e) a two-member cnn14rnn_trm ensemble
+    fam = t["families"]["cnn14rnn_trm"]
+    second = eval_model("cnn14rnn_trm", dev, seed=EVAL_ENSEMBLE_SEED)
+    c0 = counts()
+    calibrate_encoder_bn(second, fam["loader"][0])
+    restore(c0)
+    members = [fam["model"], second]
+    n_l = FL.fused_logmel.launches
+    ens = ensemble_decode_loader(members, fam["tok"], fam["loader"], dev,
+                                 **EVAL_ARGS)
+    ens_logmel = FL.fused_logmel.launches - n_l
+    csv_path = root / "dcase_predictions.csv"
+    write_dcase_csv(csv_path, ens)
+    with open(csv_path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    assert [(r["file_name"], r["caption_predicted"]) for r in rows] == [
+        (k, v[0]) for k, v in ens.items()], "dcase csv read back"
+    c0 = counts()
+    b0 = fam["loader"][0]
+    n = EVAL_ENSEMBLE_CPU
+    card_seq = ensemble_generate(members, b0["wav"][:n], b0["wav_len"][:n],
+                                 **EVAL_ARGS)["seq"].cpu()
+    cpu_members = [copy.deepcopy(m).cpu() for m in members]
+    cpu_seq = ensemble_generate(cpu_members, b0["wav"][:n].cpu(),
+                                b0["wav_len"][:n].cpu(), **EVAL_ARGS)["seq"]
+    restore(c0)
+    e_mis = int((card_seq != cpu_seq).sum())
+    differs = sum(ens[k] != fam["key2pred"][k] for k in ens)
+    log(f"eval (e): ensemble of two cnn14rnn_trm (seeds 1, "
+        f"{EVAL_ENSEMBLE_SEED}) over {len(ens)} clips on the card "
+        f"({ens_logmel} log-mel launches; {differs} captions differ from "
+        f"member 1 alone); dcase csv of {len(rows)} rows read back; card vs "
+        f"CPU copies on {n} clips: {e_mis}/{cpu_seq.numel()} tokens differ")
+    assert e_mis <= MISMATCH_LIMIT * cpu_seq.numel(), "ensemble card vs CPU"
+    del cpu_members
+
+    # (f) the flagship exported to the HF format, decoded by the API
+    flag = t["families"]["effb2_trm"]
+    hf_path = export_hf_checkpoint(flag["model"], str(root / "hf.bin"))
+    api = Effb2TrmCaptioningModel(
+        Effb2TrmConfig(vocab_size=EVAL_FAMILIES["effb2_trm"]["vocab"]),
+        device=dev)
+    api.load_torch_checkpoint(hf_path)
+    f_ids = [api.decode(b["wav"], b["wav_len"], sample_method="beam",
+                        beam_size=3, max_length=L).cpu().numpy()
+             for b in flag["loader"]]
+    f_same = all(np.array_equal(a, b) for a, b in zip(f_ids, flag["ids"]))
+    log(f"eval (f): export_hf of the flagship -> {len(torch.load(hf_path))} "
+        f"tensors; Effb2TrmCaptioningModel beam 3 from it equals (a)'s "
+        f"tokens: {f_same}")
+    assert f_same, "the exported checkpoint decodes differently"
+    del api
+
+    # (g) the inference core on wav files
+    wav_dir = root / "wavs"
+    wav_dir.mkdir()
+    write_wavs(wav_dir, SEED + 45)
+    entries = collect_inputs(str(wav_dir))
+    g_out = caption_files(fam["model"], fam["tok"], entries, dev, EVAL_B,
+                          **EVAL_ARGS)
+    ids_g, wavs_g = load_waves(entries, SR_32K)
+    g_loader = []
+    for i in range(0, len(wavs_g), EVAL_B):    # caption_files' batches
+        padded, lens = pad_sequences(wavs_g[i:i + EVAL_B], bucket=SR_32K)
+        g_loader.append({"audio_id": ids_g[i:i + EVAL_B], "wav": padded,
+                         "wav_len": lens})
+    g_ref = fam["decoder"].decode_loader(fam["tok"], g_loader, **EVAL_ARGS)
+    g_diff = {k: (v, g_ref[k][0]) for k, v in g_out.items()
+              if g_ref.get(k, [None])[0] != v}
+    g_same = not g_diff and len(g_ref) == len(g_out)
+    log(f"eval (g): caption_files on {len(entries)} wav files (16, 32, 44.1 "
+        f"kHz) -> {len(g_out)} captions, the 0.2 s clip skipped; equal to "
+        f"the runner's decode of the same resampled waves: {g_same} "
+        f"{g_diff}")
+    assert len(entries) == EVAL_WAVS and len(g_out) == EVAL_WAVS - 1
+    assert f"clip{EVAL_WAVS - 1:02d}.wav" not in g_out and g_same
+
+    # (h) the launches of the path
+    launches = {"fused_beam": FB.fused_beam_decode.launches,
+                "fused_greedy": FG.fused_greedy_decode.launches,
+                "fused_logmel": FL.fused_logmel.launches}
+    batches = EVAL_CLIPS // EVAL_B
+    # (a) a launch a batch a family, (f) the API's, (g) two single batches
+    want = {"fused_beam": 3 * batches + batches + 2,
+            "fused_greedy": batches,
+            # (a) two 32 kHz families, (c), (e) two members, (g)
+            "fused_logmel": 2 * batches + batches + 2 * batches + 2}
+    log(f"eval (h): launches on the evaluation path {launches} (expected "
+        f"{want}); beam launches by family {t['beam_launches']}")
+    if dev.type == "cuda":
+        assert launches == want, launches
+    t.update(launches=launches, members=members, root=tmp)
+    return t
+
+
+def eval_times(t, dev, card):
+    """Phase 23, float32, TF32 off: evaluation clips/s of each family at
+    B=EVAL_B x 10 s, beam 3 (the median of EVAL_TIMED batches after
+    EVAL_WARMUP of the runner's decode, tokenizer included), split by CUDA
+    events into frontend + encode, memory K/V projection and the beam
+    kernel, and the host work (ids to the host, tokenizer decode); the
+    device idle share (``torch.profiler``); the beam kernel at the
+    cnn14rnn_trm and KD-student shapes warm and with the L2 cold, its plain
+    version and its bound (``decode_flops`` / ``decode_bound_ms``); the
+    metric suite's host time per 1000 captions by scorer; the ensemble's
+    torch-engine beam per batch.  -> the beam kernel's JSON entries at the
+    two shapes."""
+    import numpy as np
+    import torch
+    from audiocaption_tpu_torch.decoding import fused_beam as FB
+    from audiocaption_tpu_torch.decoding import fused_greedy as FG
+    from audiocaption_tpu_torch.decoding.ensemble import ensemble_generate
+    from audiocaption_tpu_torch.metrics.cider import CiderD
+    from audiocaption_tpu_torch.ops import fused_logmel as FL
+    c0 = (FB.fused_beam_decode.launches, FG.fused_greedy_decode.launches,
+          FL.fused_logmel.launches)
+    out = {}
+    for name, fam in t["families"].items():
+        model, tok, b = fam["model"], fam["tok"], fam["loader"][0]
+        loader = [b]
+        packed = FG.pack_decoder_weights(model.decoder).to(dev)
+        marks = {}
+
+        def mark(key):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks[key] = e
+        rows, walls = [], []
+        for _ in range(EVAL_WARMUP + EVAL_TIMED):
+            w0 = time.perf_counter()
+            fam["decoder"].decode_loader(tok, loader, **EVAL_ARGS)
+            walls.append(time.perf_counter() - w0)
+            with torch.no_grad():
+                mark("start")
+                enc = model.encode(b["wav"], b["wav_len"])
+                mark("encode")
+                memkv, valid = FG.memory_kv(model.decoder, enc["attn_emb"],
+                                            enc["attn_emb_len"], False)
+                mark("memkv")
+                seq, _ = FB.fused_beam_decode(packed, memkv, valid, L, 3)
+                mark("beam")
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            tok.decode(seq[:, 0].cpu().numpy())
+            host = (time.perf_counter() - h0) * 1e3
+            rows.append([marks["start"].elapsed_time(marks["encode"]),
+                         marks["encode"].elapsed_time(marks["memkv"]),
+                         marks["memkv"].elapsed_time(marks["beam"]), host])
+        rows = np.asarray(rows[EVAL_WARMUP:])
+        wall = float(np.median(walls[EVAL_WARMUP:])) * 1e3
+        split = dict(zip(("encode", "memkv", "beam", "host"),
+                         np.median(rows, 0).tolist()))
+        busy = device_split(lambda: fam["decoder"].decode_loader(
+            tok, loader, **EVAL_ARGS), iters=3)
+        total = sum(busy.values())
+        out[name] = dict(wall=wall, split=split, idle=1 - total / wall,
+                         clips_s=EVAL_B / wall * 1e3)
+        log(f"eval times {name}: {EVAL_B / wall * 1e3:.1f} clips/s (the "
+            f"runner's decode of a batch of {EVAL_B} x {EVAL_SECONDS} s, "
+            f"beam 3, median of {EVAL_TIMED}: {wall:.2f} ms); split "
+            f"frontend + encode {split['encode']:.3f}, memory K/V "
+            f"{split['memkv']:.3f}, beam kernel {split['beam']:.3f}, host "
+            f"(ids to host, tokenizer) {split['host']:.3f} ms; device "
+            f"{total:.2f} ms a batch, idle share {1 - total / wall:.3f}; top "
+            f"kernels {dict(list(busy.items())[:6])} on {card}")
+
+    entries = []
+    for name in ("cnn14rnn_trm", "kd_student"):
+        fam = t["families"][name]
+        packed, memkv, valid = fam["packed"], fam["memkv"], fam["valid"]
+
+        def fn():
+            return FB.fused_beam_decode(packed, memkv, valid, L, 3)
+        with torch.no_grad():
+            seq, score = fn()
+            k_ms = cuda_ms(fn, 10)
+            cold = cold_ms(fn, 10)
+            plain_ms = cuda_ms(lambda: FB.fused_beam_plain(
+                packed, memkv, valid, L, 3), 3, 1)
+        S_ = memkv.shape[3]
+        mm, attn = decode_flops(packed.emb_dim, packed.ffn,
+                                packed.vocab_size, valid.sum(1).tolist(),
+                                fam["steps"].tolist(), 3, nl=packed.nlayers,
+                                S_=S_)
+        nbytes = input_bytes(packed, memkv, valid,
+                             seq.numel() * 4 + score.numel() * 4)
+        bound, _, by = decode_bound_ms(mm, attn, nbytes)
+        log(f"fused_beam at the {name} shapes (B={EVAL_B}, beam 3, "
+            f"E={packed.emb_dim}, {packed.nlayers} layer(s), S={S_}, "
+            f"V={packed.vocab_size} untied, L={L}, steps per sample "
+            f"{int(fam['steps'].min())}-{int(fam['steps'].max())}): "
+            f"{k_ms:.4f} ms/call warm, {cold:.4f} ms with the L2 cold; plain "
+            f"{plain_ms:.3f} ms; bound {bound:.4f} ms by {by} ({nbytes} "
+            f"bytes, {mm} product ops, {attn} attention ops; plan "
+            f"{FB.fused_beam_decode.last_plan}) on {card}")
+        entries.append({
+            "name": f"fused_beam[{name}]", "route": "cuda",
+            "source": "audiocaption_tpu_torch/csrc/fused_beam.cu",
+            "replaces": "audiocaption_tpu/decoding/fused_beam.py:126",
+            "launches": t["beam_launches"][name], "max_abs_err": fam["err"],
+            "ms": k_ms, "cold_ms": cold, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None})
+
+    # the metric suite's host time, by scorer, inside (d)'s calls
+    per_1000 = {k: v * 1e3 / t["scored"] * 1000
+                for k, v in t["scorer_s"].items()}
+    log(f"metric suite host time, ms per 1000 captions (from phase 22 (d): "
+        f"{t['scored']} captions, {EVAL_REFS} references each): "
+        f"{ {k: round(v, 1) for k, v in per_1000.items()} } on the host "
+        f"beside {card}")
+
+    # the ensemble's torch-engine beam
+    b = t["families"]["cnn14rnn_trm"]["loader"][0]
+
+    def ens():
+        return ensemble_generate(t["members"], b["wav"], b["wav_len"],
+                                 **EVAL_ARGS)["seq"]
+    ens_ms = []
+    for _ in range(1 + 3):
+        _sync(dev)
+        t0 = time.perf_counter()
+        ens()
+        _sync(dev)
+        ens_ms.append((time.perf_counter() - t0) * 1e3)
+    ens_ms = float(np.median(ens_ms[1:]))
+    log(f"ensemble of two cnn14rnn_trm, torch-engine beam 3 (encodes "
+        f"included): {ens_ms:.1f} ms per batch of {EVAL_B} x {EVAL_SECONDS} "
+        f"s ({EVAL_B / ens_ms * 1e3:.1f} clips/s) on {card}")
+    (FB.fused_beam_decode.launches, FG.fused_greedy_decode.launches,
+     FL.fused_logmel.launches) = c0
+    return dict(times=out, entries=entries, metrics=per_1000, ens_ms=ens_ms)
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2779,6 +3417,18 @@ def main() -> int:
     # -- 21. KD step times ---------------------------------------------------
     kernels.append(kd_times(kd, card)["entry"])
     log(f"phase 20: {t1 - t0:.1f} s, phase 21: {time.perf_counter() - t1:.1f} "
+        f"s")
+
+    # -- 22. the evaluation path at full width --------------------------------
+    t0 = time.perf_counter()
+    ev = eval_path(dev, card)
+    for k in kernels:
+        if k["name"] in ev["launches"]:
+            k["eval_launches"] = ev["launches"][k["name"]]
+    t1 = time.perf_counter()
+    # -- 23. evaluation times ------------------------------------------------
+    kernels += eval_times(ev, dev, card)["entries"]
+    log(f"phase 22: {t1 - t0:.1f} s, phase 23: {time.perf_counter() - t1:.1f} "
         f"s")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -57,7 +57,20 @@ for name in ("audiocaption_tpu_torch.native",
              "audiocaption_tpu_torch.training.distill",
              "audiocaption_tpu_torch.losses.kd",
              "audiocaption_tpu_torch.data.kd_dataset",
-             "audiocaption_tpu_torch.models.encoders_extra"):
+             "audiocaption_tpu_torch.models.encoders_extra",
+             "audiocaption_tpu_torch.cli.inference",
+             "audiocaption_tpu_torch.cli.eval_tools",
+             "audiocaption_tpu_torch.decoding.ensemble",
+             "audiocaption_tpu_torch.decoding.select",
+             "audiocaption_tpu_torch.metrics.bleu",
+             "audiocaption_tpu_torch.metrics.rouge",
+             "audiocaption_tpu_torch.metrics.porter",
+             "audiocaption_tpu_torch.metrics.meteor",
+             "audiocaption_tpu_torch.metrics.spice",
+             "audiocaption_tpu_torch.metrics.eval",
+             "audiocaption_tpu_torch.metrics.diversity",
+             "audiocaption_tpu_torch.metrics.extra",
+             "audiocaption_tpu_torch.metrics.tools"):
     assert name in names, name
 print(len(names))
 """
