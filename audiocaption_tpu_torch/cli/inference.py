@@ -28,26 +28,10 @@ import numpy as np
 import torch
 
 from audiocaption_tpu_torch.data.collate import pad_sequences
-from audiocaption_tpu_torch.data.dataset import resample
+from audiocaption_tpu_torch.data.dataset import read_wav, resample
 from audiocaption_tpu_torch.decoding.select import LoaderDecoder
 
 MIN_SECONDS = 0.32
-
-
-def read_wav(path: str) -> Tuple[int, np.ndarray]:
-    """-> (sample rate, float32 mono wave in [-1, 1])."""
-    from scipy.io import wavfile
-    sr, data = wavfile.read(path)
-    if data.dtype == np.int16:
-        data = data / 32768.0
-    elif data.dtype == np.int32:
-        data = data / 2147483648.0
-    elif data.dtype == np.uint8:
-        data = (data.astype(np.float32) - 128.0) / 128.0
-    data = np.asarray(data, np.float32)
-    if data.ndim == 2:
-        data = data.mean(axis=1)
-    return sr, data
 
 
 def collect_inputs(input_path: str) -> List[Tuple[str, str]]:

@@ -13,6 +13,12 @@ the config) runs it on the CPU.  Written under
 line an epoch: loss, val_cider, ss ratio), ``last.pth`` every epoch,
 ``best.pth`` when ``val_cider`` improves, and ``swa.pth`` at the end
 (the average from epoch ``swa.start``, or the last weights without SWA).
+Each epoch's line splits its time into steps (the loader's wait inside
+them), val and the wait for the previous checkpoint, with the peak device
+memory on CUDA.  A temporal captioner (``configs/synthetic_temporal/
+tempgru.yaml``: ``TemporalBahAttnDecoder`` on a temporal-tag dataset)
+trains on each batch's ``temporal_tag`` and its val score decodes with
+the val set's tags.
 
 A model node of type ``ScstWrapper`` (``configs/*/scst.yaml``) trains
 the wrapped model by self-critical sequence training instead
@@ -80,10 +86,28 @@ card by default.  The experiment loader is split so that a model can be
 built without PyYAML: :func:`read_experiment` reads the directory,
 :func:`experiment_model` builds from a config dict and a checkpoint.
 
-The JAX runner's other paths (augmented and SED training, the temporal
-prediction and evaluation, the device-resident corpus, data
-parallelism) are not ported (ROADMAP Queue 1 items 6-7); their
-subcommands raise.
+The temporal-tag pipeline (the JAX runner's SED training and temporal
+evaluation):
+
+    python -m audiocaption_tpu_torch.cli.run train_sed CONFIG \
+        [key=value ...]                 # configs/synthetic_temporal/sed.yaml
+    python -m audiocaption_tpu_torch.cli.run evaluate_temporal \
+        --experiment_path EXP --sed_experiment_path SED_EXP \
+        --eval_config configs/synthetic_temporal/test.yaml [key=value ...]
+
+``train_sed`` trains the Cnn8-RNN SED net framewise on the corpus's event
+segments (``training/sed_trainer.py``: a float16 log-mel bank on the
+device through the log-mel kernel, BCE, Adam), keeping ``best.pth`` by
+the val tag accuracy of the host tag pipeline.  ``predict_temporal``
+decodes with the tags the SED experiment's net gives each clip and, where
+the dataset carries ground-truth tags, writes the tag accuracy to
+``tag_output``; ``evaluate_temporal`` adds the caption metrics.
+
+Every method that reads a config takes a path or a config dict.
+
+The JAX runner's other paths (augmented training, the device-resident
+corpus, data parallelism) are not ported (ROADMAP Queue 1 items 6-7);
+``train_aug`` raises.
 """
 
 from __future__ import annotations
@@ -95,14 +119,14 @@ import random
 import shutil
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from audiocaption_tpu_torch.data.collate import TextCollate, VarLenPadCollate
 from audiocaption_tpu_torch.data.dataset import (
-    CaptionDataset, InferenceDataset, load_caption_json)
+    CaptionDataset, InferenceDataset, WavCaptionDataset, load_caption_json)
 from audiocaption_tpu_torch.data.tokenizer import DictTokenizer
 from audiocaption_tpu_torch.decoding.ensemble import ensemble_generate
 from audiocaption_tpu_torch.decoding.select import (
@@ -129,7 +153,9 @@ from audiocaption_tpu_torch.training.swa import swa_init, swa_update
 from audiocaption_tpu_torch.training.trainer import (
     create_train_state, train_step)
 from audiocaption_tpu_torch.utils.config import (
-    build_model_from_config, load_config, parse_overrides, short_type)
+    build_model_from_config, load_config, resolve_config, short_type)
+
+Config = Union[str, Dict]
 
 
 def set_seed(seed: int) -> None:
@@ -161,9 +187,14 @@ def build_dataset(cfg: Dict):
         return CaptionDataset(**args)
     if t == "InferenceDataset":
         return InferenceDataset(**args)
+    if t in ("WavCaptionDataset", "CaptionWavReadDataset"):
+        return WavCaptionDataset(**args)
     if t in ("CaptionKdDataset", "InferKdDataset"):
         from audiocaption_tpu_torch.data import kd_dataset
         return getattr(kd_dataset, t)(**args)
+    if t in ("TemporalTagCaptionDataset", "TemporalTagInferenceDataset"):
+        from audiocaption_tpu_torch.data import condition_dataset
+        return getattr(condition_dataset, t)(**args)
     raise ValueError(f"dataset {t!r} is not ported yet")
 
 
@@ -205,12 +236,12 @@ def build_dataloader(data_cfg: Dict, tokenizer=None, train: bool = True):
 def to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
     """A collated batch (numpy arrays or tensors) -> the train step's
     tensors on ``device``: the wave widened to float32 (a float16 wire as
-    is, int16 / 32768), lengths and ids as int64."""
+    is, int16 / 32768), lengths, ids and temporal tags as int64."""
     wav = torch.as_tensor(batch["wav"]).to(device)
     if wav.dtype == torch.int16:
         wav = wav.float() / 32768.0
     out = {"wav": wav.float()}
-    for k in ("wav_len", "cap", "cap_len"):
+    for k in ("wav_len", "cap", "cap_len", "temporal_tag"):
         if k in batch:
             out[k] = torch.as_tensor(batch[k]).to(device, torch.long)
     return out
@@ -225,16 +256,49 @@ def _make_logger(path: Path) -> Callable[[str], None]:
     return log
 
 
-def _load_pretrained(model, spec) -> None:
-    """A plain (or ``{"model": ...}``-wrapped) state dict into the
-    submodule at a dotted path (``encoder``, ``encoder.cnn``, ...),
-    entries of matching name and shape only."""
-    part, path = spec
-    sd = torch.load(path, map_location="cpu", weights_only=False)
-    if isinstance(sd, dict) and "model" in sd:
-        sd = sd["model"]
+def unwrap_pretrained(ckpt, kind: str) -> Dict:
+    """A pretrained file's contents -> the state dict of its part, by the
+    JAX ``load_pretrained_into``'s adapters: ``{"model": sd}`` (PANNs; a
+    COLA file's ``backbone.*`` keys, when it has any, with the prefix
+    taken off and the rest dropped), ``{"state_dict": sd}`` (BLAT: the
+    keys holding ``audio_encoder``, that word and its dot taken out), a
+    plain state dict; for a ``decoder`` part a ``decoder.`` prefix on the
+    first key is taken off the keys that have it (the rest dropped)."""
+    if isinstance(ckpt, dict) and "model" in ckpt:
+        sd = ckpt["model"]
+        if any(k.startswith("backbone.") for k in sd):
+            sd = {k[len("backbone."):]: v for k, v in sd.items()
+                  if k.startswith("backbone.")}
+    elif isinstance(ckpt, dict) and "state_dict" in ckpt:
+        sd = {k.replace("audio_encoder.", ""): v
+              for k, v in ckpt["state_dict"].items() if "audio_encoder" in k}
+    else:
+        sd = ckpt
+    if kind == "decoder" and sd and next(iter(sd)).startswith("decoder."):
+        sd = {k[len("decoder."):]: v for k, v in sd.items()
+              if k.startswith("decoder.")}
+    return sd
+
+
+def load_pretrained(model, spec) -> int:
+    """A pretrained spec (the dotted path of a submodule, e.g.
+    ``encoder.cnn``, a checkpoint path, its kind) into the model: the
+    file unwrapped (:func:`unwrap_pretrained`), then its entries of
+    matching name and shape loaded.  Returns how many tensors it filled;
+    a file that fills none raises."""
+    part, path, kind = spec
+    sd = unwrap_pretrained(torch.load(path, map_location="cpu",
+                                      weights_only=False), kind)
     module = model.get_submodule(part)
-    module.load_state_dict(merge_variables(module.state_dict(), sd))
+    own = module.state_dict()
+    hits = [k for k, v in sd.items() if k in own
+            and tuple(np.shape(v)) == tuple(own[k].shape)]
+    if not hits:
+        raise ValueError(f"pretrained {path} fills none of the {len(own)} "
+                         f"tensors of {part} ({kind}); its first keys: "
+                         f"{list(sd)[:4]}")
+    module.load_state_dict(merge_variables(own, sd))
+    return len(hits)
 
 
 def read_experiment(experiment_path: str, resume: str) -> Tuple[Dict, Dict]:
@@ -351,16 +415,14 @@ class RunSetup:
 
 class Runner:
 
-    def _setup(self, config: str, overrides) -> RunSetup:
-        """Load the config with the overrides, seed, write
-        ``config.yaml`` into the experiment directory, open its log, build
-        the tokenizer (it must have a vocabulary) and the loaders, the
-        model from the config (seeded random weights, then any pretrained
-        parts, on the device; an ``ScstWrapper`` node is the model it
-        wraps) and the optimiser's settings (Adam with L2 decay, the clip,
-        the schedule with a fifth of warm-up)."""
+    def _start(self, config: Config, overrides
+               ) -> Tuple[Dict, torch.device, int, Path,
+                          Callable[[str], None]]:
+        """The config (a path or a dict) with the overrides -> (config,
+        device, seed, experiment directory, its log): seeded, the
+        directory made, ``config.yaml`` written into it."""
         import yaml
-        cfg = load_config(config, parse_overrides(overrides))
+        cfg = resolve_config(config, overrides)
         device = resolve_device(cfg.get("device", "cuda"))
         seed = cfg.get("seed", 1)
         set_seed(seed)
@@ -368,7 +430,15 @@ class Runner:
         exp_dir.mkdir(parents=True, exist_ok=True)
         with open(exp_dir / "config.yaml", "w") as f:
             yaml.safe_dump(cfg, f)
+        return cfg, device, seed, exp_dir, _make_logger(exp_dir / "train.log")
 
+    def _setup(self, config: Config, overrides) -> RunSetup:
+        """:meth:`_start`, then the tokenizer (it must have a vocabulary)
+        and the loaders, the model from the config (seeded random weights,
+        then any pretrained parts, on the device; an ``ScstWrapper`` node
+        is the model it wraps) and the optimiser's settings (Adam with L2
+        decay, the clip, the schedule with a fifth of warm-up)."""
+        cfg, device, seed, exp_dir, log = self._start(config, overrides)
         tokenizer = build_tokenizer(
             cfg["data"]["train"]["collate_fn"]["tokenizer"])
         if not tokenizer.loaded:
@@ -382,7 +452,8 @@ class Runner:
             cfg["model"], vocab_size=len(tokenizer))
         random_init(model, torch.Generator().manual_seed(seed))
         for spec in pretrained:
-            _load_pretrained(model, spec)
+            n = load_pretrained(model, spec)
+            log(f"{spec[0]}: {n} tensors from {spec[1]}")
 
         trainer_cfg = cfg.get("trainer", {})
         epochs = trainer_cfg.get("epochs", 25)
@@ -391,7 +462,7 @@ class Runner:
         base_lr = opt_args.get("lr", 5e-4)
         return RunSetup(
             cfg=cfg, device=device, seed=seed, exp_dir=exp_dir,
-            log=_make_logger(exp_dir / "train.log"), tokenizer=tokenizer,
+            log=log, tokenizer=tokenizer,
             train_loader=train_loader, val_loader=val_loader,
             val_key2refs=load_caption_json(val_cfg["caption"],
                                            zh=cfg.get("zh", False)),
@@ -403,8 +474,9 @@ class Runner:
                      weight_decay=opt_args.get("weight_decay", 0.0),
                      max_grad_norm=trainer_cfg.get("max_grad_norm", 1.0)))
 
-    def train(self, config: str, *overrides: str) -> str:
-        """Train from a config; returns the experiment directory."""
+    def train(self, config: Config, *overrides: str) -> str:
+        """Train from a config (a path or a dict); returns the experiment
+        directory."""
         run = self._setup(config, overrides)
         cfg, device, seed, exp_dir, log = (run.cfg, run.device, run.seed,
                                            run.exp_dir, run.log)
@@ -414,6 +486,9 @@ class Runner:
         trainer_cfg = cfg.get("trainer", {})
         # an ScstWrapper node trains the model it wraps by SCST
         rl_train = short_type(cfg["model"].get("type", "")) == "ScstWrapper"
+        if rl_train and not isinstance(model.decoder, TransformerDecoder):
+            raise NotImplementedError(
+                "SCST of a GRU decoder is not ported yet (ROADMAP Queue 1)")
         state = create_train_state(model, **run.opt)
         loss_fn = build_loss(cfg.get("loss", {}))
 
@@ -463,11 +538,20 @@ class Runner:
                               run.val_key2refs, device)
         ckpt_writer = AsyncCheckpointer()
         variables = model_variables(model)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
         try:
             for epoch in range(1, epochs + 1):
                 t0 = time.time()
                 losses = []
-                for batch in train_loader:
+                t_load = 0.0
+                batches = iter(train_loader)
+                while True:
+                    t_wait = time.time()
+                    batch = next(batches, None)
+                    t_load += time.time() - t_wait
+                    if batch is None:
+                        break
                     if rl_train:
                         metrics = scst_step(
                             state, to_device(batch, device),
@@ -520,10 +604,14 @@ class Runner:
                         swa_state = swa_update(swa_state, snap)
 
                 t_blocked = ckpt_writer.submit(ckpt_job)
+                peak = (", peak {:.2f} GiB".format(
+                    torch.cuda.max_memory_allocated(device) / 2**30)
+                    if device.type == "cuda" else "")
                 log(f"epoch {epoch}: loss {train_loss:.4f} "
                     f"val_cider {score:.4f} ss {ss_ratio:.3f} "
-                    f"({time.time() - t0:.0f}s: steps {t_steps:.0f} "
-                    f"val {t_val:.0f} ckpt_wait {t_blocked:.0f})")
+                    f"({time.time() - t0:.1f}s: steps {t_steps:.1f} "
+                    f"(loader wait {t_load:.1f}) val {t_val:.1f} "
+                    f"ckpt_wait {t_blocked:.1f}{peak})")
                 if not_improve >= early_stop:
                     log(f"early stop at epoch {epoch}")
                     break
@@ -546,7 +634,7 @@ class Runner:
         cfg, ckpt = read_experiment(experiment_path, resume)
         return (cfg,) + experiment_model(cfg, ckpt, device)
 
-    def train_kd(self, config: str, *overrides: str) -> str:
+    def train_kd(self, config: Config, *overrides: str) -> str:
         """Knowledge distillation from a config with a ``kd`` node (see
         the module docstring); returns the experiment directory."""
         run = self._setup(config, overrides)
@@ -680,14 +768,14 @@ class Runner:
 
     # ------------------------------------------------------ evaluation --
 
-    def predict(self, experiment_path: str, eval_config: str,
+    def predict(self, experiment_path: str, eval_config: Config,
                 *overrides: str) -> Dict[str, List[str]]:
         """Decode the eval config's ``data.test`` with the experiment's
         checkpoint ``resume`` (default ``swa.pth``) and its
         ``inference_args`` (default beam 3); write ``{"predictions":
         [{filename, caption}]}`` to ``caption_output`` under the
         experiment."""
-        eval_cfg = load_config(eval_config, parse_overrides(overrides))
+        eval_cfg = resolve_config(eval_config, overrides)
         device = resolve_device(eval_cfg.get("device", "cuda"))
         _, model, tokenizer = self._load_experiment(
             experiment_path, eval_cfg.get("resume", "swa.pth"), device)
@@ -703,11 +791,11 @@ class Runner:
                 for k, v in key2pred.items()]}, f, indent=2)
         return key2pred
 
-    def evaluate(self, experiment_path: str, eval_config: str,
+    def evaluate(self, experiment_path: str, eval_config: Config,
                  *overrides: str) -> Dict:
         """``predict``, then the caption metrics against ``data.test.
         caption``, written to ``score_output`` under the experiment."""
-        eval_cfg = load_config(eval_config, parse_overrides(overrides))
+        eval_cfg = resolve_config(eval_config, overrides)
         key2pred = self.predict(experiment_path, eval_config, *overrides)
         key2refs = load_caption_json(eval_cfg["data"]["test"]["caption"])
         key2refs = {k: v for k, v in key2refs.items() if k in key2pred}
@@ -741,13 +829,13 @@ class Runner:
             tokenizer = tokenizer or tok
         return models, tokenizer
 
-    def ensemble_predict(self, eval_config: str, *overrides: str,
+    def ensemble_predict(self, eval_config: Config, *overrides: str,
                          dump_output: bool = True) -> Dict[str, List[str]]:
         """Decode ``data.test`` with the mean per-step log-softmax of the
         members (``decoding/ensemble.py``, the torch engine on the
         device); write ``{"predictions": [{filename, tokens}]}`` to
         ``caption_output`` under ``output_path``."""
-        eval_cfg = load_config(eval_config, parse_overrides(overrides))
+        eval_cfg = resolve_config(eval_config, overrides)
         device = resolve_device(eval_cfg.get("device", "cuda"))
         models, tokenizer = self._load_ensemble(eval_cfg, device)
         loader = build_dataloader(eval_cfg["data"]["test"], train=False)
@@ -763,10 +851,10 @@ class Runner:
                     for k, v in key2pred.items()]}, f, indent=2)
         return key2pred
 
-    def ensemble_evaluate(self, eval_config: str, *overrides: str) -> Dict:
+    def ensemble_evaluate(self, eval_config: Config, *overrides: str) -> Dict:
         """``ensemble_predict``, then the caption metrics, written to
         ``score_output`` under ``output_path``."""
-        eval_cfg = load_config(eval_config, parse_overrides(overrides))
+        eval_cfg = resolve_config(eval_config, overrides)
         key2pred = self.ensemble_predict(eval_config, *overrides)
         key2refs = load_caption_json(eval_cfg["data"]["test"]["caption"],
                                      zh=eval_cfg.get("zh", False))
@@ -776,11 +864,11 @@ class Runner:
             "score_output", "scores.txt"), result)
         return result
 
-    def dcase_predict(self, eval_config: str, *overrides: str) -> str:
+    def dcase_predict(self, eval_config: Config, *overrides: str) -> str:
         """The DCASE submission csv (``file_name,caption_predicted``) of
         the ensemble's predictions, at ``dcase_output`` under
         ``output_path``."""
-        eval_cfg = load_config(eval_config, parse_overrides(overrides))
+        eval_cfg = resolve_config(eval_config, overrides)
         key2pred = self.ensemble_predict(eval_config, *overrides,
                                          dump_output=False)
         out = Path(eval_cfg["output_path"]) / eval_cfg.get(
@@ -789,12 +877,177 @@ class Runner:
         write_dcase_csv(out, key2pred)
         return str(out)
 
-    def debug(self, config: str, *overrides: str) -> float:
+    # ---------------------------------------------------- temporal tags --
+
+    def train_sed(self, config: Config, *overrides: str) -> str:
+        """Train the Cnn8-RNN SED net framewise on a corpus with event
+        segments (``data.{train,val}.sed``: ``{split}_sed.json`` of
+        ``cli/synthetic_corpus.py::generate_temporal``), keeping
+        ``best.pth`` by the val tag accuracy of the host tag pipeline (the
+        JAX runner's ``train_sed``).  Audio: ``data.{split}.h5`` where
+        that file exists (a JAX corpus, read with h5py), else
+        ``data.{split}.wav_csv``, by default the corpus's
+        ``{split}_wav.csv`` beside its ``{split}_sed.json``.  Returns the
+        experiment directory."""
+        from audiocaption_tpu_torch.models.sed import Cnn8RnnSedModel
+        from audiocaption_tpu_torch.ops.frontend import (
+            CNN14_MEL_32K, LogMelFrontend)
+        from audiocaption_tpu_torch.training.sed_trainer import (
+            build_lms_bank, evaluate_tags, framewise_targets,
+            load_sed_annotations, sed_train_step)
+
+        cfg, device, seed, exp_dir, log = self._start(config, overrides)
+        classes_num = cfg["model"]["args"].get("classes_num", 447)
+        model = Cnn8RnnSedModel(classes_num=classes_num)
+        random_init(model, torch.Generator().manual_seed(seed))
+        model.to(device)
+        frontend = LogMelFrontend(CNN14_MEL_32K)
+
+        t0 = time.time()
+        banks, targets, tags = {}, {}, {}
+        for split in ("train", "val"):
+            split_cfg = cfg["data"][split]
+            ann = load_sed_annotations(split_cfg["sed"])
+            ids = [a["audio_id"] for a in ann]
+            banks[split] = build_lms_bank(_sed_audio(split_cfg), ids,
+                                          frontend, device)
+            n_frames = banks[split].shape[1]
+            targets[split] = torch.from_numpy(np.stack(
+                [framewise_targets(a["segments"], n_frames, classes_num)
+                 for a in ann])).to(device)
+            tags[split] = np.asarray([a["tag"] for a in ann], np.int32)
+        log(f"lms banks on {device}: train {tuple(banks['train'].shape)} "
+            f"val {tuple(banks['val'].shape)} float16 "
+            f"({time.time() - t0:.1f}s)")
+
+        lr = float(cfg.get("optimizer", {}).get("args", {}).get("lr", 1e-3))
+        optimizer = torch.optim.Adam(model.parameters(), lr=lr)
+        trainer_cfg = cfg.get("trainer", {})
+        epochs = int(trainer_cfg.get("epochs", 15))
+        bs = int(trainer_cfg.get("batch_size", 32))
+        rng = np.random.RandomState(seed)
+        n = banks["train"].shape[0]
+        best_acc, best_epoch = -1.0, 0
+        for epoch in range(1, epochs + 1):
+            te = time.time()
+            perm = rng.permutation(n)
+            losses = [sed_train_step(
+                model, optimizer, banks["train"], targets["train"],
+                torch.from_numpy(perm[i:i + bs]).to(device))
+                for i in range(0, n - bs + 1, bs)]
+            t_steps = time.time() - te
+            acc, _ = evaluate_tags(model, banks["val"], tags["val"])
+            bce = (float(torch.stack(losses).mean()) if losses
+                   else float("nan"))
+            log(f"epoch {epoch}: bce {bce:.4f} "
+                f"val_tag_acc {acc:.4f} ({time.time() - te:.1f}s: steps "
+                f"{t_steps:.1f} val {time.time() - te - t_steps:.1f})")
+            if acc > best_acc:
+                best_acc, best_epoch = acc, epoch
+                save_checkpoint(str(exp_dir / "best.pth"),
+                                model.state_dict(), epoch=epoch,
+                                extra={"classes_num": classes_num,
+                                       "val_tag_acc": acc})
+        save_checkpoint(str(exp_dir / "last.pth"), model.state_dict(),
+                        epoch=epochs, extra={"classes_num": classes_num})
+        log(f"done; best val tag accuracy {best_acc:.4f} "
+            f"(epoch {best_epoch})")
+        return str(exp_dir)
+
+    def _load_sed(self, sed_experiment_path: str, resume: str,
+                  device: torch.device):
+        """An SED experiment's checkpoint (either package's) -> the
+        ``Cnn8RnnSedModel`` on ``device`` in ``eval()``."""
+        from audiocaption_tpu_torch.models.convert import load_known
+        from audiocaption_tpu_torch.models.sed import Cnn8RnnSedModel
+        ckpt = load_checkpoint(str(Path(sed_experiment_path) / resume))
+        model = Cnn8RnnSedModel(classes_num=ckpt.get("classes_num", 447))
+        load_known(model, ckpt["variables"])
+        return model.to(device).eval()
+
+    def predict_temporal(self, experiment_path: str,
+                         sed_experiment_path: str, eval_config: Config,
+                         *overrides: str) -> Dict[str, List[str]]:
+        """Decode ``data.test`` with the tags the SED experiment's net
+        gives each clip (log-mel, SED, double threshold, tag, the
+        tag-conditioned decode: the temporal model's serving pipeline)
+        from the experiments' checkpoints (``resume``, default
+        ``swa.pth``; ``sed_resume``, default ``best.pth``).  Writes
+        ``caption_output`` and, where the dataset carries ground-truth
+        ``temporal_tag``, the SED tag accuracy to ``tag_output``, as the
+        JAX runner does."""
+        from audiocaption_tpu_torch.models.sed import (
+            framewise_to_temporal_tags)
+        from audiocaption_tpu_torch.ops.frontend import (
+            CNN14_MEL_32K, LogMelFrontend)
+
+        eval_cfg = resolve_config(eval_config, overrides)
+        device = resolve_device(eval_cfg.get("device", "cuda"))
+        _, model, tokenizer = self._load_experiment(
+            experiment_path, eval_cfg.get("resume", "swa.pth"), device)
+        sed = self._load_sed(sed_experiment_path,
+                             eval_cfg.get("sed_resume", "best.pth"), device)
+        sed_frontend = LogMelFrontend(CNN14_MEL_32K).to(device)
+        loader = build_dataloader(eval_cfg["data"]["test"], train=False)
+        inference_args = _inference_args(eval_cfg)
+        inference_args.pop("temporal_tag", None)
+        decoder = LoaderDecoder(model, device)
+
+        key2pred: Dict[str, List[str]] = {}
+        n_match = n_tag = 0
+        for batch in loader:
+            wav = torch.as_tensor(batch["wav"]).to(device).float()
+            with torch.no_grad():
+                framewise = sed(sed_frontend(wav))["framewise_output"]
+            sed_tag = framewise_to_temporal_tags(framewise.cpu().numpy())
+            if "temporal_tag" in batch:
+                gt = np.asarray(batch["temporal_tag"], np.int32)
+                n_match += int((sed_tag == gt).sum())
+                n_tag += len(gt)
+            seq = decoder(wav, torch.as_tensor(batch["wav_len"]).long(),
+                          temporal_tag=torch.from_numpy(sed_tag).long(),
+                          **inference_args)
+            for aid, cap in zip(batch["audio_id"],
+                                tokenizer.decode(seq.cpu().numpy())):
+                key2pred.setdefault(aid, [cap])
+
+        out_path = Path(experiment_path) / eval_cfg.get(
+            "caption_output", "predictions/predictions_sedtag.json")
+        out_path.parent.mkdir(parents=True, exist_ok=True)
+        with open(out_path, "w") as f:
+            json.dump({"predictions": [
+                {"filename": k, "caption": v[0]}
+                for k, v in key2pred.items()]}, f, indent=2)
+        if n_tag:
+            tag_path = Path(experiment_path) / eval_cfg.get(
+                "tag_output", "results/sed_tag_accuracy.txt")
+            tag_path.parent.mkdir(parents=True, exist_ok=True)
+            with open(tag_path, "w") as f:
+                f.write(f"sed_tag_accuracy: {n_match / n_tag:.4f} "
+                        f"({n_match}/{n_tag})\n")
+        return key2pred
+
+    def evaluate_temporal(self, experiment_path: str,
+                          sed_experiment_path: str, eval_config: Config,
+                          *overrides: str) -> Dict:
+        """``predict_temporal``, then the caption metrics against
+        ``data.test.caption``, written to ``score_output``."""
+        eval_cfg = resolve_config(eval_config, overrides)
+        key2pred = self.predict_temporal(
+            experiment_path, sed_experiment_path, eval_config, *overrides)
+        key2refs = load_caption_json(eval_cfg["data"]["test"]["caption"])
+        key2refs = {k: v for k, v in key2refs.items() if k in key2pred}
+        result = evaluate_captions(key2pred, key2refs)
+        write_scores(Path(experiment_path) / eval_cfg.get(
+            "score_output", "results/scores_sedtag.txt"), result)
+        return result
+
+    def debug(self, config: Config, *overrides: str) -> float:
         """One batch of the train loader forward and backward through
         ``train_step`` (Adam 5e-4 with the config's schedule over 100
         steps), weights drawn from the config's seed; prints and returns
         the loss."""
-        cfg = load_config(config, parse_overrides(overrides))
+        cfg = resolve_config(config, overrides)
         device = resolve_device(cfg.get("device", "cuda"))
         seed = cfg.get("seed", 1)
         set_seed(seed)
@@ -814,12 +1067,25 @@ class Runner:
         return float(metrics["loss"])
 
 
+def _sed_audio(split_cfg: Dict) -> Callable[[str], np.ndarray]:
+    """A ``train_sed`` split's audio reader: audio_id -> the stored wave
+    (see :meth:`Runner.train_sed`)."""
+    h5 = split_cfg.get("h5")
+    if h5 and Path(h5).exists():
+        from audiocaption_tpu_torch.data.dataset import _H5Cache
+        cache = _H5Cache()
+        return lambda aid: cache.read(h5, aid)
+    wav_csv = split_cfg.get("wav_csv") or str(split_cfg["sed"]).replace(
+        "_sed.json", "_wav.csv")
+    return InferenceDataset(wav_csv).read
+
+
 def ensemble_decode_loader(models, tokenizer, loader, device: torch.device,
                            **inference_args) -> Dict[str, List[str]]:
     """Every batch of ``loader`` through ``ensemble_generate`` on
     ``device`` -> {audio_id: [caption]} (``decoding/select.py::
     decode_batches``)."""
-    def decode(wav, wav_len):
+    def decode(wav, wav_len, temporal_tag=None):
         return ensemble_generate(models, wav.to(device), wav_len.to(device),
                                  **inference_args)["seq"]
     return decode_batches(decode, tokenizer, loader)[0]
@@ -836,11 +1102,7 @@ def write_dcase_csv(path: Path, key2pred: Dict[str, List[str]]) -> None:
 
 # the JAX runner's subcommands that the port does not have yet
 NOT_PORTED = {
-    "train_aug": "augmented training (the augment registry, specaug)",
-    "train_sed": "SED training",
-    "predict_temporal": "temporal prediction (the SED tag pipeline with "
-                        "an RNN decoder)",
-    "evaluate_temporal": "temporal evaluation"}
+    "train_aug": "augmented training (the augment registry, specaug)"}
 
 
 def main(argv: Optional[List[str]] = None):
@@ -851,7 +1113,7 @@ def main(argv: Optional[List[str]] = None):
                                     "config with a kd node"),
                        ("debug", "one batch forward and backward"),
                        ("train_aug", "not ported yet"),
-                       ("train_sed", "not ported yet")):
+                       ("train_sed", "SED training from a YAML config")):
         p = sub.add_parser(name, help=text)
         # the config as the JAX runner takes it (--config) or positional
         p.add_argument("--config", dest="config_flag")
@@ -881,7 +1143,7 @@ def main(argv: Optional[List[str]] = None):
             f"{args.command}: {NOT_PORTED[args.command]} is not ported yet "
             "(ROADMAP Queue 1 item 6)")
     runner = Runner()
-    if args.command in ("train", "train_kd", "debug"):
+    if args.command in ("train", "train_kd", "train_sed", "debug"):
         overrides = args.overrides
         config = args.config
         if args.config_flag is not None:
@@ -894,6 +1156,10 @@ def main(argv: Optional[List[str]] = None):
     elif args.command in ("predict", "evaluate"):
         result = getattr(runner, args.command)(
             args.experiment_path, args.eval_config, *args.overrides)
+    elif args.command in ("predict_temporal", "evaluate_temporal"):
+        result = getattr(runner, args.command)(
+            args.experiment_path, args.sed_experiment_path,
+            args.eval_config, *args.overrides)
     elif args.command == "export_hf":
         return runner.export_hf(args.experiment_path, args.output,
                                 resume=args.resume)

@@ -1,12 +1,18 @@
-"""HDF5-backed audio (caption) datasets (counterpart of
+"""Audio (caption) datasets (counterpart of
 ``audiocaption_tpu/data/dataset.py``; reference
 ``captioning/datasets/caption_dataset.py``).
 
 Map-style datasets for ``torch.utils.data.DataLoader``; items are plain
 numpy.  As in the reference:
 
-  * ``wav.csv`` maps audio_id -> hdf5_path (tab-separated); AudioCaps
-    ids fall back to "Y{id}.wav" keys;
+  * ``wav.csv`` maps audio_id (tab-separated) to an ``hdf5_path`` or a
+    ``file_name`` column.  An ``hdf5_path`` row is read from the h5
+    (AudioCaps ids fall back to "Y{id}.wav" keys), a ``file_name`` row
+    from its wav file (``scipy.io.wavfile``, at the file's own rate).
+    The JAX package's h5-backed classes read ``hdf5_path`` rows only and
+    its ``WavCaptionDataset`` ``file_name`` rows only; the port reads
+    both in every dataset, because the card machine has no h5py and the
+    port's corpora (``cli/synthetic_corpus.py``) are wav files;
   * h5 handles open lazily, once per process (re-opened after a fork);
   * resample orig_sr -> target_sr (scipy polyphase);
   * ``audio_duration`` (seconds at the target rate): a random crop of a
@@ -25,19 +31,38 @@ import json
 import os
 import random
 from fractions import Fraction
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 
-def read_wav_csv(path: str) -> Dict[str, str]:
-    """wav.csv (tab-separated: audio_id, hdf5_path | file_name)."""
+def read_wav_table(path: str) -> Tuple[Dict[str, str], bool]:
+    """wav.csv (tab-separated: audio_id, hdf5_path | file_name) ->
+    (audio_id -> path, whether the rows are wav files)."""
     mapping = {}
     with open(path) as f:
-        for row in csv.DictReader(f, delimiter="\t"):
+        reader = csv.DictReader(f, delimiter="\t")
+        files = "hdf5_path" not in (reader.fieldnames or ())
+        for row in reader:
             mapping[row["audio_id"]] = (row.get("hdf5_path")
                                         or row.get("file_name"))
-    return mapping
+    return mapping, files
+
+
+def read_wav(path: str) -> Tuple[int, np.ndarray]:
+    """-> (sample rate, float32 mono wave in [-1, 1])."""
+    from scipy.io import wavfile
+    sr, data = wavfile.read(path)
+    if data.dtype == np.int16:
+        data = data / 32768.0
+    elif data.dtype == np.int32:
+        data = data / 2147483648.0
+    elif data.dtype == np.uint8:
+        data = (data.astype(np.float32) - 128.0) / 128.0
+    data = np.asarray(data, np.float32)
+    if data.ndim == 2:
+        data = data.mean(axis=1)
+    return sr, data
 
 
 def load_caption_json(path: str, zh: bool = False) -> Dict[str, List[str]]:
@@ -96,12 +121,17 @@ class _H5Cache:
 class InferenceDataset:
     """Audio only: {audio_id, wav} items."""
 
+    # None: read the rows by their wav.csv column; True: wav files
+    from_files: Optional[bool] = None
+
     def __init__(self, features: Dict[str, str],
                  orig_sr: Optional[int] = None,
                  target_sr: Optional[int] = None,
                  audio_duration: Optional[float] = None):
         wav_csv = features["wav"] if isinstance(features, dict) else features
-        self.aid_to_h5 = read_wav_csv(wav_csv)
+        self.aid_to_h5, files = read_wav_table(wav_csv)
+        if self.from_files is None:
+            self.from_files = files
         self.audio_ids = list(self.aid_to_h5.keys())
         self.orig_sr = orig_sr
         self.target_sr = target_sr
@@ -111,9 +141,18 @@ class InferenceDataset:
     def __len__(self) -> int:
         return len(self.audio_ids)
 
+    def read_with_rate(self, audio_id: str) -> Tuple[Optional[int],
+                                                      np.ndarray]:
+        """(its rate: a wav file's own, ``orig_sr`` for an h5 row; the
+        stored wave)."""
+        if self.from_files:
+            return read_wav(self.aid_to_h5[audio_id])
+        return self.orig_sr, self.cache.read(self.aid_to_h5[audio_id],
+                                             audio_id)
+
     def read(self, audio_id: str) -> np.ndarray:
         """The stored wave, at its own rate."""
-        return self.cache.read(self.aid_to_h5[audio_id], audio_id)
+        return self.read_with_rate(audio_id)[1]
 
     def _crop_or_pad(self, wav: np.ndarray) -> np.ndarray:
         if self.audio_duration is None:
@@ -127,9 +166,9 @@ class InferenceDataset:
         return wav
 
     def get_audio(self, audio_id: str) -> np.ndarray:
-        wav = self.read(audio_id)
-        if self.orig_sr and self.target_sr:
-            wav = resample(wav, self.orig_sr, self.target_sr)
+        sr, wav = self.read_with_rate(audio_id)
+        if sr and self.target_sr:
+            wav = resample(wav, sr, self.target_sr)
         return np.asarray(self._crop_or_pad(wav), np.float32)
 
     def __getitem__(self, index: int) -> Dict:
@@ -164,3 +203,11 @@ class CaptionDataset(InferenceDataset):
         item = dict(self.items[index])
         item["wav"] = self.get_audio(item["audio_id"])
         return item
+
+
+class WavCaptionDataset(CaptionDataset):
+    """A ``CaptionDataset`` whose wav.csv rows are wav files whatever the
+    column's name (the JAX ``WavCaptionDataset``; reference
+    ``caption_wav_read_dataset.py``), resampled from the file's rate."""
+
+    from_files = True

@@ -13,7 +13,8 @@ On CUDA, for a ``TransformerDecoder``:
 every other method, any further argument (``n_best``, ``group_size``,
 ...), any other decoder, and the CPU go through the torch engine
 (``models/captioner.py::generate``).  A kernel that fails to build or
-launch raises; nothing falls back.
+launch raises; nothing falls back.  A batch's ``temporal_tag`` conditions
+a GRU decoder (the temporal captioner); other decoders take no tag.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from audiocaption_tpu_torch.models.captioner import generate
+from audiocaption_tpu_torch.models.rnn_decoder import BahAttnCatFcDecoder
 from audiocaption_tpu_torch.models.transformer_decoder import (
     TransformerDecoder)
 
@@ -53,10 +55,11 @@ def select_decoder(model, device: torch.device, sample_method: str = "beam",
             return FusedBeamDecoder(model, max_length=L, beam_size=K,
                                     device=device)
 
-    def fn(wav: torch.Tensor, wav_len: torch.Tensor) -> torch.Tensor:
+    def fn(wav: torch.Tensor, wav_len: torch.Tensor,
+           temporal_tag: Optional[torch.Tensor] = None) -> torch.Tensor:
         return generate(model, wav, wav_len, sample_method=sample_method,
                         beam_size=beam_size, max_length=L, temp=temp,
-                        **extra)["seq"]
+                        temporal_tag=temporal_tag, **extra)["seq"]
     return fn
 
 
@@ -73,16 +76,22 @@ class LoaderDecoder:
         self.last_seq: List[np.ndarray] = []
 
     def __call__(self, wav: torch.Tensor, wav_len: torch.Tensor,
+                 temporal_tag: Optional[torch.Tensor] = None,
                  **inference_args) -> torch.Tensor:
         """Token ids [B, L] on the device (the first of an n-best
-        layout), without a host sync."""
+        layout), without a host sync; ``temporal_tag`` [B] conditions a
+        GRU decoder and is dropped for any other."""
         key = tuple(sorted(inference_args.items()))
         if key not in self._fns:
             self._fns[key] = select_decoder(self.model, self.device,
                                             **inference_args)
+        cond = ({"temporal_tag": temporal_tag.to(self.device)}
+                if temporal_tag is not None
+                and isinstance(self.model.decoder, BahAttnCatFcDecoder)
+                else {})
         with torch.no_grad():
             seq = self._fns[key](wav.to(self.device),
-                                 wav_len.to(self.device))
+                                 wav_len.to(self.device), **cond)
         return seq[:, 0] if seq.dim() == 3 else seq
 
     def decode_loader(self, tokenizer, loader: Iterable[Dict],
@@ -98,16 +107,20 @@ def decode_batches(decode: DecodeFn, tokenizer, loader: Iterable[Dict]
                    ) -> Tuple[Dict[str, List[str]], List[np.ndarray]]:
     """Every batch of ``loader`` ({audio_id, wav, wav_len}: numpy arrays or
     tensors; an int16 wave is read as / 32768) through ``decode(wav,
-    wav_len)`` -> ({audio_id: [caption]}, the first caption of an id
-    kept; the token ids, a [B, L] array a batch, the first sequence of an
-    n-best layout)."""
+    wav_len)`` (a batch's ``temporal_tag`` as a third argument) ->
+    ({audio_id: [caption]}, the first caption of an id kept; the token
+    ids, a [B, L] array a batch, the first sequence of an n-best
+    layout)."""
     key2pred: Dict[str, List[str]] = {}
     seqs: List[np.ndarray] = []
     for batch in loader:
         wav = torch.as_tensor(batch["wav"])
         if wav.dtype == torch.int16:
             wav = wav.float() / 32768.0
-        seq = decode(wav.float(), torch.as_tensor(batch["wav_len"]).long())
+        tag = (() if batch.get("temporal_tag") is None
+               else (torch.as_tensor(batch["temporal_tag"]).long(),))
+        seq = decode(wav.float(), torch.as_tensor(batch["wav_len"]).long(),
+                     *tag)
         if seq.dim() == 3:
             seq = seq[:, 0]
         seq = seq.cpu().numpy()

@@ -18,6 +18,13 @@ Training forward (``Captioner.forward``), for the transformer decoder:
     reference's shape), kept as the oracle the tests hold the cached path
     to.
 
+For a GRU decoder (``BahAttnCatFcDecoder`` and its temporal variant) the
+training forward runs step by step whatever ``ss_ratio`` is (the JAX
+``_ss_forward_rnn``): the input word at step t is the teacher word
+``cap[:, t]`` when that step's coin says "teacher" (always, for the
+Python float 1.0), else the previous step's greedy word; a
+``temporal_tag`` goes into the decoder's cache.
+
 The frontend runs without autograd; the encoder and decoder follow their
 ``train()`` / ``eval()`` mode (batch statistics, dropout, drop-connect).
 """
@@ -62,21 +69,22 @@ class Captioner(nn.Module):
     def forward(self, wav: torch.Tensor, wav_len: torch.Tensor,
                 cap: torch.Tensor, cap_len: torch.Tensor,
                 ss_ratio: Union[float, torch.Tensor] = 1.0,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                temporal_tag: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         """Training forward: wav [B, T], cap [B, Lc] ids (<bos> ... <eos>,
         padded) -> {logit [B, Lc-1, V], embed [B, Lc-1, E], encoder
-        outputs; on the scheduled-sampling path also seq and
-        sampled_logprob [B, Lc-1]}.  ``cap_len`` is the loss's, not this
-        forward's."""
-        if isinstance(self.decoder, BahAttnCatFcDecoder):
-            raise NotImplementedError(
-                "training an RNN decoder (the JAX _ss_forward_rnn) is not "
-                "ported yet (ROADMAP Queue 1 item 6)")
+        outputs; on the scheduled-sampling path (and for a GRU decoder)
+        also seq and sampled_logprob [B, Lc-1]}.  ``cap_len`` is the
+        loss's, not this forward's; ``temporal_tag`` [B] conditions a
+        temporal decoder."""
         with torch.no_grad():
             lms = self.frontend(wav)
         enc = self.encode_lms(lms, self.mel.feat_len(wav_len))
-        if isinstance(ss_ratio, float) and ss_ratio == 1.0:
+        if isinstance(self.decoder, BahAttnCatFcDecoder):
+            out = self._ss_forward_rnn(enc, cap, ss_ratio, generator,
+                                       temporal_tag)
+        elif isinstance(ss_ratio, float) and ss_ratio == 1.0:
             word = cap[:, :-1]
             out = self.decoder(word, enc["attn_emb"], enc["attn_emb_len"],
                                cap_padding_mask=word == self.special.pad)
@@ -111,6 +119,31 @@ class Captioner(nn.Module):
             else:
                 logit_t, embed_t = dec.logits(hidden), hidden
             prev, step = _greedy_pick(logit_t, embed_t)
+            steps.append(step)
+        return _stack_steps(steps)
+
+    def _ss_forward_rnn(self, enc: Dict[str, torch.Tensor],
+                        cap: torch.Tensor, ss_ratio,
+                        generator: Optional[torch.Generator],
+                        temporal_tag: Optional[torch.Tensor] = None
+                        ) -> Dict[str, torch.Tensor]:
+        """The GRU decoder's training forward, one step at a time (the JAX
+        ``_ss_forward_rnn``): step t feeds the teacher word ``cap[:, t]``
+        when its coin says so (:func:`ss_coin`; the Python float 1.0 draws
+        none and always does), else the previous greedy word."""
+        dec, sp = self.decoder, self.special
+        B, Lc = cap.shape
+        cond = {} if temporal_tag is None else {"temporal_tag": temporal_tag}
+        static, dyn = dec.init_cache(enc["attn_emb"], enc["attn_emb_len"],
+                                     enc["fc_emb"], Lc - 1, **cond)
+        forced = isinstance(ss_ratio, float) and ss_ratio == 1.0
+        prev = torch.full((B,), sp.bos, dtype=torch.long, device=cap.device)
+        steps = []
+        for t in range(Lc - 1):
+            word = cap[:, t] if forced or ss_coin(ss_ratio, generator) \
+                else prev
+            logit_t, dyn = dec.step(word, t, static, dyn)
+            prev, step = _greedy_pick(logit_t, dyn["state"][:, -1])
             steps.append(step)
         return _stack_steps(steps)
 

@@ -284,7 +284,9 @@ def load_reference_state_dict(model: torch.nn.Module,
             enc[k[len(enc_prefix):]] = v
         elif k.startswith(dec_prefix):
             dec[k[len(dec_prefix):]] = v
-    if "pos_encoder.pe" not in dec:   # older trees without a PE table
+    if "pos_encoder.pe" not in dec and hasattr(model.decoder,
+                                               "pos_encoder"):
+        # older trees without a PE table
         dec["pos_encoder.pe"] = model.decoder.pos_encoder.pe
     load_known(model.encoder, enc)
     load_known(model.decoder, dec)
@@ -297,30 +299,54 @@ def _cnn(params, stats, prefix, n_blocks, out):
                     f"{prefix}.conv_block{i}", out)
 
 
-def tempgru_state_dict_from_jax(variables: Mapping, sed_variables: Mapping,
-                                rnn_num_layers: int = 3
-                                ) -> Dict[str, torch.Tensor]:
-    """JAX Cnn14RnnTempAttnGru variables and Cnn8-RNN SED variables (nested
-    numpy dicts) -> the reference checkpoint's state dict of tensors."""
+def bahattn_captioner_state_dict_from_jax(variables: Mapping,
+                                          prefix: str = "",
+                                          rnn_num_layers: int = 3,
+                                          rnn_bidirectional: bool = True
+                                          ) -> Dict[str, np.ndarray]:
+    """JAX Cnn14-GRU + GRU-decoder captioner variables (the temporal
+    captioner's, or a ``BahAttnCatFcDecoder``'s) -> numpy arrays under
+    ``{prefix}encoder.`` and ``{prefix}decoder.``."""
     out: Dict[str, np.ndarray] = {}
     enc_p = variables["params"]["encoder"]
     enc_s = variables["batch_stats"]["encoder"]
-    _cnn(enc_p["cnn"], enc_s["cnn"], "cap_model.encoder.cnn", 6, out)
+    _cnn(enc_p["cnn"], enc_s["cnn"], f"{prefix}encoder.cnn", 6, out)
     if "fc1" in enc_p["cnn"]:
-        _linear(enc_p["cnn"]["fc1"], "cap_model.encoder.cnn.fc1", out)
-    _gru(enc_p["rnn"]["network"], "cap_model.encoder.rnn.network",
-         rnn_num_layers, True, out)
-    dec, d = variables["params"]["decoder"], "cap_model.decoder"
+        _linear(enc_p["cnn"]["fc1"], f"{prefix}encoder.cnn.fc1", out)
+    _gru(enc_p["rnn"]["network"], f"{prefix}encoder.rnn.network",
+         rnn_num_layers, rnn_bidirectional, out)
+    dec, d = variables["params"]["decoder"], f"{prefix}decoder"
     _embedding(dec["word_embedding"], f"{d}.word_embedding", out)
     _gru(dec["model"], f"{d}.model", 1, False, out)
     _linear(dec["attn"]["h2attn"], f"{d}.attn.h2attn", out)
     out[f"{d}.attn.v"] = _n(dec["attn"]["v"])
     for name in ("fc_proj", "ctx_proj", "classifier"):
         _linear(dec[name], f"{d}.{name}", out)
-    _embedding(dec["temporal_embedding"], f"{d}.temporal_embedding", out)
+    if "temporal_embedding" in dec:
+        _embedding(dec["temporal_embedding"], f"{d}.temporal_embedding",
+                   out)
+    return out
+
+
+def sed_state_dict_from_jax(sed_variables: Mapping, prefix: str = ""
+                            ) -> Dict[str, np.ndarray]:
+    """JAX Cnn8-RNN SED variables -> numpy arrays under ``prefix`` (the
+    port's ``Cnn8RnnSedModel`` names)."""
+    out: Dict[str, np.ndarray] = {}
     sed_p, sed_s = sed_variables["params"], sed_variables["batch_stats"]
-    _cnn(sed_p, sed_s, "sed_model", 4, out)
-    _linear(sed_p["fc1"], "sed_model.fc1", out)
-    _gru(sed_p["rnn"], "sed_model.rnn", 1, True, out)
-    _linear(sed_p["fc_audioset"], "sed_model.fc_audioset", out)
+    _cnn(sed_p, sed_s, "sed", 4, out)
+    _linear(sed_p["fc1"], "sed.fc1", out)
+    _gru(sed_p["rnn"], "sed.rnn", 1, True, out)
+    _linear(sed_p["fc_audioset"], "sed.fc_audioset", out)
+    return {prefix + k[len("sed."):]: v for k, v in out.items()}
+
+
+def tempgru_state_dict_from_jax(variables: Mapping, sed_variables: Mapping,
+                                rnn_num_layers: int = 3
+                                ) -> Dict[str, torch.Tensor]:
+    """JAX Cnn14RnnTempAttnGru variables and Cnn8-RNN SED variables (nested
+    numpy dicts) -> the reference checkpoint's state dict of tensors."""
+    out = bahattn_captioner_state_dict_from_jax(variables, "cap_model.",
+                                                rnn_num_layers)
+    out.update(sed_state_dict_from_jax(sed_variables, "sed_model."))
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}

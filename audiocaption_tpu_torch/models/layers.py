@@ -389,7 +389,7 @@ def batch_norm_mels(bn: nn.BatchNorm2d, lms: torch.Tensor,
     """BatchNorm over the mel bins of ``lms`` [B, T, M] (the M bins are
     the features; the norm itself in float32), returned as the NCHW image
     [B, 1, T, M] in ``compute_dtype``."""
-    x = bn(lms.transpose(1, 2)[..., None])           # [B, M, T, 1]
+    x = bn(lms.transpose(1, 2).contiguous()[..., None])   # [B, M, T, 1]
     return narrow(x[..., 0].transpose(1, 2)[:, None], compute_dtype)
 
 

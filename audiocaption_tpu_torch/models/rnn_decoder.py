@@ -9,7 +9,9 @@ layer), attn_weight [N, S]}, so the beam's parent gather on axis 0
 reorders it.
 Parameter names follow the reference (``word_embedding``, ``model`` (an
 ``nn.GRU``), ``attn.h2attn``, ``attn.v``, ``fc_proj``, ``ctx_proj``,
-``classifier``, ``temporal_embedding``).
+``classifier``, ``temporal_embedding``).  In ``train()`` the input
+embedding of each step (the word's, or the tag's at t=0) takes dropout,
+the JAX decoders' only dropout.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from audiocaption_tpu_torch.ops.masking import length_mask
@@ -62,9 +65,10 @@ class BahAttnCatFcDecoder(nn.Module):
     state (zeros at t=0); the attention size is d_model."""
 
     def __init__(self, emb_dim: int, vocab_size: int, fc_emb_dim: int,
-                 attn_emb_dim: int, d_model: int):
+                 attn_emb_dim: int, d_model: int, dropout: float = 0.5):
         super().__init__()
         self.vocab_size, self.d_model = vocab_size, d_model
+        self.dropout = dropout
         self.word_embedding = nn.Embedding(vocab_size, emb_dim)
         self.model = nn.GRU(3 * emb_dim, d_model, batch_first=True)
         self.attn = Seq2SeqAttention(d_model, attn_emb_dim, d_model)
@@ -95,8 +99,10 @@ class BahAttnCatFcDecoder(nn.Module):
         ctx, attn_weight = self.attn(state[:, 0], static["attn_emb"],
                                      static["enc_proj"],
                                      static["attn_emb_len"])
-        rnn_in = torch.cat([self.embed_input(word_t, t, static),
-                            self.ctx_proj(ctx), static["p_fc"]], dim=-1)
+        embed = F.dropout(self.embed_input(word_t, t, static), self.dropout,
+                          self.training)
+        rnn_in = torch.cat([embed, self.ctx_proj(ctx), static["p_fc"]],
+                           dim=-1)
         out, h = self.model(rnn_in[:, None],
                             state.transpose(0, 1).contiguous())
         return self.classifier(out[:, 0]), {"state": h.transpose(0, 1),

@@ -25,7 +25,9 @@ CHANNELS = (64, 128, 256, 512)
 class Cnn8RnnSedModel(nn.Module):
     """4 double-conv blocks with "avg+max" pooling -> mel mean -> fc1 +
     ReLU -> BiGRU(256) over the whole padded length -> sigmoid framewise
-    probabilities, time downsample 4 undone by repetition.
+    probabilities, time downsample 4 undone by repetition.  In ``train()``
+    (``training/sed_trainer.py``) dropout 0.2 follows each block's pooling
+    and 0.5 the mel mean, as in the JAX model.
 
     ``compute_dtype`` (float32 or bfloat16) is the conv blocks', the
     pooling's and fc1's, as in the JAX package; ``bn0`` stays float32,
@@ -54,7 +56,9 @@ class Cnn8RnnSedModel(nn.Module):
         for i, pool in enumerate(POOLS):
             x = pool_2d(getattr(self, f"conv_block{i + 1}")(x), pool,
                         "avg+max")
-        x = self.fc1(x.mean(dim=3).transpose(1, 2))          # [B, T/4, 512]
+            x = F.dropout(x, 0.2, self.training)
+        x = F.dropout(x.mean(dim=3).transpose(1, 2), 0.5, self.training)
+        x = self.fc1(x)                                      # [B, T/4, 512]
         x = widen(F.relu(x))
         seg = torch.clamp(torch.sigmoid(self.fc_audioset(self.rnn(x))),
                           1e-7, 1.0)

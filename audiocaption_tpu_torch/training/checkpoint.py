@@ -28,8 +28,9 @@ import numpy as np
 import torch
 
 from audiocaption_tpu_torch.models.convert import (
-    cdur5_trm_state_dict_from_jax, cnn14rnn_trm_state_dict_from_jax,
-    reference_prefixes, state_dict_from_jax)
+    bahattn_captioner_state_dict_from_jax, cdur5_trm_state_dict_from_jax,
+    cnn14rnn_trm_state_dict_from_jax, reference_prefixes,
+    sed_state_dict_from_jax, state_dict_from_jax)
 
 
 def model_variables(model: torch.nn.Module) -> Dict[str, np.ndarray]:
@@ -50,10 +51,11 @@ def save_checkpoint(path: str, variables: Mapping, *, epoch: int = 0,
                     monitor_state: Optional[Dict] = None,
                     not_improve_cnt: int = 0,
                     tokenizer_state: Optional[Dict] = None,
-                    lr_count: int = 0) -> None:
+                    lr_count: int = 0, extra: Optional[Dict] = None) -> None:
     """Write the payload.  ``variables``: name -> array or tensor (see
     :func:`model_variables`); ``optimizer``: an optimizer's
-    ``state_dict()``, its tensors copied to the host."""
+    ``state_dict()``, its tensors copied to the host; ``extra``: more
+    top-level entries (the SED run's ``classes_num``, ``val_tag_acc``)."""
     payload = {
         "variables": {k: np.asarray(v.detach().cpu() if torch.is_tensor(v)
                                     else v) for k, v in variables.items()},
@@ -65,6 +67,8 @@ def save_checkpoint(path: str, variables: Mapping, *, epoch: int = 0,
     }
     if optimizer is not None:
         payload["optimizer"] = _to_host(optimizer)
+    if extra:
+        payload.update(extra)
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     with open(path, "wb") as f:
         pickle.dump(payload, f, protocol=4)
@@ -93,12 +97,21 @@ def load_checkpoint(path: str) -> Dict:
 
 
 def jax_variables_to_reference(variables: Mapping) -> Dict[str, np.ndarray]:
-    """A JAX EffB2-Transformer, cnn14rnn_trm or Cdur5 KD-student tree
-    {params, batch_stats} (numpy leaves) -> its reference key space; the
-    GRU's and the decoder's depth and the weight tying are read off the
-    tree."""
+    """A JAX EffB2-Transformer, cnn14rnn_trm, Cdur5 KD-student, Cnn14-GRU +
+    GRU-decoder (the temporal captioner) or Cnn8-RNN SED tree {params,
+    batch_stats} (numpy leaves) -> its reference key space; the GRUs' and
+    the decoder's depth and the weight tying are read off the tree."""
     params = variables["params"]
     dec, enc = params.get("decoder", {}), params.get("encoder", {})
+    if "fc_audioset" in params:
+        return sed_state_dict_from_jax(variables)
+    if "word_embedding" in dec and "attn" in dec and "rnn" in enc:
+        gru = enc["rnn"]["network"]
+        return bahattn_captioner_state_dict_from_jax(
+            variables, rnn_num_layers=sum(
+                k.startswith("w_ih_l") and not k.endswith("_reverse")
+                for k in gru),
+            rnn_bidirectional=any(k.endswith("_reverse") for k in gru))
     if "attn_proj_dense" not in dec or not enc:
         raise ValueError("only JAX EfficientNet-B2, Cnn14-GRU or Cdur5 + "
                          "TransformerDecoder checkpoints convert to this "

@@ -43,6 +43,7 @@ from torch import nn
 from audiocaption_tpu_torch.losses.kd import sup_kd_loss, token_kd_loss
 from audiocaption_tpu_torch.losses.loss import masked_token_loss
 from audiocaption_tpu_torch.models.captioner import generate
+from audiocaption_tpu_torch.training.trainer import clip_grad_norm
 
 Mark = Optional[Callable[[str], None]]
 
@@ -89,12 +90,19 @@ def apply_update(state, loss: torch.Tensor, mark: Mark = None
     gradient norm, before the clip.  A parameter the loss does not reach
     (the decoder in an unsup encoder-KD step) takes a zero gradient, as
     in the JAX step: Adam still decays its moments and applies the L2
-    term, where torch's Adam would skip a parameter without a gradient."""
+    term, where torch's Adam would skip a parameter without a gradient.
+    The clip's norms are float32, as the JAX step's are: the student's
+    largest tensor holds 0.64 M values, far from the tens of millions at
+    which a float32 sum drifts, and with float64 norms the weights leave
+    JAX's by float32 rounding in the other direction, enough to flip a
+    LeakyReLU kink in the one-step parity test
+    (``tests/test_torch_kd.py``, token step 2)."""
     loss.backward()
     for p in state.params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    grad_norm = nn.utils.clip_grad_norm_(state.params, state.max_grad_norm)
+    grad_norm = clip_grad_norm(state.params, state.max_grad_norm,
+                               dtype=torch.float32)
     _mark(mark, "backward")
     state.optimizer.step()
     state.scheduler.step()

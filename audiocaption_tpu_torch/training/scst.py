@@ -43,6 +43,7 @@ from torch import nn
 from audiocaption_tpu_torch.decoding.engine import NoiseFn
 from audiocaption_tpu_torch.models.captioner import generate
 from audiocaption_tpu_torch.models.rnn_decoder import BahAttnCatFcDecoder
+from audiocaption_tpu_torch.training.trainer import clip_grad_norm
 
 
 def scst_mask(seq: np.ndarray, eos: int) -> np.ndarray:
@@ -170,7 +171,7 @@ def apply_scst(state, wav: torch.Tensor, wav_len: torch.Tensor,
         loss, tok_lp = scst_loss(state.model, wav, wav_len, sampled,
                                  advantage, mask)
         loss.backward()
-    grad_norm = nn.utils.clip_grad_norm_(state.params, state.max_grad_norm)
+    grad_norm = clip_grad_norm(state.params, state.max_grad_norm)
     if mark:
         mark("grad")
     state.optimizer.step()

@@ -76,7 +76,8 @@ def train_step(state: TrainState, loss_fn: Callable[[Dict], torch.Tensor],
                generator: Optional[torch.Generator] = None
                ) -> Dict[str, torch.Tensor]:
     """One training step on ``batch`` (wav [B, T] float32, wav_len [B],
-    cap [B, L] ids, cap_len [B], on the model's device) ->
+    cap [B, L] ids, cap_len [B], on the model's device; a
+    ``temporal_tag`` [B] goes to the forward) ->
     {loss, grad_norm (raw, before the clip), skipped}.  ``ss_ratio`` and
     ``generator`` go to ``Captioner.forward``: the Python float 1.0 takes
     the teacher-forcing path, anything else scheduled sampling."""
@@ -85,15 +86,18 @@ def train_step(state: TrainState, loss_fn: Callable[[Dict], torch.Tensor],
     buffers = bn_buffers(model)
     saved = [b.clone() for b in buffers]
     state.optimizer.zero_grad(set_to_none=True)
+    cond = ({"temporal_tag": batch["temporal_tag"]}
+            if "temporal_tag" in batch else {})
     out = model(batch["wav"], batch["wav_len"], batch["cap"],
-                batch["cap_len"], ss_ratio=ss_ratio, generator=generator)
+                batch["cap_len"], ss_ratio=ss_ratio, generator=generator,
+                **cond)
     out["tgt"] = batch["cap"][:, 1:]
     out["tgt_len"] = batch["cap_len"] - 1
     loss = loss_fn(out)
     loss.backward()
     # the raw norm; the gradients are clipped in place (a non-finite norm
     # leaves them non-finite, and they are then dropped)
-    grad_norm = nn.utils.clip_grad_norm_(state.params, state.max_grad_norm)
+    grad_norm = clip_grad_norm(state.params, state.max_grad_norm)
     ok = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
     if ok:
         state.optimizer.step()
@@ -105,6 +109,26 @@ def train_step(state: TrainState, loss_fn: Callable[[Dict], torch.Tensor],
                 b.copy_(s)
     return {"loss": loss.detach(), "grad_norm": grad_norm.detach(),
             "skipped": not ok}
+
+
+def clip_grad_norm(params, max_norm: float,
+                   dtype: torch.dtype = torch.float64) -> torch.Tensor:
+    """``nn.utils.clip_grad_norm_`` with the norms taken in ``dtype``
+    (``torch._foreach_norm``'s): float64 by default, since on the CPU a
+    float32 sum over a tensor of tens of millions of elements (the Cnn14's
+    2048 x 2048 x 3 x 3 convolutions) drifts by ~1e-3, where the JAX
+    package's reduction stays near float32 rounding.  KD's step passes
+    float32 (``training/distill.py::apply_update``).  Scales the gradients
+    in place by min(1, max_norm / (norm + 1e-6)); returns the raw norm
+    (float32)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return torch.zeros(())
+    norm = torch.linalg.vector_norm(torch.stack(
+        torch._foreach_norm(grads, 2, dtype=dtype)))
+    coef = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+    torch._foreach_mul_(grads, coef.to(grads[0].dtype))
+    return norm.float()
 
 
 def bn_buffers(model: nn.Module) -> List[torch.Tensor]:

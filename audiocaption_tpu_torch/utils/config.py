@@ -4,15 +4,15 @@ recursively, ``key.sub=value`` overrides with YAML-typed values, and
 the model built from the reference's {type, args} nodes (its dotted
 type names are accepted: only the last component is read).
 
-``yaml`` is imported where a config is read (the card machine has no
-PyYAML; it drives the trainer's API directly).
+``yaml`` is imported where a config is read.  Every runner method takes
+a config file or a config dict (:func:`resolve_config`).
 """
 
 from __future__ import annotations
 
 import copy
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -58,6 +58,14 @@ def parse_overrides(pairs) -> Dict:
     return out
 
 
+def resolve_config(config: Union[str, Dict], overrides=()) -> Dict:
+    """A config file (``inherit_from`` followed) or a config dict (a deep copy), with ``key.sub=value`` overrides merged
+    on top."""
+    if isinstance(config, dict):
+        return merge_dicts(config, parse_overrides(overrides))
+    return load_config(config, parse_overrides(overrides))
+
+
 def short_type(type_name: str) -> str:
     """A dotted type name read by its last part."""
     return type_name.split(".")[-1]
@@ -72,17 +80,23 @@ def build_model_from_config(model_cfg: Dict,
     / ``Cnn14RnnEncoder`` (a Cnn14 and a GRU, from its ``cnn`` and ``rnn``
     nodes, with the defaults of the JAX package's
     ``build_model_from_config``), the ``Cdur5Encoder`` (memory width
-    256, the mel preset of its ``sample_rate``) and the
-    ``TransformerDecoder``;
-    an ``ScstWrapper`` node is read as the model node it wraps.  Returns
-    (captioner, pretrained specs), a spec being (the dotted path of the
-    submodule, e.g. ``"encoder.cnn"``, checkpoint path).  Other types
-    raise, naming the ROADMAP item that ports them.  Weights are torch's
-    defaults; the runner draws them (``zoo.random_init``)."""
+    256, the mel preset of its ``sample_rate``); the
+    ``TransformerDecoder``, and the GRU decoders ``BahAttnCatFcDecoder``
+    and ``TemporalBahAttnDecoder`` (one layer).  The model's own type is
+    read as the JAX package reads it: every type but the style models is
+    a plain ``Captioner`` (``TransformerModel``,
+    ``TemporalSeq2SeqAttnModel``, ...); an ``ScstWrapper`` node is read
+    as the model node it wraps.  Returns (captioner, pretrained specs), a
+    spec being (the dotted path of the submodule, e.g. ``"encoder.cnn"``,
+    checkpoint path, kind: the JAX package's ``cnn14``, ``effb2``,
+    ``raw`` or ``decoder``, which ``cli/run.py::load_pretrained`` reads).
+    Other types raise, naming the ROADMAP item that ports them.  Weights
+    are torch's defaults; the runner draws them (``zoo.random_init``)."""
     from audiocaption_tpu_torch.decoding.engine import SpecialTokens
     from audiocaption_tpu_torch.models.captioner import Captioner
     from audiocaption_tpu_torch.models.effb2 import EfficientNetB2
     from audiocaption_tpu_torch.models.encoders_extra import Cdur5Encoder
+    from audiocaption_tpu_torch.models import rnn_decoder
     from audiocaption_tpu_torch.models.rnn_encoder import Cnn14RnnEncoder
     from audiocaption_tpu_torch.models.transformer_decoder import (
         TransformerDecoder)
@@ -110,9 +124,10 @@ def build_model_from_config(model_cfg: Dict,
             freeze_cnn=enc_args.get("freeze_cnn", False),
             freeze_cnn_bn=enc_args.get("freeze_cnn_bn", False),
             compute_dtype=compute_dtype)
-        for part, node in (("encoder.cnn", cnn_cfg), ("encoder.rnn", rnn_cfg)):
+        for part, node, kind in (("encoder.cnn", cnn_cfg, "cnn14"),
+                                 ("encoder.rnn", rnn_cfg, "raw")):
             if node.get("pretrained"):
-                pretrained.append((part, node["pretrained"]))
+                pretrained.append((part, node["pretrained"], kind))
     elif enc_type == "Cdur5Encoder":
         encoder = Cdur5Encoder()
         mel = (CNN14_MEL_32K if enc_args.get("sample_rate", 32000) == 32000
@@ -125,7 +140,7 @@ def build_model_from_config(model_cfg: Dict,
         encoder = EfficientNetB2(compute_dtype=compute_dtype)
         mel = EFFB2_MEL_16K
         if enc_cfg.get("pretrained"):
-            pretrained.append(("encoder", enc_cfg["pretrained"]))
+            pretrained.append(("encoder", enc_cfg["pretrained"], "effb2"))
     else:
         raise ValueError(f"encoder type {enc_type!r} is not ported yet "
                          "(ROADMAP Queue 1 items 5 and 8)")
@@ -133,27 +148,39 @@ def build_model_from_config(model_cfg: Dict,
     dec_cfg = model_cfg["decoder"]
     dec_type = short_type(dec_cfg["type"])
     dec_args = dict(dec_cfg.get("args", {}) or {})
-    if dec_type != "TransformerDecoder":
-        raise ValueError(f"decoder type {dec_type!r} is not ported yet "
-                         "(ROADMAP Queue 1 items 5 and 8)")
     vocab = vocab_size or dec_args.get("vocab_size")
     if vocab is None:
         raise ValueError("the decoder needs a vocab_size (from the "
                          "tokenizer or the decoder's args)")
-    decoder = TransformerDecoder(
-        emb_dim=dec_args.get("emb_dim", 256), vocab_size=vocab,
-        attn_emb_dim=dec_args.get("attn_emb_dim", encoder.fc_emb_size),
-        nlayers=dec_args.get("nlayers", 2), nhead=dec_args.get("nhead"),
-        dim_feedforward=dec_args.get("dim_feedforward"),
-        tie_weights=dec_args.get("tie_weights", False),
-        dropout=dec_args.get("dropout", 0.2), compute_dtype=compute_dtype)
+    if dec_type == "TransformerDecoder":
+        decoder = TransformerDecoder(
+            emb_dim=dec_args.get("emb_dim", 256), vocab_size=vocab,
+            attn_emb_dim=dec_args.get("attn_emb_dim", encoder.fc_emb_size),
+            nlayers=dec_args.get("nlayers", 2), nhead=dec_args.get("nhead"),
+            dim_feedforward=dec_args.get("dim_feedforward"),
+            tie_weights=dec_args.get("tie_weights", False),
+            dropout=dec_args.get("dropout", 0.2),
+            compute_dtype=compute_dtype)
+    elif dec_type in ("BahAttnCatFcDecoder", "TemporalBahAttnDecoder"):
+        if dec_args.get("num_layers", 1) != 1:
+            raise ValueError("a GRU decoder of more than one layer is not "
+                             "ported yet (ROADMAP Queue 1 item 8)")
+        decoder = getattr(rnn_decoder, dec_type)(
+            emb_dim=dec_args.get("emb_dim", 512), vocab_size=vocab,
+            fc_emb_dim=dec_args.get("fc_emb_dim", encoder.fc_emb_size),
+            attn_emb_dim=dec_args.get("attn_emb_dim", encoder.fc_emb_size),
+            d_model=dec_args.get("d_model", 512),
+            dropout=dec_args.get("dropout", 0.5))
+    else:
+        raise ValueError(f"decoder type {dec_type!r} is not ported yet "
+                         "(ROADMAP Queue 1 items 5 and 8)")
     if dec_cfg.get("pretrained"):
-        pretrained.append(("decoder", dec_cfg["pretrained"]))
+        pretrained.append(("decoder", dec_cfg["pretrained"], "decoder"))
 
     model_type = short_type(model_cfg.get("type", "TransformerModel"))
-    if model_type not in ("TransformerModel", "Captioner"):
+    if model_type in ("StyleCaptionModel", "StyleSeq2SeqAttnModel"):
         raise ValueError(f"model type {model_type!r} is not ported yet "
-                         "(ROADMAP Queue 1 items 6 and 8)")
+                         "(ROADMAP Queue 1 item 8)")
     model = Captioner(encoder=encoder, decoder=decoder, mel=mel,
                       special=SpecialTokens())
     return model, pretrained

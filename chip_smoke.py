@@ -132,7 +132,8 @@ Phases, each of which must pass (none is caught and skipped):
      decoder forward with the SS loop and the loss, backward with the
      clip, and optimizer, for the cached SS path, teacher forcing and the
      recompute oracle; the cached step's device time by kernel
-     (``torch.profiler``) and idle share; clips/s, peak memory, model
+     (``torch.profiler``) and idle share; the clip alone beside torch's
+     ``clip_grad_norm_`` (``clip_times``); clips/s, peak memory, model
      FLOPs per clip (3x the forward) and TFLOP/s; the val score's time per
      64 clips;
  18. self-critical sequence training of ``zoo.cnn14rnn_trm(vocab_size=
@@ -165,8 +166,8 @@ Phases, each of which must pass (none is caught and skipped):
      repack, frontend + encode, the greedy kernel, the sampling loop),
      the host rewards, the grad pass (forward, backward, clip) and the
      optimizer; the repack alone; clips/s, peak memory, the device time
-     and idle share (``torch.profiler``); the greedy kernel at the
-     baseline's shapes beside its plain version and its bound; the native
+     and idle share (``torch.profiler``); the clip beside torch's
+     (``clip_times``); the greedy kernel at the baseline's shapes beside its plain version and its bound; the native
      CIDEr-D scorer against the Python one on the batch's rewards; the
      flagship's "dbs" and "top0.9" through the API at B=64 x 10 s;
  20. knowledge distillation of ``zoo.kd_student_cdur5(vocab_size=4368)``
@@ -207,7 +208,24 @@ Phases, each of which must pass (none is caught and skipped):
      split into encode, memory K/V, beam kernel and host, the idle share;
      the beam kernel at the cnn14rnn_trm and KD-student shapes warm and
      cold vs its plain version and bound; the metric suite's host time
-     per scorer; the ensemble's torch-engine beam per batch.
+     per scorer; the ensemble's torch-engine beam per batch;
+ 24. the flagship trained on a reduced corpus v2 that the port generates
+     (``synthetic_flagship_path``: 960 / 64 / 64 clips of 10 s at 32 kHz,
+     5 epochs of the recipe, ``cli/recipes.py``), its val
+     score through the greedy kernel, then ``Runner.evaluate`` of the best
+     checkpoint at beam 3 through the beam kernel: the loss falls, the
+     best val score beats the best constant caption, the test scores are
+     finite; on the trained weights the greedy kernel decodes the val set
+     as the torch engine does (or diverges at a near tie) and the beam
+     kernel passes ``float64_floor_check``;
+ 25. the temporal pair on a reduced temporal corpus
+     (``synthetic_temporal_path``: 320 / 64 / 64 clips): ``train_sed``
+     (its log-mel bank through the log-mel kernel, within 1e-3 dB of the
+     plain version or no further than it from float64),
+     the tag-conditioned captioner for 3 epochs, ``evaluate_temporal``
+     with the SED net's tags: both losses fall, the val tag accuracy beats
+     the most frequent tag's share and the val score the best constant
+     caption.
 
 Every kernel's launch counter is set to 0 just before each path is
 driven (phases 4-5, the EffB2 serving path; phase 8, the temporal path;
@@ -220,8 +238,10 @@ whose counts are their ``kd_launches`` and whose val score's greedy
 launches are the ``fused_greedy[kd_student]`` entry's; phase 22, the
 evaluation path, whose counts are the beam, greedy and log-mel entries'
 ``eval_launches`` and whose beam launches by family the
-``fused_beam[cnn14rnn_trm]`` and ``fused_beam[kd_student]`` entries') and
-read just after; the run fails if a kernel of that path was not launched
+``fused_beam[cnn14rnn_trm]`` and ``fused_beam[kd_student]`` entries';
+phase 24, the flagship's training and evaluation, whose counts are the
+greedy and beam entries' ``synthetic_launches``; phase 25, the temporal
+pair, whose log-mel count is the log-mel entry's) and read just after; the run fails if a kernel of that path was not launched
 there.
 The second-to-last line is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``.
@@ -361,6 +381,22 @@ EVAL_WAVS = 16                # wav files of the inference core, one short
 EVAL_WAV_SECONDS = (1.0, 10.0)
 EVAL_WARMUP, EVAL_TIMED = 2, 10
 EVAL_DISTINCT = 10            # (b): distinct tokens of the plain search, above
+# phases 24-25: reduced synthetic corpora (train / val / test clips of 10 s
+# at 32 kHz, seed 0), the recipes' epochs cut to these, SWA from epoch 2
+# The flagship learns to name its events only after some 500-900 steps at
+# the recipe's rates (the full recipe's val CIDEr-D: 0.20 after epoch 1,
+# 2.70 after epoch 2; before that, greedy captions score about what a
+# constant caption does), and its schedule decays the rate a thousandfold
+# over the run: so phase 24 takes 750 steps and decays the rate tenfold.
+# The temporal recipe learns within 150 steps as it is.
+SYN_V2_SIZES, SYN_V2_EPOCHS = (960, 64, 64), 5
+SYN_V2_FINAL_LR = 5e-5
+SYN_TEMPORAL_SIZES, SYN_SED_EPOCHS, SYN_TEMPGRU_EPOCHS = (320, 64, 64), 8, 3
+SYN_WORKERS = 6               # train loader workers (the card host has 8 cores)
+CLIP_TIMED = 20               # calls of each clip in phases 17 and 19
+SYN_TIE = 1e-4                # a greedy divergence at a log-prob gap below it
+SYN_CONSTANT_CANDIDATES = 20  # the most frequent train captions tried as a
+                              # constant val prediction
 
 
 def log(msg: str) -> None:
@@ -387,6 +423,26 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def clip_times(params, card: str, label: str) -> dict:
+    """The port's clip (``training/trainer.py::clip_grad_norm``, its norms
+    in float64) beside ``nn.utils.clip_grad_norm_`` on the gradients the
+    last step left, CLIP_TIMED calls each after a warm-up (max norm 1e9:
+    both scale by 1, and the gradients keep their values)."""
+    import torch
+    from audiocaption_tpu_torch.training.trainer import clip_grad_norm
+    params = [p for p in params if p.grad is not None]
+    out = {"port_ms": cuda_ms(lambda: clip_grad_norm(params, 1e9),
+                              CLIP_TIMED),
+           "torch_ms": cuda_ms(lambda: torch.nn.utils.clip_grad_norm_(
+               params, 1e9), CLIP_TIMED)}
+    log(f"{label} clip over {len(params)} gradient tensors "
+        f"({sum(p.numel() for p in params) / 1e6:.1f} M values): the port's "
+        f"clip_grad_norm {out['port_ms']:.3f} ms, torch's clip_grad_norm_ "
+        f"{out['torch_ms']:.3f} ms (CUDA events, mean of {CLIP_TIMED}) on "
+        f"{card}")
+    return out
 
 
 def device_split(fn, iters: int = 5) -> dict:
@@ -1771,6 +1827,7 @@ def train_times(t, dev, card):
     finally:
         for h in hooks:
             h.remove()
+    clip_times(state.params, card, "train step")
     busy = device_split(lambda: train_step(state, t["loss_fn"], batch, ss,
                                            t["ss_gen"]), iters=3)
     total = sum(busy.values())
@@ -2135,6 +2192,7 @@ def scst_times(t, api, wav64, len64, card):
         f"{split['grad']:.2f}, optimizer {split['optimizer']:.2f} ms; peak "
         f"memory {peak:.2f} GiB; B={SCST_B} x {SCST_SECONDS} s at 32 kHz, "
         f"float32, TF32 off, on {card}")
+    clip_times(t["state"].params, card, "scst step")
     repack = cuda_ms(t["baseline"].refresh, 5)
     log(f"scst: FusedGreedyDecoder.refresh() alone {repack:.3f} ms on {card}")
     busy = device_split(step, iters=3)
@@ -3172,6 +3230,320 @@ def eval_times(t, dev, card):
      FL.fused_logmel.launches) = c0
     return dict(times=out, entries=entries, metrics=per_1000, ens_ms=ens_ms)
 
+def _epoch_curve(log_path, loss_key: str, score_key: str):
+    """[(loss, score)] of a run's ``train.log`` epoch lines."""
+    import re
+    out = []
+    for line in Path(log_path).read_text().splitlines():
+        m = re.search(rf"epoch \d+: {loss_key} (\S+) {score_key} (\S+)",
+                      line)
+        if m:
+            out.append((float(m.group(1)), float(m.group(2))))
+    return out
+
+
+def constant_caption_cider(train_text: str, val_text: str) -> tuple:
+    """The best CIDEr-D (the val score's scorer) that one caption earns as
+    every val clip's prediction, among the most frequent train captions
+    -> (score, caption)."""
+    from collections import Counter
+    from audiocaption_tpu_torch.data.dataset import load_caption_json
+    from audiocaption_tpu_torch.metrics.tokenize import ptb_tokenize
+    from audiocaption_tpu_torch.native import FastCiderD
+    counts = Counter(c for caps in load_caption_json(train_text).values()
+                     for c in caps)
+    refs = load_caption_json(val_text)
+    scorer, best = FastCiderD(), (-1.0, "")
+    for cap, _ in counts.most_common(SYN_CONSTANT_CANDIDATES):
+        score = scorer.compute_score(ptb_tokenize(refs), ptb_tokenize(
+            {k: [cap] for k in refs}))[0]
+        best = max(best, (score, cap))
+    return best
+
+
+def synthetic_flagship_path(dev, card):
+    """:func:`_synthetic_flagship` in a temporary directory, which is removed
+    also when a check fails."""
+    import shutil
+    import tempfile
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_v2_"))
+    try:
+        return _synthetic_flagship(root, dev, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _synthetic_flagship(root, dev, card):
+    """Phase 24: generate a reduced corpus v2 (``cli/synthetic_corpus.py``:
+    SYN_V2_SIZES clips of 10 s at 32 kHz, float32 wav files) and train the
+    flagship recipe on it through ``Runner.train``
+    (``cli/recipes.py::flagship_train``:
+    ``configs/synthetic_v2/effb2_trm.yaml`` with the corpus's directory;
+    epochs cut to SYN_V2_EPOCHS,
+    the schedule's final rate SYN_V2_FINAL_LR, SWA from epoch 2,
+    SYN_WORKERS loader workers), its val score through
+    the greedy kernel, then ``Runner.evaluate`` of its best checkpoint at
+    beam 3 through the beam kernel (``flagship_test``, 16 kHz).  Bars: the
+    epoch loss falls from the first epoch to the last; the best val score
+    beats the best constant caption (``constant_caption_cider``); every
+    test score finite.  On the trained weights: (a) the greedy kernel's
+    decode of the val set against the torch engine's greedy decode: 0
+    tokens apart, or every diverging caption diverging first at a near tie
+    (the engine's log-probabilities of the two words within SYN_TIE);
+    (b) the beam kernel on the first test batch's memory against the
+    plain search (``float64_floor_check``); (c) the launches, set to 0
+    before the run and read after it (the checks' taken back out): the
+    greedy kernel once a val batch an epoch, the beam kernel once a test
+    batch."""
+    import torch
+    import torch.nn.functional as F
+    from audiocaption_tpu_torch.cli import recipes
+    from audiocaption_tpu_torch.cli import synthetic_corpus as SC
+    from audiocaption_tpu_torch.cli.run import (
+        Runner, build_dataloader, experiment_model, read_experiment)
+    from audiocaption_tpu_torch.decoding import fused_beam as FB
+    from audiocaption_tpu_torch.decoding import fused_greedy as FG
+    from audiocaption_tpu_torch.models.captioner import generate
+    from audiocaption_tpu_torch.ops import fused_logmel as FL
+
+    data = root / "data"
+    t0 = time.perf_counter()
+    SC.generate_v2(str(data), *SYN_V2_SIZES, sr=SR_32K, seed=0)
+    t_gen = time.perf_counter() - t0
+    constant, const_cap = constant_caption_cider(
+        str(data / "train_text.json"), str(data / "val_text.json"))
+    over = [f"device={dev.type}", f"experiment_path={root}/effb2_trm",
+            f"trainer.epochs={SYN_V2_EPOCHS}", "swa.start=2",
+            f"lr_scheduler.args.final_lrs={SYN_V2_FINAL_LR:.7f}",
+            f"data.train.dataloader_args.num_workers={SYN_WORKERS}"]
+    FG.reset_launches(FG.fused_greedy_decode)
+    FB.reset_launches(FB.fused_beam_decode)
+    FL.fused_logmel.launches = 0
+    runner = Runner()
+    t0 = time.perf_counter()
+    exp = runner.train(recipes.flagship_train(str(data)), *over)
+    t_train = time.perf_counter() - t0
+    scores = runner.evaluate(exp, recipes.flagship_test(str(data)),
+                             f"device={dev.type}", "resume=best.pth",
+                             "data.test.dataset.args.target_sr=16000",
+                             "caption_output=predictions/best_beam3.json",
+                             "score_output=results/best_beam3.txt")
+    t_eval = time.perf_counter() - t0 - t_train
+    launches = {"fused_greedy": FG.fused_greedy_decode.launches,
+                "fused_beam": FB.fused_beam_decode.launches,
+                "fused_logmel": FL.fused_logmel.launches}
+    curve = _epoch_curve(Path(exp) / "train.log", "loss", "val_cider")
+    for line in (Path(exp) / "train.log").read_text().splitlines():
+        log(f"synthetic v2 {line}")
+    floats = {k: v for k, v in scores.items() if isinstance(v, float)}
+    log(f"synthetic v2: corpus {SYN_V2_SIZES} x 10 s in {t_gen:.1f} s; "
+        f"{len(curve)} epochs in {t_train:.1f} s; loss {curve[0][0]:.4f} -> "
+        f"{curve[-1][0]:.4f}; best val CIDEr-D "
+        f"{max(c[1] for c in curve):.4f} (best constant caption "
+        f"{constant:.4f}: {const_cap!r}); test beam 3 (best.pth, "
+        f"{t_eval:.1f} s) "
+        f"{json.dumps({k: round(v, 4) for k, v in floats.items()})}"
+        f"; launches {launches} on {card}")
+    n_val = -(-SYN_V2_SIZES[1] // 32)
+    n_test = -(-SYN_V2_SIZES[2] // 32)
+    if dev.type == "cuda":
+        assert launches["fused_greedy"] == SYN_V2_EPOCHS * n_val, launches
+        assert launches["fused_beam"] == n_test, launches
+
+    # (a) and (b) on the trained weights; their launches are not the path's
+    cfg, ckpt = read_experiment(exp, "best.pth")
+    model, _ = experiment_model(cfg, ckpt, dev)
+    mis = tokens = ties = 0
+    for batch in build_dataloader(cfg["data"]["val"], train=False):
+        wav = torch.as_tensor(batch["wav"]).to(dev).float()
+        wav_len = torch.as_tensor(batch["wav_len"]).to(dev).long()
+        with torch.no_grad():
+            enc = model.encode(wav, wav_len)
+            ref = generate(model, enc=enc, sample_method="greedy",
+                           max_length=L)["seq"]
+            if dev.type == "cuda":
+                got = FG.FusedGreedyDecoder(model, max_length=L,
+                                            device=dev)(wav, wav_len)
+            else:
+                got = ref
+            mis += int((got != ref).sum())
+            tokens += ref.numel()
+            for r in torch.nonzero((got != ref).any(-1)).flatten().tolist():
+                t = int(torch.nonzero(got[r] != ref[r])[0])
+                prefix = torch.cat([ref.new_full((1,), model.special.bos),
+                                    ref[r, :t]])[None]
+                logit = model.decoder(
+                    prefix, enc["attn_emb"][r:r + 1],
+                    enc["attn_emb_len"][r:r + 1],
+                    cap_padding_mask=prefix == model.special.pad)["logit"]
+                lp = F.log_softmax(logit[0, -1].double(), -1)
+                gap = float(lp[ref[r, t]] - lp[got[r, t]])
+                assert gap <= SYN_TIE, f"greedy kernel diverges at gap {gap}"
+                ties += 1
+    log(f"synthetic v2 (a): the greedy kernel vs the torch engine on the "
+        f"trained weights, {SYN_V2_SIZES[1]} val clips: {mis}/{tokens} "
+        f"tokens differ, {ties} captions diverging at a near tie (log-prob "
+        f"gap <= {SYN_TIE})")
+    test_cfg = recipes.flagship_test(str(data))["data"]["test"]
+    test_cfg["dataset"]["args"]["target_sr"] = 16000
+    test = next(iter(build_dataloader(test_cfg, train=False)))
+    with torch.no_grad():
+        enc = model.encode(torch.as_tensor(test["wav"]).to(dev).float(),
+                           torch.as_tensor(test["wav_len"]).to(dev).long())
+        memkv, valid = FG.memory_kv(model.decoder, enc["attn_emb"],
+                                    enc["attn_emb_len"], False)
+    packed = FG.pack_decoder_weights(model.decoder).to(dev)
+    seq, score = FB.fused_beam_decode(packed, memkv, valid, L, 3)
+    p_seq, p_score = FB.fused_beam_plain(packed, memkv, valid, L, 3)
+    b_mis = int((seq != p_seq).sum())
+    log(f"synthetic v2 (b): the beam kernel vs the plain search on the "
+        f"trained weights (B={seq.shape[0]}, beam 3): {b_mis}/{seq.numel()} "
+        f"tokens differ")
+    assert b_mis <= MISMATCH_LIMIT * seq.numel(), "beam kernel disagrees"
+    assert float64_floor_check(packed, memkv, valid, 3, seq, score, p_seq,
+                               p_score), "beam kernel scores disagree"
+    assert floats and all(math.isfinite(v) for v in floats.values())
+    assert len(curve) == SYN_V2_EPOCHS and curve[-1][0] < curve[0][0], \
+        "synthetic v2: the loss did not fall"
+    assert max(c[1] for c in curve) > constant, \
+        "synthetic v2: the val score is no better than a constant caption"
+    return {"launches": launches, "greedy_err": float(mis),
+            "times": {"corpus_s": t_gen, "train_s": t_train,
+                      "evaluate_s": t_eval}}
+
+
+def synthetic_temporal_path(dev, card):
+    """:func:`_synthetic_temporal` in a temporary directory, which is removed
+    also when a check fails."""
+    import shutil
+    import tempfile
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_temporal_"))
+    try:
+        return _synthetic_temporal(root, dev, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _synthetic_temporal(root, dev, card):
+    """Phase 25: generate a reduced temporal corpus (SYN_TEMPORAL_SIZES
+    clips of 10 s at 32 kHz), train the SED net through
+    ``Runner.train_sed`` (``cli/recipes.py::sed_train``, epochs cut to
+    SYN_SED_EPOCHS; its log-mel bank through the log-mel kernel), the
+    tag-conditioned captioner through ``Runner.train`` (``tempgru_train``,
+    SYN_TEMPGRU_EPOCHS epochs, SWA from epoch 2) and score it with
+    ``Runner.evaluate_temporal`` (``temporal_test``: the SED net's tags,
+    beam 3 in the torch engine).  Bars: both losses fall from the first
+    epoch to the last; the best val tag accuracy beats the most frequent
+    val tag's share; the best val score beats the best constant caption;
+    every test score finite.  The bank's log-mel (the kernel, on the first
+    64 train clips) within LOGMEL_DB_ATOL of ``fused_logmel_plain``, or
+    else no further from the log-mel in float64 than the float32 plain
+    version is (``float64_floor_check``'s rule: these clips span ~90 dB,
+    and a dense float32 DFT rounds the quiet bins' power by up to ~4e-3
+    dB); and the bank those values in float16 exactly.  The log-mel kernel's
+    launches, set to 0 before the path and read after it, must be above
+    0."""
+    import numpy as np
+    import torch
+    from audiocaption_tpu_torch.cli import recipes
+    from audiocaption_tpu_torch.cli import synthetic_corpus as SC
+    from audiocaption_tpu_torch.cli.run import Runner, _sed_audio
+    from audiocaption_tpu_torch.ops import fused_logmel as FL
+    from audiocaption_tpu_torch.ops.frontend import (
+        CNN14_MEL_32K, LogMelFrontend)
+    from audiocaption_tpu_torch.training.sed_trainer import (
+        build_lms_bank, load_sed_annotations)
+
+    data = root / "data"
+    t0 = time.perf_counter()
+    SC.generate_temporal(str(data), *SYN_TEMPORAL_SIZES, sr=SR_32K, seed=0)
+    t_gen = time.perf_counter() - t0
+    constant, const_cap = constant_caption_cider(
+        str(data / "train_text.json"), str(data / "val_text.json"))
+    val_tags = np.asarray([a["tag"] for a in load_sed_annotations(
+        str(data / "val_sed.json"))])
+    const_tag = float(np.bincount(val_tags).max() / len(val_tags))
+    dev_over = f"device={dev.type}"
+    FL.fused_logmel.launches = 0
+    runner = Runner()
+    t0 = time.perf_counter()
+    sed_exp = runner.train_sed(recipes.sed_train(str(data)), dev_over,
+                               f"experiment_path={root}/sed",
+                               f"trainer.epochs={SYN_SED_EPOCHS}")
+    t_sed = time.perf_counter() - t0
+    sed_launches = FL.fused_logmel.launches
+    exp = runner.train(recipes.tempgru_train(str(data)), dev_over,
+                       f"experiment_path={root}/tempgru",
+                       f"trainer.epochs={SYN_TEMPGRU_EPOCHS}", "swa.start=2",
+                       f"data.train.dataloader_args.num_workers={SYN_WORKERS}")
+    t_train = time.perf_counter() - t0 - t_sed
+    scores = runner.evaluate_temporal(
+        exp, sed_exp, recipes.temporal_test(str(data)), dev_over,
+        "caption_output=predictions/swa_beam3_sedtag.json",
+        "score_output=results/swa_beam3_sedtag.txt")
+    t_eval = time.perf_counter() - t0 - t_sed - t_train
+    launches = {"fused_logmel": FL.fused_logmel.launches}
+    for name, d in (("sed", sed_exp), ("tempgru", exp)):
+        for line in (Path(d) / "train.log").read_text().splitlines():
+            log(f"synthetic temporal {name} {line}")
+    sed_curve = _epoch_curve(Path(sed_exp) / "train.log", "bce",
+                             "val_tag_acc")
+    curve = _epoch_curve(Path(exp) / "train.log", "loss", "val_cider")
+    tag_acc = (Path(exp) / "results/sed_tag_accuracy.txt").read_text().strip()
+    floats = {k: v for k, v in scores.items() if isinstance(v, float)}
+    log(f"synthetic temporal: corpus {SYN_TEMPORAL_SIZES} x 10 s in "
+        f"{t_gen:.1f} s; SED {len(sed_curve)} epochs in {t_sed:.1f} s, bce "
+        f"{sed_curve[0][0]:.4f} -> {sed_curve[-1][0]:.4f}, best val tag "
+        f"accuracy {max(c[1] for c in sed_curve):.4f} (most frequent tag "
+        f"{const_tag:.4f}); tempgru {len(curve)} epochs in {t_train:.1f} s, "
+        f"loss {curve[0][0]:.4f} -> {curve[-1][0]:.4f}, best val CIDEr-D "
+        f"{max(c[1] for c in curve):.4f} (best constant caption "
+        f"{constant:.4f}: {const_cap!r}); test with SED tags ({t_eval:.1f} "
+        f"s; {tag_acc}) "
+        f"{json.dumps({k: round(v, 4) for k, v in floats.items()})}; "
+        f"log-mel launches: {sed_launches} for the SED banks, "
+        f"{launches['fused_logmel']} in all, on {card}")
+    if dev.type == "cuda":
+        assert sed_launches > 0 and launches["fused_logmel"] > sed_launches
+
+    # the bank's values against the plain log-mel (launches taken back out)
+    n0 = FL.fused_logmel.launches
+    ann = load_sed_annotations(str(data / "train_sed.json"))[:64]
+    ids = [a["audio_id"] for a in ann]
+    read = _sed_audio({"sed": str(data / "train_sed.json")})
+    front = LogMelFrontend(CNN14_MEL_32K).to(dev)
+    wav = torch.from_numpy(np.stack([read(a) for a in ids])).to(dev)
+    with torch.no_grad():
+        kernel = front(wav)
+        plain = FL.fused_logmel_plain(wav, front.basis, front.mel_fb,
+                                      front.config)
+        f64 = float64_logmel(wav, front)
+    bank = build_lms_bank(read, ids, LogMelFrontend(CNN14_MEL_32K), dev)
+    FL.fused_logmel.launches = n0
+    err = float((kernel - plain).abs().max())
+    err64 = float((kernel.double() - f64).abs().max())
+    plain64 = float((plain.double() - f64).abs().max())
+    log(f"synthetic temporal: the SED bank's log-mel (kernel) vs "
+        f"fused_logmel_plain on {len(ids)} train clips: max |diff| "
+        f"{err:.3g} dB (limit {LOGMEL_DB_ATOL}); vs the float64 log-mel "
+        f"{err64:.3g} dB, the float32 plain version vs float64 {plain64:.3g}"
+        f" dB; bank == kernel in float16: "
+        f"{bool(torch.equal(bank, kernel.half()))}")
+    assert err <= LOGMEL_DB_ATOL or err64 <= plain64, \
+        "SED bank: log-mel kernel disagrees"
+    assert torch.equal(bank, kernel.half()), "SED bank is not the kernel's"
+    assert floats and all(math.isfinite(v) for v in floats.values())
+    assert sed_curve[-1][0] < sed_curve[0][0], "SED: the loss did not fall"
+    assert max(c[1] for c in sed_curve) > const_tag, \
+        "SED: the val tag accuracy is no better than a constant tag"
+    assert curve[-1][0] < curve[0][0], "tempgru: the loss did not fall"
+    assert max(c[1] for c in curve) > constant, \
+        "tempgru: the val score is no better than a constant caption"
+    return {"launches": launches, "logmel_err": err64,
+            "times": {"corpus_s": t_gen, "train_sed_s": t_sed,
+                      "train_s": t_train, "evaluate_s": t_eval}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3429,6 +3801,21 @@ def main() -> int:
     # -- 23. evaluation times ------------------------------------------------
     kernels += eval_times(ev, dev, card)["entries"]
     log(f"phase 22: {t1 - t0:.1f} s, phase 23: {time.perf_counter() - t1:.1f} "
+        f"s")
+
+    # -- 24. the flagship trained on a reduced synthetic corpus v2 ---------
+    t0 = time.perf_counter()
+    syn = synthetic_flagship_path(dev, card)
+    for k in kernels:
+        if k["name"] in ("fused_greedy", "fused_beam"):
+            k["synthetic_launches"] = syn["launches"][k["name"]]
+    t1 = time.perf_counter()
+    # -- 25. the SED net and the temporal captioner on a temporal corpus ----
+    syn_t = synthetic_temporal_path(dev, card)
+    for k in kernels:
+        if k["name"] == "fused_logmel":
+            k["synthetic_launches"] = syn_t["launches"]["fused_logmel"]
+    log(f"phase 24: {t1 - t0:.1f} s, phase 25: {time.perf_counter() - t1:.1f} "
         f"s")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -13,7 +13,7 @@ both float32), and within 0.05-0.1 dB on a wave with an 80 dB range;
 MBConv within 1e-4 * max(1, max |plain|) (1x1 products in 3xTF32, ~2^-22
 relative a product, and sums in another order than cuDNN's).  The decode
 kernels' bf16 modes: see BF16_BEAM_MODES below.  Every test here ran on
-the card (NVIDIA H100 80GB HBM3, 68 of 68 passing); without a card
+the card (NVIDIA H100 80GB HBM3, 71 of 71 passing); without a card
 they skip.
 """
 
@@ -782,3 +782,116 @@ def test_runner_decode_on_card_matches_engine(cuda, tmp_path):
     preds = decoder.decode_loader(tok2, batches, sample_method="beam",
                                   beam_size=3, max_length=12)
     assert list(preds) == [a for b in batches for a in b["audio_id"]]
+
+
+def _tempgru_twin(device):
+    """A narrow tag-conditioned captioner (the ``tempgru.yaml`` node at
+    GRU 16, decoder 24; CNN BN frozen, dropout 0) and its recipe's train
+    state on ``device``."""
+    from audiocaption_tpu_torch.losses.loss import masked_token_loss
+    from audiocaption_tpu_torch.optim.schedules import (
+        exponential_decay_with_warmup)
+    from audiocaption_tpu_torch.training.trainer import create_train_state
+    from audiocaption_tpu_torch.utils.config import build_model_from_config
+    node = {"type": "TemporalSeq2SeqAttnModel",
+            "encoder": {"type": "Cnn14RnnEncoder",
+                        "args": {"freeze_cnn_bn": True},
+                        "rnn": {"args": {"bidirectional": True,
+                                         "hidden_size": 16, "num_layers": 1,
+                                         "dropout": 0.0}}},
+            "decoder": {"type": "TemporalBahAttnDecoder",
+                        "args": {"emb_dim": 16, "d_model": 24,
+                                 "dropout": 0.0}}}
+    m, _ = build_model_from_config(node, vocab_size=50)
+    random_init(m, torch.Generator().manual_seed(0))
+    state = create_train_state(
+        m.to(device), 5e-4, exponential_decay_with_warmup(5e-4, 5e-7, 100,
+                                                          20), 1e-6, 1.0)
+    return state, masked_token_loss("label_smoothing", 0.1)
+
+
+@pytest.mark.cuda
+def test_tempgru_ss_step_card_matches_cpu(cuda):
+    """The GRU decoder's scheduled-sampling step (phase 25's training
+    path) with temporal tags, on the card and on the CPU, ss 1.0 then
+    0.0: loss within 1e-4 relative, raw gradient norm within 1e-3; the
+    log-mel kernel launches once a step."""
+    from audiocaption_tpu_torch.training.trainer import train_step
+    cpu, loss_fn = _tempgru_twin(torch.device("cpu"))
+    card, _ = _tempgru_twin(cuda)
+    FL.fused_logmel.launches = 0
+    for ss in (1.0, 0.0):
+        batches = [dict(_train_batch(d), temporal_tag=torch.tensor(
+            [0, 2, 3]).to(d)) for d in (cuda, torch.device("cpu"))]
+        got = train_step(card, loss_fn, batches[0], torch.tensor(ss),
+                         torch.Generator())
+        want = train_step(cpu, loss_fn, batches[1], torch.tensor(ss),
+                          torch.Generator())
+        np.testing.assert_allclose(float(got["loss"]), float(want["loss"]),
+                                   rtol=1e-4)
+        np.testing.assert_allclose(float(got["grad_norm"]),
+                                   float(want["grad_norm"]), rtol=1e-3)
+    assert FL.fused_logmel.launches == 2
+
+
+@pytest.mark.cuda
+def test_greedy_kernel_after_training_steps_matches_engine(cuda):
+    """Phase 24's check at the narrow flagship: after 30 train steps the
+    greedy kernel decodes as the torch engine does, or diverges only at a
+    near tie (the engine's log-probabilities of the two words within
+    1e-4)."""
+    import torch.nn.functional as F
+    from audiocaption_tpu_torch.models.captioner import generate
+    from audiocaption_tpu_torch.training.trainer import train_step
+    state, loss_fn = _train_twin(cuda)
+    for _ in range(30):
+        train_step(state, loss_fn, _train_batch(cuda), torch.tensor(0.9),
+                   torch.Generator())
+    model = state.model.eval()
+    b = _train_batch(cuda)
+    with torch.no_grad():
+        enc = model.encode(b["wav"], b["wav_len"])
+        ref = generate(model, enc=enc, sample_method="greedy",
+                       max_length=12)["seq"]
+        got = TG.FusedGreedyDecoder(model, max_length=12,
+                                    device=cuda).decode_enc(enc)
+        for r in torch.nonzero((got != ref).any(-1)).flatten().tolist():
+            t = int(torch.nonzero(got[r] != ref[r])[0])
+            prefix = torch.cat([ref.new_full((1,), 1), ref[r, :t]])[None]
+            lp = F.log_softmax(model.decoder(
+                prefix, enc["attn_emb"][r:r + 1], enc["attn_emb_len"][r:r + 1],
+                cap_padding_mask=prefix == 0)["logit"][0, -1].double(), -1)
+            assert float(lp[ref[r, t]] - lp[got[r, t]]) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_sed_bank_is_the_logmel_kernel_in_float16(cuda):
+    """Phase 25's bank: ``build_lms_bank`` on the card gives the log-mel
+    kernel's values rounded to float16, and the kernel lies within 1e-3 dB
+    of ``fused_logmel_plain``; the SED train step runs on it."""
+    from audiocaption_tpu_torch.models.sed import Cnn8RnnSedModel
+    from audiocaption_tpu_torch.training.sed_trainer import (
+        build_lms_bank, framewise_targets, sed_train_step)
+    rng = np.random.RandomState(0)
+    waves = {f"c{i}": (rng.randn(320000) * 0.1).astype(np.float32)
+             for i in range(5)}
+    front = TF.LogMelFrontend(TF.CNN14_MEL_32K)
+    FL.fused_logmel.launches = 0
+    bank = build_lms_bank(waves.__getitem__, list(waves), front, cuda,
+                          chunk=4)
+    assert FL.fused_logmel.launches == 2 and bank.dtype == torch.float16
+    wav = torch.from_numpy(np.stack(list(waves.values()))).to(cuda)
+    with torch.no_grad():
+        kernel = front(wav)
+        plain = FL.fused_logmel_plain(wav, front.basis, front.mel_fb,
+                                      front.config)
+    assert float((kernel - plain).abs().max()) <= 1e-3
+    assert torch.equal(bank, kernel.half())
+    model = Cnn8RnnSedModel(classes_num=8).to(cuda)
+    y = torch.from_numpy(np.stack([framewise_targets(
+        [[i % 8, 1.0, 4.0]], bank.shape[1], 8) for i in range(5)])).to(cuda)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    losses = [float(sed_train_step(model, opt, bank, y,
+                                   torch.arange(5, device=cuda)))
+              for _ in range(5)]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]

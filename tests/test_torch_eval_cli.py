@@ -360,13 +360,20 @@ def test_cli_config_forms_and_unported(ws, monkeypatch):
     main(["debug", "--config", "a.yaml", "x=1", "y=2"])
     main(["debug", "a.yaml", "x=1"])
     assert seen == [("a.yaml", ("x=1", "y=2")), ("a.yaml", ("x=1",))]
-    for name in ("train_aug", "train_sed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main([name, "--config", "a.yaml"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main(["train_aug", "--config", "a.yaml"])
+    # the temporal subcommands are ported: they reach the runner
+    for name in ("train_sed", "predict_temporal", "evaluate_temporal"):
+        monkeypatch.setattr(run.Runner, name,
+                            lambda self, *a, name=name: seen.append((name, a)))
+    main(["train_sed", "--config", "a.yaml", "x=1"])
     for name in ("predict_temporal", "evaluate_temporal"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main([name, "--experiment_path", "e", "--sed_experiment_path",
-                  "s", "--eval_config", "c.yaml"])
+        main([name, "--experiment_path", "e", "--sed_experiment_path",
+              "s", "--eval_config", "c.yaml", "device=cpu"])
+    assert seen[2:] == [
+        ("train_sed", ("a.yaml", "x=1")),
+        ("predict_temporal", ("e", "s", "c.yaml", "device=cpu")),
+        ("evaluate_temporal", ("e", "s", "c.yaml", "device=cpu"))]
 
 
 @pytest.mark.parametrize("name,config", [

@@ -70,7 +70,11 @@ for name in ("audiocaption_tpu_torch.native",
              "audiocaption_tpu_torch.metrics.eval",
              "audiocaption_tpu_torch.metrics.diversity",
              "audiocaption_tpu_torch.metrics.extra",
-             "audiocaption_tpu_torch.metrics.tools"):
+             "audiocaption_tpu_torch.metrics.tools",
+             "audiocaption_tpu_torch.cli.synthetic_corpus",
+             "audiocaption_tpu_torch.cli.recipes",
+             "audiocaption_tpu_torch.data.condition_dataset",
+             "audiocaption_tpu_torch.training.sed_trainer"):
     assert name in names, name
 print(len(names))
 """

@@ -219,7 +219,7 @@ def test_unported_types_raise_naming_the_roadmap():
     with pytest.raises(ValueError, match="ROADMAP"):
         build_model_from_config(node, vocab_size=20)
     node = _model_node()
-    node["decoder"]["type"] = "BahAttnCatFcDecoder"
+    node["decoder"]["type"] = "BahAttnAddFcDecoder"
     with pytest.raises(ValueError, match="ROADMAP"):
         build_model_from_config(node, vocab_size=20)
     model, pretrained = build_model_from_config(_model_node(), 20)
@@ -234,7 +234,7 @@ def test_pretrained_encoder_loads_matching_entries(tmp_path):
     (efficientnet_pytorch names) loads into the encoder, the entries of
     matching name and shape only."""
     import torch
-    from audiocaption_tpu_torch.cli.run import _load_pretrained
+    from audiocaption_tpu_torch.cli.run import load_pretrained
     donor, _ = build_model_from_config(_model_node(), 20)
     sd = {k: v + 1 for k, v in donor.encoder.state_dict().items()
           if k.endswith("weight")}
@@ -243,8 +243,8 @@ def test_pretrained_encoder_loads_matching_entries(tmp_path):
     node = _model_node()
     node["encoder"]["pretrained"] = str(tmp_path / "effb2.pt")
     model, pretrained = build_model_from_config(node, 20)
-    assert pretrained == [("encoder", str(tmp_path / "effb2.pt"))]
+    assert pretrained == [("encoder", str(tmp_path / "effb2.pt"), "effb2")]
     before = {k: v.clone() for k, v in model.encoder.state_dict().items()}
-    _load_pretrained(model, pretrained[0])
+    assert load_pretrained(model, pretrained[0]) == len(sd) - 1
     for k, v in model.encoder.state_dict().items():
         assert torch.equal(v, sd[k] if k in sd else before[k]), k
