@@ -18,7 +18,9 @@ them), val and the wait for the previous checkpoint, with the peak device
 memory on CUDA.  A temporal captioner (``configs/synthetic_temporal/
 tempgru.yaml``: ``TemporalBahAttnDecoder`` on a temporal-tag dataset)
 trains on each batch's ``temporal_tag`` and its val score decodes with
-the val set's tags.
+the val set's tags.  A conditioned GRU decoder trains on each batch's
+``condition`` (``ConditionCaptionDataset``), ``style`` or ``structure``;
+its val score decodes with none, as the JAX runner's.
 
 A model node of type ``ScstWrapper`` (``configs/*/scst.yaml``) trains
 the wrapped model by self-critical sequence training instead
@@ -27,7 +29,8 @@ the wrapped model by self-critical sequence training instead
 CIDEr-D scorer against the train captions, samples drawn from a
 generator seeded with ``seed + 17``; the epoch's logged loss is minus the
 mean sampled reward.  ``resume`` with ``trainer.finetune: True`` (the
-recipe's) starts from an XE run's weights.
+recipe's) starts from an XE run's weights.  A GRU decoder's SCST runs on
+the torch engine (no kernel decodes a GRU).
 
 The validation score greedy-decodes the val set and scores CIDEr-D
 (the native scorer) against its captions.  On CUDA the decode runs the
@@ -213,7 +216,8 @@ def build_dataset(cfg: Dict):
     if t in ("CaptionKdDataset", "InferKdDataset"):
         from audiocaption_tpu_torch.data import kd_dataset
         return getattr(kd_dataset, t)(**args)
-    if t in ("TemporalTagCaptionDataset", "TemporalTagInferenceDataset"):
+    if t in ("ConditionCaptionDataset", "RandomConditionDataset",
+             "TemporalTagCaptionDataset", "TemporalTagInferenceDataset"):
         from audiocaption_tpu_torch.data import condition_dataset
         return getattr(condition_dataset, t)(**args)
     raise ValueError(f"dataset {t!r} is not ported yet")
@@ -259,14 +263,19 @@ def build_dataloader(data_cfg: Dict, tokenizer=None, train: bool = True):
 def to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
     """A collated batch (numpy arrays or tensors) -> the train step's
     tensors on ``device``: the wave widened to float32 (a float16 wire as
-    is, int16 / 32768), lengths, ids and temporal tags as int64."""
+    is, int16 / 32768), lengths, ids, temporal tags and structure ids as
+    int64, a ``condition`` or ``style`` as float32."""
     wav = torch.as_tensor(batch["wav"]).to(device)
     if wav.dtype == torch.int16:
         wav = wav.float() / 32768.0
     out = {"wav": wav.float()}
-    for k in ("wav_len", "cap", "cap_len", "temporal_tag"):
+    for k in ("wav_len", "cap", "cap_len", "temporal_tag", "structure"):
         if k in batch:
             out[k] = torch.as_tensor(batch[k]).to(device, torch.long)
+    for k in ("condition", "style"):
+        if k in batch:
+            out[k] = torch.as_tensor(np.asarray(batch[k], np.float32)).to(
+                device)
     return out
 
 
@@ -579,11 +588,10 @@ class Runner:
         trainer_cfg = cfg.get("trainer", {})
         # an ScstWrapper node trains the model it wraps by SCST
         rl_train = short_type(cfg["model"].get("type", "")) == "ScstWrapper"
-        if rl_train and not isinstance(model.decoder, TransformerDecoder):
-            raise NotImplementedError(
-                "SCST of a GRU decoder is not ported yet (ROADMAP Queue 1)")
         state = create_train_state(model, **run.opt)
-        loss_fn = build_loss(cfg.get("loss", {}))
+        # the condition loss's gumbel draws and its discriminator's device
+        loss_fn = build_loss(cfg.get("loss", {}), generator=torch.Generator(
+            device=device).manual_seed(seed + 3), device=device)
 
         # scheduled sampling: on, the step gets a tensor ratio (the cached
         # path even at 1.0); off, the float 1.0 (teacher forcing)
@@ -607,7 +615,7 @@ class Runner:
         if cfg.get("resume"):
             if not trainer_cfg.get("finetune", True):
                 raise ValueError("a full resume (trainer.finetune: False) "
-                                 "is not ported yet (ROADMAP Queue 1 item 6)")
+                                 "is not ported yet (ROADMAP Queue 1 item 6c)")
             ckpt = load_checkpoint(cfg["resume"])
             load_reference_state_dict(model, merge_variables(
                 model_variables(model), ckpt["variables"]))
@@ -623,7 +631,9 @@ class Runner:
             rl_scorer = FastCiderD()
             rl_gen = torch.Generator(device=device).manual_seed(seed + 17)
             baseline = None
-            if device.type == "cuda":
+            # the greedy kernel decodes a transformer; a GRU, the engine
+            if device.type == "cuda" and type(model.decoder) is \
+                    TransformerDecoder:
                 from audiocaption_tpu_torch.decoding.fused_greedy import (
                     FusedGreedyDecoder)
                 baseline = FusedGreedyDecoder(model, rl_len, device=device)

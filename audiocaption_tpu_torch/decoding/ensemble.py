@@ -8,8 +8,11 @@ beam search all work as for one model.  No kernel computes this step (no
 Pallas kernel does in the JAX package either): it runs in the engine, on
 the members' device.
 
-The members share one tokenizer.  Members with an RNN decoder are not
-ported yet (ROADMAP Queue 1 item 6) and raise.
+The members share one tokenizer.  A member's decoder is a
+``TransformerDecoder`` or any GRU decoder (``models/rnn_decoder.py``),
+mixed as they come.  A GRU member's cache is built from its
+``attn_emb``, ``attn_emb_len`` and ``fc_emb`` with no condition, as in
+the JAX ensemble: the temporal decoder runs on tag 0 (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -21,8 +24,6 @@ import torch
 from audiocaption_tpu_torch.decoding.engine import (
     NoiseFn, beam_search, diverse_beam_search, expand_to_beams,
     stepwise_decode)
-from audiocaption_tpu_torch.models.transformer_decoder import (
-    TransformerDecoder)
 
 
 @torch.no_grad()
@@ -43,11 +44,6 @@ def ensemble_generate(models: Sequence[torch.nn.Module],
     generator seeded with 0 where none is given, or takes ``noise``."""
     if not models:
         raise ValueError("an ensemble needs at least one model")
-    for m in models:
-        if not isinstance(m.decoder, TransformerDecoder):
-            raise NotImplementedError(
-                f"ensemble member with a {type(m.decoder).__name__}: RNN "
-                "decoders are not ported yet (ROADMAP Queue 1 item 6)")
     special = models[0].special
     L = max_length if max_length is not None else special.max_length
     V = models[0].decoder.vocab_size
@@ -61,10 +57,11 @@ def ensemble_generate(models: Sequence[torch.nn.Module],
         "i."."""
         statics, dyn = [], {}
         for i, (m, enc) in enumerate(zip(models, encs)):
-            enc_k = expand_to_beams({x: enc[x] for x in ("attn_emb",
-                                                         "attn_emb_len")}, k)
+            enc_k = expand_to_beams({x: enc[x] for x in (
+                "attn_emb", "attn_emb_len", "fc_emb")}, k)
             s, d = m.decoder.init_cache(enc_k["attn_emb"],
-                                        enc_k["attn_emb_len"], L)
+                                        enc_k["attn_emb_len"],
+                                        max_length=L, fc_emb=enc_k["fc_emb"])
             statics.append(s)
             dyn.update({f"{i}.{key}": v for key, v in d.items()})
         return statics, dyn

@@ -14,7 +14,7 @@ every other method, any further argument (``n_best``, ``group_size``,
 ...), any other decoder, and the CPU go through the torch engine
 (``models/captioner.py::generate``).  A kernel that fails to build or
 launch raises; nothing falls back.  A batch's ``temporal_tag`` conditions
-a GRU decoder (the temporal captioner); other decoders take no tag.
+the temporal GRU decoder; other decoders take no tag.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from audiocaption_tpu_torch.models.captioner import generate
-from audiocaption_tpu_torch.models.rnn_decoder import BahAttnCatFcDecoder
+from audiocaption_tpu_torch.models.rnn_decoder import TemporalBahAttnDecoder
 from audiocaption_tpu_torch.models.transformer_decoder import (
     TransformerDecoder)
 
@@ -79,15 +79,15 @@ class LoaderDecoder:
                  temporal_tag: Optional[torch.Tensor] = None,
                  **inference_args) -> torch.Tensor:
         """Token ids [B, L] on the device (the first of an n-best
-        layout), without a host sync; ``temporal_tag`` [B] conditions a
-        GRU decoder and is dropped for any other."""
+        layout), without a host sync; ``temporal_tag`` [B] conditions the
+        temporal GRU decoder and is dropped for any other."""
         key = tuple(sorted(inference_args.items()))
         if key not in self._fns:
             self._fns[key] = select_decoder(self.model, self.device,
                                             **inference_args)
         cond = ({"temporal_tag": temporal_tag.to(self.device)}
                 if temporal_tag is not None
-                and isinstance(self.model.decoder, BahAttnCatFcDecoder)
+                and isinstance(self.model.decoder, TemporalBahAttnDecoder)
                 else {})
         with torch.no_grad():
             seq = self._fns[key](wav.to(self.device),

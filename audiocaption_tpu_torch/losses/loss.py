@@ -5,8 +5,9 @@ valid tokens / their count)."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -68,17 +69,24 @@ def masked_token_loss(kind: str = "label_smoothing", smoothing: float = 0.1,
     return fn
 
 
-def build_loss(config: Dict) -> Callable[[Dict], torch.Tensor]:
+def build_loss(config: Dict, generator: Optional[torch.Generator] = None,
+               device=None) -> Callable[[Dict], torch.Tensor]:
     """A loss from a config node {type, args}; our names or the
     reference's dotted paths.  The composite wrappers build recursively
     (``losses/wrappers.py``):
 
-      MultipleLossSum     args: {losses: [node, ...], weights: [...]}
-      AugmentLossWrapper  args: {loss: node}, the inner label-smoothing or
-                          cross-entropy loss with ``reduction="none"``
+      MultipleLossSum         args: {losses: [node, ...], weights: [...]}
+      AugmentLossWrapper      args: {loss: node}, the inner label-smoothing
+                              or cross-entropy loss with
+                              ``reduction="none"``
+      ConditionLossWrapper    args: {loss: node, dscrm: {vocab_size,
+                              emb_dim, hidden_size, checkpoint | seed},
+                              alpha, sample_method}; "gumbel" draws
+                              from ``generator``
+      SpecificityLossWrapper  args: {loss: node, word_specificity: a .npy
+                              path or an array [V], sentence_reduce, alpha}
 
-    ``ConditionLossWrapper`` and ``SpecificityLossWrapper`` serve decoders
-    the port does not have yet and raise (ROADMAP Queue 1 items 5, 8)."""
+    ``device`` is where the discriminator runs."""
     type_name = config.get("type", "LabelSmoothingLoss").split(".")[-1]
     args = config.get("args", {}) or {}
     if type_name == "LabelSmoothingLoss":
@@ -88,8 +96,9 @@ def build_loss(config: Dict) -> Callable[[Dict], torch.Tensor]:
         return masked_token_loss("cross_entropy")
     if type_name == "MultipleLossSum":
         from audiocaption_tpu_torch.losses.wrappers import multiple_loss_sum
-        return multiple_loss_sum([build_loss(c) for c in args["losses"]],
-                                 args["weights"])
+        return multiple_loss_sum(
+            [build_loss(c, generator, device)
+             for c in args["losses"]], args["weights"])
     if type_name == "AugmentLossWrapper":
         from audiocaption_tpu_torch.losses.wrappers import (
             augment_loss_wrapper)
@@ -100,5 +109,54 @@ def build_loss(config: Dict) -> Callable[[Dict], torch.Tensor]:
             else "label_smoothing",
             (inner.get("args", {}) or {}).get("smoothing", 0.0),
             reduction="none"))
-    raise ValueError(f"loss type {type_name!r} is not ported yet "
-                     "(ROADMAP Queue 1 items 5 and 8)")
+    if type_name == "ConditionLossWrapper":
+        from audiocaption_tpu_torch.losses.wrappers import (
+            condition_loss_wrapper)
+        inner = build_loss(args.get("loss", {"type": "LabelSmoothingLoss"}))
+        return condition_loss_wrapper(
+            inner, build_dscrm_apply(args["dscrm"], device),
+            alpha=args.get("alpha", 1.0),
+            sample_method=args.get("sample_method", "argmax"),
+            generator=generator)
+    if type_name == "SpecificityLossWrapper":
+        from audiocaption_tpu_torch.losses.wrappers import (
+            specificity_loss_wrapper)
+        inner = build_loss(args.get("loss", {"type": "LabelSmoothingLoss"}))
+        ws = args["word_specificity"]
+        return specificity_loss_wrapper(
+            inner, np.load(ws) if isinstance(ws, str) else ws,
+            sentence_reduce=args.get("sentence_reduce", "sum"),
+            alpha=args.get("alpha", 1.0))
+    raise ValueError(f"unknown loss type: {type_name}")
+
+
+def build_dscrm_apply(cfg: Dict, device=None) -> Callable:
+    """The condition loss's discriminator: an ``HmClassifier``
+    (``vocab_size``, ``emb_dim`` 256, ``hidden_size`` 256), frozen ->
+    fn(soft_caps [N, T, V], lens [N]) -> sigmoid probs [N].
+    Its weights come from ``checkpoint``, a ``.pth`` holding the port's
+    ``HmClassifier`` state dict (plain or under ``"model"``; a JAX
+    discriminator's params convert with
+    ``models.convert.jax_tree_state_dict``), or else are drawn from
+    ``seed`` (0) by ``models.zoo.random_init``.  The JAX package reads a
+    flax msgpack here, which the port does not read."""
+    from audiocaption_tpu_torch.models.hm_classifier import HmClassifier
+    from audiocaption_tpu_torch.models.zoo import random_init
+    model = HmClassifier(vocab_size=cfg["vocab_size"],
+                         emb_dim=cfg.get("emb_dim", 256),
+                         hidden_size=cfg.get("hidden_size", 256))
+    if cfg.get("checkpoint"):
+        sd = torch.load(cfg["checkpoint"], map_location="cpu")
+        model.load_state_dict(sd.get("model", sd))
+    else:
+        random_init(model, torch.Generator().manual_seed(cfg.get("seed", 0)))
+    # train(): cuDNN runs a GRU's backward (the loss's gradient reaches
+    # the decoder through it) in training mode only; the classifier has
+    # no dropout or batch norm, so its output is the eval output
+    model = model.to(device or "cpu").train().requires_grad_(False)
+
+    def apply(soft_caps: torch.Tensor, tgt_len: torch.Tensor
+              ) -> torch.Tensor:
+        return torch.sigmoid(model(soft_caps, tgt_len))
+    apply.model = model
+    return apply

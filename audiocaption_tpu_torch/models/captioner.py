@@ -18,12 +18,14 @@ Training forward (``Captioner.forward``), for the transformer decoder:
     reference's shape), kept as the oracle the tests hold the cached path
     to.
 
-For a GRU decoder (``BahAttnCatFcDecoder`` and its temporal variant) the
+For a GRU decoder (``models/rnn_decoder.py``, every variant) the
 training forward runs step by step whatever ``ss_ratio`` is (the JAX
 ``_ss_forward_rnn``): the input word at step t is the teacher word
 ``cap[:, t]`` when that step's coin says "teacher" (always, for the
-Python float 1.0), else the previous step's greedy word; a
-``temporal_tag`` goes into the decoder's cache.
+Python float 1.0), else the previous step's greedy word.  A
+``temporal_tag`` and the ``cond_kwargs`` (``condition``, ``style``,
+``structure``: the JAX package's route) go into the decoder's cache, in
+training and in ``generate``.
 
 The frontend runs without autograd; the encoder and decoder follow their
 ``train()`` / ``eval()`` mode (batch statistics, dropout, drop-connect).
@@ -44,7 +46,7 @@ from torch import nn
 from audiocaption_tpu_torch.decoding.engine import (
     NoiseFn, SpecialTokens, beam_search, diverse_beam_search,
     expand_to_beams, stepwise_decode)
-from audiocaption_tpu_torch.models.rnn_decoder import BahAttnCatFcDecoder
+from audiocaption_tpu_torch.models.rnn_decoder import RnnDecoder
 from audiocaption_tpu_torch.ops.frontend import LogMelFrontend, MelConfig
 from audiocaption_tpu_torch.ops.specaug import spec_augment
 
@@ -91,23 +93,28 @@ class Captioner(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 temporal_tag: Optional[torch.Tensor] = None,
                 specaug: bool = False,
-                specaug_generator: Optional[torch.Generator] = None
+                specaug_generator: Optional[torch.Generator] = None,
+                cond_kwargs: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Dict[str, torch.Tensor]:
         """Training forward: wav [B, T], cap [B, Lc] ids (<bos> ... <eos>,
         padded) -> {logit [B, Lc-1, V], embed [B, Lc-1, E], encoder
         outputs; on the scheduled-sampling path (and for a GRU decoder)
         also seq and sampled_logprob [B, Lc-1]}.  ``cap_len`` is the
-        loss's, not this forward's; ``temporal_tag`` [B] conditions a
-        temporal decoder; ``specaug`` applies SpecAugment in ``train()``
-        (``specaug_generator`` on the batch's device)."""
+        loss's, not this forward's; ``temporal_tag`` [B] and
+        ``cond_kwargs`` condition a GRU decoder; ``specaug`` applies
+        SpecAugment in ``train()`` (``specaug_generator`` on the batch's
+        device)."""
         enc = self.encode(wav, wav_len, specaug, specaug_generator)
-        if isinstance(self.decoder, BahAttnCatFcDecoder):
-            out = self._ss_forward_rnn(enc, cap, ss_ratio, generator,
-                                       temporal_tag)
+        cond = dict(cond_kwargs or {})
+        if temporal_tag is not None:
+            cond["temporal_tag"] = temporal_tag
+        if isinstance(self.decoder, RnnDecoder):
+            out = self._ss_forward_rnn(enc, cap, ss_ratio, generator, cond)
         elif isinstance(ss_ratio, float) and ss_ratio == 1.0:
             word = cap[:, :-1]
             out = self.decoder(word, enc["attn_emb"], enc["attn_emb_len"],
-                               cap_padding_mask=word == self.special.pad)
+                               cap_padding_mask=word == self.special.pad,
+                               **cond)
         else:
             out = self._ss_forward(enc, cap, ss_ratio, generator)
         out.update(enc)
@@ -145,15 +152,16 @@ class Captioner(nn.Module):
     def _ss_forward_rnn(self, enc: Dict[str, torch.Tensor],
                         cap: torch.Tensor, ss_ratio,
                         generator: Optional[torch.Generator],
-                        temporal_tag: Optional[torch.Tensor] = None
+                        cond: Optional[Dict[str, torch.Tensor]] = None
                         ) -> Dict[str, torch.Tensor]:
         """The GRU decoder's training forward, one step at a time (the JAX
         ``_ss_forward_rnn``): step t feeds the teacher word ``cap[:, t]``
         when its coin says so (:func:`ss_coin`; the Python float 1.0 draws
-        none and always does), else the previous greedy word."""
+        none and always does), else the previous greedy word.  ``cond``
+        goes to the decoder's ``init_cache``."""
         dec, sp = self.decoder, self.special
         B, Lc = cap.shape
-        cond = {} if temporal_tag is None else {"temporal_tag": temporal_tag}
+        cond = cond or {}
         static, dyn = dec.init_cache(enc["attn_emb"], enc["attn_emb_len"],
                                      enc["fc_emb"], Lc - 1, **cond)
         forced = isinstance(ss_ratio, float) and ss_ratio == 1.0
@@ -224,7 +232,8 @@ def generate(model: Captioner, wav: Optional[torch.Tensor] = None,
              feat_len: Optional[torch.Tensor] = None,
              temporal_tag: Optional[torch.Tensor] = None,
              generator: Optional[torch.Generator] = None,
-             noise: Optional[NoiseFn] = None
+             noise: Optional[NoiseFn] = None,
+             cond_kwargs: Optional[Dict[str, torch.Tensor]] = None
              ) -> Dict[str, torch.Tensor]:
     """Batched caption generation with the torch engine, as the JAX
     ``generate`` routes it: "beam" (beam 3 by default), "dbs" (diverse beam
@@ -233,11 +242,13 @@ def generate(model: Captioner, wav: Optional[torch.Tensor] = None,
     ``engine.sample_next_word`` ("greedy", "gumbel", "sample", "topN",
     "top0.x"; ``seq`` and ``sampled_logprob`` [B, L]).  The input is a
     waveform (``wav``, ``wav_len``), a log-mel (``lms``, ``feat_len``) or
-    the encoder's outputs (``enc``).  ``temporal_tag`` [B] conditions a
-    temporal decoder.  Sampling draws from ``generator`` (on the model's
-    device), or, without one, from a fresh generator seeded with 0, so
-    that two calls draw the same (the JAX default key is ``PRNGKey(0)``);
-    ``noise(t, shape)`` hands in step t's draws instead."""
+    the encoder's outputs (``enc``).  ``temporal_tag`` [B] and
+    ``cond_kwargs`` (``condition`` [B], ``style`` [B, E], ``structure``
+    [B]) condition a GRU decoder's cache.  Sampling draws from
+    ``generator`` (on the model's device), or, without one, from a fresh
+    generator seeded with 0, so that two calls draw the same (the JAX
+    default key is ``PRNGKey(0)``); ``noise(t, shape)`` hands in step t's
+    draws instead."""
     special = model.special
     L = max_length if max_length is not None else special.max_length
     if enc is None:
@@ -246,29 +257,23 @@ def generate(model: Captioner, wav: Optional[torch.Tensor] = None,
     dec = model.decoder
     B = enc["attn_emb"].shape[0]
     device = enc["attn_emb"].device
-    rnn = isinstance(dec, BahAttnCatFcDecoder)
-    keys = ("attn_emb", "attn_emb_len", "fc_emb") if rnn else (
-        "attn_emb", "attn_emb_len")
-    cond = {} if temporal_tag is None else {"temporal_tag": temporal_tag}
-
-    def init_cache(enc_in, cond_in):
-        if rnn:
-            return dec.init_cache(enc_in["attn_emb"], enc_in["attn_emb_len"],
-                                  enc_in["fc_emb"], L, **cond_in)
-        return dec.init_cache(enc_in["attn_emb"], enc_in["attn_emb_len"], L)
+    cond = dict(cond_kwargs or {})
+    if temporal_tag is not None:
+        cond["temporal_tag"] = temporal_tag
 
     def make_step_fn(static):
-        if rnn:   # RNN steps take no pad flags
-            return lambda word, t, dyn: dec.step(word, t, static, dyn)
-
         def step_fn(word, t, dyn):
             return dec.step(word, t, static, dyn,
                             is_pad_t=word == special.pad)
         return step_fn
 
     def expanded(n):
-        return init_cache(expand_to_beams({k: enc[k] for k in keys}, n),
-                          expand_to_beams(cond, n))
+        # a transformer decoder's caller may hand in no fc_emb
+        enc_n = expand_to_beams({k: v for k, v in enc.items() if k in (
+            "attn_emb", "attn_emb_len", "fc_emb")}, n)
+        return dec.init_cache(enc_n["attn_emb"], enc_n["attn_emb_len"],
+                              max_length=L, fc_emb=enc_n.get("fc_emb"),
+                              **expand_to_beams(cond, n))
 
     if sample_method == "beam":
         K = beam_size if beam_size is not None else 3
@@ -286,7 +291,7 @@ def generate(model: Captioner, wav: Optional[torch.Tensor] = None,
     else:
         if generator is None and noise is None and sample_method != "greedy":
             generator = torch.Generator(device=device).manual_seed(0)
-        static, dyn = init_cache(enc, cond)
+        static, dyn = expanded(1)
         out = stepwise_decode(make_step_fn(static), dyn, B, special,
                               max_length=L, device=device,
                               method=sample_method, temp=temp,

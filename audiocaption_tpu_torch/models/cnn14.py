@@ -1,4 +1,5 @@
-"""PANNs Cnn14 audio encoder (counterpart of ``audiocaption_tpu/models/cnn14.py``).
+"""PANNs Cnn14 audio encoder and its AudioSet tagging head (counterpart of
+``audiocaption_tpu/models/cnn14.py``: ``Cnn14Encoder``, ``Cnn14Classifier``).
 
 Consumes a log-mel ``lms`` [B, T, 64] and its frame counts ``feat_len``
 and returns {attn_emb [B, T // 32, 2048], attn_emb_len = feat_len // 32,
@@ -27,10 +28,22 @@ from audiocaption_tpu_torch.ops.masking import max_with_lens, mean_with_lens
 CHANNELS = (64, 128, 256, 512, 1024, 2048)
 
 
+def pooled_fc(attn_emb: torch.Tensor, out_len: torch.Tensor,
+              fc1: nn.Module, training: bool) -> torch.Tensor:
+    """The PANNs head: masked max + mean over the valid frames, dropout
+    0.5, ``relu(fc1)`` (in ``fc1``'s compute dtype), dropout 0.5 ->
+    float32 ``fc_emb``.  Dropout acts in ``training`` only."""
+    pooled = max_with_lens(attn_emb, out_len) + mean_with_lens(attn_emb,
+                                                               out_len)
+    pooled = F.dropout(pooled, 0.5, training)
+    return F.dropout(widen(F.relu(fc1(pooled))), 0.5, training)
+
+
 class Cnn14Encoder(nn.Module):
     """bn0 over the mel bins, 6 double-conv blocks 1 -> 2048 with 2x2
     average pooling (none after the last), each followed by dropout 0.2
-    in ``train()``, mean over the mel axis."""
+    in ``train()``, mean over the mel axis; ``fc_emb`` by
+    :func:`pooled_fc`."""
 
     downsample_ratio = 32
 
@@ -58,8 +71,26 @@ class Cnn14Encoder(nn.Module):
         attn_emb = widen(x.mean(dim=3).transpose(1, 2))   # [B, T', 2048]
         out_len = torch.div(feat_len, self.downsample_ratio,
                             rounding_mode="floor")
-        pooled = max_with_lens(attn_emb, out_len) + mean_with_lens(
-            attn_emb, out_len)
-        return {"fc_emb": widen(F.relu(self.fc1(pooled))),
+        return {"fc_emb": pooled_fc(attn_emb, out_len, self.fc1,
+                                    self.training),
                 "attn_emb": attn_emb,
                 "attn_emb_len": out_len}
+
+
+class Cnn14Classifier(nn.Module):
+    """A Cnn14 (``encoder``) with the AudioSet tagging layer
+    ``fc_audioset`` (527 classes) on its ``fc_emb``: the encoder's
+    outputs plus ``logits`` and ``clipwise_output`` (their sigmoid)."""
+
+    def __init__(self, classes_num: int = 527,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.encoder = Cnn14Encoder(compute_dtype=compute_dtype)
+        self.fc_audioset = nn.Linear(self.encoder.fc_emb_size, classes_num)
+
+    def forward(self, lms: torch.Tensor, feat_len: torch.Tensor
+                ) -> Dict[str, torch.Tensor]:
+        out = dict(self.encoder(lms, feat_len))
+        out["logits"] = self.fc_audioset(out["fc_emb"])
+        out["clipwise_output"] = torch.sigmoid(out["logits"])
+        return out

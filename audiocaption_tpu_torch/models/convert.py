@@ -28,6 +28,17 @@ own Cdur5 key names, so this key space is the port's module names, which
 follow the JAX tree; ``kd_head_state_dict_from_jax`` converts an encoder-KD
 head (``stdnt_proj``, ``tchr_proj``, ``logit_scale``).
 
+``jax_tree_state_dict`` converts any JAX module tree whose port
+counterpart keeps the JAX names (the PANNs Cnn6 / Cnn10 and Cnn14 names
+are also the reference's): Cnn6 / Cnn10, MobileNetV2, Cdur8, the audio
+transformer, Cnn14Transformer, Cnn14Classifier, every GRU decoder and
+``HmClassifier``, leaf by leaf (a Dense, a Conv, a BatchNorm (its stats
+beside it), a LayerNorm, an Embed, a GRU or GRU cell stack, a
+``MultiheadAttention``, a raw parameter).  ``captioner_state_dict_from_jax``
+converts a whole captioner so (a transformer decoder by
+``decoder_state_dict_from_jax``'s names) into ``encoder.*`` /
+``decoder.*``.
+
 ``tempgru_state_dict_from_jax`` does the same for the temporal captioner
 and its SED model, into the ``wsntxxn/cnn14rnn-tempgru`` key space
 (``cap_model.encoder.{cnn,rnn}.*``, ``cap_model.decoder.*``,
@@ -244,14 +255,13 @@ def kd_head_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
 
 def reference_prefixes(model: torch.nn.Module) -> Tuple[str, str]:
     """The prefixes of a ``Captioner``'s encoder and decoder keys in its
-    reference key space: the reference trainer's ``encoder.`` /
-    ``decoder.`` for a Cnn14-GRU or a Cdur5 encoder, the HF
-    EffB2-Transformer checkpoint's otherwise."""
-    from audiocaption_tpu_torch.models.encoders_extra import Cdur5Encoder
-    from audiocaption_tpu_torch.models.rnn_encoder import Cnn14RnnEncoder
-    if isinstance(model.encoder, (Cnn14RnnEncoder, Cdur5Encoder)):
-        return "encoder.", "decoder."
-    return ENCODER_PREFIX, DECODER_PREFIX
+    reference key space: the HF EffB2-Transformer checkpoint's for an
+    EfficientNet-B2 encoder, the reference trainer's ``encoder.`` /
+    ``decoder.`` for every other."""
+    from audiocaption_tpu_torch.models.effb2 import EfficientNetB2
+    if isinstance(model.encoder, EfficientNetB2):
+        return ENCODER_PREFIX, DECODER_PREFIX
+    return "encoder.", "decoder."
 
 
 def load_known(module: torch.nn.Module,
@@ -305,8 +315,8 @@ def bahattn_captioner_state_dict_from_jax(variables: Mapping,
                                           rnn_bidirectional: bool = True
                                           ) -> Dict[str, np.ndarray]:
     """JAX Cnn14-GRU + GRU-decoder captioner variables (the temporal
-    captioner's, or a ``BahAttnCatFcDecoder``'s) -> numpy arrays under
-    ``{prefix}encoder.`` and ``{prefix}decoder.``."""
+    captioner's, or any GRU decoder's, at any depth) -> numpy arrays
+    under ``{prefix}encoder.`` and ``{prefix}decoder.``."""
     out: Dict[str, np.ndarray] = {}
     enc_p = variables["params"]["encoder"]
     enc_s = variables["batch_stats"]["encoder"]
@@ -315,16 +325,13 @@ def bahattn_captioner_state_dict_from_jax(variables: Mapping,
         _linear(enc_p["cnn"]["fc1"], f"{prefix}encoder.cnn.fc1", out)
     _gru(enc_p["rnn"]["network"], f"{prefix}encoder.rnn.network",
          rnn_num_layers, rnn_bidirectional, out)
-    dec, d = variables["params"]["decoder"], f"{prefix}decoder"
-    _embedding(dec["word_embedding"], f"{d}.word_embedding", out)
-    _gru(dec["model"], f"{d}.model", 1, False, out)
-    _linear(dec["attn"]["h2attn"], f"{d}.attn.h2attn", out)
-    out[f"{d}.attn.v"] = _n(dec["attn"]["v"])
-    for name in ("fc_proj", "ctx_proj", "classifier"):
-        _linear(dec[name], f"{d}.{name}", out)
-    if "temporal_embedding" in dec:
-        _embedding(dec["temporal_embedding"], f"{d}.temporal_embedding",
-                   out)
+    # in the reference module's order, which its state dict keeps
+    dec = variables["params"]["decoder"]
+    order = ("word_embedding", "model", "attn", "fc_proj", "ctx_proj",
+             "classifier")
+    dec = {k: dec[k] for k in sorted(
+        dec, key=lambda k: order.index(k) if k in order else len(order))}
+    out.update(jax_tree_state_dict(dec, None, f"{prefix}decoder"))
     return out
 
 
@@ -349,4 +356,68 @@ def tempgru_state_dict_from_jax(variables: Mapping, sed_variables: Mapping,
     out = bahattn_captioner_state_dict_from_jax(variables, "cap_model.",
                                                 rnn_num_layers)
     out.update(sed_state_dict_from_jax(sed_variables, "sed_model."))
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def _is_gru(p: Mapping) -> bool:
+    return "w_ih_l0" in p
+
+
+def jax_tree_state_dict(params: Mapping, stats: Mapping = None,
+                        prefix: str = "") -> Dict[str, np.ndarray]:
+    """A JAX module's params (and batch stats) -> numpy arrays under the
+    same dotted names, in torch layouts: a Dense ``kernel`` [in, out] ->
+    ``weight`` [out, in]; a Conv kernel -> [O, I, kh, kw]; a BatchNorm
+    (stats beside it) -> ``weight`` / ``bias`` / ``running_*``; a
+    LayerNorm -> ``weight`` / ``bias``; an Embed -> ``weight``; a GRU
+    (``w_ih_l{k}[_reverse]``, ``cell_*``) -> ``nn.GRU``'s names, gate
+    order r, z, n; a ``MultiheadAttention`` (q / k / v / out) -> the packed
+    ``in_proj_*`` and ``out_proj``; any other leaf as it is."""
+    stats = stats or {}
+    out: Dict[str, np.ndarray] = {}
+    pre = prefix + "." if prefix else ""
+    p = params
+    if "kernel" in p and not isinstance(p["kernel"], Mapping):
+        (_conv2d if np.ndim(p["kernel"]) == 4 else _linear)(
+            p, prefix, out)
+    elif "scale" in p and "mean" in stats:
+        _batchnorm(p, stats, prefix, out)
+    elif "scale" in p:
+        _layernorm(p, prefix, out)
+    elif set(p) == {"embedding"}:
+        _embedding(p, prefix, out)
+    elif _is_gru(p):
+        layers = sum(k.startswith("w_ih_l") and not k.endswith("_reverse")
+                     for k in p)
+        _gru(p, prefix, layers, any(k.endswith("_reverse") for k in p),
+             out)
+    elif "q_proj" in p:
+        _mha(p, prefix, out)
+    else:
+        for k, v in p.items():
+            if isinstance(v, Mapping):
+                out.update(jax_tree_state_dict(v, stats.get(k, {}),
+                                               pre + k))
+            else:
+                out[pre + k] = _n(v)
+    return out
+
+
+def captioner_state_dict_from_jax(variables: Mapping
+                                  ) -> Dict[str, torch.Tensor]:
+    """A JAX captioner's variables whose encoder keeps the JAX names in
+    the port (see :func:`jax_tree_state_dict`) -> the port's state dict
+    of tensors under ``encoder.`` and ``decoder.``: a GRU decoder leaf by
+    leaf, a ``TransformerDecoder`` by the reference's names (its depth
+    and tying read off the tree)."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    out = jax_tree_state_dict(params["encoder"], stats.get("encoder", {}),
+                              "encoder")
+    dec = params["decoder"]
+    if "attn_proj_dense" in dec:
+        _transformer_decoder(dec, "decoder",
+                             sum(k.startswith("layer") for k in dec),
+                             "classifier" not in dec, out)
+    else:
+        out.update(jax_tree_state_dict(dec, None, "decoder"))
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}

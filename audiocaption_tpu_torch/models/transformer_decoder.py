@@ -149,8 +149,10 @@ class TransformerDecoder(nn.Module):
     # ---------------------------------------------------------- decode ----
 
     def init_cache(self, attn_emb: torch.Tensor, attn_emb_len: torch.Tensor,
-                   max_length: int) -> Tuple[Dict, Dict]:
+                   max_length: int, fc_emb: Optional[torch.Tensor] = None
+                   ) -> Tuple[Dict, Dict]:
         """Precompute memory K/V and allocate the self-attention caches.
+        ``fc_emb`` is the GRU decoders' keyword, which this one ignores.
 
         Returns (static, dynamic): ``static`` is read-only during decode,
         ``dynamic`` is the per-step state the engine threads and reorders.

@@ -10,7 +10,9 @@ from torch import nn
 from audiocaption_tpu_torch.decoding.engine import SpecialTokens
 from audiocaption_tpu_torch.models.captioner import Captioner
 from audiocaption_tpu_torch.models.effb2 import EfficientNetB2
-from audiocaption_tpu_torch.models.encoders_extra import Cdur5Encoder
+from audiocaption_tpu_torch.models.encoders_extra import (
+    AudioTransformerEncoder, Cdur5Encoder)
+from audiocaption_tpu_torch.models.hm_classifier import HmClassifier
 from audiocaption_tpu_torch.models.layers import MultiheadAttention
 from audiocaption_tpu_torch.models.rnn_decoder import (
     Seq2SeqAttention, TemporalBahAttnDecoder)
@@ -117,7 +119,8 @@ def random_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
     serving and tests): He-normal fan-out convs, torch-default uniform
     linears, Xavier-uniform embeddings and packed attention projections,
     torch-default uniform GRUs, a standard-normal additive-attention
-    ``v``, identity normalisation.  The positional table stays
+    ``v``, Xavier-uniform CLS tokens and discriminator word tables,
+    identity normalisation.  The positional table stays
     sinusoidal."""
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
@@ -141,6 +144,10 @@ def random_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 p.uniform_(-bound, bound, generator=generator)
         elif isinstance(m, Seq2SeqAttention):
             m.v.normal_(0.0, 1.0, generator=generator)
+        elif isinstance(m, AudioTransformerEncoder):
+            _xavier_uniform(m.cls_token, generator)
+        elif isinstance(m, HmClassifier):
+            _xavier_uniform(m.word_embedding, generator)
         elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()

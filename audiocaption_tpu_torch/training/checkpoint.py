@@ -7,10 +7,9 @@ monitor_state, not_improve_cnt, tokenizer (the word -> id dict),
 lr_count, optimizer (optional)}, the JAX package's payload.  Here
 ``variables`` is a flat dict of numpy arrays in the model's reference
 key space (for the flagship ``model.model.encoder.backbone.eff_net.*``,
-``model.model.decoder.*``; for cnn14rnn_trm and the Cdur5 KD student
-``encoder.*``, ``decoder.*``:
-what ``models.convert.load_reference_state_dict`` reads), so the HF API
-loads it as it loads a reference checkpoint.
+``model.model.decoder.*``; for every other encoder ``encoder.*``,
+``decoder.*``: what ``models.convert.load_reference_state_dict``
+reads), so the HF API loads it as it loads a reference checkpoint.
 :func:`load_checkpoint` also reads a checkpoint the JAX package wrote
 (its ``variables`` the flax tree {params, batch_stats}) and returns its
 weights in the same key space (``models.convert.state_dict_from_jax``).
@@ -28,7 +27,8 @@ import numpy as np
 import torch
 
 from audiocaption_tpu_torch.models.convert import (
-    bahattn_captioner_state_dict_from_jax, cdur5_trm_state_dict_from_jax,
+    bahattn_captioner_state_dict_from_jax, captioner_state_dict_from_jax,
+    cdur5_trm_state_dict_from_jax,
     cnn14rnn_trm_state_dict_from_jax, reference_prefixes,
     sed_state_dict_from_jax, state_dict_from_jax)
 
@@ -98,9 +98,11 @@ def load_checkpoint(path: str) -> Dict:
 
 def jax_variables_to_reference(variables: Mapping) -> Dict[str, np.ndarray]:
     """A JAX EffB2-Transformer, cnn14rnn_trm, Cdur5 KD-student, Cnn14-GRU +
-    GRU-decoder (the temporal captioner) or Cnn8-RNN SED tree {params,
-    batch_stats} (numpy leaves) -> its reference key space; the GRUs' and
-    the decoder's depth and the weight tying are read off the tree."""
+    GRU-decoder (the temporal captioner), any captioner of the extended
+    encoders or GRU decoders (``captioner_state_dict_from_jax``) or
+    Cnn8-RNN SED tree {params, batch_stats} (numpy leaves) -> its
+    reference key space; the GRUs' and the decoder's depth and the weight
+    tying are read off the tree."""
     params = variables["params"]
     dec, enc = params.get("decoder", {}), params.get("encoder", {})
     if "fc_audioset" in params:
@@ -112,10 +114,14 @@ def jax_variables_to_reference(variables: Mapping) -> Dict[str, np.ndarray]:
                 k.startswith("w_ih_l") and not k.endswith("_reverse")
                 for k in gru),
             rnn_bidirectional=any(k.endswith("_reverse") for k in gru))
-    if "attn_proj_dense" not in dec or not enc:
-        raise ValueError("only JAX EfficientNet-B2, Cnn14-GRU or Cdur5 + "
-                         "TransformerDecoder checkpoints convert to this "
-                         "package's key space")
+    if not dec or not enc:
+        raise ValueError("only JAX captioner (encoder + decoder) or SED "
+                         "checkpoints convert to this package's key space")
+    if "attn_proj_dense" not in dec or not (
+            "conv_stem" in enc or "rnn" in enc or "b1" in enc):
+        # the extended encoders and the GRU decoders keep the JAX names
+        return {k: v.numpy() for k, v in captioner_state_dict_from_jax(
+            variables).items()}
     nlayers = sum(k.startswith("layer") for k in dec)
     tie = "classifier" not in dec
     if "cnn" in enc and "rnn" in enc:

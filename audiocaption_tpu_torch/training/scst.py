@@ -13,7 +13,8 @@ One step (:func:`scst_step`):
   2. host rewards: CIDEr-D of both captions against the clip's
      references (:func:`compute_batch_score`, the native scorer);
   3. the grad pass: teacher-force ``[<bos>] + sampled[:-1]`` to recompute
-     the sampled words' log-probabilities with autograd, loss
+     the sampled words' log-probabilities with autograd (a GRU decoder
+     steps through them, as the JAX ``loss_fn`` does), loss
      ``-(r_sample - r_greedy) * logprob * mask / sum(mask)``, ``mask`` 1 up
      to and including the first <eos> (:func:`scst_mask`), backward, the
      global-norm clip;
@@ -21,6 +22,12 @@ One step (:func:`scst_step`):
      its schedule, ``training/trainer.py::create_train_state``).  Its
      gradients are applied whatever their value, as the JAX runner does:
      SCST has no NaN skip.
+
+A GRU decoder's baseline and sample come from the torch engine (no
+kernel decodes a GRU).  Its caches are built with no condition, as in
+the JAX step: the temporal decoder then conditions every clip on tag 0
+(``TemporalBahAttnDecoder.init_cache``), in the sample pass and in the
+grad pass alike (a JAX-side fault kept for parity, ROADMAP Queue 3).
 
 Mode.  The JAX step runs the whole model in inference mode (no dropout,
 batch norm on its running statistics, which no pass updates), and so
@@ -42,7 +49,7 @@ from torch import nn
 
 from audiocaption_tpu_torch.decoding.engine import NoiseFn
 from audiocaption_tpu_torch.models.captioner import generate
-from audiocaption_tpu_torch.models.rnn_decoder import BahAttnCatFcDecoder
+from audiocaption_tpu_torch.models.rnn_decoder import RnnDecoder
 from audiocaption_tpu_torch.training.trainer import clip_grad_norm
 
 
@@ -142,15 +149,21 @@ def scst_loss(model, wav: torch.Tensor, wav_len: torch.Tensor,
     """The grad pass's loss (call under :func:`scst_mode`) -> (loss, the
     sampled words' log-probabilities [B, L])."""
     dec, sp = model.decoder, model.special
-    if isinstance(dec, BahAttnCatFcDecoder):
-        raise NotImplementedError(
-            "SCST of an RNN decoder (its training forward) is not ported "
-            "yet (ROADMAP Queue 1 item 6)")
     word = torch.cat([torch.full_like(sampled[:, :1], sp.bos),
                       sampled[:, :-1]], dim=1)
     enc = model.encode(wav, wav_len)
-    logit = dec(word, enc["attn_emb"], enc["attn_emb_len"],
-                cap_padding_mask=word == sp.pad)["logit"]
+    if isinstance(dec, RnnDecoder):
+        # no condition: the temporal decoder runs on tag 0, as in JAX
+        static, dyn = dec.init_cache(enc["attn_emb"], enc["attn_emb_len"],
+                                     enc["fc_emb"], sampled.shape[1])
+        logits = []
+        for t in range(sampled.shape[1]):
+            logit_t, dyn = dec.step(word[:, t], t, static, dyn)
+            logits.append(logit_t)
+        logit = torch.stack(logits, 1)
+    else:
+        logit = dec(word, enc["attn_emb"], enc["attn_emb_len"],
+                    cap_padding_mask=word == sp.pad)["logit"]
     tok_lp = torch.gather(F.log_softmax(logit, dim=-1), -1,
                           sampled[..., None])[..., 0]
     loss = torch.sum(-advantage[:, None] * tok_lp * mask) / torch.sum(mask)

@@ -70,38 +70,65 @@ def create_train_state(model: nn.Module, base_lr: float, schedule: Schedule,
     return TrainState(model, optimizer, scheduler, max_grad_norm)
 
 
+Mark = Optional[Callable[[str], None]]
+
+
+def mark_part(mark: Mark, name: str) -> None:
+    """``mark(name)`` where a step was given a ``mark`` (timing a step's
+    parts by CUDA events)."""
+    if mark is not None:
+        mark(name)
+
+
+# the batch keys that condition a GRU decoder (the JAX step's
+# ``cond_kwargs``; its ``event`` / ``keyword`` serve decoders not ported)
+COND_KEYS = ("condition", "style", "structure")
+
+
 def train_step(state: TrainState, loss_fn: Callable[[Dict], torch.Tensor],
                batch: Dict[str, torch.Tensor],
                ss_ratio: Union[float, torch.Tensor] = 1.0,
                generator: Optional[torch.Generator] = None,
                specaug: bool = False,
-               specaug_generator: Optional[torch.Generator] = None
-               ) -> Dict[str, torch.Tensor]:
+               specaug_generator: Optional[torch.Generator] = None,
+               mark: Mark = None) -> Dict[str, torch.Tensor]:
     """One training step on ``batch`` (wav [B, T] float32, wav_len [B],
     cap [B, L] ids, cap_len [B], on the model's device; a
-    ``temporal_tag`` [B] goes to the forward) ->
+    ``temporal_tag`` [B], and a ``condition`` [B], ``style`` [B, E] or
+    ``structure`` [B], go to the forward, as in the JAX step; the
+    ``condition`` also goes to the loss as ``conditions``, which the JAX
+    step leaves out though its condition and specificity losses read it,
+    ROADMAP Queue 3) ->
     {loss, grad_norm (raw, before the clip), skipped}.  ``ss_ratio`` and
     ``generator`` go to ``Captioner.forward``: the Python float 1.0 takes
     the teacher-forcing path, anything else scheduled sampling.
     ``specaug`` and ``specaug_generator`` (on the batch's device) too:
-    SpecAugment on the log-mel."""
+    SpecAugment on the log-mel.  ``mark(name)``, if given, is called after
+    the forward and loss ("forward"), the backward and clip ("backward")
+    and the optimizer ("optimizer"), for the caller's timers."""
     model = state.model
     model.train()
     buffers = bn_buffers(model)
     saved = [b.clone() for b in buffers]
     state.optimizer.zero_grad(set_to_none=True)
-    cond = ({"temporal_tag": batch["temporal_tag"]}
-            if "temporal_tag" in batch else {})
+    tag = ({"temporal_tag": batch["temporal_tag"]}
+           if "temporal_tag" in batch else {})
+    cond = {k: batch[k] for k in COND_KEYS if k in batch}
     out = model(batch["wav"], batch["wav_len"], batch["cap"],
                 batch["cap_len"], ss_ratio=ss_ratio, generator=generator,
-                specaug=specaug, specaug_generator=specaug_generator, **cond)
+                specaug=specaug, specaug_generator=specaug_generator,
+                cond_kwargs=cond, **tag)
     out["tgt"] = batch["cap"][:, 1:]
     out["tgt_len"] = batch["cap_len"] - 1
+    if "condition" in batch:
+        out["conditions"] = batch["condition"]
     loss = loss_fn(out)
+    mark_part(mark, "forward")
     loss.backward()
     # the raw norm; the gradients are clipped in place (a non-finite norm
     # leaves them non-finite, and they are then dropped)
     grad_norm = clip_grad_norm(state.params, state.max_grad_norm)
+    mark_part(mark, "backward")
     ok = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
     if ok:
         state.optimizer.step()
@@ -111,6 +138,7 @@ def train_step(state: TrainState, loss_fn: Callable[[Dict], torch.Tensor],
         with torch.no_grad():
             for b, s in zip(buffers, saved):
                 b.copy_(s)
+    mark_part(mark, "optimizer")
     return {"loss": loss.detach(), "grad_norm": grad_norm.detach(),
             "skipped": not ok}
 
@@ -133,16 +161,6 @@ def clip_grad_norm(params, max_norm: float,
     coef = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     torch._foreach_mul_(grads, coef.to(grads[0].dtype))
     return norm.float()
-
-
-Mark = Optional[Callable[[str], None]]
-
-
-def mark_part(mark: Mark, name: str) -> None:
-    """``mark(name)`` where a step was given a ``mark`` (timing a step's
-    parts by CUDA events)."""
-    if mark is not None:
-        mark(name)
 
 
 def apply_update(state, loss: torch.Tensor, mark: Mark = None,

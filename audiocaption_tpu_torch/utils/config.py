@@ -71,32 +71,48 @@ def short_type(type_name: str) -> str:
     return type_name.split(".")[-1]
 
 
+# the GRU decoders the builder takes (every one of the JAX builder's)
+RNN_DECODERS = ("BahAttnCatFcDecoder", "TemporalBahAttnDecoder",
+                "BahAttnAddFcDecoder", "BahAttnDecoder",
+                "ConditionalBahAttnDecoder", "StyleBahAttnDecoder",
+                "SpecificityBahAttnDecoder", "StructBahAttnDecoder",
+                "RnnFcDecoder")
+
+
 def build_model_from_config(model_cfg: Dict,
                             vocab_size: Optional[int] = None,
                             compute_dtype: torch.dtype = torch.float32
                             ) -> Tuple[torch.nn.Module, List[Tuple]]:
-    """A ``Captioner`` from a reference-style model node, for the types
-    this package has: the ``EfficientNetB2`` encoder, the ``CrnnEncoder``
-    / ``Cnn14RnnEncoder`` (a Cnn14 and a GRU, from its ``cnn`` and ``rnn``
-    nodes, with the defaults of the JAX package's
-    ``build_model_from_config``), the ``Cdur5Encoder`` (memory width
-    256, the mel preset of its ``sample_rate``); the
-    ``TransformerDecoder``, and the GRU decoders ``BahAttnCatFcDecoder``
-    and ``TemporalBahAttnDecoder`` (one layer).  The model's own type is
-    read as the JAX package reads it: every type but the style models is
-    a plain ``Captioner`` (``TransformerModel``,
-    ``TemporalSeq2SeqAttnModel``, ...); an ``ScstWrapper`` node is read
-    as the model node it wraps.  Returns (captioner, pretrained specs), a
-    spec being (the dotted path of the submodule, e.g. ``"encoder.cnn"``,
-    checkpoint path, kind: the JAX package's ``cnn14``, ``effb2``,
-    ``raw`` or ``decoder``, which ``cli/run.py::load_pretrained`` reads).
-    Other types raise, naming the ROADMAP item that ports them.  Weights
-    are torch's defaults; the runner draws them (``zoo.random_init``)."""
+    """A ``Captioner`` from a reference-style model node, with the
+    defaults of the JAX package's ``build_model_from_config``, for the
+    types this package has.  Encoders (the mel preset of
+    ``sample_rate``, 32 kHz by default): ``EfficientNetB2`` (16 kHz),
+    ``CrnnEncoder`` / ``Cnn14RnnEncoder`` (a Cnn14 and a GRU, from its
+    ``cnn`` and ``rnn`` nodes), ``Cnn14Encoder``, ``Cnn6Encoder``,
+    ``Cnn10Encoder``, ``MobileNetV2`` / ``MobileNetV2Encoder``,
+    ``Cdur5Encoder``, ``Cdur8Encoder`` and ``Cnn14TransformerEncoder``
+    (its ``transformer`` node's ``d_model`` 512 and ``nlayers`` 2; an
+    ``encoder.cnn.pretrained`` loads into its Cnn14).  Decoders: the
+    ``TransformerDecoder`` and every GRU decoder (:data:`RNN_DECODERS`),
+    at any ``num_layers``.  A GRU decoder's memory and fc widths are the
+    encoder's own (flax infers them in the JAX package, whatever the
+    config's ``attn_emb_dim`` / ``fc_emb_dim`` say).  As in the JAX
+    builder, ``compute_dtype`` reaches the EffB2, the Cnn14s and the
+    transformer decoder only.  The model's own type is read as the JAX
+    package reads it: every type but the style models is a plain
+    ``Captioner``; an ``ScstWrapper`` node is read as the model node it
+    wraps.  Returns (captioner, pretrained specs), a spec being (the
+    dotted path of the submodule, e.g. ``"encoder.cnn"``, checkpoint
+    path, kind: the JAX package's ``cnn14``, ``effb2``, ``raw`` or
+    ``decoder``, which ``cli/run.py::load_pretrained`` reads).  Other
+    types raise, naming the ROADMAP item that ports them.  Weights are
+    torch's defaults; the runner draws them (``zoo.random_init``)."""
     from audiocaption_tpu_torch.decoding.engine import SpecialTokens
-    from audiocaption_tpu_torch.models.captioner import Captioner
-    from audiocaption_tpu_torch.models.effb2 import EfficientNetB2
-    from audiocaption_tpu_torch.models.encoders_extra import Cdur5Encoder
+    from audiocaption_tpu_torch.models import encoders_extra as EX
     from audiocaption_tpu_torch.models import rnn_decoder
+    from audiocaption_tpu_torch.models.captioner import Captioner
+    from audiocaption_tpu_torch.models.cnn14 import Cnn14Encoder
+    from audiocaption_tpu_torch.models.effb2 import EfficientNetB2
     from audiocaption_tpu_torch.models.rnn_encoder import Cnn14RnnEncoder
     from audiocaption_tpu_torch.models.transformer_decoder import (
         TransformerDecoder)
@@ -109,12 +125,17 @@ def build_model_from_config(model_cfg: Dict,
     enc_cfg = model_cfg["encoder"]
     enc_type = short_type(enc_cfg["type"])
     enc_args = enc_cfg.get("args") or {}
+
+    def mel_of(args):
+        return (CNN14_MEL_32K if args.get("sample_rate", 32000) == 32000
+                else CNN14_MEL_16K)
+
+    mel = mel_of(enc_args)
     if enc_type in ("CrnnEncoder", "Cnn14RnnEncoder"):
         cnn_cfg, rnn_cfg = enc_cfg.get("cnn", {}), enc_cfg.get("rnn", {})
         cnn_args = cnn_cfg.get("args") or {}
         rnn_args = rnn_cfg.get("args") or {}
-        mel = (CNN14_MEL_32K if cnn_args.get("sample_rate", 32000) == 32000
-               else CNN14_MEL_16K)
+        mel = mel_of(cnn_args)
         encoder = Cnn14RnnEncoder(
             rnn_hidden_size=rnn_args.get("hidden_size", 512),
             rnn_num_layers=rnn_args.get("num_layers", 1),
@@ -128,22 +149,45 @@ def build_model_from_config(model_cfg: Dict,
                                  ("encoder.rnn", rnn_cfg, "raw")):
             if node.get("pretrained"):
                 pretrained.append((part, node["pretrained"], kind))
-    elif enc_type == "Cdur5Encoder":
-        encoder = Cdur5Encoder()
-        mel = (CNN14_MEL_32K if enc_args.get("sample_rate", 32000) == 32000
-               else CNN14_MEL_16K)
+    elif enc_type == "Cnn14Encoder":
+        encoder = Cnn14Encoder(compute_dtype=compute_dtype)
+        if enc_cfg.get("pretrained"):
+            pretrained.append(("encoder", enc_cfg["pretrained"], "cnn14"))
+    elif enc_type in ("Cnn6Encoder", "Cnn10Encoder", "Cdur5Encoder",
+                      "Cdur8Encoder"):
+        encoder = getattr(EX, enc_type)()
+    elif enc_type in ("MobileNetV2", "MobileNetV2Encoder"):
+        encoder = EX.MobileNetV2Encoder()
+    elif enc_type == "Cnn14TransformerEncoder":
+        trm_args = enc_cfg.get("transformer", {}).get("args", {}) or {}
+        encoder = EX.Cnn14TransformerEncoder(
+            d_model=trm_args.get("d_model", 512),
+            nlayers=trm_args.get("nlayers", 2),
+            freeze_cnn=enc_args.get("freeze_cnn", False),
+            freeze_cnn_bn=enc_args.get("freeze_cnn_bn", False),
+            compute_dtype=compute_dtype)
+        if enc_cfg.get("cnn", {}).get("pretrained"):
+            pretrained.append(("encoder.cnn", enc_cfg["cnn"]["pretrained"],
+                               "cnn14"))
     elif enc_type == "EfficientNetB2":
         if enc_args.get("prune_ratio"):
             raise ValueError("training a pruned encoder (encoder.args."
                              "prune_ratio) is not ported yet (ROADMAP Queue "
-                             "1 item 6)")
+                             "1 item 6c)")
         encoder = EfficientNetB2(compute_dtype=compute_dtype)
         mel = EFFB2_MEL_16K
         if enc_cfg.get("pretrained"):
             pretrained.append(("encoder", enc_cfg["pretrained"], "effb2"))
+    elif enc_type in ("RnnEncoder", "TransformerEncoder",
+                      "AudioTransformerEncoder", "M2TransformerEncoder"):
+        raise ValueError(f"encoder type {enc_type!r} reads precomputed "
+                         "features (input_mode 'features'), which need "
+                         "prepare_features: not ported yet (ROADMAP Queue 1 "
+                         "item 6c)")
     else:
         raise ValueError(f"encoder type {enc_type!r} is not ported yet "
-                         "(ROADMAP Queue 1 items 5 and 8)")
+                         "(ROADMAP Queue 1 item 8)")
+    attn_width = getattr(encoder, "attn_emb_size", encoder.fc_emb_size)
 
     dec_cfg = model_cfg["decoder"]
     dec_type = short_type(dec_cfg["type"])
@@ -155,25 +199,22 @@ def build_model_from_config(model_cfg: Dict,
     if dec_type == "TransformerDecoder":
         decoder = TransformerDecoder(
             emb_dim=dec_args.get("emb_dim", 256), vocab_size=vocab,
-            attn_emb_dim=dec_args.get("attn_emb_dim", encoder.fc_emb_size),
+            attn_emb_dim=dec_args.get("attn_emb_dim", attn_width),
             nlayers=dec_args.get("nlayers", 2), nhead=dec_args.get("nhead"),
             dim_feedforward=dec_args.get("dim_feedforward"),
             tie_weights=dec_args.get("tie_weights", False),
             dropout=dec_args.get("dropout", 0.2),
             compute_dtype=compute_dtype)
-    elif dec_type in ("BahAttnCatFcDecoder", "TemporalBahAttnDecoder"):
-        if dec_args.get("num_layers", 1) != 1:
-            raise ValueError("a GRU decoder of more than one layer is not "
-                             "ported yet (ROADMAP Queue 1 item 8)")
+    elif dec_type in RNN_DECODERS:
         decoder = getattr(rnn_decoder, dec_type)(
             emb_dim=dec_args.get("emb_dim", 512), vocab_size=vocab,
-            fc_emb_dim=dec_args.get("fc_emb_dim", encoder.fc_emb_size),
-            attn_emb_dim=dec_args.get("attn_emb_dim", encoder.fc_emb_size),
+            fc_emb_dim=encoder.fc_emb_size, attn_emb_dim=attn_width,
             d_model=dec_args.get("d_model", 512),
-            dropout=dec_args.get("dropout", 0.5))
+            dropout=dec_args.get("dropout", 0.5),
+            num_layers=dec_args.get("num_layers", 1))
     else:
         raise ValueError(f"decoder type {dec_type!r} is not ported yet "
-                         "(ROADMAP Queue 1 items 5 and 8)")
+                         "(ROADMAP Queue 1 item 8)")
     if dec_cfg.get("pretrained"):
         pretrained.append(("decoder", dec_cfg["pretrained"], "decoder"))
 

@@ -241,7 +241,34 @@ Phases, each of which must pass (none is caught and skipped):
      three steps, each step's SpecAugment on the card equal to
      ``drop_stripes`` on the CPU for the same stripes, bit for bit, the
      stripes in range; the aug step split by CUDA events (real forward,
-     aug forward, backward, optimizer), the idle share and peak memory.
+     aug forward, backward, optimizer), the idle share and peak memory;
+ 27. the rest of the 32 kHz captioner family at full width
+     (``family_path``, the JAX builder's defaults, 10 s clips at 32 kHz):
+     (a) each new encoder from a config dict (Cnn6, Cnn10, Cdur8,
+     MobileNetV2, plain Cnn14, Cnn14Transformer at d_model 512 and 2
+     layers) forward in ``eval()`` at B=32, fed by the log-mel kernel
+     (held against plain on that batch), its time (CUDA events, median
+     of 10) and peak memory; on a reduced corpus v2 (640 / 64 / 64
+     clips): (b) ``Runner.train`` of a Cnn10 + 2-layer
+     ``BahAttnAddFcDecoder`` (emb and d_model 512) with the XE recipe's
+     settings and scheduled sampling: the loss falls and the val score
+     (torch engine) beats the best constant caption; its step split and
+     idle share; (c) SCST of (b)'s best checkpoint (``ScstWrapper``,
+     torch engine), its step split and rewards; (d) a Cnn14Transformer +
+     ``TransformerDecoder`` captioner trained briefly, its val score
+     through the greedy kernel and ``Runner.evaluate`` at beam 3 through
+     the beam kernel; both kernels against their plain versions at these
+     shapes (E=256, S=32, memory width 512) and timed; (e)
+     ``ensemble_evaluate`` of (b) and (d), a GRU and a transformer member,
+     beam 3, and the same ensemble on CPU copies on 4 clips; (f) the
+     conditioned decoders, each a few ``Runner.train`` steps:
+     ``ConditionalBahAttnDecoder`` + ``ConditionLossWrapper`` (argmax and
+     gumbel) on a ``condition.csv`` of the corpus, a seeded
+     ``HmClassifier``; ``SpecificityBahAttnDecoder`` +
+     ``SpecificityLossWrapper`` on a word-specificity ``.npy`` of the
+     corpus vocabulary; ``StructBahAttnDecoder``: losses finite, the
+     condition term moved by the steps, and a decode through
+     ``RandomConditionDataset`` (random structure ids for the last).
 
 Every kernel's launch counter is set to 0 just before each path is
 driven (phases 4-5, the EffB2 serving path; phase 8, the temporal path;
@@ -259,7 +286,10 @@ phase 24, the flagship's training and evaluation, whose counts are the
 greedy and beam entries' ``synthetic_launches``; phase 25, the temporal
 pair, whose log-mel count is the log-mel entry's; phase 26, augmented
 training, whose counts are the greedy and log-mel entries'
-``aug_launches``) and read just after; the run fails if a kernel of that
+``aug_launches``; phase 27, the family, whose counts are the greedy, beam
+and log-mel entries' ``family_launches`` and whose (d) launches the
+``fused_greedy[cnn14trm]`` and ``fused_beam[cnn14trm]`` entries') and
+read just after; the run fails if a kernel of that
 path was not launched there.
 The second-to-last line is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``.
@@ -422,6 +452,21 @@ SYN_AUG_SIZES, SYN_AUG_EPOCHS = (640, 64, 64), 2
 SYN_AUG_FINAL_LR = 5e-5
 SYN_AUG_SPECAUG_SAMPLES = 96  # (d): three Runner.train steps of 32
 SYN_AUG_WARMUP, SYN_AUG_TIMED = 2, 6
+# phase 27: the rest of the 32 kHz family on a reduced corpus v2
+FAM_SIZES = (640, 64, 64)     # clips; 5 captions a train clip
+FAM_B, FAM_SECONDS = 32, 10   # (a)
+FAM_XE_EPOCHS = 3             # (b): 100 steps of 32 an epoch
+FAM_XE_FINAL_LR = 5e-5
+FAM_SCST_STEPS = 24           # (c)
+FAM_TRM_EPOCHS = 1            # (d)
+FAM_COND_STEPS = 3            # (f): Runner.train steps of each decoder
+FAM_WARMUP, FAM_TIMED = 2, 10
+FAM_STEP_TIMED = 6            # (b), (c): timed steps after FAM_WARMUP
+FAM_ENCODERS = {
+    "Cnn6Encoder": {}, "Cnn10Encoder": {}, "Cdur8Encoder": {},
+    "MobileNetV2": {}, "Cnn14Encoder": {},
+    "Cnn14TransformerEncoder": {"transformer": {"args": {"d_model": 512,
+                                                         "nlayers": 2}}}}
 
 
 def log(msg: str) -> None:
@@ -2666,30 +2711,9 @@ def kd_times(t, card):
     log(f"kd step, device time (torch.profiler): {total:.2f} ms a step of "
         f"{step_ms:.2f} ms wall, idle share {1 - total / step_ms:.3f}; top "
         f"kernels {dict(list(busy.items())[:8])} on {card}")
-    packed, memkv, valid = t["packed"], t["memkv"], t["valid"]
-
-    def fn():
-        return FG.fused_greedy_decode(packed, memkv, valid, L)
-    with torch.no_grad():
-        g = fn()
-        k_ms = cuda_ms(fn, 10)
-        cold = cold_ms(fn, 10)
-        plain_ms = cuda_ms(lambda: FG.fused_greedy_plain(
-            packed, memkv, valid, L), 3, 1)
-    eos_pos = [(row == 2).nonzero() for row in g.cpu()]
-    g_steps = [int(p_[0]) + 1 if len(p_) else L for p_ in eos_pos]
-    S_ = memkv.shape[3]
-    mm, attn = decode_flops(packed.emb_dim, packed.ffn, KD_V,
-                            valid.sum(1).tolist(), g_steps, 1,
-                            nl=packed.nlayers, S_=S_)
-    nbytes = input_bytes(packed, memkv, valid, g.numel() * 4)
-    bound, _, by = decode_bound_ms(mm, attn, nbytes)
-    log(f"fused_greedy at the KD student's shapes (B={KD_B}, E=128, 1 layer, "
-        f"S={S_}, V={KD_V} untied, L={L}, steps per row {min(g_steps)}-"
-        f"{max(g_steps)}): {k_ms:.4f} ms/call warm, {cold:.4f} ms with the "
-        f"L2 cold; plain {plain_ms:.3f} ms; bound {bound:.4f} ms by {by} "
-        f"({nbytes} bytes, {mm} product ops, {attn} attention ops; plan "
-        f"{FG.fused_greedy_decode.last_plan}) on {card}")
+    entry = decode_entry("greedy", "kd_student", t["packed"], t["memkv"],
+                         t["valid"], t["val_launches"], t["greedy_err"],
+                         card)
     _sync(torch.device("cuda"))
     t0 = time.perf_counter()
     t["score_fn"]()
@@ -2699,15 +2723,7 @@ def kd_times(t, card):
         f"clips (first call {t['val_ms']:.1f} ms) on {card}")
     FL.fused_logmel.launches, FG.fused_greedy_decode.launches = c0
     return dict(step_ms=step_ms, split=split, peak=peak,
-                idle=1 - total / step_ms, entry={
-                    "name": "fused_greedy[kd_student]", "route": "cuda",
-                    "source": "audiocaption_tpu_torch/csrc/fused_greedy.cu",
-                    "replaces":
-                        "audiocaption_tpu/decoding/fused_greedy.py:209",
-                    "launches": t["val_launches"],
-                    "max_abs_err": t["greedy_err"], "ms": k_ms,
-                    "cold_ms": cold, "plain_ms": plain_ms, "bound_ms": bound,
-                    "bound_by": by, "library_ms": None})
+                idle=1 - total / step_ms, entry=entry)
 
 
 @contextlib.contextmanager
@@ -3192,39 +3208,10 @@ def eval_times(t, dev, card):
     entries = []
     for name in ("cnn14rnn_trm", "kd_student"):
         fam = t["families"][name]
-        packed, memkv, valid = fam["packed"], fam["memkv"], fam["valid"]
-
-        def fn():
-            return FB.fused_beam_decode(packed, memkv, valid, L, 3)
-        with torch.no_grad():
-            seq, score = fn()
-            k_ms = cuda_ms(fn, 10)
-            cold = cold_ms(fn, 10)
-            plain_ms = cuda_ms(lambda: FB.fused_beam_plain(
-                packed, memkv, valid, L, 3), 3, 1)
-        S_ = memkv.shape[3]
-        mm, attn = decode_flops(packed.emb_dim, packed.ffn,
-                                packed.vocab_size, valid.sum(1).tolist(),
-                                fam["steps"].tolist(), 3, nl=packed.nlayers,
-                                S_=S_)
-        nbytes = input_bytes(packed, memkv, valid,
-                             seq.numel() * 4 + score.numel() * 4)
-        bound, _, by = decode_bound_ms(mm, attn, nbytes)
-        log(f"fused_beam at the {name} shapes (B={EVAL_B}, beam 3, "
-            f"E={packed.emb_dim}, {packed.nlayers} layer(s), S={S_}, "
-            f"V={packed.vocab_size} untied, L={L}, steps per sample "
-            f"{int(fam['steps'].min())}-{int(fam['steps'].max())}): "
-            f"{k_ms:.4f} ms/call warm, {cold:.4f} ms with the L2 cold; plain "
-            f"{plain_ms:.3f} ms; bound {bound:.4f} ms by {by} ({nbytes} "
-            f"bytes, {mm} product ops, {attn} attention ops; plan "
-            f"{FB.fused_beam_decode.last_plan}) on {card}")
-        entries.append({
-            "name": f"fused_beam[{name}]", "route": "cuda",
-            "source": "audiocaption_tpu_torch/csrc/fused_beam.cu",
-            "replaces": "audiocaption_tpu/decoding/fused_beam.py:126",
-            "launches": t["beam_launches"][name], "max_abs_err": fam["err"],
-            "ms": k_ms, "cold_ms": cold, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": None})
+        entries.append(decode_entry(
+            "beam", name, fam["packed"], fam["memkv"], fam["valid"],
+            t["beam_launches"][name], fam["err"], card,
+            steps=fam["steps"].tolist()))
 
     # the metric suite's host time, by scorer, inside (d)'s calls
     per_1000 = {k: v * 1e3 / t["scored"] * 1000
@@ -3822,6 +3809,699 @@ def _synthetic_aug(root, dev, card):
                       "train_s": t_train}}
 
 
+def family_node(enc_type: str = "Cnn10Encoder",
+                dec_type: str = "BahAttnAddFcDecoder",
+                dec_args: dict = None, enc_extra: dict = None) -> dict:
+    """A model node of the 32 kHz family for ``build_model_from_config``
+    (the JAX builder's defaults where ``dec_args`` says nothing)."""
+    node = {"type": "captioning.models.seq2seq.Seq2SeqAttnModel",
+            "encoder": {"type": enc_type, "args": {"sample_rate": SR_32K}},
+            "decoder": {"type": dec_type, "args": dict(dec_args or {})}}
+    node["encoder"].update(enc_extra or {})
+    return node
+
+
+# (b): a Cnn10 and a 2-layer BahAttnAddFcDecoder at emb and d_model 512
+FAM_GRU_NODE = family_node(dec_args={"emb_dim": 512, "d_model": 512,
+                                     "num_layers": 2})
+# (d): a Cnn14Transformer (d_model 512, 2 layers) and the transformer
+# decoder of the cnn14rnn_trm recipe (emb 256, 2 layers, untied)
+FAM_TRM_NODE = family_node(
+    "Cnn14TransformerEncoder", "TransformerDecoder",
+    {"emb_dim": 256, "nlayers": 2, "dropout": 0.2},
+    FAM_ENCODERS["Cnn14TransformerEncoder"])
+
+
+def median_ms(fn, timed: int = FAM_TIMED, warmup: int = FAM_WARMUP) -> float:
+    """The median of ``timed`` calls' CUDA-event times after ``warmup``."""
+    import numpy as np
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(timed):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def family_encoders(dev, card) -> dict:
+    """Phase 27(a): each new encoder built from a config dict (random
+    weights from a seed) forward in ``eval()`` on B=FAM_B clips of
+    FAM_SECONDS / 2 to FAM_SECONDS at 32 kHz, fed by the log-mel kernel;
+    the kernel against ``fused_logmel_plain`` on that batch
+    (LOGMEL_DB_ATOL, or no further from float64 than plain); each
+    encoder's time (CUDA events, median of FAM_TIMED after FAM_WARMUP)
+    and peak memory.  -> {encoder: {...}}, the log-mel error and the
+    path's log-mel launches."""
+    import torch
+    from audiocaption_tpu_torch.models.zoo import random_init
+    from audiocaption_tpu_torch.ops import fused_logmel as FL
+    from audiocaption_tpu_torch.utils.config import build_model_from_config
+    gen = torch.Generator().manual_seed(SEED + 27)
+    n = FAM_SECONDS * SR_32K
+    wav = (torch.randn(FAM_B, n, generator=gen) * 0.1).to(dev)
+    wav_len = torch.randint(n // 2, n + 1, (FAM_B,), generator=gen).to(dev)
+    wav_len[0] = n
+    out, launches, err = {}, 0, None
+    for i, (name, extra) in enumerate(FAM_ENCODERS.items()):
+        model, _ = build_model_from_config(
+            family_node(name, "BahAttnCatFcDecoder", enc_extra=extra), 100)
+        random_init(model, torch.Generator().manual_seed(SEED + i))
+        model = model.to(dev).eval()
+        with torch.no_grad():
+            n0 = FL.fused_logmel.launches
+            lms = model.log_mel(wav)
+            launches += FL.fused_logmel.launches - n0
+            feat_len = model.mel.feat_len(wav_len)
+            if err is None:
+                plain = FL.fused_logmel_plain(
+                    wav, model.frontend.basis, model.frontend.mel_fb,
+                    model.frontend.config)
+                f64 = float64_logmel(wav, model.frontend)
+                err = float((lms - plain).abs().max())
+                err64 = float((lms.double() - f64).abs().max())
+                plain64 = float((plain.double() - f64).abs().max())
+                log(f"family (a): log-mel kernel vs fused_logmel_plain on "
+                    f"{tuple(wav.shape)}: max |diff| {err:.3g} dB (limit "
+                    f"{LOGMEL_DB_ATOL}); vs float64 {err64:.3g} dB, plain vs "
+                    f"float64 {plain64:.3g} dB")
+                assert err <= LOGMEL_DB_ATOL or err64 <= plain64, \
+                    "family: log-mel kernel disagrees"
+                del plain, f64
+            ms = median_ms(lambda: model.encode_lms(lms, feat_len))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            enc = model.encode_lms(lms, feat_len)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_params = sum(p.numel() for p in model.encoder.parameters())
+        attn, fc = enc["attn_emb"], enc["fc_emb"]
+        want_len = torch.div(feat_len, model.encoder.downsample_ratio,
+                             rounding_mode="floor") if hasattr(
+            model.encoder, "downsample_ratio") else None
+        log(f"family (a) {name}: {n_params / 1e6:.2f} M parameters; "
+            f"attn_emb {tuple(attn.shape)}, fc_emb {tuple(fc.shape)}, "
+            f"attn_emb_len {enc['attn_emb_len'].min().item()}-"
+            f"{enc['attn_emb_len'].max().item()}; forward (eval) "
+            f"{ms:.3f} ms per batch of {FAM_B} x {FAM_SECONDS} s (CUDA "
+            f"events, median "
+            f"of {FAM_TIMED}), peak {peak:.2f} GiB, float32, TF32 off, on "
+            f"{card}")
+        assert bool(torch.isfinite(attn).all() & torch.isfinite(fc).all()), \
+            f"family (a): {name} is not finite"
+        assert attn.shape[0] == fc.shape[0] == FAM_B
+        if want_len is not None and name != "Cnn14TransformerEncoder":
+            assert torch.equal(enc["attn_emb_len"], want_len), name
+        out[name] = {"ms": ms, "peak_gib": peak,
+                     "attn_emb": list(attn.shape), "fc_emb": list(fc.shape),
+                     "params_m": n_params / 1e6}
+        del model, enc, lms
+        torch.cuda.empty_cache()
+    return {"encoders": out, "logmel_err": err, "logmel_launches": launches}
+
+
+def family_path(dev, card):
+    """:func:`_family` in a temporary directory, which is removed also
+    when a check fails."""
+    import shutil
+    import tempfile
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_family_"))
+    try:
+        return _family(root, dev, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _word_specificity(tokenizer, text_json: str):
+    """The corpus's word specificity, one value a vocabulary id: a word's
+    inverse caption frequency, log((N + 1) / (df + 1)) over the N train
+    captions, divided by its largest value; 0 for the special tokens."""
+    import numpy as np
+    from audiocaption_tpu_torch.data.dataset import load_caption_json
+    caps = [c for v in load_caption_json(text_json).values() for c in v]
+    df = np.zeros(len(tokenizer), np.float64)
+    for c in caps:
+        ids = set(int(i) for i in tokenizer([c])["cap"][0])
+        for i in ids:
+            df[i] += 1
+    ws = np.log((len(caps) + 1) / (df + 1))
+    for w in ("<start>", "<end>", "<pad>", "<unk>"):
+        if w in tokenizer.word2idx:
+            ws[tokenizer.word2idx[w]] = 0.0
+    return (ws / ws.max()).astype(np.float32)
+
+
+def _write_conditions(data, tokenizer, ws):
+    """``condition_hm.csv`` (1 for a caption longer than the median
+    caption, else 0: the human / machine target of the condition loss)
+    and ``condition_spec.csv`` (a caption's summed word specificity: the
+    target of the specificity loss) for every train caption, keyed
+    ``{audio_id}_{cap_id}``."""
+    import numpy as np
+    text = json.loads((data / "train_text.json").read_text())
+    rows = [(f"{a['audio_id']}_{c.get('cap_id', 0)}",
+             c.get("tokens", c.get("caption", "")))
+            for a in text["audios"] for c in a["captions"]]
+    lens = [len(t.split()) for _, t in rows]
+    med = float(np.median(lens))
+    with open(data / "condition_hm.csv", "w") as f:
+        f.write("cap_id\tprob\n")
+        for (key, _), n in zip(rows, lens):
+            f.write(f"{key}\t{1.0 if n > med else 0.0}\n")
+    with open(data / "condition_spec.csv", "w") as f:
+        f.write("cap_id\tprob\n")
+        for key, t in rows:
+            ids = tokenizer([t])["cap"][0][1:-1]
+            f.write(f"{key}\t{float(ws[ids].sum()):.6f}\n")
+
+
+def decode_entry(kind, name, packed, memkv, valid, launches, err, card,
+                 steps=None):
+    """A decode kernel (``kind`` "greedy" or "beam" 3) at the shapes of
+    ``name``: warm and L2-cold time, its plain version's and its bound
+    from this run's inputs (``steps``: a beam search's executed steps a
+    sample, else those of the float32 plain search) -> its JSON entry."""
+    import torch
+    from audiocaption_tpu_torch.decoding import fused_beam as FB
+    from audiocaption_tpu_torch.decoding import fused_greedy as FG
+    B_ = memkv.shape[2]
+    with torch.no_grad():
+        if kind == "greedy":
+            def fn():
+                return FG.fused_greedy_decode(packed, memkv, valid, L)
+
+            def plain():
+                return FG.fused_greedy_plain(packed, memkv, valid, L)
+            seq = fn()
+            out_bytes = seq.numel() * 4
+            steps = [int(p_[0]) + 1 if len(p_) else L
+                     for p_ in ((row == 2).nonzero() for row in seq.cpu())]
+            rows = 1
+        else:
+            def fn():
+                return FB.fused_beam_decode(packed, memkv, valid, L, 3)
+
+            def plain():
+                return FB.fused_beam_plain(packed, memkv, valid, L, 3)
+            seq, score = fn()
+            out_bytes = seq.numel() * 4 + score.numel() * 4
+            if steps is None:
+                st = torch.zeros(B_, dtype=torch.long, device=memkv.device)
+                FB.fused_beam_plain(packed, memkv, valid, L, 3, steps=st)
+                steps = st.tolist()
+            rows = 3
+        k_ms = cuda_ms(fn, 10)
+        cold = cold_ms(fn, 10)
+        plain_ms = cuda_ms(plain, 3, 1)
+    S_ = memkv.shape[3]
+    mm, attn = decode_flops(packed.emb_dim, packed.ffn, packed.vocab_size,
+                            valid.sum(1).tolist(), steps, rows,
+                            nl=packed.nlayers, S_=S_)
+    nbytes = input_bytes(packed, memkv, valid, out_bytes)
+    bound, _, by = decode_bound_ms(mm, attn, nbytes)
+    fam = FG.fused_greedy_decode if kind == "greedy" else FB.fused_beam_decode
+    log(f"fused_{kind} at the {name} shapes (B={B_}"
+        f"{', beam 3' if kind == 'beam' else ''}, E={packed.emb_dim}, "
+        f"{packed.nlayers} layer(s), S={S_}, V={packed.vocab_size} untied, "
+        f"L={L}, steps {min(steps)}-{max(steps)}): {k_ms:.4f} ms/call "
+        f"warm, {cold:.4f} "
+        f"ms with the L2 cold; plain {plain_ms:.3f} ms; bound {bound:.4f} "
+        f"ms by {by} ({nbytes} bytes, {mm} product ops, {attn} attention "
+        f"ops; plan {fam.last_plan}) on {card}")
+    src = {"greedy": ("fused_greedy.cu", "fused_greedy.py:209"),
+           "beam": ("fused_beam.cu", "fused_beam.py:126")}[kind]
+    return {"name": f"fused_{kind}[{name}]", "route": "cuda",
+            "source": f"audiocaption_tpu_torch/csrc/{src[0]}",
+            "replaces": f"audiocaption_tpu/decoding/{src[1]}",
+            "launches": launches, "max_abs_err": err, "ms": k_ms,
+            "cold_ms": cold, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None}
+
+
+def _family(root, dev, card):
+    """Phase 27: the rest of the 32 kHz captioner family at full width
+    (the module docstring's (a)-(f)).  The launch counters are set to 0
+    here and read at the end, the checks' and timings' launches taken back
+    out: the log-mel kernel in every encode of (a)-(f), the greedy kernel
+    in (d)'s val score (once a val batch an epoch), the beam kernel in
+    (d)'s ``Runner.evaluate`` (once a test batch)."""
+    import copy
+    import itertools
+    import numpy as np
+    import torch
+    from audiocaption_tpu_torch.cli import recipes
+    from audiocaption_tpu_torch.cli import synthetic_corpus as SC
+    from audiocaption_tpu_torch.cli.run import (
+        Runner, build_dataloader, build_tokenizer, experiment_model,
+        read_experiment, to_device)
+    from audiocaption_tpu_torch.data.dataset import load_caption_json
+    from audiocaption_tpu_torch.decoding import fused_beam as FB
+    from audiocaption_tpu_torch.decoding import fused_greedy as FG
+    from audiocaption_tpu_torch.decoding.ensemble import ensemble_generate
+    from audiocaption_tpu_torch.losses.loss import build_loss
+    from audiocaption_tpu_torch.models.captioner import generate
+    from audiocaption_tpu_torch.models.zoo import random_init
+    from audiocaption_tpu_torch.native import FastCiderD
+    from audiocaption_tpu_torch.ops import fused_logmel as FL
+    from audiocaption_tpu_torch.optim.schedules import build_schedule
+    from audiocaption_tpu_torch.training.scst import scst_step
+    from audiocaption_tpu_torch.training.trainer import (
+        TrainState, create_train_state, train_step)
+    from audiocaption_tpu_torch.utils.config import build_model_from_config
+
+    def counts():
+        return {"fused_greedy": FG.fused_greedy_decode.launches,
+                "fused_beam": FB.fused_beam_decode.launches,
+                "fused_logmel": FL.fused_logmel.launches}
+
+    def restore(c):
+        (FG.fused_greedy_decode.launches, FB.fused_beam_decode.launches,
+         FL.fused_logmel.launches) = (c["fused_greedy"], c["fused_beam"],
+                                      c["fused_logmel"])
+    FG.reset_launches(FG.fused_greedy_decode)
+    FB.reset_launches(FB.fused_beam_decode)
+    FL.fused_logmel.launches = 0
+    marks = {}
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks[name] = e
+
+    def split_of(rows, parts):
+        rows = np.asarray(rows[FAM_WARMUP:])
+        return (float(np.median(rows.sum(1))),
+                dict(zip(parts, np.median(rows, 0).tolist())))
+    times = {}
+
+    # (a) the new encoders
+    t0 = time.perf_counter()
+    enc_a = family_encoders(dev, card)
+    times["a_s"] = time.perf_counter() - t0
+
+    # the corpus, its conditions and the recipe's data nodes
+    data = root / "data"
+    t0 = time.perf_counter()
+    SC.generate_v2(str(data), *FAM_SIZES, sr=SR_32K, seed=0)
+    times["corpus_s"] = time.perf_counter() - t0
+    constant, const_cap = constant_caption_cider(
+        str(data / "train_text.json"), str(data / "val_text.json"))
+    base = recipes.recipe("synthetic_v2/cnn14rnn_trm.yaml", str(data))
+    base["swa"] = {"use": False}
+    tokenizer = build_tokenizer(
+        base["data"]["train"]["collate_fn"]["tokenizer"])
+    ws = _word_specificity(tokenizer, str(data / "train_text.json"))
+    np.save(data / "word_specificity.npy", ws)
+    _write_conditions(data, tokenizer, ws)
+    over = [f"device={dev.type}",
+            f"data.train.dataloader_args.num_workers={SYN_WORKERS}"]
+    n_items = sum(len(a["captions"]) for a in json.loads(
+        (data / "train_text.json").read_text())["audios"])
+    bs = base["data"]["train"]["dataloader_args"]["batch_size"]
+    n_val = -(-FAM_SIZES[1] // base["data"]["val"]["dataloader_args"][
+        "batch_size"])
+    n_test = -(-FAM_SIZES[2] // recipes.flagship_test(str(data))["data"][
+        "test"]["dataloader_args"]["batch_size"])
+    runner = Runner()
+
+    def train_run(name, cfg, *extra):
+        c0 = counts()
+        t_ = time.perf_counter()
+        exp = runner.train(cfg, *over, f"experiment_path={root}/{name}",
+                           *extra)
+        dt = time.perf_counter() - t_
+        for line in (Path(exp) / "train.log").read_text().splitlines():
+            log(f"family {name} {line}")
+        n = counts()
+        return exp, dt, {k: n[k] - c0[k] for k in n}
+
+    # (b) a Cnn10 + 2-layer BahAttnAddFcDecoder, the XE recipe's settings
+    cfg_b = dict(copy.deepcopy(base), model=FAM_GRU_NODE)
+    exp_b, times["b_train_s"], l_b = train_run(
+        "gru", cfg_b, f"trainer.epochs={FAM_XE_EPOCHS}",
+        f"lr_scheduler.args.final_lrs={FAM_XE_FINAL_LR:.7f}")
+    curve_b = _epoch_curve(Path(exp_b) / "train.log", "loss", "val_cider")
+    steps_b = FAM_XE_EPOCHS * (n_items // bs)
+    log(f"family (b): Cnn10 + 2-layer BahAttnAddFcDecoder (emb, d_model "
+        f"512) for {len(curve_b)} epochs ({steps_b} steps) in "
+        f"{times['b_train_s']:.1f} s; loss {curve_b[0][0]:.4f} -> "
+        f"{curve_b[-1][0]:.4f}; best val CIDEr-D "
+        f"{max(c[1] for c in curve_b):.4f} (best constant caption "
+        f"{constant:.4f}: {const_cap!r}); launches {l_b} on {card}")
+    if dev.type == "cuda":
+        assert l_b["fused_logmel"] == steps_b + FAM_XE_EPOCHS * n_val, l_b
+        assert l_b["fused_greedy"] == l_b["fused_beam"] == 0, l_b
+    assert len(curve_b) == FAM_XE_EPOCHS
+    # its step split and idle share, on the trained weights
+    c0 = counts()
+    cfg, ckpt = read_experiment(exp_b, "last.pth")
+    model_b, tok = experiment_model(cfg, ckpt, dev)
+    opt = cfg["optimizer"]["args"]
+    state = create_train_state(
+        model_b, opt["lr"], build_schedule(cfg["lr_scheduler"], opt["lr"],
+                                           100, 20),
+        opt.get("weight_decay", 0.0), 1.0)
+    loss_fn = build_loss(cfg["loss"])
+    batches = [to_device(b, dev) for b in itertools.islice(
+        build_dataloader(cfg["data"]["train"], tok),
+        FAM_WARMUP + FAM_STEP_TIMED)]
+    ss_gen = torch.Generator().manual_seed(SEED)
+    rows = []
+    for b in batches:
+        mark("start")
+        train_step(state, loss_fn, b, ss_ratio=torch.tensor(0.85),
+                   generator=ss_gen, mark=mark)
+        torch.cuda.synchronize()
+        rows.append([marks["start"].elapsed_time(marks["forward"]),
+                     marks["forward"].elapsed_time(marks["backward"]),
+                     marks["backward"].elapsed_time(marks["optimizer"])])
+    step_b, split_b = split_of(rows, ("forward", "backward", "optimizer"))
+    busy = device_split(lambda: train_step(
+        state, loss_fn, batches[0], ss_ratio=torch.tensor(0.85),
+        generator=ss_gen), iters=3)
+    idle_b = 1 - sum(busy.values()) / step_b
+    log(f"family (b) step: median {step_b:.2f} ms over {FAM_STEP_TIMED} "
+        f"steps ({bs / step_b * 1e3:.1f} clips/s): forward with "
+        f"scheduled sampling + loss {split_b['forward']:.2f}, backward "
+        f"(with the clip) {split_b['backward']:.2f}, optimizer "
+        f"{split_b['optimizer']:.2f} ms; device {sum(busy.values()):.2f} ms "
+        f"a step, idle share {idle_b:.3f}; top kernels "
+        f"{dict(list(busy.items())[:6])}; B={bs} x 10 s, float32, TF32 "
+        f"off, on {card}")
+    del state, model_b
+    restore(c0)
+
+    # (c) SCST of (b)'s best checkpoint: the torch engine, no kernel
+    cfg_c = copy.deepcopy(base)
+    cfg_c.update(model={"type": "ScstWrapper", "model": FAM_GRU_NODE},
+                 resume=str(Path(exp_b) / "best.pth"),
+                 rl={"max_length": L}, scheduled_sampling={"use": False})
+    cfg_c["trainer"]["finetune"] = True
+    cfg_c["optimizer"]["args"]["lr"] = 5e-5
+    exp_c, times["c_train_s"], l_c = train_run(
+        "gru_scst", cfg_c, "trainer.epochs=1",
+        f"data.train.dataloader_args.num_samples={FAM_SCST_STEPS * bs}")
+    curve_c = _epoch_curve(Path(exp_c) / "train.log", "loss", "val_cider")
+    assert len(curve_c) == 1 and math.isfinite(curve_c[0][0]), \
+        "family (c): SCST"
+    if dev.type == "cuda":
+        assert l_c["fused_logmel"] == 2 * FAM_SCST_STEPS + n_val, l_c
+        assert l_c["fused_greedy"] == l_c["fused_beam"] == 0, l_c
+    c0 = counts()
+    cfg, ckpt = read_experiment(exp_c, "last.pth")
+    model_c, tok = experiment_model(cfg, ckpt, dev)
+    state = create_train_state(
+        model_c, 5e-5, build_schedule(cfg["lr_scheduler"], 5e-5, 100, 20),
+        1e-6, 1.0)
+    key2refs = load_caption_json(cfg["data"]["train"]["dataset"]["args"][
+        "caption"])
+    scorer, rl_gen = FastCiderD(), torch.Generator(device=dev).manual_seed(
+        SEED)
+    parts = ("repack", "encode", "baseline", "sample", "rewards", "grad",
+             "optimizer")
+    rows, rewards = [], []
+    for b in itertools.islice(build_dataloader(cfg["data"]["train"], tok),
+                              FAM_WARMUP + FAM_STEP_TIMED):
+        keys = [str(k) for k in b["audio_id"]]
+        b = to_device(b, dev)
+        mark("start")
+        m = scst_step(state, b, keys, key2refs, tok.idx2word, L, 1.0,
+                      rl_gen, scorer, None, mark=mark)
+        torch.cuda.synchronize()
+        prev, row = marks["start"], []
+        for p_ in parts:
+            row.append(prev.elapsed_time(marks[p_]))
+            prev = marks[p_]
+        rows.append(row)
+        rewards.append((m["reward_sample"], m["reward_greedy"]))
+    step_c, split_c = split_of(rows, parts)
+    r_s, r_g = np.mean(rewards, 0).tolist()
+    log(f"family (c): SCST of (b)'s best.pth, {FAM_SCST_STEPS} Runner.train "
+        f"steps in {times['c_train_s']:.1f} s (epoch loss = -reward "
+        f"{curve_c[0][0]:.4f}, val CIDEr-D {curve_c[0][1]:.4f}); timed step "
+        f"median {step_c:.2f} ms over {FAM_STEP_TIMED}: "
+        f"{ {k: round(v, 2) for k, v in split_c.items()} } ms; "
+        f"reward_sample {r_s:.4f}, reward_greedy {r_g:.4f} (mean of "
+        f"{len(rewards)} steps); launches {l_c} on {card}")
+    assert all(map(math.isfinite, (r_s, r_g, step_c)))
+    del state, model_c
+    restore(c0)
+
+    # (d) a Cnn14Transformer + TransformerDecoder captioner
+    cfg_d = dict(copy.deepcopy(base), model=FAM_TRM_NODE)
+    exp_d, times["d_train_s"], l_d = train_run(
+        "cnn14trm", cfg_d, f"trainer.epochs={FAM_TRM_EPOCHS}")
+    c0 = counts()
+    t0 = time.perf_counter()
+    scores_d = runner.evaluate(exp_d, recipes.flagship_test(str(data)),
+                               f"device={dev.type}", "resume=best.pth",
+                               "caption_output=predictions/best_beam3.json",
+                               "score_output=results/best_beam3.txt")
+    times["d_evaluate_s"] = time.perf_counter() - t0
+    n = counts()
+    l_d.update({"eval_" + k: n[k] - c0[k] for k in n})
+    curve_d = _epoch_curve(Path(exp_d) / "train.log", "loss", "val_cider")
+    floats_d = {k: round(v, 4) for k, v in scores_d.items()
+                if isinstance(v, float)}
+    log(f"family (d): Cnn14Transformer + TransformerDecoder for "
+        f"{len(curve_d)} epochs in {times['d_train_s']:.1f} s, loss "
+        f"{curve_d[0][0]:.4f} -> {curve_d[-1][0]:.4f}, best val CIDEr-D "
+        f"{max(c[1] for c in curve_d):.4f}; test beam 3 (best.pth, "
+        f"{times['d_evaluate_s']:.1f} s) {json.dumps(floats_d)}; launches "
+        f"{l_d} on {card}")
+    if dev.type == "cuda":
+        assert l_d["fused_greedy"] == FAM_TRM_EPOCHS * n_val, l_d
+        assert l_d["eval_fused_beam"] == n_test, l_d
+        assert l_d["fused_beam"] == l_d["eval_fused_greedy"] == 0, l_d
+    assert floats_d and all(map(math.isfinite, floats_d.values()))
+    # both kernels against their plain versions at these shapes
+    c0 = counts()
+    cfg, ckpt = read_experiment(exp_d, "best.pth")
+    model_d, tok = experiment_model(cfg, ckpt, dev)
+    test = next(iter(build_dataloader(recipes.flagship_test(str(data))[
+        "data"]["test"], train=False)))
+    with torch.no_grad():
+        enc = model_d.encode(torch.as_tensor(test["wav"]).to(dev).float(),
+                             torch.as_tensor(test["wav_len"]).to(dev).long())
+        memkv, valid = FG.memory_kv(model_d.decoder, enc["attn_emb"],
+                                    enc["attn_emb_len"], False)
+        packed = FG.pack_decoder_weights(model_d.decoder).to(dev)
+        g = FG.fused_greedy_decode(packed, memkv, valid, L)
+        g_plain = FG.fused_greedy_plain(packed, memkv, valid, L)
+        seq, score = FB.fused_beam_decode(packed, memkv, valid, L, 3)
+        p_seq, p_score = FB.fused_beam_plain(packed, memkv, valid, L, 3)
+    g_mis = int((g != g_plain).sum())
+    b_mis = int((seq != p_seq).sum())
+    same = (seq == p_seq).all(-1)
+    b_err = float((score[same] - p_score[same]).abs().max()) \
+        if bool(same.any()) else float("inf")
+    log(f"family (d): at the trained weights, memory {tuple(memkv.shape)} "
+        f"(S = frames + CLS): greedy kernel vs plain {g_mis}/{g.numel()} "
+        f"tokens differ; beam-3 kernel vs plain {b_mis}/{seq.numel()} "
+        f"tokens differ, max |score diff| on matching sequences "
+        f"{b_err:.3g}")
+    frames = int(model_d.mel.feat_len(torch.tensor([test["wav"].shape[1]])))
+    assert memkv.shape[3] == frames // 32 + 1, "family (d): memory length"
+    assert g_mis <= MISMATCH_LIMIT * g.numel(), "family: greedy kernel"
+    assert b_mis <= MISMATCH_LIMIT * seq.numel(), "family: beam kernel"
+    assert b_err <= SCORE_ATOL or float64_floor_check(
+        packed, memkv, valid, 3, seq, score, p_seq, p_score), \
+        "family: beam kernel scores disagree"
+    entries = [
+        decode_entry("greedy", "cnn14trm", packed, memkv, valid,
+                     l_d["fused_greedy"], float(g_mis), card),
+        decode_entry("beam", "cnn14trm", packed, memkv, valid,
+                     l_d["eval_fused_beam"], b_err, card)]
+    del model_d, enc, memkv
+    restore(c0)
+
+    # (e) the ensemble of (b) and (d): a GRU and a transformer member
+    ens_cfg = recipes.recipe("synthetic_v2/ensemble.yaml", str(data))
+    ens_cfg.update(experiment_path=[exp_b, exp_d], resume="best.pth",
+                   output_path=str(root / "ensemble"))
+    c0 = counts()
+    t0 = time.perf_counter()
+    scores_e = runner.ensemble_evaluate(ens_cfg, f"device={dev.type}")
+    times["e_s"] = time.perf_counter() - t0
+    n = counts()
+    l_e = {k: n[k] - c0[k] for k in n}
+    c0 = counts()
+    members = [experiment_model(*read_experiment(e, "best.pth"), dev)[0]
+               for e in (exp_b, exp_d)]
+    cpu_members = [copy.deepcopy(m).cpu() for m in members]
+    k = EVAL_ENSEMBLE_CPU
+    wav = torch.as_tensor(test["wav"][:k]).float()
+    wav_len = torch.as_tensor(test["wav_len"][:k]).long()
+    card_seq = ensemble_generate(members, wav.to(dev), wav_len.to(dev),
+                                 sample_method="beam", beam_size=3,
+                                 max_length=L)["seq"].cpu()
+    cpu_seq = ensemble_generate(cpu_members, wav, wav_len,
+                                sample_method="beam", beam_size=3,
+                                max_length=L)["seq"]
+    e_mis = int((card_seq != cpu_seq).sum())
+    floats_e = {k_: round(v, 4) for k_, v in scores_e.items()
+                if isinstance(v, float)}
+    log(f"family (e): ensemble of (b) and (d), beam 3 over {FAM_SIZES[2]} "
+        f"test clips in {times['e_s']:.1f} s: {json.dumps(floats_e)}; "
+        f"launches {l_e}; card vs CPU copies on {k} clips: "
+        f"{e_mis}/{cpu_seq.numel()} tokens differ")
+    assert e_mis <= MISMATCH_LIMIT * cpu_seq.numel(), "ensemble card vs CPU"
+    if dev.type == "cuda":
+        assert l_e["fused_logmel"] == 2 * n_test, l_e
+    del members, cpu_members
+    restore(c0)
+
+    # (f) the conditioned decoders
+    dec512 = {"emb_dim": 512, "d_model": 512}
+    inner = {"type": "LabelSmoothingLoss", "args": {"smoothing": 0.1}}
+
+    def cond_ds(split, kind):
+        return {"type": "ConditionCaptionDataset", "args": {
+            "features": {"wav": str(data / f"{split}_wav.csv")},
+            "caption": str(data / f"{split}_text.json"),
+            "condition": str(data / f"condition_{kind}.csv"),
+            "orig_sr": SR_32K, "target_sr": SR_32K}}
+    dscrm = {"vocab_size": len(tokenizer), "seed": SEED + 3}
+    runs = {
+        "condition_argmax": ("ConditionalBahAttnDecoder", "hm", {
+            "type": "ConditionLossWrapper",
+            "args": {"loss": inner, "dscrm": dscrm,
+                     "sample_method": "argmax"}}),
+        "condition_gumbel": ("ConditionalBahAttnDecoder", "hm", {
+            "type": "ConditionLossWrapper",
+            "args": {"loss": inner, "dscrm": dscrm,
+                     "sample_method": "gumbel"}}),
+        "specificity": ("SpecificityBahAttnDecoder", "spec", {
+            "type": "SpecificityLossWrapper",
+            "args": {"loss": inner,
+                     "word_specificity": str(data / "word_specificity.npy"),
+                     "sentence_reduce": "sum"}}),
+        "struct": ("StructBahAttnDecoder", None, inner)}
+    l_f = {"fused_greedy": 0, "fused_beam": 0, "fused_logmel": 0}
+    cond_out = {}
+    for name, (dec_type, kind, loss_node) in runs.items():
+        cfg_f = copy.deepcopy(base)
+        cfg_f["model"] = family_node(dec_type=dec_type, dec_args=dec512)
+        cfg_f["loss"] = loss_node
+        if kind:
+            cfg_f["data"]["train"]["dataset"] = cond_ds("train", kind)
+        exp_f, dt, l_ = train_run(
+            name, cfg_f, "trainer.epochs=1",
+            f"data.train.dataloader_args.num_samples="
+            f"{FAM_COND_STEPS * bs}")
+        l_f = {k_: l_f[k_] + l_[k_] for k_ in l_f}
+        curve = _epoch_curve(Path(exp_f) / "train.log", "loss", "val_cider")
+        assert len(curve) == 1 and math.isfinite(curve[0][0]), name
+        c0 = counts()
+        cfg, ckpt = read_experiment(exp_f, "last.pth")
+        trained, tok = experiment_model(cfg, ckpt, dev)
+        # the condition term on one batch, before and after the steps;
+        # and that the term itself reaches the decoder: one train_step
+        # (the runner's, which routes the batch's condition to the
+        # decoder and the loss) with alpha 1 against the same step with
+        # alpha 0 and against a repeat of that, at learning rate 0
+        term = grad_gap = None
+        if kind:
+            init, _ = build_model_from_config(cfg["model"], len(tok))
+            random_init(init, torch.Generator().manual_seed(cfg["seed"]))
+            init = init.to(dev).eval()
+            b = to_device(next(iter(build_dataloader(cfg["data"]["train"],
+                                                     tok))), dev)
+            gen = torch.Generator(device=dev)
+            wrap = build_loss(cfg["loss"], generator=gen, device=dev)
+            wrap0 = build_loss(dict(cfg["loss"], args=dict(
+                cfg["loss"]["args"], alpha=0.0)), generator=gen, device=dev)
+            plain_loss = build_loss(inner)
+
+            def term_of(m):
+                gen.manual_seed(SEED)
+                with torch.no_grad():
+                    out = m(b["wav"], b["wav_len"], b["cap"], b["cap_len"],
+                            cond_kwargs={"condition": b["condition"]})
+                    out.update(tgt=b["cap"][:, 1:], tgt_len=b["cap_len"] - 1,
+                               conditions=b["condition"])
+                    return float(wrap(out) - plain_loss(out))
+            term = (term_of(init), term_of(trained))
+            assert all(map(math.isfinite, term)), \
+                f"family (f) {name}: the condition term is not finite"
+            sgd = torch.optim.SGD(init.parameters(), lr=0.0)
+            state_f = TrainState(init, sgd, torch.optim.lr_scheduler.LambdaLR(
+                sgd, lambda _: 1.0), float("inf"))
+
+            def decoder_grads(loss_fn):
+                torch.manual_seed(SEED)
+                gen.manual_seed(SEED)
+                train_step(state_f, loss_fn, b)
+                return [p.grad.detach().clone() if p.grad is not None
+                        else torch.zeros_like(p)
+                        for p in init.decoder.parameters()]
+
+            def gap(x, y):
+                return max(float((u - v).abs().max()) for u, v in zip(x, y))
+            g0 = decoder_grads(wrap0)
+            g1 = decoder_grads(wrap)
+            grad_gap = (gap(g1, g0), gap(decoder_grads(wrap0), g0))
+            del init, state_f, sgd, g0, g1
+            assert math.isfinite(grad_gap[0]) and grad_gap[0] > max(
+                10 * grad_gap[1], 1e-7), \
+                f"family (f) {name}: the condition term does not reach " \
+                f"the decoder's gradient {grad_gap}"
+        # a decode with conditions drawn by RandomConditionDataset
+        val_cfg = copy.deepcopy(cfg["data"]["val"])
+        if kind:
+            val_cfg["dataset"] = {"type": "RandomConditionDataset", "args": {
+                "features": {"wav": str(data / "val_wav.csv")},
+                "condition": str(data / f"condition_{kind}.csv"),
+                "orig_sr": SR_32K, "target_sr": SR_32K, "seed": SEED}}
+        vb = next(iter(build_dataloader(val_cfg, train=False)))
+        wav = torch.as_tensor(vb["wav"]).to(dev).float()
+        wav_len = torch.as_tensor(vb["wav_len"]).to(dev).long()
+        cond = ({"condition": torch.as_tensor(vb["condition"]).to(dev)}
+                if kind else {"structure": torch.randint(
+                    0, 4, (wav.shape[0],), generator=torch.Generator(
+                    ).manual_seed(SEED)).to(dev)})
+        seq = generate(trained, wav, wav_len, sample_method="beam",
+                       beam_size=3, max_length=L, cond_kwargs=cond)["seq"]
+        assert seq.shape == (wav.shape[0], L) and bool(
+            ((seq >= 0) & (seq < len(tok))).all()), name
+        c_vals = (torch.as_tensor(vb["condition"])[:4].tolist()
+                  if kind else cond["structure"][:4].tolist())
+        log(f"family (f) {name}: {dec_type}, {FAM_COND_STEPS} steps in "
+            f"{dt:.1f} s, epoch loss {curve[0][0]:.4f}, val CIDEr-D "
+            f"{curve[0][1]:.4f}; condition term before / after the steps "
+            f"{term}; decoder gradient max |alpha 1 - alpha 0| / |alpha 0 "
+            f"- alpha 0| {grad_gap}; a beam-3 decode of {wav.shape[0]} "
+            f"val clips with conditions {c_vals}...: first caption "
+            f"{tok.decode(seq[:1].cpu().numpy())[0]!r}; launches {l_} on "
+            f"{card}")
+        cond_out[name] = {"loss": curve[0][0], "term": term,
+                          "grad_gap": grad_gap}
+        del trained
+        restore(c0)
+
+    launches = counts()
+    log(f"family: launches on the path {launches} (the checks' and "
+        f"timings' taken out) on {card}")
+    if dev.type == "cuda":
+        assert launches["fused_logmel"] > 0 and launches["fused_greedy"] > 0 \
+            and launches["fused_beam"] > 0, launches
+    # the quality bars last
+    assert curve_b[-1][0] < curve_b[0][0], "family (b): the loss did not fall"
+    assert max(c[1] for c in curve_b) > constant, \
+        "family (b): the val score is no better than a constant caption"
+    return {"launches": launches, "entries": entries, "encoders": enc_a,
+            "xe": {"step_ms": step_b, "split": split_b, "idle": idle_b},
+            "scst": {"step_ms": step_c, "split": split_c,
+                     "reward_sample": r_s, "reward_greedy": r_g},
+            "conditioned": cond_out, "times": times}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4103,6 +4783,15 @@ def main() -> int:
         if k["name"] in syn_a["launches"]:
             k["aug_launches"] = syn_a["launches"][k["name"]]
     log(f"phase 26: {time.perf_counter() - t0:.1f} s")
+
+    # -- 27. the rest of the 32 kHz captioner family -----------------------
+    t0 = time.perf_counter()
+    fam = family_path(dev, card)
+    for k in kernels:
+        if k["name"] in fam["launches"]:
+            k["family_launches"] = fam["launches"][k["name"]]
+    kernels += fam["entries"]
+    log(f"phase 27: {time.perf_counter() - t0:.1f} s")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

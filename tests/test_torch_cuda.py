@@ -13,7 +13,7 @@ both float32), and within 0.05-0.1 dB on a wave with an 80 dB range;
 MBConv within 1e-4 * max(1, max |plain|) (1x1 products in 3xTF32, ~2^-22
 relative a product, and sums in another order than cuDNN's).  The decode
 kernels' bf16 modes: see BF16_BEAM_MODES below.  Every test here ran on
-the card (NVIDIA H100 80GB HBM3, 71 of 71 passing); without a card
+the card (NVIDIA H100 80GB HBM3, 75 of 75 passing); without a card
 they skip.
 """
 
@@ -895,3 +895,101 @@ def test_sed_bank_is_the_logmel_kernel_in_float16(cuda):
                                    torch.arange(5, device=cuda)))
               for _ in range(5)]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 32])
+def test_decode_kernels_cnn14trm_shapes_match_plain(cuda, B):
+    """The Cnn14Transformer captioner's decode (``chip_smoke.py`` phase
+    27(d)): the cnn14rnn_trm decoder (E=256, 4 heads, 2 layers, untied),
+    a corpus-sized vocabulary (V=300) and a memory of 31 frames + the CLS
+    token (S=32).  Greedy: at most 1% of tokens differ from plain; beam
+    3: held against the plain search in float64, at most 1% of tokens
+    differ and the n-best scores of matching sequences within 1e-4."""
+    dec = _untied_decoder(300, 31, cuda)
+    packed = TG.pack_decoder_weights(dec).to(cuda)
+    gen = torch.Generator().manual_seed(32 + B)
+    memkv = torch.randn(2, 2, B, 32, 256, generator=gen).to(cuda)
+    lens = torch.randint(1, 33, (B,), generator=gen)
+    lens[0] = 32
+    valid = (torch.arange(32)[None] < lens[:, None]).to(torch.uint8).to(cuda)
+    got = TG.fused_greedy_decode(packed, memkv, valid, 20)
+    want = TG.fused_greedy_plain(packed, memkv, valid, 20)
+    assert int((got != want).sum()) <= 0.01 * want.numel()
+    seq, score = TB.fused_beam_decode(packed, memkv, valid, 20, 3)
+    p64, mem64 = plain64(packed, memkv)
+    want_seq, want_score = TB.fused_beam_plain(p64, mem64, valid, 20, 3)
+    same = (seq == want_seq).all(-1)
+    assert int((seq != want_seq).sum()) <= 0.01 * want_seq.numel()
+    assert bool(same.any())
+    err = (score[same].double() - want_score[same]).abs()
+    assert float(err.max()) <= 1e-4, float(err.max())
+
+
+def _gru_twin(device, dec_type="BahAttnAddFcDecoder", num_layers=2):
+    """A Cnn6 + GRU-decoder captioner from a config node (emb and d_model
+    32, dropout 0) and its train state on ``device``."""
+    from audiocaption_tpu_torch.losses.loss import masked_token_loss
+    from audiocaption_tpu_torch.optim.schedules import (
+        exponential_decay_with_warmup)
+    from audiocaption_tpu_torch.training.trainer import create_train_state
+    from audiocaption_tpu_torch.utils.config import build_model_from_config
+    node = {"encoder": {"type": "Cnn6Encoder", "args": {}},
+            "decoder": {"type": dec_type,
+                        "args": {"emb_dim": 32, "d_model": 32,
+                                 "num_layers": num_layers, "dropout": 0.0}}}
+    m, _ = build_model_from_config(node, vocab_size=50)
+    random_init(m, torch.Generator().manual_seed(0))
+    state = create_train_state(
+        m.to(device), 5e-4, exponential_decay_with_warmup(5e-4, 5e-7, 100,
+                                                          20), 1e-6, 1.0)
+    return state, masked_token_loss("label_smoothing", 0.1)
+
+
+@pytest.mark.cuda
+def test_gru_stack_ss_step_card_matches_cpu(cuda, monkeypatch):
+    """A 2-layer ``BahAttnAddFcDecoder`` over a Cnn6 (phase 27(b)'s pair,
+    narrow): train steps with scheduled sampling at 1.0, then 0.0, on the
+    card and on the CPU (the encoder's dropout off): loss within 1e-4
+    relative, raw gradient norm within 1e-3; the log-mel kernel launches
+    once a step."""
+    import torch.nn.functional as F
+    from audiocaption_tpu_torch.training.trainer import train_step
+    monkeypatch.setattr(F, "dropout", lambda t, p=0.5, training=True,
+                        inplace=False: t)
+    cpu, loss_fn = _gru_twin(torch.device("cpu"))
+    card, _ = _gru_twin(cuda)
+    FL.fused_logmel.launches = 0
+    for ss in (1.0, 0.0):
+        got = train_step(card, loss_fn, _train_batch(cuda), torch.tensor(ss),
+                         torch.Generator())
+        want = train_step(cpu, loss_fn, _train_batch(torch.device("cpu")),
+                          torch.tensor(ss), torch.Generator())
+        np.testing.assert_allclose(float(got["loss"]), float(want["loss"]),
+                                   rtol=1e-4)
+        np.testing.assert_allclose(float(got["grad_norm"]),
+                                   float(want["grad_norm"]), rtol=1e-3)
+    assert FL.fused_logmel.launches == 2
+
+
+@pytest.mark.cuda
+def test_gru_scst_step_on_card(cuda):
+    """SCST of a 2-layer GRU decoder on the card: the sample pass on the
+    torch engine (no kernel), the grad pass's log-probabilities of the
+    sampled words equal to the sampler's within 1e-4 on the masked
+    positions, a finite loss, no decode kernel launched."""
+    from audiocaption_tpu_torch.training.scst import scst_step
+    state, _ = _gru_twin(cuda)
+    b = _train_batch(cuda)
+    refs = {"a": ["w5 w9"], "b": ["w7 w8"], "c": ["w30 w31 w32"]}
+    n0 = TG.fused_greedy_decode.launches, TB.fused_beam_decode.launches
+    m = scst_step(state, {"wav": b["wav"], "wav_len": b["wav_len"]},
+                  ["a", "b", "c"], refs, {i: f"w{i}" for i in range(50)},
+                  12, generator=torch.Generator(device=cuda).manual_seed(0))
+    assert np.isfinite(m["loss"])
+    assert (TG.fused_greedy_decode.launches,
+            TB.fused_beam_decode.launches) == n0
+    mask = m["mask"] > 0
+    np.testing.assert_allclose(
+        m["token_logprob"][mask].cpu().numpy(),
+        m["sampled_logprob"][mask].cpu().numpy(), atol=1e-4, rtol=0)

@@ -7,8 +7,10 @@ at most 1 s at 32 kHz, each its own sound.  Greedy, beam 3 and diverse
 beam search (beam 6 in 3 groups): tokens identical, beam scores within
 1e-5 (float32 sums in two frameworks).  The mean of two members differs
 from either member alone, and a one-member ensemble decodes as
-``generate`` does.  CPU only (not run on the card); ``chip_smoke.py``
-phase 22(e) holds the ensemble on the card against CPU copies."""
+``generate`` does; a GRU member joins a transformer member
+(``test_rnn_member_raises``, which raised before GRU members were
+ported).  CPU only (not run on the card); ``chip_smoke.py`` phases 22(e)
+and 27(e) hold the ensemble on the card against CPU copies."""
 
 import numpy as np
 import pytest
@@ -98,9 +100,25 @@ def test_two_members_average(members):
 
 
 def test_rnn_member_raises(members):
-    from audiocaption_tpu_torch.models.zoo import cnn14rnn_tempgru
-    ports, _, _ = members
-    rnn = cnn14rnn_tempgru(vocab_size=60)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ensemble_generate([ports[0], rnn], torch.zeros(1, 32000),
-                          torch.tensor([32000]))
+    """A GRU member no longer raises: a KD student and a Cdur5 + 2-layer
+    ``BahAttnAddFcDecoder`` captioner (the same vocabulary; built from a
+    config dict in both packages, ``test_torch_family.jax_pair``) decode
+    beam 3 as JAX's ensemble of the two does."""
+    from test_torch_family import jax_pair, model_node
+    ports, jmodels, jvars = members
+    b = make_batch()
+    node = model_node("Cdur5Encoder", "BahAttnAddFcDecoder", 32, 32, 2)
+    cap = np.asarray([[1, 5, 6, 2]] * 4)
+    j_gru, v_gru, p_gru = jax_pair(node, dict(b, cap=cap,
+                                              cap_len=np.full(4, 4)),
+                                   seed=3, vocab=60)
+    assert p_gru.decoder.vocab_size == 60
+    method = dict(sample_method="beam", beam_size=3)
+    got = ensemble_generate([ports[0], p_gru], torch.from_numpy(b["wav"]),
+                            torch.from_numpy(b["wav_len"]), max_length=12,
+                            **method)
+    want = _run_jax([jmodels[0], j_gru], [jvars[0], v_gru], b, method)
+    np.testing.assert_array_equal(got["seq"].numpy(), np.asarray(want["seq"]))
+    np.testing.assert_allclose(got["score"].numpy(),
+                               np.asarray(want["score"]), rtol=0,
+                               atol=SCORE_ATOL)

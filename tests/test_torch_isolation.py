@@ -79,7 +79,11 @@ for name in ("audiocaption_tpu_torch.native",
              "audiocaption_tpu_torch.data.augment",
              "audiocaption_tpu_torch.losses.wrappers",
              "audiocaption_tpu_torch.training.aug_runner",
-             "audiocaption_tpu_torch.cli.data_tools"):
+             "audiocaption_tpu_torch.cli.data_tools",
+             "audiocaption_tpu_torch.models.hm_classifier",
+             "audiocaption_tpu_torch.models.rnn_decoder",
+             "audiocaption_tpu_torch.models.cnn14",
+             "audiocaption_tpu_torch.losses.loss"):
     assert name in names, name
 print(len(names))
 """

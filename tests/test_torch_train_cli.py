@@ -214,12 +214,23 @@ def test_train_asks_for_the_card_by_default(workspace):
 
 
 def test_unported_types_raise_naming_the_roadmap():
+    """The types still unported: an item-8 encoder (Htsat), the M2
+    decoder, the style models, and a top-level audio transformer encoder
+    (it reads precomputed features, item 6c)."""
     node = _model_node()
-    node["encoder"]["type"] = "captioning.models.cnn_encoder.Cnn14Encoder"
+    node["encoder"]["type"] = "captioning.models.htsat.Htsat"
     with pytest.raises(ValueError, match="ROADMAP"):
         build_model_from_config(node, vocab_size=20)
     node = _model_node()
-    node["decoder"]["type"] = "BahAttnAddFcDecoder"
+    node["encoder"]["type"] = "AudioTransformerEncoder"
+    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 6c"):
+        build_model_from_config(node, vocab_size=20)
+    node = _model_node()
+    node["decoder"]["type"] = "M2TransformerDecoder"
+    with pytest.raises(ValueError, match="ROADMAP"):
+        build_model_from_config(node, vocab_size=20)
+    node = _model_node()
+    node["type"] = "StyleCaptionModel"
     with pytest.raises(ValueError, match="ROADMAP"):
         build_model_from_config(node, vocab_size=20)
     model, pretrained = build_model_from_config(_model_node(), 20)

@@ -81,7 +81,12 @@ def test_build_loss_reads_reference_names():
         out["logit"], out["tgt"], out["tgt_len"], 0.1))
     assert float(ce) == float(TL.cross_entropy_loss(
         out["logit"], out["tgt"], out["tgt_len"]))
-    with pytest.raises(ValueError, match="ROADMAP"):
+    # every loss type of the JAX package is ported: an unknown one
+    # raises, and a condition loss without its discriminator node raises
+    # as the JAX builder does
+    with pytest.raises(ValueError, match="unknown loss type"):
+        TL.build_loss({"type": "FocalLoss"})
+    with pytest.raises(KeyError, match="dscrm"):
         TL.build_loss({"type": "ConditionLossWrapper"})
 
 
