@@ -14,7 +14,13 @@ its YAML, with the data directory ``d`` in place of the YAML's
     :func:`temporal_test` -> ``test.yaml``;
   * :func:`aug_train` -> ``configs/synthetic_v2/cnn14rnn_trm.yaml`` with
     ``configs/synthetic/aug.yaml``'s ``data.train_aug`` and ``aug``
-    nodes, its augmented corpus in a second directory.
+    nodes, its augmented corpus in a second directory;
+  * :func:`m2_source_train` -> ``configs/synthetic/cnn14rnn_trm.yaml``
+    (over ``train_data.yaml``: device-resident banks) and
+    :func:`m2_source_test` -> ``configs/synthetic/test.yaml``, on corpus
+    v1; :func:`m2_train` -> ``configs/synthetic/m2_trm.yaml`` and
+    :func:`m2_test` -> ``test_m2.yaml``, on the features extracted from
+    the source under ``{d}/features_cnn14rnn/{split}/``.
 
 The script, on the card by default:
 
@@ -25,6 +31,8 @@ The script, on the card by default:
         --results results/torch_h100/synthetic_temporal
     python -m audiocaption_tpu_torch.cli.recipes aug \\
         --data data/synthetic_v2 --results results/torch_h100/synthetic_v2_aug
+    python -m audiocaption_tpu_torch.cli.recipes m2 \\
+        --data data/synthetic --results results/torch_h100/synthetic_m2
 
 ``flagship`` generates corpus v2 at its recorded settings (3000 / 300 /
 300 clips of 10 s at 32 kHz, seed 0; ``--sizes`` and ``--duration`` cut
@@ -42,7 +50,15 @@ speed_perturb --compute``, 0.9 and 1.1, into ``--aug_data``, default
 ``{data}_aug``), trains the augmented recipe (``Runner.train_aug``), then
 scores its best and SWA checkpoints on the test split at beam 3 (32
 kHz); ``--stop_epoch N`` trains the first N epochs of the recipe's
-schedules and scores the best checkpoint alone.  Each profiles a few train steps of the recipe on a
+schedules and scores the best checkpoint alone.  ``m2`` generates corpus
+v1 (2000 / 200 / 200 clips of 10 s at 32 kHz, seed 0) unless ``--data``
+holds it, trains ``cnn14rnn_trm`` on it and scores its SWA and best
+checkpoints (beam 3), extracts the SWA checkpoint's encoder output from
+all three splits (``cli/prepare_features.py --format npy``), trains the
+M2 transformer on those features (``m2_trm.yaml``) and scores its SWA
+and best checkpoints (``test_m2.yaml``); overrides that start with
+``m2.`` apply to the M2 config alone (``m2.trainer.epochs=2``), the
+others to the source's (``device=`` to both).  Each profiles a few train steps of the recipe on a
 fresh model (the device's idle share) and copy each ``train.log`` and
 score file into ``--results``, with ``run.json`` (the times of every
 stage, the card, the peak memory).  ``key=value`` overrides after the
@@ -109,6 +125,22 @@ def tempgru_train(d: str = "data/synthetic_temporal") -> Dict:
 
 def temporal_test(d: str = "data/synthetic_temporal") -> Dict:
     return recipe("synthetic_temporal/test.yaml", d)
+
+
+def m2_source_train(d: str = "data/synthetic") -> Dict:
+    return recipe("synthetic/cnn14rnn_trm.yaml", d)
+
+
+def m2_source_test(d: str = "data/synthetic") -> Dict:
+    return recipe("synthetic/test.yaml", d)
+
+
+def m2_train(d: str = "data/synthetic") -> Dict:
+    return recipe("synthetic/m2_trm.yaml", d)
+
+
+def m2_test(d: str = "data/synthetic") -> Dict:
+    return recipe("synthetic/test_m2.yaml", d)
 
 
 def aug_train(d: str = "data/synthetic_v2",
@@ -224,7 +256,8 @@ def _corpus(kind: str, data: Path, sizes, duration: float,
     record["disk_free_gb_before"] = shutil.disk_usage(
         data.parent).free / 2**30
     t0 = time.perf_counter()
-    fn = sc.generate_v2 if kind == "flagship" else sc.generate_temporal
+    fn = {"flagship": sc.generate_v2, "temporal": sc.generate_temporal,
+          "v1": sc.generate}[kind]
     fn(str(data), *sizes, sr=32000, duration=duration, seed=0)
     record["corpus_s"] = time.perf_counter() - t0
     record["disk_free_gb_after"] = shutil.disk_usage(
@@ -356,10 +389,68 @@ def run_aug(data: Path, results: Path, overrides: List[str],
     return record
 
 
+def _scores(runner, exp: Path, test_cfg: Dict, dev: List[str],
+            results: Path, record: Dict, name: str) -> None:
+    """``Runner.evaluate`` of ``exp``'s best and SWA checkpoints at beam 3
+    into ``record`` and ``results/{name}/``."""
+    for resume in ("swa", "best"):
+        t0 = time.perf_counter()
+        scores = runner.evaluate(
+            str(exp), test_cfg, *dev, f"resume={resume}.pth",
+            f"caption_output=predictions/{resume}_beam3.json",
+            f"score_output=results/{resume}_beam3.txt")
+        record[f"{name}_test_{resume}"] = {
+            k: v for k, v in scores.items() if isinstance(v, float)}
+        record[f"{name}_evaluate_{resume}_s"] = time.perf_counter() - t0
+        _copy(exp / f"results/{resume}_beam3.txt",
+              results / f"{name}/{resume}_beam3.txt")
+    _copy(exp / "train.log", results / f"{name}/train.log")
+    (results / "run.json").write_text(json.dumps(record, indent=1))
+
+
+def run_m2(data: Path, results: Path, overrides: List[str],
+           sizes=(2000, 200, 200), duration: float = 10.0) -> Dict:
+    """Corpus v1, the source ``cnn14rnn_trm`` trained and scored, its
+    features extracted (npy), the M2 transformer trained on them and
+    scored (see the module docstring)."""
+    from audiocaption_tpu_torch.cli.prepare_features import (
+        experiment_encoder, write_features)
+    from audiocaption_tpu_torch.cli.run import Runner
+    from audiocaption_tpu_torch.device import resolve_device
+    record: Dict = {"card": card_name()}
+    results.mkdir(parents=True, exist_ok=True)
+    (results / "card.txt").write_text(record["card"] + "\n")
+    _corpus("v1", data, sizes, duration, record)
+    dev = [o for o in overrides if o.startswith("device=")]
+    m2_over = dev + [o[len("m2."):] for o in overrides
+                     if o.startswith("m2.")]
+    overrides = [o for o in overrides if not o.startswith("m2.")]
+    runner = Runner()
+    t0 = time.perf_counter()
+    exp = Path(runner.train(m2_source_train(str(data)), *overrides))
+    record["source_train_s"] = time.perf_counter() - t0
+    _scores(runner, exp, m2_source_test(str(data)), dev, results, record,
+            "cnn14rnn_trm")
+    device = resolve_device(dev[-1][len("device="):] if dev else "cuda")
+    t0 = time.perf_counter()
+    encode, bucket = experiment_encoder(str(exp), "swa.pth", device)
+    for split in ("train", "val", "test"):
+        write_features(str(data / f"{split}_wav.csv"),
+                       str(data / "features_cnn14rnn" / split), encode,
+                       bucket, device, batch_size=32, fmt="npy")
+    record["prepare_features_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m2_exp = Path(runner.train(m2_train(str(data)), *m2_over))
+    record["m2_train_s"] = time.perf_counter() - t0
+    _scores(runner, m2_exp, m2_test(str(data)), dev, results, record, "m2_trm")
+    return record
+
+
 def main(argv=None) -> Dict:
     parser = argparse.ArgumentParser(
         prog="audiocaption_tpu_torch.cli.recipes")
-    parser.add_argument("recipe", choices=("flagship", "temporal", "aug"))
+    parser.add_argument("recipe", choices=("flagship", "temporal", "aug",
+                                           "m2"))
     parser.add_argument("--data", required=True)
     parser.add_argument("--aug_data", default=None,
                         help="aug: the speed-perturbed copy's directory "
@@ -376,7 +467,7 @@ def main(argv=None) -> Dict:
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_intermixed_args(argv)
     run = {"flagship": run_flagship, "temporal": run_temporal,
-           "aug": run_aug}[args.recipe]
+           "aug": run_aug, "m2": run_m2}[args.recipe]
     kw = {"duration": args.duration}
     if args.recipe == "aug":
         kw.update(stop_epoch=args.stop_epoch,

@@ -124,9 +124,29 @@ SpecAugment to the log-mel in ``train``'s XE steps (``ops/specaug.py``),
 as the JAX runner does; a dataset's ``transforms`` build a chain of the
 augment registry (``data/augment.py``), reseeded in each loader worker.
 
-The JAX runner's other paths (the device-resident corpus, data
-parallelism) are not ported (ROADMAP Queue 1 items 6c-7); a loader's
-``device_resident`` is ignored.
+The input pipeline, as the JAX runner's: a loader with
+``device_resident: True`` (``data.train``, ``data.val``,
+``data.train_aug``) puts its whole corpus on the device once as a float16
+bank (``data/device_bank.py``), its items then carry bank rows, gathered
+on the device by the step and the val scorer; the train loops and the
+val scorer take their batches through ``data/prefetch.py::
+prefetch_to_device`` (a worker thread loads and copies the next batch
+while the device runs this one).  A model over precomputed features
+(``RnnEncoder``, ``AudioTransformerEncoder``, ``M2TransformerEncoder``:
+``cli/prepare_features.py`` writes them) trains, scores and evaluates
+through the same paths; without ``encoder.args.input_dim`` its input
+width is read off the first train row (the log says which).  An
+``EfficientNetB2`` encoder with ``args.prune_ratio`` is pruned after the
+pretrained weights load (``utils/config.py::apply_pruning``), in training
+and when an experiment is read back.
+
+``resume`` with ``trainer.finetune: False`` is a full resume: besides the
+weights, the epoch (training goes on from the next), the monitor's best,
+``not_improve_cnt``, the update count ``lr_count`` (the learning rate
+and, unlike the JAX runner, the scheduled-sampling ratio follow it) and,
+where the checkpoint holds one (``trainer.include_optim_in_ckpt: True``
+writes it), the optimizer's state.  Data parallelism is not ported
+(ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -148,6 +168,8 @@ from audiocaption_tpu_torch.data.augment import build_transforms, seed_worker
 from audiocaption_tpu_torch.data.collate import TextCollate, VarLenPadCollate
 from audiocaption_tpu_torch.data.dataset import (
     CaptionDataset, InferenceDataset, WavCaptionDataset, load_caption_json)
+from audiocaption_tpu_torch.data.device_bank import bank_rows, build_wav_bank
+from audiocaption_tpu_torch.data.prefetch import prefetch_to_device
 from audiocaption_tpu_torch.data.tokenizer import DictTokenizer
 from audiocaption_tpu_torch.decoding.ensemble import ensemble_generate
 from audiocaption_tpu_torch.decoding.select import (
@@ -172,9 +194,10 @@ from audiocaption_tpu_torch.training.distill import (
 from audiocaption_tpu_torch.training.scst import scst_step
 from audiocaption_tpu_torch.training.swa import swa_init, swa_update
 from audiocaption_tpu_torch.training.trainer import (
-    create_train_state, train_step)
+    batch_wav, create_train_state, train_step)
 from audiocaption_tpu_torch.utils.config import (
-    build_model_from_config, load_config, resolve_config, short_type)
+    apply_pruning, build_model_from_config, feature_input_dim, load_config,
+    resolve_config, short_type)
 
 Config = Union[str, Dict]
 
@@ -227,7 +250,8 @@ def build_collate(cfg: Dict, tokenizer=None, wav_bucket: int = 16000):
     t = short_type(cfg["type"])
     args = dict(cfg.get("args", {}) or {})
     kw = dict(sort_key=args.get("sort_key"), buckets={"wav": wav_bucket},
-              wire_dtype=args.get("wire_dtype"))
+              wire_dtype=args.get("wire_dtype"),
+              feature_bucket=args.get("feature_bucket", 16))
     if t == "TextCollate":
         return TextCollate(tokenizer, text_key=args.get("text_key", "cap"),
                            pad_keys=args.get("pad_keys", []), **kw)
@@ -260,22 +284,26 @@ def build_dataloader(data_cfg: Dict, tokenizer=None, train: bool = True):
                       **dl_args)
 
 
-def to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
-    """A collated batch (numpy arrays or tensors) -> the train step's
-    tensors on ``device``: the wave widened to float32 (a float16 wire as
-    is, int16 / 32768), lengths, ids, temporal tags and structure ids as
-    int64, a ``condition`` or ``style`` as float32."""
-    wav = torch.as_tensor(batch["wav"]).to(device)
-    if wav.dtype == torch.int16:
-        wav = wav.float() / 32768.0
-    out = {"wav": wav.float()}
+def to_device(batch: Dict, device: torch.device,
+              bank: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """A collated batch (numpy arrays or tensors, on the host or already
+    on ``device``) -> the train step's tensors on ``device``: the wave
+    (rows ``wav_idx`` of ``bank`` when the batch carries them) widened to
+    float32 (a float16 wire as is, int16 / 32768), lengths, ids, temporal
+    tags and structure ids as int64, a ``condition`` or ``style`` as
+    float32."""
+    out = batch_wav(
+        {"wav_idx": torch.as_tensor(batch["wav_idx"]).to(device),
+         "wav_bank": bank} if "wav_idx" in batch
+        else {"wav": torch.as_tensor(batch["wav"]).to(device)})
     for k in ("wav_len", "cap", "cap_len", "temporal_tag", "structure"):
         if k in batch:
             out[k] = torch.as_tensor(batch[k]).to(device, torch.long)
     for k in ("condition", "style"):
         if k in batch:
-            out[k] = torch.as_tensor(np.asarray(batch[k], np.float32)).to(
-                device)
+            v = batch[k]
+            v = v if torch.is_tensor(v) else np.asarray(v, np.float32)
+            out[k] = torch.as_tensor(v).to(device, torch.float32)
     return out
 
 
@@ -352,10 +380,45 @@ def experiment_model(cfg: Dict, ckpt: Dict, device: torch.device
     if ckpt.get("tokenizer"):
         tokenizer.load_state_dict(ckpt["tokenizer"])
         tokenizer.loaded = True
-    model, _ = build_model_from_config(cfg["model"],
-                                       vocab_size=len(tokenizer))
+    model, _ = build_model_from_config(
+        cfg["model"], vocab_size=len(tokenizer),
+        input_dim=checkpoint_input_dim(ckpt["variables"]))
+    apply_pruning(model, cfg["model"])
     load_reference_state_dict(model, ckpt["variables"])
     return model.to(device).eval(), tokenizer
+
+
+def checkpoint_input_dim(variables: Dict) -> Optional[int]:
+    """The input width of a feature encoder's checkpoint (its first
+    layer's weight), or None for any other encoder."""
+    for key in ("encoder.input_proj.weight", "encoder.attn_proj_dense.weight",
+                "encoder.network.weight_ih_l0"):
+        if key in variables:
+            return int(np.shape(variables[key])[1])
+    return None
+
+
+def host_copy(tree):
+    """``tree`` (dicts, lists, tuples) with every tensor copied to the
+    host now: a snapshot that later updates do not reach."""
+    if torch.is_tensor(tree):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_copy(v) for v in tree)
+    return tree
+
+
+def bank_batches(batches: Iterable[Dict], bank: Optional[torch.Tensor]
+                 ) -> Iterator[Dict]:
+    """``batches`` with each ``wav`` gathered from ``bank`` by the batch's
+    ``wav_idx`` (float32), or as they are without a bank."""
+    for batch in batches:
+        if bank is not None and "wav_idx" in batch:
+            batch = dict(batch, wav=bank_rows(
+                bank, torch.as_tensor(batch["wav_idx"])))
+        yield batch
 
 
 def export_hf_checkpoint(model, output: str) -> str:
@@ -400,14 +463,17 @@ class ValScorer:
     returns the CIDEr-D score by the native scorer (the JAX runner's
     ``_make_val_scorer``).
     The model is in ``eval()`` while it decodes and back in ``train()``
-    after.  ``last_seq`` holds the ids that the last call decoded, an
-    int array [B, max_length] per val batch in the loader's order."""
+    after.  Batches come through ``prefetch_to_device``; a device-resident
+    val set's rows are gathered from ``wav_bank``.  ``last_seq`` holds the
+    ids that the last call decoded, an int array [B, max_length] per val
+    batch in the loader's order."""
 
     def __init__(self, model, tokenizer, val_loader, key2refs: Dict,
-                 device: torch.device):
+                 device: torch.device,
+                 wav_bank: Optional[torch.Tensor] = None):
         self.model, self.tokenizer = model, tokenizer
         self.val_loader, self.key2refs = val_loader, key2refs
-        self.device = device
+        self.device, self.wav_bank = device, wav_bank
         self.scorer = FastCiderD()
         self.last_seq: List[np.ndarray] = []
 
@@ -416,8 +482,9 @@ class ValScorer:
         # a decoder anew each call: the optimizer has moved the weights
         decoder = LoaderDecoder(model, self.device)
         key2pred = decoder.decode_loader(
-            self.tokenizer, self.val_loader, sample_method="greedy",
-            max_length=model.special.max_length)
+            self.tokenizer, bank_batches(prefetch_to_device(
+                self.val_loader, self.device), self.wav_bank),
+            sample_method="greedy", max_length=model.special.max_length)
         self.last_seq = decoder.last_seq
         model.train()
         refs = {k: v for k, v in self.key2refs.items() if k in key2pred}
@@ -443,7 +510,21 @@ class RunSetup:
     total_iters: int
     # create_train_state's arguments after the model
     opt: Dict
+    # device-resident banks by loader name (data.train, data.val, ...)
+    banks: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
+    def add_bank(self, name: str, loader) -> None:
+        """The bank of ``data.{name}`` on the device, when the config asks
+        for it (``device_resident``); its loader's items then carry bank
+        rows."""
+        if not self.cfg["data"][name].get("device_resident"):
+            return
+        t0 = time.time()
+        bank, lens = build_wav_bank(loader.dataset, self.device)
+        loader.dataset.enable_wav_index(lens)
+        self.banks[name] = bank
+        self.log(f"{name} wav bank on {self.device}: {tuple(bank.shape)} "
+                 f"{bank.dtype} ({time.time() - t0:.1f}s)")
 
 class EpochClock:
     """The bookkeeping of a training epoch that ``Runner.train`` and
@@ -455,7 +536,8 @@ class EpochClock:
     def __init__(self, run: RunSetup, mode: str = "max"):
         self.run = run
         self.val_score = ValScorer(run.model, run.tokenizer, run.val_loader,
-                                   run.val_key2refs, run.device)
+                                   run.val_key2refs, run.device,
+                                   run.banks.get("val"))
         self.monitor = MetricImprover(mode)
         self.ckpt_writer = AsyncCheckpointer()
         if run.device.type == "cuda":
@@ -537,9 +619,11 @@ class Runner:
     def _setup(self, config: Config, overrides) -> RunSetup:
         """:meth:`_start`, then the tokenizer (it must have a vocabulary)
         and the loaders, the model from the config (seeded random weights,
-        then any pretrained parts, on the device; an ``ScstWrapper`` node
-        is the model it wraps) and the optimiser's settings (Adam with L2
-        decay, the clip, the schedule with a fifth of warm-up)."""
+        then any pretrained parts, then the pruning of an EffB2 with
+        ``prune_ratio``, on the device; an ``ScstWrapper`` node is the
+        model it wraps), the optimiser's settings (Adam with L2 decay, the
+        clip, the schedule with a fifth of warm-up) and the device-resident
+        banks of ``data.train`` and ``data.val``."""
         cfg, device, seed, exp_dir, log = self._start(config, overrides)
         tokenizer = build_tokenizer(
             cfg["data"]["train"]["collate_fn"]["tokenizer"])
@@ -550,19 +634,28 @@ class Runner:
         val_cfg = cfg["data"]["val"]
         val_loader = build_dataloader(val_cfg, train=False)
 
+        input_dim = feature_input_dim(cfg["model"], train_loader.dataset)
+        if input_dim is not None:
+            log(f"encoder input width {input_dim}, from the first row of "
+                "data.train (the config gives no encoder.args.input_dim)")
         model, pretrained = build_model_from_config(
-            cfg["model"], vocab_size=len(tokenizer))
+            cfg["model"], vocab_size=len(tokenizer), input_dim=input_dim)
         random_init(model, torch.Generator().manual_seed(seed))
         for spec in pretrained:
             n = load_pretrained(model, spec)
             log(f"{spec[0]}: {n} tensors from {spec[1]}")
+        if apply_pruning(model, cfg["model"]):
+            log("encoder pruned: prune_ratio "
+                f"{cfg['model']['encoder']['args']['prune_ratio']}, "
+                f"{sum(p.numel() for p in model.encoder.parameters())} "
+                "encoder parameters")
 
         trainer_cfg = cfg.get("trainer", {})
         epochs = trainer_cfg.get("epochs", 25)
         total_iters = epochs * len(train_loader)
         opt_args = cfg.get("optimizer", {}).get("args", {})
         base_lr = opt_args.get("lr", 5e-4)
-        return RunSetup(
+        run = RunSetup(
             cfg=cfg, device=device, seed=seed, exp_dir=exp_dir,
             log=log, tokenizer=tokenizer,
             train_loader=train_loader, val_loader=val_loader,
@@ -575,10 +668,16 @@ class Runner:
                                              total_iters // 5),
                      weight_decay=opt_args.get("weight_decay", 0.0),
                      max_grad_norm=trainer_cfg.get("max_grad_norm", 1.0)))
+        run.add_bank("train", train_loader)
+        run.add_bank("val", val_loader)
+        return run
 
-    def train(self, config: Config, *overrides: str) -> str:
+    def train(self, config: Config, *overrides: str,
+              stop_epoch: Optional[int] = None) -> str:
         """Train from a config (a path or a dict); returns the experiment
-        directory."""
+        directory.  ``stop_epoch`` ends the run after that epoch, the
+        schedules still those of all ``trainer.epochs`` (the head of a run
+        that a full resume continues)."""
         run = self._setup(config, overrides)
         cfg, device, seed, exp_dir, log = (run.cfg, run.device, run.seed,
                                            run.exp_dir, run.log)
@@ -611,15 +710,28 @@ class Runner:
         early_stop = trainer_cfg.get("early_stop", 10)
 
         # resume: the weights of a checkpoint (this package's or the JAX
-        # package's), entries of matching name and shape ("finetune")
+        # package's), entries of matching name and shape ("finetune"); a
+        # full resume also the counters (see the module docstring)
+        start_epoch = 1
+        resumed = None
         if cfg.get("resume"):
-            if not trainer_cfg.get("finetune", True):
-                raise ValueError("a full resume (trainer.finetune: False) "
-                                 "is not ported yet (ROADMAP Queue 1 item 6c)")
             ckpt = load_checkpoint(cfg["resume"])
             load_reference_state_dict(model, merge_variables(
                 model_variables(model), ckpt["variables"]))
-            log(f"weights from {cfg['resume']}")
+            if not trainer_cfg.get("finetune", True):
+                resumed = ckpt
+                start_epoch = ckpt.get("epoch", 0) + 1
+                not_improve = ckpt.get("not_improve_cnt", 0)
+                if ckpt.get("optimizer"):
+                    state.optimizer.load_state_dict(ckpt["optimizer"])
+                state.restore_count(ckpt.get("lr_count", 0))
+                if use_ss:
+                    ss_ratio = (1.0 - ss_per_iter * state.lr_count
+                                if linear_ss else
+                                0.01 ** (state.lr_count / total_iters))
+                log(f"resumed from {cfg['resume']} (epoch {start_epoch})")
+            else:
+                log(f"weights from {cfg['resume']}")
 
         if rl_train:
             rl_cfg = cfg.get("rl", {}) or {}
@@ -641,14 +753,20 @@ class Runner:
         clock = EpochClock(
             run, trainer_cfg.get("monitor_metric", {}).get("mode", "max"))
         monitor = clock.monitor
+        if resumed is not None and resumed.get("monitor_state"):
+            monitor.load_state_dict(resumed["monitor_state"])
+        with_optim = trainer_cfg.get("include_optim_in_ckpt", False)
+        bank = run.banks.get("train")
         variables = model_variables(model)
         try:
-            for epoch in range(1, epochs + 1):
+            for epoch in range(start_epoch, min(stop_epoch or epochs,
+                                                epochs) + 1):
                 losses = []
-                for batch in clock.batches(train_loader):
+                for batch in clock.batches(prefetch_to_device(train_loader,
+                                                              device)):
                     if rl_train:
                         metrics = scst_step(
-                            state, to_device(batch, device),
+                            state, to_device(batch, device, bank),
                             [str(k) for k in batch["audio_id"]],
                             train_key2refs, tokenizer.idx2word, rl_len,
                             rl_temp, rl_gen, rl_scorer, baseline)
@@ -663,7 +781,7 @@ class Runner:
                     ss_arg = (torch.tensor(ss_ratio, dtype=torch.float32)
                               if use_ss else 1.0)
                     metrics = train_step(state, loss_fn,
-                                         to_device(batch, device),
+                                         to_device(batch, device, bank),
                                          ss_ratio=ss_arg, generator=ss_gen,
                                          specaug=specaug,
                                          specaug_generator=specaug_gen)
@@ -684,7 +802,9 @@ class Runner:
                 variables = clock.save(
                     improved, swa_job if swa_due else None, epoch=epoch,
                     monitor_state=monitor.state_dict(),
-                    not_improve_cnt=not_improve, lr_count=state.lr_count)
+                    not_improve_cnt=not_improve, lr_count=state.lr_count,
+                    optimizer=(host_copy(state.optimizer.state_dict())
+                               if with_optim else None))
                 log(f"epoch {epoch}: loss {train_loss:.4f} "
                     f"val_cider {score:.4f} ss {ss_ratio:.3f} "
                     f"({clock.split()})")
@@ -748,15 +868,16 @@ class Runner:
             cache_path = exp_dir / "pseudo_captions.json"
             cache = (json.loads(cache_path.read_text())
                      if cache_path.exists() else {})
-            cache = generate_pseudo_captions(teacher_generate, train_loader,
-                                             cache)
+            cache = generate_pseudo_captions(
+                teacher_generate,
+                bank_batches(train_loader, run.banks.get("train")), cache)
             cache_path.write_text(json.dumps(cache, indent=1))
             log(f"{len(cache)} pseudo captions in {cache_path}")
             state = create_train_state(model, **run.opt)
             loss_fn = build_loss(cfg.get("loss", {}))
 
             def run_step(batch):
-                b = to_device(batch, device)
+                b = to_device(batch, device, run.banks.get("train"))
                 enc = tokenizer([cache[a] for a in batch["audio_id"]])
                 b["cap"] = torch.as_tensor(enc["cap"]).to(device, torch.long)
                 b["cap_len"] = torch.as_tensor(enc["cap_len"]).to(
@@ -781,7 +902,7 @@ class Runner:
             unsup = kd_cfg.get("unsup", False)
 
             def run_step(batch):
-                b = to_device(batch, device)
+                b = to_device(batch, device, run.banks.get("train"))
                 if embs is not None:
                     b["tchr_emb"] = torch.as_tensor(np.stack(
                         [embs[a] for a in batch["audio_id"]])).to(
@@ -804,19 +925,20 @@ class Runner:
                     "smoothing", 0.1))
 
             def run_step(batch):
-                b = to_device(batch, device)
+                b = to_device(batch, device, run.banks.get("train"))
                 b["teacher_logit"] = teacher_logits(teacher, b)
                 return token_kd_step(state, b, **kd_args)
 
         monitor = MetricImprover("max")
         val_score = ValScorer(model, tokenizer, run.val_loader,
-                              run.val_key2refs, device)
+                              run.val_key2refs, device, run.banks.get("val"))
         ckpt_writer = AsyncCheckpointer()
         variables = model_variables(model)
         try:
             for epoch in range(1, run.epochs + 1):
                 t0 = time.time()
-                losses = [run_step(batch)["loss"] for batch in train_loader]
+                losses = [run_step(batch)["loss"] for batch in
+                          prefetch_to_device(train_loader, device)]
                 train_loss = (float(torch.stack(losses).mean())
                               if losses else float("nan"))
                 score = val_score()
@@ -855,13 +977,15 @@ class Runner:
         weights (no averaging, no early stop).  ``stop_epoch`` ends the
         run after that epoch, the learning rate and the discount still on
         the schedules of all ``trainer.epochs``: the head of a run that
-        a time limit would cut.  A loader's ``device_resident`` is
-        ignored (a placement switch of the JAX package)."""
+        a time limit would cut.  Each loader with ``device_resident``
+        (``data.train``, ``data.train_aug``, ``data.val``) has its bank;
+        the pairs come through ``prefetch_to_device``."""
         from audiocaption_tpu_torch.training.aug_runner import (
             aug_train_step, discount_schedule, interleave_loaders)
         run = self._setup(config, overrides)
         cfg, device, exp_dir, log = run.cfg, run.device, run.exp_dir, run.log
         aug_loader = build_dataloader(cfg["data"]["train_aug"], run.tokenizer)
+        run.add_bank("train_aug", aug_loader)
         state = create_train_state(run.model, **run.opt)
         loss_fn = build_loss(cfg.get("loss", {}))
         aug_cfg = cfg.get("aug", {}) or {}
@@ -875,11 +999,14 @@ class Runner:
         try:
             for epoch in range(1, epochs + 1):
                 losses = []
-                for real, aug in clock.batches(
-                        interleave_loaders(run.train_loader, aug_loader)):
+                for real, aug in clock.batches(prefetch_to_device(
+                        interleave_loaders(run.train_loader, aug_loader),
+                        device)):
                     metrics = aug_train_step(
-                        state, loss_fn, to_device(real, device),
-                        to_device(aug, device), discount(it))
+                        state, loss_fn,
+                        to_device(real, device, run.banks.get("train")),
+                        to_device(aug, device, run.banks.get("train_aug")),
+                        discount(it))
                     losses.append(metrics["loss"])
                     it += 1
                 train_loss = (float(torch.stack(losses).mean())

@@ -43,20 +43,37 @@
 // (3xTF32: the dropped small * small term is ~2^-22 relative).
 // ops/fused_mbconv.py::mbconv_split_tf32 emulates the split on the CPU.
 //
+// The bf16 work dtype (the TPU kernel's wd = x_ref.dtype, pallas_mbconv.py
+// :122): x and out are bf16; the kernel rounds where the TPU kernel rounds.
+// The 1x1 products take bf16 operands on mma.sync.m16n8k16 (float32
+// accumulators): the expand's bf16(w_exp) x bf16 x, plus the bias and swish in
+// float32, then rounded to bf16 (staged as floats holding bf16 values); the
+// depthwise multiplies bf16(w_dw) by e and rounds each product to bf16, and
+// sums the k * k terms in bf16, rounding after each add, in (ki, kj) order;
+// then + b_dw and swish in float32; d is stored in float32 and the SE runs
+// in float32 as before; the projection's B operand is bf16(d * g) (the gate
+// scales d, not W_proj) and its A operand bf16(w_proj); the result plus the
+// bias is rounded to bf16, and the residual is added to it and rounded
+// again (the TPU wrapper's bf16 add).  The folded weights stay float32 in
+// global memory and are rounded at use, as the TPU kernel's astype(wd).  The
+// expand's K dimension is padded to 16 (one m16n8k16 step).
+// ops/fused_mbconv.py::mbconv_plain_bf16 is the plain version.
+//
 // Bound: at EffB2's widths the function is bound by its operations, ~85%
 // of them in the 1x1 products, which run here at the 3xTF32 rate (a third
 // of the TF32 peak); the rest (depthwise, swish, SE) runs on the CUDA
 // cores.  The d scratch costs a write and a read of B * E * Ho * Wo floats
 // (855 MB for the 17 expand blocks of EffB2 at B=64 x 10 s), in place of
 // a second expand over every tile's halo.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 // Mirrored by ops/fused_mbconv.py::_Params (ctypes): pointers, then ints.
 // Outside the unnamed namespace: the extern "C" entry point takes it.
 struct MBConvParams {
-  const float* x;
-  float* out;
+  const void* x;   // float or __nv_bfloat16 (bf16)
+  void* out;       // x's dtype
   const float* w_exp;
   const float* b_exp;
   const float* w_dw;
@@ -73,6 +90,7 @@ struct MBConvParams {
   int C, E, S, Co, H, W, Ho, Wo, k, pt, pl;
   int has_expand, has_residual;
   int TH, TW, Ec, Eg, tiles_w, n_tiles, WM;
+  int bf16;        // 1: the bf16 work dtype
 };
 
 namespace {
@@ -89,8 +107,9 @@ __host__ __device__ __forceinline__ int round_up(int n, int m) {
 }
 
 // Shared memory of expand_dw_kernel, in floats (ops/fused_mbconv.py::
-// tile_smem mirrors it): x over the halo [x_rows][ld] (ld: the largest
-// clipped halo, rounded to 32, + 8 so that fragment loads hit 32 banks),
+// tile_smem mirrors it): x over the halo [x_rows][ld] (x_rows: C, or with
+// expand C rounded up to the mma's K step, 8 in TF32 and 16 in bf16; ld: the
+// largest clipped halo, rounded to 32, + 8 so that fragment loads hit 32 banks),
 // the chunk's expanded halo [Ec][ld], w_exp chunks [2][c8][Ec + 8], w_dw
 // chunks [2][k * k][Ec], the depthwise's column sums [Ec][TW].
 struct Pass1Layout {
@@ -100,7 +119,7 @@ struct Pass1Layout {
 __host__ __device__ __forceinline__ Pass1Layout pass1_layout(const MBConvParams& p) {
   Pass1Layout L;
   L.ld = round_up(imin(p.TH + p.k - 1, p.H) * imin(p.TW + p.k - 1, p.W), 32) + 8;
-  L.c8 = round_up(p.C, 8);
+  L.c8 = round_up(p.C, p.bf16 ? 16 : 8);
   L.x_rows = p.has_expand ? L.c8 : p.C;
   L.es = L.x_rows * L.ld;
   L.wexp = L.es + (p.has_expand ? p.Ec * L.ld : 0);
@@ -217,12 +236,70 @@ __device__ __forceinline__ void warp_tile_3xtf32(float (&acc)[4][4],
   }
 }
 
+// bf16 values of the bf16 work dtype, held as floats: v rounded to the
+// nearest bf16 (ties to even).
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc[j] += bf16(A[0:16, 0:K]) bf16(B[0:K, 8j:8j+8]) for j < 4 (K a multiple
+// of 16), where A[m][k] = A_s[k * lda + m] and B[k][n] = B_s[k * ldb + n] *
+// (scale ? scale[k] : 1), both k-major in shared memory, each operand
+// rounded to bf16 as its fragment is packed.  Fragments of m16n8k16:
+// a0 (g, 2t..2t+1), a1 (g + 8, 2t..), a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..);
+// b0 (2t..2t+1, g), b1 (2t + 8..2t + 9, g); g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void warp_tile_bf16(float (&acc)[4][4],
+                                               const float* A_s, int lda,
+                                               const float* B_s, int ldb,
+                                               int K, const float* scale,
+                                               int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    const int ka = k0 + 2 * t;
+    const float* a0 = A_s + ka * lda + g;
+    uint32_t a[4];
+    a[0] = pack_bf16x2(a0[0], a0[lda]);
+    a[1] = pack_bf16x2(a0[8], a0[lda + 8]);
+    a[2] = pack_bf16x2(a0[8 * lda], a0[9 * lda]);
+    a[3] = pack_bf16x2(a0[8 * lda + 8], a0[9 * lda + 8]);
+    float s[4] = {1.f, 1.f, 1.f, 1.f};
+    if (scale != nullptr) {
+      s[0] = scale[ka];
+      s[1] = scale[ka + 1];
+      s[2] = scale[ka + 8];
+      s[3] = scale[ka + 9];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float* bp = B_s + ka * ldb + 8 * j + g;
+      uint32_t b[2];
+      b[0] = pack_bf16x2(bp[0] * s[0], bp[ldb] * s[1]);
+      b[1] = pack_bf16x2(bp[8 * ldb] * s[2], bp[9 * ldb] * s[3]);
+      mma_bf16(acc[j], a, b);
+    }
+  }
+}
+
 // The depthwise of one chunk: channels e0 + [0, ne) of the tile at (r0, c0),
 // from src rows of the clipped halo (row ec of `src` is channel e0 + ec,
 // stride ld; the halo's first row and column on the map are hr0, hc0, its
 // width hcols), weights wd [K * K][Ec].  d to the scratch; the sum of each
-// (channel, column) over the tile's rows to red[ec * TW + tx].
-template <int K>
+// (channel, column) over the tile's rows to red[ec * TW + tx].  BF: the bf16
+// work dtype's depthwise (bf16 products summed in bf16, in (ki, kj) order).
+template <int K, bool BF>
 __device__ __forceinline__ void depthwise_chunk(const MBConvParams& p,
                                                 const float* src, int ld,
                                                 const float* wd, float* red,
@@ -240,7 +317,8 @@ __device__ __forceinline__ void depthwise_chunk(const MBConvParams& p,
       int cofs[K];
       bool cok[K];
 #pragma unroll
-      for (int i = 0; i < K * K; ++i) wt[i / K][i % K] = wd[i * p.Ec + ec];
+      for (int i = 0; i < K * K; ++i)
+        wt[i / K][i % K] = BF ? round_bf16(wd[i * p.Ec + ec]) : wd[i * p.Ec + ec];
 #pragma unroll
       for (int dj = 0; dj < K; ++dj) {
         const int col = ocol - p.pl + dj;
@@ -269,11 +347,21 @@ __device__ __forceinline__ void depthwise_chunk(const MBConvParams& p,
 #pragma unroll
           for (int dj = 0; dj < K; ++dj) win[i][dj] = win[i + 1][dj];
         load_row(r0 + ty - p.pt + K - 1, win[K - 1]);
-        float acc = bias;
+        float acc;
+        if constexpr (BF) {
+          acc = round_bf16(__fmul_rn(wt[0][0], win[0][0]));
 #pragma unroll
-        for (int di = 0; di < K; ++di)
+          for (int i = 1; i < K * K; ++i)
+            acc = round_bf16(__fadd_rn(
+                acc, round_bf16(__fmul_rn(wt[i / K][i % K], win[i / K][i % K]))));
+          acc = __fadd_rn(acc, bias);
+        } else {
+          acc = bias;
 #pragma unroll
-          for (int dj = 0; dj < K; ++dj) acc = fmaf(wt[di][dj], win[di][dj], acc);
+          for (int di = 0; di < K; ++di)
+#pragma unroll
+            for (int dj = 0; dj < K; ++dj) acc = fmaf(wt[di][dj], win[di][dj], acc);
+        }
         const float v = swish(acc);
         dcol[(long)ty * p.Wo] = v;
         sum += v;
@@ -283,8 +371,18 @@ __device__ __forceinline__ void depthwise_chunk(const MBConvParams& p,
   }
 }
 
-template <int K>
+template <bool BF>
+struct Act {
+  using T = float;
+};
+template <>
+struct Act<true> {
+  using T = __nv_bfloat16;
+};
+
+template <int K, bool BF>
 __global__ void __launch_bounds__(NT, 2) expand_dw_kernel(MBConvParams p) {
+  using T = typename Act<BF>::T;
   extern __shared__ __align__(16) float smem[];
   const Pass1Layout L = pass1_layout(p);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -305,16 +403,21 @@ __global__ void __launch_bounds__(NT, 2) expand_dw_kernel(MBConvParams p) {
   const int hcols = max(imin(c0 + p.TW - 1 - p.pl + K, p.W) - hc0, 0);
   const int Ph = hrows * hcols;
   const long plane = (long)p.H * p.W;
-  const float* xb = p.x + (long)b * C * plane;
+  const T* xb = static_cast<const T*>(p.x) + (long)b * C * plane;
 
-  // x over the halo, all channels in one pass, by cp.async (rows past C
-  // zero-filled); it joins the first chunk's group
+  // x over the halo, all channels in one pass (rows past C zero-filled):
+  // float32 by cp.async, joining the first chunk's group; bf16 by loads,
+  // held as floats
   for (int rr = warp; rr < L.x_rows * hrows; rr += NWARP) {
     const int c = rr / hrows, hr = rr - c * hrows;
     float* dst = xs + c * ld + hr * hcols;
-    const float* src = c < C ? xb + c * plane + (long)(hr0 + hr) * p.W + hc0 : xb;
-    for (int hc = lane; hc < hcols; hc += 32)
-      cp_async4(dst + hc, c < C ? src + hc : xb, c < C);
+    const T* src = c < C ? xb + c * plane + (long)(hr0 + hr) * p.W + hc0 : xb;
+    for (int hc = lane; hc < hcols; hc += 32) {
+      if constexpr (BF)
+        dst[hc] = c < C ? __bfloat162float(src[hc]) : 0.f;
+      else
+        cp_async4(dst + hc, c < C ? src + hc : xb, c < C);
+    }
   }
   const int tail = ld - Ph;   // columns past the halo: zero
   for (int i = tid; i < L.x_rows * tail; i += NT) {
@@ -351,19 +454,25 @@ __global__ void __launch_bounds__(NT, 2) expand_dw_kernel(MBConvParams p) {
       for (int wt = warp; wt < n_wt; wt += NWARP) {
         const int mi = wt % mt, ni = wt / mt;
         float acc[4][4] = {};
-        warp_tile_3xtf32(acc, wx + mi * 16, Ec + 8, xs + ni * 32, ld, L.c8,
+        if constexpr (BF)
+          warp_tile_bf16(acc, wx + mi * 16, Ec + 8, xs + ni * 32, ld, L.c8,
                          nullptr, lane);
+        else
+          warp_tile_3xtf32(acc, wx + mi * 16, Ec + 8, xs + ni * 32, ld, L.c8,
+                           nullptr, lane);
         const int e_lo = e0 + mi * 16 + g, e_hi = e_lo + 8;
         const float b_lo = e_lo < e_end ? __ldg(p.b_exp + e_lo) : 0.f;
         const float b_hi = e_hi < e_end ? __ldg(p.b_exp + e_hi) : 0.f;
         float* row_lo = es + (mi * 16 + g) * ld + ni * 32 + 2 * t;
         float* row_hi = row_lo + 8 * ld;
+        // the bf16 work dtype rounds the expanded map to bf16
+        auto out = [](float v) { return BF ? round_bf16(swish(v)) : swish(v); };
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           *reinterpret_cast<float2*>(row_lo + 8 * j) =
-              make_float2(swish(acc[j][0] + b_lo), swish(acc[j][1] + b_lo));
+              make_float2(out(acc[j][0] + b_lo), out(acc[j][1] + b_lo));
           *reinterpret_cast<float2*>(row_hi + 8 * j) =
-              make_float2(swish(acc[j][2] + b_hi), swish(acc[j][3] + b_hi));
+              make_float2(out(acc[j][2] + b_hi), out(acc[j][3] + b_hi));
         }
       }
       __syncthreads();
@@ -372,7 +481,7 @@ __global__ void __launch_bounds__(NT, 2) expand_dw_kernel(MBConvParams p) {
     // depthwise (TF-SAME zeros outside the map), d to the scratch; the
     // tile's per-channel sums, column by column, to partial
     const int ne = imin(Ec, e_end - e0);
-    depthwise_chunk<K>(p, p.has_expand ? es : xs + e0 * ld, ld,
+    depthwise_chunk<K, BF>(p, p.has_expand ? es : xs + e0 * ld, ld,
                        wdw_s + buf * K * K * Ec, red, b, e0, ne, r0, c0, hr0,
                        hc0, hcols, tid);
     __syncthreads();
@@ -426,9 +535,11 @@ __global__ void __launch_bounds__(SE_NT) se_kernel(MBConvParams p) {
 
 // out[b, co, n] = sum_e w_proj[e, co] g[b, e] d[b, e, n] + b_proj[co]
 // (+ x[b, co, n]), n over the Ho * Wo pixels: a BM x BN tile per block,
-// WM x (8 / WM) warps of 16 x 32.
-template <int WM>
+// WM x (8 / WM) warps of 16 x 32.  BF: bf16(w_proj) times bf16(g * d), the
+// result and the residual sum rounded to bf16.
+template <int WM, bool BF>
 __global__ void __launch_bounds__(NT, 2) project_kernel(MBConvParams p) {
+  using T = typename Act<BF>::T;
   constexpr int BM = 16 * WM, BN = 32 * (NWARP / WM), LDA = BM + 8, LDB = BN + 8;
   extern __shared__ __align__(16) float smem[];
   float* As = smem;                  // [2][KC][LDA]  w_proj chunk
@@ -461,14 +572,18 @@ __global__ void __launch_bounds__(NT, 2) project_kernel(MBConvParams p) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    warp_tile_3xtf32(acc, As + buf * KC * LDA + wm * 16, LDA,
+    if constexpr (BF)
+      warp_tile_bf16(acc, As + buf * KC * LDA + wm * 16, LDA,
                      Bs + buf * KC * LDB + wn * 32, LDB, KC, gs + k0, lane);
+    else
+      warp_tile_3xtf32(acc, As + buf * KC * LDA + wm * 16, LDA,
+                       Bs + buf * KC * LDB + wn * 32, LDB, KC, gs + k0, lane);
     __syncthreads();
   }
 
   const int g = lane >> 2, t = lane & 3;
-  const float* xb = p.x + (long)b * Co * P;   // residual: C == Co
-  float* ob = p.out + (long)b * Co * P;
+  const T* xb = static_cast<const T*>(p.x) + (long)b * Co * P;   // residual: C == Co
+  T* ob = static_cast<T*>(p.out) + (long)b * Co * P;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int co = m_blk + wm * 16 + g + 8 * half;
@@ -481,25 +596,58 @@ __global__ void __launch_bounds__(NT, 2) project_kernel(MBConvParams p) {
         const int n = n_blk + wn * 32 + 8 * j + 2 * t + q;
         if (n >= P) continue;
         float v = acc[j][2 * half + q] + bias;
-        if (p.has_residual) v += xb[(long)co * P + n];
-        ob[(long)co * P + n] = v;
+        if constexpr (BF) {
+          v = round_bf16(v);
+          if (p.has_residual) v += __bfloat162float(xb[(long)co * P + n]);
+          ob[(long)co * P + n] = __float2bfloat16_rn(v);
+        } else {
+          if (p.has_residual) v += xb[(long)co * P + n];
+          ob[(long)co * P + n] = v;
+        }
       }
   }
 }
 
-template <int WM>
+template <int WM, bool BF>
 cudaError_t launch_project(const MBConvParams& p, int B, cudaStream_t s) {
   constexpr int BM = 16 * WM, BN = 32 * (NWARP / WM);
   const long smem = 4 * project_smem_floats(WM, p.E);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(project_kernel<WM>,
+    cudaError_t e = cudaFuncSetAttribute(project_kernel<WM, BF>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return e;
   }
   const dim3 grid((p.Ho * p.Wo + BN - 1) / BN, (p.Co + BM - 1) / BM, B);
-  project_kernel<WM><<<grid, NT, smem, s>>>(p);
+  project_kernel<WM, BF><<<grid, NT, smem, s>>>(p);
   return cudaGetLastError();
+}
+
+// The three launches in the work dtype BF (see fused_mbconv_launch).
+template <bool BF>
+cudaError_t launch_all(const MBConvParams& p, int B, long smem1, long se_smem,
+                       cudaStream_t s) {
+  cudaError_t e;
+  auto pass1 = p.k == 3 ? expand_dw_kernel<3, BF> : expand_dw_kernel<5, BF>;
+  if (smem1 > 48 * 1024 &&
+      (e = cudaFuncSetAttribute(pass1, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem1)) != cudaSuccess)
+    return e;
+  if (se_smem > 48 * 1024 &&
+      (e = cudaFuncSetAttribute(se_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)se_smem)) != cudaSuccess)
+    return e;
+  const dim3 grid1(p.n_tiles, (p.E + p.Eg - 1) / p.Eg, B);
+  pass1<<<grid1, NT, smem1, s>>>(p);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  se_kernel<<<B, SE_NT, se_smem, s>>>(p);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  switch (p.WM) {
+    case 1: return launch_project<1, BF>(p, B, s);
+    case 2: return launch_project<2, BF>(p, B, s);
+    default: return launch_project<4, BF>(p, B, s);
+  }
 }
 
 }  // namespace
@@ -522,7 +670,7 @@ extern "C" int fused_mbconv_launch(const MBConvParams* params, int B, void* stre
   if (p.Ec <= 0 || p.Ec % 16 || p.Eg <= 0 || p.Eg % p.Ec || p.TH <= 0 ||
       p.TW <= 0 || (p.k != 3 && p.k != 5) || p.S <= 0 || p.S > SE_NT ||
       (p.has_expand == 0 && p.E != p.C) ||
-      (p.WM != 1 && p.WM != 2 && p.WM != 4))
+      (p.WM != 1 && p.WM != 2 && p.WM != 4) || (p.bf16 != 0 && p.bf16 != 1))
     return (int)cudaErrorInvalidValue;
   const long smem1 = fused_mbconv_smem_bytes(&p, 0);
   const long se_smem = fused_mbconv_smem_bytes(&p, 1);
@@ -530,26 +678,6 @@ extern "C" int fused_mbconv_launch(const MBConvParams* params, int B, void* stre
   if (smem1 > 232448 || se_smem > 232448 || smem3 > 232448)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e;
-  auto pass1 = p.k == 3 ? expand_dw_kernel<3> : expand_dw_kernel<5>;
-  if (smem1 > 48 * 1024 &&
-      (e = cudaFuncSetAttribute(pass1, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem1)) != cudaSuccess)
-    return (int)e;
-  if (se_smem > 48 * 1024 &&
-      (e = cudaFuncSetAttribute(se_kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)se_smem)) != cudaSuccess)
-    return (int)e;
-  const dim3 grid1(p.n_tiles, (p.E + p.Eg - 1) / p.Eg, B);
-  pass1<<<grid1, NT, smem1, s>>>(p);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  se_kernel<<<B, SE_NT, se_smem, s>>>(p);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  switch (p.WM) {
-    case 1: e = launch_project<1>(p, B, s); break;
-    case 2: e = launch_project<2>(p, B, s); break;
-    default: e = launch_project<4>(p, B, s); break;
-  }
-  return (int)e;
+  return (int)(p.bf16 ? launch_all<true>(p, B, smem1, se_smem, s)
+                      : launch_all<false>(p, B, smem1, se_smem, s));
 }

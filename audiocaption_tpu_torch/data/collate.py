@@ -2,8 +2,9 @@
 ``audiocaption_tpu/data/collate.py``; reference
 ``captioning/datasets/collate_func.py``), with its length bucketing:
 padded lengths round up to a multiple of a bucket, so a corpus yields a
-handful of batch shapes.  Batches are numpy; the runner moves them to
-the device.
+handful of batch shapes (a wave by ``buckets``, in samples; a row of
+precomputed features ``[T, D]`` by ``feature_bucket`` frames, as the JAX
+collate does).  Batches are numpy; the runner moves them to the device.
 """
 
 from __future__ import annotations
@@ -39,11 +40,14 @@ class VarLenPadCollate:
     def __init__(self, pad_keys: Sequence[str] = (),
                  sort_key: Optional[str] = None,
                  buckets: Optional[Dict[str, int]] = None,
-                 wire_dtype: Optional[Dict[str, str]] = None):
+                 wire_dtype: Optional[Dict[str, str]] = None,
+                 feature_bucket: int = 16):
         self.pad_keys = list(pad_keys)
         self.sort_key = sort_key
-        # per-key bucket, in samples for a wave (16000 = 1 s at 16 kHz)
+        # per-key bucket, in samples for a wave (16000 = 1 s at 16 kHz);
+        # rows of two or more dimensions (features) by feature_bucket
         self.buckets = buckets or {}
+        self.feature_bucket = feature_bucket
         # per-key compact wire dtype (e.g. {"wav": "float16"}): the
         # padded batch is emitted in this dtype to halve host->device
         # bytes; the runner widens it to float32 on the device
@@ -65,7 +69,9 @@ class VarLenPadCollate:
                 arrs = [np.asarray(v) if wire is None
                         else np.asarray(v).astype(wire, copy=False)
                         for v in vals]
-                padded, lens = pad_sequences(arrs, bucket=self.buckets.get(k))
+                bucket = (self.feature_bucket if arrs[0].ndim >= 2
+                          else self.buckets.get(k))
+                padded, lens = pad_sequences(arrs, bucket=bucket)
                 out[k] = padded
                 out[f"{k}_len"] = lens
             else:
@@ -84,9 +90,11 @@ class TextCollate(VarLenPadCollate):
                  pad_keys: Sequence[str] = (),
                  sort_key: Optional[str] = None,
                  buckets: Optional[Dict[str, int]] = None,
-                 wire_dtype: Optional[Dict[str, str]] = None):
+                 wire_dtype: Optional[Dict[str, str]] = None,
+                 feature_bucket: int = 16):
         pad_keys = [k for k in pad_keys if k != text_key]
-        super().__init__(pad_keys, sort_key, buckets, wire_dtype)
+        super().__init__(pad_keys, sort_key, buckets, wire_dtype,
+                         feature_bucket)
         self.tokenizer = tokenizer
         self.text_key = text_key
 

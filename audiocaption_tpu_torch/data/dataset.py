@@ -21,7 +21,15 @@ numpy.  As in the reference:
   * ``CaptionDataset`` yields one item per (audio_id, cap_id), the
     caption string tokenized later by the collate;
   * ``transforms``, a chain of callables (``data/augment.py``), apply to
-    the wave after the crop or pad, in order.
+    the wave after the crop or pad, in order;
+  * a row may hold precomputed features ``[T, D]`` in place of a wave
+    (the feature-input families): an ``hdf5_path`` row of
+    ``cli/prepare_features.py``'s ``attn.h5``, or a ``file_name`` row
+    ending in ``.npy``, read with ``numpy.load`` (its ``--format npy``;
+    the card machine has no h5py);
+  * ``enable_wav_index(lens)`` switches items to ``{wav_idx, wav_len}``,
+    a row of the device-resident bank (``data/device_bank.py``) in place
+    of the samples (``wav_index_mode``).
 
 ``h5py`` and ``scipy`` are imported where they are used.
 """
@@ -141,6 +149,19 @@ class InferenceDataset:
         self.audio_duration = audio_duration
         self.transforms = list(transforms or [])
         self.cache = _H5Cache()
+        self.wav_index_mode = False
+
+    def enable_wav_index(self, bank_lens: np.ndarray) -> None:
+        """Items carry ``{wav_idx, wav_len}`` from now on: row i of the
+        device bank built over ``audio_ids`` (``build_wav_bank``) and its
+        length, in place of the samples."""
+        self.wav_index_mode = True
+        self._bank_lens = np.asarray(bank_lens, np.int32)
+        self._aid_to_idx = {a: i for i, a in enumerate(self.audio_ids)}
+
+    def _index_item(self, audio_id: str) -> Dict:
+        i = self._aid_to_idx[audio_id]
+        return {"wav_idx": np.int32(i), "wav_len": self._bank_lens[i]}
 
     def __len__(self) -> int:
         return len(self.audio_ids)
@@ -150,7 +171,10 @@ class InferenceDataset:
         """(its rate: a wav file's own, ``orig_sr`` for an h5 row; the
         stored wave)."""
         if self.from_files:
-            return read_wav(self.aid_to_h5[audio_id])
+            path = self.aid_to_h5[audio_id]
+            if path.endswith(".npy"):
+                return None, np.load(path)
+            return read_wav(path)
         return self.orig_sr, self.cache.read(self.aid_to_h5[audio_id],
                                              audio_id)
 
@@ -180,6 +204,8 @@ class InferenceDataset:
 
     def __getitem__(self, index: int) -> Dict:
         aid = self.audio_ids[index]
+        if self.wav_index_mode:
+            return {"audio_id": aid, **self._index_item(aid)}
         return {"audio_id": aid, "wav": self.get_audio(aid)}
 
 
@@ -208,7 +234,10 @@ class CaptionDataset(InferenceDataset):
 
     def __getitem__(self, index: int) -> Dict:
         item = dict(self.items[index])
-        item["wav"] = self.get_audio(item["audio_id"])
+        if self.wav_index_mode:
+            item.update(self._index_item(item["audio_id"]))
+        else:
+            item["wav"] = self.get_audio(item["audio_id"])
         return item
 
 

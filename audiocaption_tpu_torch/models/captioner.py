@@ -52,21 +52,34 @@ from audiocaption_tpu_torch.ops.specaug import spec_augment
 
 
 class Captioner(nn.Module):
-    """Waveform -> caption model (inference)."""
+    """Waveform -> caption model.  ``input_mode`` says what the first
+    input is, as in the JAX ``Captioner``: "mel", a waveform, through the
+    log-mel frontend first; "features", precomputed features ``[B, T, D]``
+    with their lengths (``cli/prepare_features.py``; the feature-input
+    encoders ``RnnEncoder``, ``AudioTransformerEncoder``,
+    ``M2TransformerEncoder``), straight into the encoder: no frontend,
+    no SpecAugment."""
 
     def __init__(self, encoder: nn.Module, decoder: nn.Module,
-                 mel: MelConfig, special: SpecialTokens = SpecialTokens()):
+                 mel: MelConfig, special: SpecialTokens = SpecialTokens(),
+                 input_mode: str = "mel"):
         super().__init__()
+        if input_mode not in ("mel", "features"):
+            raise ValueError(f"input_mode must be 'mel' or 'features', not "
+                             f"{input_mode!r}")
         self.frontend = LogMelFrontend(mel)
         self.encoder = encoder
         self.decoder = decoder
         self.mel = mel
         self.special = special
+        self.input_mode = input_mode
 
     def encode(self, wav: torch.Tensor, wav_len: torch.Tensor,
                specaug: bool = False,
                specaug_generator: Optional[torch.Generator] = None
                ) -> Dict[str, torch.Tensor]:
+        if self.input_mode == "features":
+            return self.encoder(wav, wav_len)
         return self.encode_lms(self.log_mel(wav, specaug, specaug_generator),
                                self.mel.feat_len(wav_len))
 

@@ -51,7 +51,8 @@ class RnnEncoder(nn.Module):
         self.network = GRU(input_size, hidden_size, num_layers=num_layers,
                            bidirectional=bidirectional, dropout=dropout)
         self.dropout, self.pooling = dropout, pooling
-        self.out_size = hidden_size * (2 if bidirectional else 1)
+        self.out_size = self.fc_emb_size = hidden_size * (2 if bidirectional
+                                                          else 1)
 
     def forward(self, attn: torch.Tensor, attn_len: torch.Tensor
                 ) -> Dict[str, torch.Tensor]:

@@ -14,6 +14,7 @@ from audiocaption_tpu_torch.models.encoders_extra import (
     AudioTransformerEncoder, Cdur5Encoder)
 from audiocaption_tpu_torch.models.hm_classifier import HmClassifier
 from audiocaption_tpu_torch.models.layers import MultiheadAttention
+from audiocaption_tpu_torch.models.m2 import M2Attention
 from audiocaption_tpu_torch.models.rnn_decoder import (
     Seq2SeqAttention, TemporalBahAttnDecoder)
 from audiocaption_tpu_torch.models.rnn_encoder import Cnn14RnnEncoder
@@ -120,7 +121,9 @@ def random_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
     linears, Xavier-uniform embeddings and packed attention projections,
     torch-default uniform GRUs, a standard-normal additive-attention
     ``v``, Xavier-uniform CLS tokens and discriminator word tables,
-    identity normalisation.  The positional table stays
+    identity normalisation; the M2 modules' linears Xavier-uniform with
+    zero biases (``xavier_init``) and their memory slots from N(0, (1 /
+    d_k)^2) and N(0, (1 / m)^2), as the JAX modules draw them.  The positional table stays
     sinusoidal."""
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
@@ -128,6 +131,9 @@ def random_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
             m.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, nn.Linear) and getattr(m, "xavier_init", False):
+            _xavier_uniform(m.weight, generator)
+            m.bias.zero_()
         elif isinstance(m, nn.Linear):
             bound = 1.0 / math.sqrt(m.in_features)
             m.weight.uniform_(-bound, bound, generator=generator)
@@ -144,6 +150,10 @@ def random_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 p.uniform_(-bound, bound, generator=generator)
         elif isinstance(m, Seq2SeqAttention):
             m.v.normal_(0.0, 1.0, generator=generator)
+        elif isinstance(m, M2Attention) and m.n_memory:
+            d_k = m.d_model // m.nhead
+            m.m_k.normal_(0.0, 1.0 / d_k, generator=generator)
+            m.m_v.normal_(0.0, 1.0 / m.n_memory, generator=generator)
         elif isinstance(m, AudioTransformerEncoder):
             _xavier_uniform(m.cls_token, generator)
         elif isinstance(m, HmClassifier):

@@ -24,6 +24,20 @@ on the tensor cores in a 3xTF32 split (float32 accuracy from TF32
 operands); ``mbconv_split_tf32`` emulates that split on the CPU and
 ``plan_tiles`` picks the kernel's tiles, both in pure Python.
 
+The work dtype is the input's, as in the TPU kernel (``wd =
+x_ref.dtype``, ``pallas_mbconv.py:122``).  A bfloat16 ``x`` (the bf16
+EffB2 encoder's) rounds where the TPU kernel rounds: the 1x1 expand is a
+product of bf16 ``x`` and bf16 ``w_exp`` summed in float32, plus the bias,
+swish in float32, then bf16; the depthwise sums bf16 products of that and
+bf16 ``w_dw`` in bf16, term by term in (ki, kj) order; ``+ b_dw`` and
+swish in float32; the SE all float32; ``d * gate`` rounded to bf16; the
+projection a product of it and bf16 ``w_proj`` summed in float32, plus
+the bias, rounded to bf16; the residual added to that (the TPU wrapper's
+bf16 add).  The folded weights stay float32, as the JAX kernel receives
+them: ``w_exp``, ``w_dw`` and ``w_proj`` are rounded to bf16 where they
+are used (the kernel's ``astype(wd)``), the biases and the SE weights
+never.  The output is bf16.
+
 The JAX kernel zero-pads the block's *input* and expands the padded map,
 so its border holds ``swish(b_exp)`` where the block pads the expanded map
 with zeros; it agrees with the block only where the folded expand bias is
@@ -133,9 +147,53 @@ def _mbconv(x, weights, spec, expand: Callable, project: Callable):
 def mbconv_plain(x: torch.Tensor, weights: Dict[str, torch.Tensor],
                  spec: MBConvSpec) -> torch.Tensor:
     """Plain PyTorch version of the folded block, any stride:
-    x [B, C, H, W] -> [B, Co, Ho, Wo] (counterpart of ``xla_mbconv``)."""
+    x [B, C, H, W] -> [B, Co, Ho, Wo] (counterpart of ``xla_mbconv``), in
+    the work dtype of ``x``: float32, or bfloat16 with the TPU kernel's
+    rounding points (:func:`mbconv_plain_bf16`)."""
+    if x.dtype == torch.bfloat16:
+        return mbconv_plain_bf16(x, weights, spec)
     return _mbconv(x, weights, spec, _conv1x1,
                    lambda d, g, w, b: _conv1x1(d * g[:, :, None, None], w, b))
+
+
+def _bf16(v: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest bf16 value (ties to even), as float32."""
+    return v.to(torch.bfloat16).float()
+
+
+def mbconv_plain_bf16(x: torch.Tensor, weights: Dict[str, torch.Tensor],
+                      spec: MBConvSpec) -> torch.Tensor:
+    """The folded block in the bf16 work dtype (see the module docstring),
+    any stride: x [B, C, H, W] bfloat16 -> bfloat16.  The 1x1 products of
+    bf16 values run in float32 (each product exact, float32 sums), the
+    depthwise's sum in bf16, term by term."""
+    pt, pb, pl, pr = spec.pad
+    s = spec.stride
+    x32 = x.float()
+    e = x
+    if spec.has_expand:
+        e = F.silu(_conv1x1(x32, _bf16(weights["w_exp"]), weights["b_exp"])
+                   ).to(torch.bfloat16)
+    e = F.pad(e, (pl, pr, pt, pb))
+    k = spec.kernel
+    Ho = (e.shape[2] - k) // s + 1
+    Wo = (e.shape[3] - k) // s + 1
+    w_dw = weights["w_dw"].to(torch.bfloat16)
+    acc = None
+    for ki in range(k):
+        for kj in range(k):
+            part = e[:, :, ki:ki + s * (Ho - 1) + 1:s,
+                     kj:kj + s * (Wo - 1) + 1:s]
+            term = part * w_dw[ki, kj][None, :, None, None]
+            acc = term if acc is None else acc + term
+    d = F.silu(acc.float() + weights["b_dw"][None, :, None, None])
+    se = F.silu(d.mean(dim=(2, 3)) @ weights["w_ser"] + weights["b_ser"])
+    g = torch.sigmoid(se @ weights["w_see"] + weights["b_see"])
+    dg = _bf16(d * g[:, :, None, None])
+    p = _bf16(_conv1x1(dg, _bf16(weights["w_proj"]), weights["b_proj"]))
+    if spec.has_residual:
+        p = p + x32
+    return p.to(torch.bfloat16)
 
 
 def round_tf32(v: torch.Tensor) -> torch.Tensor:
@@ -186,7 +244,7 @@ _PTRS = ("x", "out", "w_exp", "b_exp", "w_dw", "b_dw", "w_ser", "b_ser",
          "w_see", "b_see", "w_proj", "b_proj", "d", "partial", "gate")
 _INTS = ("C", "E", "S", "Co", "H", "W", "Ho", "Wo", "k", "pt", "pl",
          "has_expand", "has_residual", "TH", "TW", "Ec", "Eg", "tiles_w",
-         "n_tiles", "WM")
+         "n_tiles", "WM", "bf16")
 
 
 class _Params(ctypes.Structure):
@@ -221,15 +279,21 @@ class TilePlan(NamedTuple):
     proj_smem: int   # bytes of shared memory of the projection block
 
 
+def k_step(bf16: bool) -> int:
+    """The mma's K step: 8 (TF32 m16n8k8), 16 (bf16 m16n8k16)."""
+    return 16 if bf16 else 8
+
+
 def tile_smem(spec: MBConvSpec, H: int, W: int, TH: int, TW: int,
-              Ec: int) -> int:
+              Ec: int, bf16: bool = False) -> int:
     """Shared memory of one expand/depthwise block, as the kernel lays it
     out (``Pass1Layout``): x over the largest clipped halo for all C
-    channels (rounded to 8 with expand), the chunk's expanded halo, two
-    w_exp and two w_dw chunks, the depthwise's column sums."""
+    channels (rounded to the mma's K step with expand), the chunk's
+    expanded halo, two w_exp and two w_dw chunks, the depthwise's column
+    sums; floats in both work dtypes (bf16 values are staged as floats)."""
     k, C = spec.kernel, spec.in_ch
     ld = _up(min(TH + k - 1, H) * min(TW + k - 1, W), 32) + 8
-    c8 = _up(C, 8)
+    c8 = _up(C, k_step(bf16))
     floats = (c8 * ld + Ec * ld + 2 * c8 * (Ec + 8) if spec.has_expand
               else C * ld)
     return 4 * (floats + 2 * k * k * Ec + Ec * TW)
@@ -255,7 +319,7 @@ def project_smem(spec: MBConvSpec, WM: int) -> int:
 
 
 def _pass1_cost(spec: MBConvSpec, B: int, H: int, W: int, TH: int, TW: int,
-                Ec: int, G: int, smem: int) -> float:
+                Ec: int, G: int, smem: int, bf16: bool = False) -> float:
     """Rough time of the expand/depthwise launch, in warp instructions per
     SM scheduler: per block, x staged once and per chunk the expand (one
     16 x 32 warp tile takes ~60 instructions a k-step of 8: fragment loads,
@@ -266,7 +330,7 @@ def _pass1_cost(spec: MBConvSpec, B: int, H: int, W: int, TH: int, TW: int,
     k, C, E = spec.kernel, spec.in_ch, spec.exp_ch
     Ho, Wo = _out_hw(spec, H, W)
     ph = _up(min(TH + k - 1, H) * min(TW + k - 1, W), 32)
-    c8 = _up(C, 8)
+    c8 = _up(C, k_step(bf16))
     n_tiles = -(-Ho // TH) * -(-Wo // TW)
     chunks = -(-(-(-E // Ec)) // G)
     expand = (-(-(Ec // 16) * (ph // 32) // 8) * 8 * (c8 // 8) * 60
@@ -282,10 +346,12 @@ def _pass1_cost(spec: MBConvSpec, B: int, H: int, W: int, TH: int, TW: int,
 
 
 @functools.lru_cache(maxsize=None)
-def plan_tiles(spec: MBConvSpec, B: int, H: int, W: int) -> TilePlan:
+def plan_tiles(spec: MBConvSpec, B: int, H: int, W: int,
+               bf16: bool = False) -> TilePlan:
     """Pick the expand/depthwise tile (TH x TW output pixels), chunk Ec and
     channel group Eg of one block shape by :func:`_pass1_cost`, within
-    shared memory, and the projection's warp layout by the output width."""
+    shared memory (in the bf16 work dtype the expand's K padded to 16),
+    and the projection's warp layout by the output width."""
     k, E = spec.kernel, spec.exp_ch
     Ho, Wo = _out_hw(spec, H, W)
     ths = sorted({-(-Ho // m) for m in range(1, min(Ho, 8) + 1)})
@@ -295,7 +361,7 @@ def plan_tiles(spec: MBConvSpec, B: int, H: int, W: int) -> TilePlan:
     for TH in ths:
         for TW in tws:
             for Ec in ecs:
-                smem = tile_smem(spec, H, W, TH, TW, Ec)
+                smem = tile_smem(spec, H, W, TH, TW, Ec, bf16)
                 if smem > SMEM_LIMIT:
                     continue
                 n_chunks = -(-E // Ec)
@@ -304,7 +370,7 @@ def plan_tiles(spec: MBConvSpec, B: int, H: int, W: int) -> TilePlan:
                         break
                     Eg = -(-n_chunks // G) * Ec
                     cost = _pass1_cost(spec, B, H, W, TH, TW, Ec,
-                                       -(-E // Eg), smem)
+                                       -(-E // Eg), smem, bf16)
                     if cost < best_cost:
                         best, best_cost = (TH, TW, Ec, Eg, smem), cost
     if best is None:
@@ -315,10 +381,12 @@ def plan_tiles(spec: MBConvSpec, B: int, H: int, W: int) -> TilePlan:
 
 def fused_mbconv_s1(x: torch.Tensor, weights: Dict[str, torch.Tensor],
                     spec: MBConvSpec) -> torch.Tensor:
-    """Stride-1 folded MBConv block, x [B, C, H, W] float32 -> [B, Co, Ho,
-    Wo].  CUDA tensors launch ``csrc/fused_mbconv.cu`` (three launches:
-    expand + depthwise storing d and the SE partial sums, the SE MLP, the
-    gated projection); CPU tensors run :func:`mbconv_plain`."""
+    """Stride-1 folded MBConv block, x [B, C, H, W] float32 or bfloat16 (the
+    work dtype, see the module docstring) -> [B, Co, Ho, Wo] in x's dtype;
+    the folded weights float32.  CUDA tensors launch
+    ``csrc/fused_mbconv.cu`` (three launches: expand + depthwise storing d
+    and the SE partial sums, the SE MLP, the gated projection); CPU
+    tensors run :func:`mbconv_plain`."""
     if spec.stride != 1:
         raise ValueError("fused_mbconv_s1 runs stride-1 blocks only")
     if spec.kernel not in (3, 5):
@@ -332,11 +400,15 @@ def fused_mbconv_s1(x: torch.Tensor, weights: Dict[str, torch.Tensor],
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     names = (("w_exp", "b_exp") if spec.has_expand else ()) + _PTRS[4:12]
-    if x.dtype != torch.float32 or not x.is_contiguous() or not all(
-            weights[n].device == x.device and weights[n].dtype == torch.float32
-            and weights[n].is_contiguous() for n in names):
-        raise ValueError("x and the folded weights must be contiguous float32 "
-                         "tensors on one CUDA device")
+    if x.dtype not in (torch.float32, torch.bfloat16) or \
+            not x.is_contiguous() or not all(
+                weights[n].device == x.device
+                and weights[n].dtype == torch.float32
+                and weights[n].is_contiguous() for n in names):
+        raise ValueError("x (float32 or bfloat16) and the folded weights "
+                         "(float32) must be contiguous tensors on one CUDA "
+                         "device")
+    bf16 = x.dtype == torch.bfloat16
     B, C, H, W = x.shape
     E, Co = spec.exp_ch, spec.out_ch
     Ho, Wo = _out_hw(spec, H, W)
@@ -344,7 +416,7 @@ def fused_mbconv_s1(x: torch.Tensor, weights: Dict[str, torch.Tensor],
         raise ValueError("a residual block keeps its shape")
     if not spec.has_expand and E != C:
         raise ValueError("a block without expand has exp_ch == in_ch")
-    plan = plan_tiles(spec, B, H, W)
+    plan = plan_tiles(spec, B, H, W, bf16)
     squeeze = weights["w_ser"].shape[1]
     if squeeze > SE_NT or max(plan.smem, plan.proj_smem,
                               se_smem(spec, squeeze)) > SMEM_LIMIT:
@@ -352,7 +424,7 @@ def fused_mbconv_s1(x: torch.Tensor, weights: Dict[str, torch.Tensor],
                          "SE threads) than a block has")
     tiles_w = -(-Wo // plan.TW)
     n_tiles = -(-Ho // plan.TH) * tiles_w
-    out = torch.empty(B, Co, Ho, Wo, dtype=torch.float32, device=x.device)
+    out = torch.empty(B, Co, Ho, Wo, dtype=x.dtype, device=x.device)
     d = torch.empty(B, E, Ho, Wo, dtype=torch.float32, device=x.device)
     partial = torch.empty(B, n_tiles, E, dtype=torch.float32, device=x.device)
     gate = torch.empty(B, E, dtype=torch.float32, device=x.device)
@@ -362,7 +434,7 @@ def fused_mbconv_s1(x: torch.Tensor, weights: Dict[str, torch.Tensor],
         C, E, squeeze, Co, H, W, Ho, Wo, spec.kernel,
         spec.pad[0], spec.pad[2], int(spec.has_expand),
         int(spec.has_residual), plan.TH, plan.TW, plan.Ec, plan.Eg, tiles_w,
-        n_tiles, plan.WM)
+        n_tiles, plan.WM, int(bf16))
     lib = cuda_build.load("fused_mbconv", _SIGNATURES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.fused_mbconv_launch(ctypes.byref(params), B, stream)
@@ -379,12 +451,12 @@ def folded_blocks(encoder, kernel: bool = True) -> List[Callable]:
     BN folded once here: stride-1 blocks through :func:`fused_mbconv_s1`
     when ``kernel``, every other block (and all of them otherwise) through
     :func:`mbconv_plain`.  Pass the list as ``encoder(lms, feat_len,
-    blocks=...)``.  The walk is float32: the kernel's bf16 work dtype
-    (the TPU kernel's, ``pallas_mbconv.py:122``) is not ported, so a
-    bf16 encoder raises."""
-    if encoder.compute_dtype != torch.float32:
-        raise ValueError("the folded MBConv walk runs float32 encoders only "
-                         "(the kernel's bf16 work dtype is not ported)")
+    blocks=...)``.  The work dtype is the activations': a bf16 encoder's
+    blocks receive bf16 maps and run in the bf16 work dtype (the TPU
+    kernel's, ``pallas_mbconv.py:122``).  BN is folded in float32 either
+    way and the packed weights stay float32, as the JAX ``pack_mbconv``
+    hands them to its kernel; the bf16 rounding of ``w_exp``, ``w_dw`` and
+    ``w_proj`` happens at use (module docstring)."""
     fns = []
     for block in encoder._blocks:
         spec = spec_of(block)

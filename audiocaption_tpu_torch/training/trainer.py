@@ -13,6 +13,13 @@ learning-rate count, and no batch-norm running statistic.  Torch updates
 those statistics inside the forward, so the step copies the model's
 buffers before it and writes them back on a skip.
 
+A batch of a device-resident corpus (``data/device_bank.py``) carries
+``wav_idx`` and the bank, ``wav_bank``, in place of ``wav``: the step
+gathers the rows on the device (:func:`batch_wav`).  A wave (or feature
+row) that arrives as float16, bfloat16 or int16 (the collate's
+``wire_dtype``, a float16 bank) is widened to float32 first, int16 /
+32768, as in the JAX step.
+
 Only ``nn.Parameter``s with ``requires_grad`` train; the decoder's
 positional table ``pe`` is a buffer, so neither Adam nor the weight
 decay ever sees it (the JAX optimizer masks it out by name).
@@ -26,6 +33,7 @@ from typing import Callable, Dict, List, Optional, Union
 import torch
 from torch import nn
 
+from audiocaption_tpu_torch.data.device_bank import bank_rows
 from audiocaption_tpu_torch.optim.schedules import Schedule, lambda_lr
 
 
@@ -42,6 +50,15 @@ class TrainState:
     @property
     def lr_count(self) -> int:
         return self.scheduler.last_epoch
+
+    def restore_count(self, count: int) -> None:
+        """Set the update count (a full resume's ``lr_count``) and the
+        learning rate it gives."""
+        self.scheduler.last_epoch = count
+        for group, base, fn in zip(self.optimizer.param_groups,
+                                   self.scheduler.base_lrs,
+                                   self.scheduler.lr_lambdas):
+            group["lr"] = base * fn(count)
 
     @property
     def params(self) -> List[nn.Parameter]:
@@ -85,6 +102,21 @@ def mark_part(mark: Mark, name: str) -> None:
 COND_KEYS = ("condition", "style", "structure")
 
 
+def batch_wav(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``batch`` with its ``wav`` in float32: gathered from ``wav_bank``
+    by ``wav_idx`` when the batch carries them (both keys then dropped),
+    a float16 / bfloat16 wave widened, an int16 one / 32768."""
+    if "wav_idx" in batch:
+        batch = dict(batch)
+        batch["wav"] = bank_rows(batch.pop("wav_bank"), batch.pop("wav_idx"))
+    wav = batch["wav"]
+    if wav.dtype in (torch.float16, torch.bfloat16):
+        batch = dict(batch, wav=wav.float())
+    elif wav.dtype == torch.int16:
+        batch = dict(batch, wav=wav.float() / 32768.0)
+    return batch
+
+
 def train_step(state: TrainState, loss_fn: Callable[[Dict], torch.Tensor],
                batch: Dict[str, torch.Tensor],
                ss_ratio: Union[float, torch.Tensor] = 1.0,
@@ -106,6 +138,7 @@ def train_step(state: TrainState, loss_fn: Callable[[Dict], torch.Tensor],
     SpecAugment on the log-mel.  ``mark(name)``, if given, is called after
     the forward and loss ("forward"), the backward and clip ("backward")
     and the optimizer ("optimizer"), for the caller's timers."""
+    batch = batch_wav(batch)
     model = state.model
     model.train()
     buffers = bn_buffers(model)

@@ -14,6 +14,7 @@ import copy
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 
@@ -71,6 +72,10 @@ def short_type(type_name: str) -> str:
     return type_name.split(".")[-1]
 
 
+# the encoders over precomputed features (``input_mode`` "features")
+FEATURE_ENCODERS = ("RnnEncoder", "TransformerEncoder",
+                    "AudioTransformerEncoder", "M2TransformerEncoder")
+
 # the GRU decoders the builder takes (every one of the JAX builder's)
 RNN_DECODERS = ("BahAttnCatFcDecoder", "TemporalBahAttnDecoder",
                 "BahAttnAddFcDecoder", "BahAttnDecoder",
@@ -81,7 +86,8 @@ RNN_DECODERS = ("BahAttnCatFcDecoder", "TemporalBahAttnDecoder",
 
 def build_model_from_config(model_cfg: Dict,
                             vocab_size: Optional[int] = None,
-                            compute_dtype: torch.dtype = torch.float32
+                            compute_dtype: torch.dtype = torch.float32,
+                            input_dim: Optional[int] = None
                             ) -> Tuple[torch.nn.Module, List[Tuple]]:
     """A ``Captioner`` from a reference-style model node, with the
     defaults of the JAX package's ``build_model_from_config``, for the
@@ -92,11 +98,22 @@ def build_model_from_config(model_cfg: Dict,
     ``Cnn10Encoder``, ``MobileNetV2`` / ``MobileNetV2Encoder``,
     ``Cdur5Encoder``, ``Cdur8Encoder`` and ``Cnn14TransformerEncoder``
     (its ``transformer`` node's ``d_model`` 512 and ``nlayers`` 2; an
-    ``encoder.cnn.pretrained`` loads into its Cnn14).  Decoders: the
-    ``TransformerDecoder`` and every GRU decoder (:data:`RNN_DECODERS`),
-    at any ``num_layers``.  A GRU decoder's memory and fc widths are the
-    encoder's own (flax infers them in the JAX package, whatever the
-    config's ``attn_emb_dim`` / ``fc_emb_dim`` say).  As in the JAX
+    ``encoder.cnn.pretrained`` loads into its Cnn14); over precomputed
+    features (``input_mode`` "features"), ``RnnEncoder``,
+    ``AudioTransformerEncoder`` (``TransformerEncoder`` is its other
+    name) and ``M2TransformerEncoder``.  A feature encoder's input width
+    is ``encoder.args.input_dim`` when the config gives it, else
+    ``input_dim`` (the runner reads it off the first row of the data:
+    flax infers it, torch needs it up front: :func:`feature_input_dim`).
+    An ``EfficientNetB2`` with ``args.prune_ratio`` is built full here;
+    :func:`apply_pruning` prunes it once the pretrained weights are in, as
+    the JAX runner does.  Decoders: the ``TransformerDecoder``, the
+    ``M2TransformerDecoder`` (on an M2 encoder only; its width the
+    decoder's ``attn_emb_dim``, its gates one per encoder layer) and
+    every GRU decoder (:data:`RNN_DECODERS`), at any ``num_layers``.  A
+    GRU decoder's memory and fc widths are the encoder's own (flax infers
+    them in the JAX package, whatever the config's ``attn_emb_dim`` /
+    ``fc_emb_dim`` say).  As in the JAX
     builder, ``compute_dtype`` reaches the EffB2, the Cnn14s and the
     transformer decoder only.  The model's own type is read as the JAX
     package reads it: every type but the style models is a plain
@@ -113,7 +130,10 @@ def build_model_from_config(model_cfg: Dict,
     from audiocaption_tpu_torch.models.captioner import Captioner
     from audiocaption_tpu_torch.models.cnn14 import Cnn14Encoder
     from audiocaption_tpu_torch.models.effb2 import EfficientNetB2
-    from audiocaption_tpu_torch.models.rnn_encoder import Cnn14RnnEncoder
+    from audiocaption_tpu_torch.models.m2 import (
+        M2TransformerDecoder, M2TransformerEncoder)
+    from audiocaption_tpu_torch.models.rnn_encoder import (
+        Cnn14RnnEncoder, RnnEncoder)
     from audiocaption_tpu_torch.models.transformer_decoder import (
         TransformerDecoder)
     from audiocaption_tpu_torch.ops.frontend import (
@@ -131,6 +151,14 @@ def build_model_from_config(model_cfg: Dict,
                 else CNN14_MEL_16K)
 
     mel = mel_of(enc_args)
+    input_mode = "mel"
+    if enc_type in FEATURE_ENCODERS:
+        input_mode = "features"
+        in_dim = enc_args.get("input_dim", input_dim)
+        if in_dim is None:
+            raise ValueError(f"encoder {enc_type!r} reads precomputed "
+                             "features: give encoder.args.input_dim or the "
+                             "width of the data's rows (input_dim)")
     if enc_type in ("CrnnEncoder", "Cnn14RnnEncoder"):
         cnn_cfg, rnn_cfg = enc_cfg.get("cnn", {}), enc_cfg.get("rnn", {})
         cnn_args = cnn_cfg.get("args") or {}
@@ -170,20 +198,30 @@ def build_model_from_config(model_cfg: Dict,
             pretrained.append(("encoder.cnn", enc_cfg["cnn"]["pretrained"],
                                "cnn14"))
     elif enc_type == "EfficientNetB2":
-        if enc_args.get("prune_ratio"):
-            raise ValueError("training a pruned encoder (encoder.args."
-                             "prune_ratio) is not ported yet (ROADMAP Queue "
-                             "1 item 6c)")
         encoder = EfficientNetB2(compute_dtype=compute_dtype)
         mel = EFFB2_MEL_16K
         if enc_cfg.get("pretrained"):
             pretrained.append(("encoder", enc_cfg["pretrained"], "effb2"))
-    elif enc_type in ("RnnEncoder", "TransformerEncoder",
-                      "AudioTransformerEncoder", "M2TransformerEncoder"):
-        raise ValueError(f"encoder type {enc_type!r} reads precomputed "
-                         "features (input_mode 'features'), which need "
-                         "prepare_features: not ported yet (ROADMAP Queue 1 "
-                         "item 6c)")
+    elif enc_type == "RnnEncoder":
+        encoder = RnnEncoder(
+            in_dim, hidden_size=enc_args.get("hidden_size", 512),
+            num_layers=enc_args.get("num_layers", 1),
+            bidirectional=enc_args.get("bidirectional", False),
+            dropout=enc_args.get("dropout", 0.2),
+            pooling=enc_args.get("pooling", "mean"))
+    elif enc_type in ("TransformerEncoder", "AudioTransformerEncoder"):
+        encoder = EX.AudioTransformerEncoder(
+            in_dim, d_model=enc_args.get("d_model", 512),
+            nlayers=enc_args.get("nlayers", 2), nhead=enc_args.get("nhead"),
+            dim_feedforward=enc_args.get("dim_feedforward"),
+            dropout=enc_args.get("dropout", 0.2))
+    elif enc_type == "M2TransformerEncoder":
+        encoder = M2TransformerEncoder(
+            in_dim, d_model=enc_args.get("d_model", 512),
+            nlayers=enc_args.get("nlayers", 2), nhead=enc_args.get("nhead"),
+            dim_feedforward=enc_args.get("dim_feedforward"),
+            dropout=enc_args.get("dropout", 0.1),
+            n_memory=enc_args.get("m", 40), compute_dtype=compute_dtype)
     else:
         raise ValueError(f"encoder type {enc_type!r} is not ported yet "
                          "(ROADMAP Queue 1 item 8)")
@@ -205,6 +243,17 @@ def build_model_from_config(model_cfg: Dict,
             tie_weights=dec_args.get("tie_weights", False),
             dropout=dec_args.get("dropout", 0.2),
             compute_dtype=compute_dtype)
+    elif dec_type == "M2TransformerDecoder":
+        if not isinstance(encoder, M2TransformerEncoder):
+            raise ValueError("M2TransformerDecoder requires an "
+                             "M2TransformerEncoder")
+        decoder = M2TransformerDecoder(
+            emb_dim=dec_args.get("attn_emb_dim", attn_width),
+            vocab_size=vocab, nlayers=dec_args.get("nlayers", 2),
+            nhead=dec_args.get("nhead"),
+            dim_feedforward=dec_args.get("dim_feedforward"),
+            dropout=dec_args.get("dropout", 0.1),
+            n_enc_levels=encoder.nlayers, compute_dtype=compute_dtype)
     elif dec_type in RNN_DECODERS:
         decoder = getattr(rnn_decoder, dec_type)(
             emb_dim=dec_args.get("emb_dim", 512), vocab_size=vocab,
@@ -223,5 +272,45 @@ def build_model_from_config(model_cfg: Dict,
         raise ValueError(f"model type {model_type!r} is not ported yet "
                          "(ROADMAP Queue 1 item 8)")
     model = Captioner(encoder=encoder, decoder=decoder, mel=mel,
-                      special=SpecialTokens())
+                      special=SpecialTokens(), input_mode=input_mode)
     return model, pretrained
+
+
+def feature_input_dim(model_cfg: Dict, dataset) -> Optional[int]:
+    """The input width a feature encoder of ``model_cfg`` takes when the
+    config gives no ``encoder.args.input_dim``: the last dimension of the
+    dataset's first row; None for any other encoder, or when the config
+    gives it."""
+    if short_type(model_cfg.get("type", "")) == "ScstWrapper":
+        model_cfg = model_cfg["model"]
+    enc = model_cfg["encoder"]
+    if short_type(enc["type"]) not in FEATURE_ENCODERS or \
+            (enc.get("args") or {}).get("input_dim") is not None:
+        return None
+    return int(np.shape(dataset.get_audio(dataset.audio_ids[0]))[-1])
+
+
+def apply_pruning(model, model_cfg: Dict) -> bool:
+    """Prune ``model``'s EffB2 encoder in place when ``model_cfg``'s
+    ``encoder.args.prune_ratio`` asks for it (``models/effb2.py::
+    build_pruned_effb2`` with ``prune_start_layer``, ``prune_se``,
+    ``prune_method`` and ``prune_head``, the JAX runner's defaults 0,
+    True, "operator_norm", False); returns whether it did.  The pruned
+    encoder is left in ``train()`` mode if the model was."""
+    from audiocaption_tpu_torch.models.effb2 import (
+        EfficientNetB2, build_pruned_effb2)
+    if short_type(model_cfg.get("type", "")) == "ScstWrapper":
+        model_cfg = model_cfg["model"]
+    args = model_cfg["encoder"].get("args") or {}
+    if not args.get("prune_ratio"):
+        return False
+    if not isinstance(model.encoder, EfficientNetB2):
+        raise ValueError("prune_ratio is only supported for EfficientNetB2")
+    mode = model.encoder.training
+    model.encoder = build_pruned_effb2(
+        model.encoder, args["prune_ratio"],
+        prune_start_layer=args.get("prune_start_layer", 0),
+        prune_se=args.get("prune_se", True),
+        method=args.get("prune_method", "operator_norm"),
+        prune_head=args.get("prune_head", False)).train(mode)
+    return True

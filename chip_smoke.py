@@ -268,7 +268,26 @@ Phases, each of which must pass (none is caught and skipped):
      ``SpecificityLossWrapper`` on a word-specificity ``.npy`` of the
      corpus vocabulary; ``StructBahAttnDecoder``: losses finite, the
      condition term moved by the steps, and a decode through
-     ``RandomConditionDataset`` (random structure ids for the last).
+     ``RandomConditionDataset`` (random structure ids for the last);
+ 28. the MBConv kernel's bf16 work dtype and the feature-input path:
+     (a) phase 13's bf16 EffB2 walked on folded weights
+     (``bf16_walk``): each of the 19 stride-1 blocks through the kernel in
+     bf16 against ``mbconv_plain`` in bf16 within 1e-2 * max(1, max
+     |plain|), the walked ``attn_emb`` against the bf16 cuDNN encoder's
+     within twice the bf16 encoder's own distance from float32, the
+     greedy captions of phase 4's clips through each (equal, or every
+     divergence where the bf16 model's margin is below bf16's move of
+     it), the 19 blocks timed beside the plain version, the bf16 cuDNN
+     blocks and the bound; (b)-(g) on a reduced corpus v1 (64 / 16 / 16
+     clips, ``feature_path``): a ``cnn14rnn_trm`` experiment and
+     ``prepare_features --format npy`` of it (the log-mel kernel), M2 at
+     ``m2_trm.yaml``'s width with device-resident banks and the
+     prefetcher, its full resume (epoch, update count, optimizer state),
+     ``test_m2.yaml`` through ``Runner.evaluate``, an
+     ``AudioTransformerEncoder`` + ``TransformerDecoder`` on the same
+     features (its val score through the greedy kernel, its evaluate
+     through the beam kernel) and a pruned EffB2 (0.3) trained an epoch
+     (its val score through the greedy kernel).
 
 Every kernel's launch counter is set to 0 just before each path is
 driven (phases 4-5, the EffB2 serving path; phase 8, the temporal path;
@@ -288,7 +307,10 @@ pair, whose log-mel count is the log-mel entry's; phase 26, augmented
 training, whose counts are the greedy and log-mel entries'
 ``aug_launches``; phase 27, the family, whose counts are the greedy, beam
 and log-mel entries' ``family_launches`` and whose (d) launches the
-``fused_greedy[cnn14trm]`` and ``fused_beam[cnn14trm]`` entries') and
+``fused_greedy[cnn14trm]`` and ``fused_beam[cnn14trm]`` entries'; phase
+28(a), the bf16 walk, whose MBConv count is the ``fused_mbconv[bf16]``
+entry's; phase 28(b)-(g), the feature-input path, whose counts are the
+greedy, beam and log-mel entries' ``feature_launches``) and
 read just after; the run fails if a kernel of that
 path was not launched there.
 The second-to-last line is the kernels JSON object, the last line
@@ -435,9 +457,11 @@ EVAL_DISTINCT = 10            # (b): distinct tokens of the plain search, above
 # the recipe's rates (the full recipe's val CIDEr-D: 0.20 after epoch 1,
 # 2.70 after epoch 2; before that, greedy captions score about what a
 # constant caption does), and its schedule decays the rate a thousandfold
-# over the run: so phase 24 takes 750 steps and decays the rate tenfold.
+# over the run: so phase 24 takes 600 steps and decays the rate tenfold
+# (750 until the script's time went to phase 28; the val score beat the
+# constant caption from the fourth epoch of 150 steps on in both runs).
 # The temporal recipe learns within 150 steps as it is.
-SYN_V2_SIZES, SYN_V2_EPOCHS = (960, 64, 64), 5
+SYN_V2_SIZES, SYN_V2_EPOCHS = (960, 64, 64), 4
 SYN_V2_FINAL_LR = 5e-5
 SYN_TEMPORAL_SIZES, SYN_SED_EPOCHS, SYN_TEMPGRU_EPOCHS = (320, 64, 64), 8, 3
 SYN_WORKERS = 6               # train loader workers (the card host has 8 cores)
@@ -462,6 +486,11 @@ FAM_TRM_EPOCHS = 1            # (d)
 FAM_COND_STEPS = 3            # (f): Runner.train steps of each decoder
 FAM_WARMUP, FAM_TIMED = 2, 10
 FAM_STEP_TIMED = 6            # (b), (c): timed steps after FAM_WARMUP
+# phase 28: the feature-input path on a reduced corpus v1, and the MBConv
+# kernel's bf16 work dtype on the bf16 EffB2 walk
+FEAT_SIZES, FEAT_EPOCHS = (64, 16, 16), 1
+MBCONV_BF16_RTOL = 1e-2       # bf16 kernel vs bf16 plain, times max(1, max)
+BF16_WALK_FACTOR = 2.0        # walked vs cuDNN bf16, times bf16's own error
 FAM_ENCODERS = {
     "Cnn6Encoder": {}, "Cnn10Encoder": {}, "Cdur8Encoder": {},
     "MobileNetV2": {}, "Cnn14Encoder": {},
@@ -942,14 +971,16 @@ def temporal_times(api, dev, card):
     return timing
 
 
-def mbconv_work(spec, batch: int, H: int, W: int, squeeze: int):
+def mbconv_work(spec, batch: int, H: int, W: int, squeeze: int,
+                act_bytes: int = 4):
     """(1x1 product ops, other float ops, bytes) one folded MBConv block
     with ``squeeze`` SE channels needs on a [batch, C, H, W] input,
     whatever algorithm computes it: the expand and project products once
     (a multiply-add is 2 ops); besides them the bias adds (1), swish and
     sigmoid (4 each), the depthwise, the SE mean and the gate (1 per
     expanded value), the residual, and per sample the SE MLP.  Bytes: x
-    read once, the output written once, the folded weights read once."""
+    read once and the output written once (``act_bytes`` a value: 2 in
+    the bf16 work dtype), the float32 folded weights read once."""
     C, E, Co, k, S = spec.in_ch, spec.exp_ch, spec.out_ch, spec.kernel, \
         squeeze
     pt, pb, pl, pr = spec.pad
@@ -963,17 +994,20 @@ def mbconv_work(spec, batch: int, H: int, W: int, squeeze: int):
     other = batch * (Ho * Wo * other_px + per_sample)
     n_weights = (C * E + E if spec.has_expand else 0) + k * k * E + E \
         + E * S + S + S * E + E + E * Co + Co
-    nbytes = 4 * (batch * C * H * W + batch * Co * Ho * Wo + n_weights)
+    nbytes = (act_bytes * (batch * C * H * W + batch * Co * Ho * Wo)
+              + 4 * n_weights)
     return mm, other, nbytes
 
 
-def mbconv_bound_ms(mm: int, other: int, nbytes: int):
+def mbconv_bound_ms(mm: int, other: int, nbytes: int,
+                    mm_flops: float = TF32X3_FLOPS):
     """(bound ms, bound ms with every op at the float32 CUDA-core rate,
     bound_by): the larger of the bytes at the HBM rate and the operations,
-    the 1x1 products at the 3xTF32 tensor-core rate (the kernel's route)
-    and the rest at the float32 rate."""
+    the 1x1 products at ``mm_flops`` (the kernel's route: the 3xTF32
+    tensor-core rate in float32, the bf16 dense rate in bf16) and the rest
+    at the float32 rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (mm / TF32X3_FLOPS + other / FP32_FLOPS) * 1e3
+    t_ops = (mm / mm_flops + other / FP32_FLOPS) * 1e3
     t_fp32 = (mm + other) / FP32_FLOPS * 1e3
     return (max(t_bytes, t_ops), max(t_bytes, t_fp32),
             "bytes" if t_bytes >= t_ops else "operations")
@@ -4502,6 +4536,315 @@ def _family(root, dev, card):
             "conditioned": cond_out, "times": times}
 
 
+# -- phase 28: the feature-input path and the MBConv kernel's bf16 ---------
+
+def bf16_walk(api, api16, lms64, feat64, audio, lens, dev, card):
+    """Phase 28(a): the bf16 EffB2 encoder of phase 13 walked on folded
+    weights, every stride-1 block through the MBConv kernel in the bf16
+    work dtype, each held against ``mbconv_plain`` in bf16 on the same
+    input (MBCONV_BF16_RTOL * max(1, max |plain|)); the walked ``attn_emb``
+    against the bf16 cuDNN encoder's, within BF16_WALK_FACTOR times the
+    bf16 encoder's own distance from the float32 encoder; the greedy
+    captions of phase 4's 8 clips through each, equal or every diverging
+    caption diverging first where the bf16 model's margin between the two
+    words is below what bf16 moves it (PR 6's rule: the float32 model's
+    margin against the bf16 model's, on the common prefix); then times per
+    block at B=64 x 10 s (kernel, plain, the bf16 cuDNN ``MBConvBlock``,
+    the bound: 1x1 products at the bf16 dense rate, bf16 activations)
+    -> the kernels-line entry (launches: the walks of B=64 and of the 8
+    clips)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from audiocaption_tpu_torch.hf_api import pad_bucket
+    from audiocaption_tpu_torch.models.captioner import generate
+    from audiocaption_tpu_torch.ops import fused_mbconv as FM
+    model16, model32 = api16.model, api.model
+    enc16, enc32 = model16.encoder, model32.encoder
+    wav8 = torch.from_numpy(pad_bucket(audio, SR)).to(dev)
+    len8 = torch.from_numpy(lens).to(dev)
+    with torch.no_grad():
+        lms8, feat8 = model16.frontend(wav8), model16.mel.feat_len(len8)
+        ref64, ref8 = enc16(lms64, feat64), enc16(lms8, feat8)
+        f32_64 = enc32(lms64, feat64)
+    torch.cuda.synchronize()
+    FM.fused_mbconv_s1.launches = 0
+    errs, inputs = [], []
+    got64 = checked_walk(enc16, lms64, feat64, errs, inputs)
+    got8 = checked_walk(enc16, lms8, feat8, [])
+    torch.cuda.synchronize()
+    launches = FM.fused_mbconv_s1.launches
+    assert (launches > 0 or dev.type != "cuda") and \
+        all(x.dtype == torch.bfloat16 for x in inputs)
+    rel = [d / max(1.0, m) for d, m in errs]
+    log(f"MBConv kernel (bf16) vs plain (bf16), bf16 EffB2, {len(errs)} "
+        f"stride-1 blocks at B={lms64.shape[0]} x 10 s: max |diff| per block "
+        f"{[f'{d:.3g}' for d, _ in errs]}, max relative {max(rel):.3g} "
+        f"(limit {MBCONV_BF16_RTOL}); launches {launches} on {card}")
+    assert len(errs) == 19 and max(rel) <= MBCONV_BF16_RTOL, \
+        "bf16 MBConv kernel disagrees"
+    a_walk, a_ref = got64["attn_emb"], ref64["attn_emb"]
+    walk_err = float((a_walk - a_ref).abs().max())
+    bf16_err = float((a_ref - f32_64["attn_emb"]).abs().max())
+    walk_f32 = float((a_walk - f32_64["attn_emb"]).abs().max())
+    scale = float(a_ref.abs().max())
+    log(f"bf16 walked encoder vs bf16 cuDNN encoder: attn_emb max |diff| "
+        f"{walk_err:.4g} (max |ref| {scale:.4g}); bf16 cuDNN vs float32 "
+        f"encoder {bf16_err:.4g}, walked vs float32 {walk_f32:.4g} (limit "
+        f"{BF16_WALK_FACTOR} x {bf16_err:.4g})")
+    assert scale > 0.1 and walk_err <= BF16_WALK_FACTOR * bf16_err, \
+        "bf16 walked encoder disagrees"
+
+    ids = {name: generate(model16, enc=e, sample_method="greedy",
+                          max_length=L)["seq"]
+           for name, e in (("walked", got8), ("cuDNN", ref8))}
+    with torch.no_grad():
+        enc32_8 = enc32(lms8, feat8)
+    mis, ties = int((ids["walked"] != ids["cuDNN"]).sum()), 0
+    for r in torch.nonzero((ids["walked"] != ids["cuDNN"]).any(-1)
+                           ).flatten().tolist():
+        t = int(torch.nonzero(ids["walked"][r] != ids["cuDNN"][r])[0])
+        prefix = torch.cat([ids["cuDNN"].new_full((1,), model16.special.bos),
+                            ids["cuDNN"][r, :t]])[None]
+        lp = {}
+        for name, m, e in (("bf16", model16, ref8), ("f32", model32,
+                                                     enc32_8)):
+            with torch.no_grad():
+                logit = m.decoder(prefix, e["attn_emb"][r:r + 1],
+                                  e["attn_emb_len"][r:r + 1])["logit"]
+            lp[name] = F.log_softmax(logit[0, -1].double(), -1)
+        a, b = int(ids["cuDNN"][r, t]), int(ids["walked"][r, t])
+        margin = float(lp["bf16"][a] - lp["bf16"][b])
+        moved = abs(float((lp["bf16"][a] - lp["bf16"][b])
+                          - (lp["f32"][a] - lp["f32"][b])))
+        assert margin <= moved, (f"bf16 walk diverges at margin "
+                                 f"{margin:.4g} > bf16 move {moved:.4g}")
+        ties += 1
+    log(f"greedy captions from the bf16 walked vs bf16 cuDNN encoder, 8 "
+        f"clips: {mis}/{ids['cuDNN'].numel()} tokens differ, {ties} captions "
+        f"diverging where the margin is below bf16's move; first caption "
+        f"{ids['walked'][0][:8].tolist()} on {card}")
+
+    blocks = [b for b in enc16._blocks if b.plan["stride"] == 1]
+    tot = dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0, mm=0, other=0,
+               nbytes=0)
+    with torch.no_grad():
+        for block, x in zip(blocks, inputs):
+            spec, w = FM.spec_of(block), FM.pack_mbconv(block)
+            k_ms = cuda_ms(lambda: FM.fused_mbconv_s1(x, w, spec), 10)
+            p_ms = cuda_ms(lambda: FM.mbconv_plain(x, w, spec), 3)
+            c_ms = cuda_ms(lambda: block(x), 10)
+            mm, other, nbytes = mbconv_work(spec, x.shape[0], x.shape[2],
+                                            x.shape[3], w["w_ser"].shape[1],
+                                            act_bytes=2)
+            bound, _, _ = mbconv_bound_ms(mm, other, nbytes, BF16_FLOPS)
+            for key, v in (("ms", k_ms), ("plain", p_ms), ("lib", c_ms),
+                           ("bound", bound), ("mm", mm), ("other", other),
+                           ("nbytes", nbytes)):
+                tot[key] += v
+    _, _, by = mbconv_bound_ms(tot["mm"], tot["other"], tot["nbytes"],
+                               BF16_FLOPS)
+    FM.fused_mbconv_s1.launches = launches
+    log(f"fused_mbconv (bf16), 19 stride-1 blocks summed, B="
+        f"{lms64.shape[0]} x 10 s: "
+        f"{tot['ms']:.3f} ms (plain bf16 {tot['plain']:.3f}, bf16 cuDNN "
+        f"blocks {tot['lib']:.3f}, bound {tot['bound']:.4f} ms by {by}: "
+        f"{tot['mm']} 1x1 ops at the bf16 rate, {tot['other']} other ops, "
+        f"{tot['nbytes']} bytes) on {card}")
+    return {"name": "fused_mbconv[bf16]", "route": "cuda",
+            "source": "audiocaption_tpu_torch/csrc/fused_mbconv.cu",
+            "replaces": "audiocaption_tpu/ops/pallas_mbconv.py:102",
+            "launches": launches, "max_abs_err": max(d for d, _ in errs),
+            "ms": tot["ms"], "plain_ms": tot["plain"],
+            "bound_ms": tot["bound"], "bound_by": by,
+            "library_ms": tot["lib"]}
+
+
+def calibration_batch(data, dev):
+    """The first 32 train clips of a corpus as one float32 batch on
+    ``dev`` (the BN calibration of a random encoder)."""
+    import torch
+    from audiocaption_tpu_torch.data.collate import pad_sequences
+    from audiocaption_tpu_torch.data.dataset import InferenceDataset
+    ds = InferenceDataset({"wav": str(data / "train_wav.csv")})
+    wav, lens = pad_sequences([ds[i]["wav"] for i in range(min(32, len(ds)))])
+    return {"wav": torch.from_numpy(wav).to(dev),
+            "wav_len": torch.from_numpy(lens).long().to(dev)}
+
+
+def feature_path(dev, card):
+    """:func:`_feature_path` in a temporary directory, which is removed
+    also when a check fails."""
+    import shutil
+    import tempfile
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_features_"))
+    try:
+        return _feature_path(root, dev, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _feature_path(root, dev, card):
+    """Phase 28(b)-(g) on a reduced corpus v1 (FEAT_SIZES clips of 10 s at
+    32 kHz): (b) a ``cnn14rnn_trm``-width captioner (configs/synthetic/
+    cnn14rnn_trm.yaml's model, seeded random weights, BN jittered) saved
+    as an experiment, then ``prepare_features --format npy`` of it on the
+    three splits (the log-mel kernel); (c) ``m2_trm.yaml`` at its full
+    width (d_model 256, 2 + 2 layers, 4 heads, m 40, input 512) with its
+    device-resident banks and the prefetcher, FEAT_EPOCHS epoch(s) and the
+    val score; (d) a full resume of (c) (``trainer.finetune: False``) for
+    one more epoch: the epoch, ``lr_count`` and the optimizer state go on;
+    (e) ``test_m2.yaml`` through ``Runner.evaluate`` at beam 3 (the engine:
+    M2 is not on the kernels); (f) an ``AudioTransformerEncoder`` +
+    ``TransformerDecoder`` on the same features (input width read off the
+    first row), its val score through the greedy kernel and its evaluate
+    through the beam kernel; (g) the flagship's model with ``prune_ratio``
+    0.3 on the corpus's waves at 16 kHz, its val score through the greedy
+    kernel.  Launch counts set to 0 before (b) and read after (g)."""
+    import pickle
+    import numpy as np
+    import torch
+    import yaml
+    from audiocaption_tpu_torch.cli import recipes
+    from audiocaption_tpu_torch.cli import synthetic_corpus as SC
+    from audiocaption_tpu_torch.cli.prepare_features import (
+        experiment_encoder, write_features)
+    from audiocaption_tpu_torch.cli.run import Runner, build_tokenizer
+    from audiocaption_tpu_torch.decoding import fused_beam as FB
+    from audiocaption_tpu_torch.decoding import fused_greedy as FG
+    from audiocaption_tpu_torch.models.zoo import random_init
+    from audiocaption_tpu_torch.ops import fused_logmel as FL
+    from audiocaption_tpu_torch.training.checkpoint import (
+        model_variables, save_checkpoint)
+    from audiocaption_tpu_torch.utils.config import build_model_from_config
+
+    data = root / "data"
+    t0 = time.perf_counter()
+    SC.generate(str(data), *FEAT_SIZES, sr=SR_32K, seed=0)
+    t_gen = time.perf_counter() - t0
+    FG.reset_launches(FG.fused_greedy_decode)
+    FB.reset_launches(FB.fused_beam_decode)
+    FL.fused_logmel.launches = 0
+    times = {"corpus_s": t_gen}
+    dv = f"device={dev.type}"
+
+    # (b) a cnn14rnn_trm experiment and its features
+    t0 = time.perf_counter()
+    src_cfg = recipes.m2_source_train(str(data))
+    tokenizer = build_tokenizer(src_cfg["data"]["train"]["collate_fn"][
+        "tokenizer"])
+    model, _ = build_model_from_config(src_cfg["model"],
+                                       vocab_size=len(tokenizer))
+    random_init(model, torch.Generator().manual_seed(SEED))
+    model.to(dev)
+    calibrate_encoder_bn(model, calibration_batch(data, dev))
+    src = root / "cnn14rnn_trm" / "seed_1"
+    src.mkdir(parents=True)
+    (src / "config.yaml").write_text(yaml.safe_dump(src_cfg))
+    save_checkpoint(str(src / "swa.pth"), model_variables(model),
+                    tokenizer_state=tokenizer.state_dict())
+    encode, bucket = experiment_encoder(str(src), "swa.pth", dev)
+    n = {split: write_features(
+        str(data / f"{split}_wav.csv"),
+        str(data / "features_cnn14rnn" / split), encode, bucket, dev,
+        batch_size=32, fmt="npy") for split in ("train", "val", "test")}
+    feats = torch.from_numpy(np.load(next(iter(
+        (data / "features_cnn14rnn" / "train" / "attn").glob("*.npy")))))
+    times["prepare_features_s"] = time.perf_counter() - t0
+    log(f"28(b): prepare_features --format npy of a cnn14rnn_trm experiment:"
+        f" {n} clips, a row {tuple(feats.shape)}, finite "
+        f"{bool(torch.isfinite(feats).all())}, {times['prepare_features_s']:.1f}"
+        f" s; log-mel launches so far {FL.fused_logmel.launches}")
+    assert feats.shape[-1] == 512 and bool(torch.isfinite(feats).all())
+    assert float(feats.std()) > 0
+
+    # (c) M2 at full width, banks and prefetch; (d) its full resume
+    runner = Runner()
+    m2_over = [dv, f"experiment_path={root}/m2",
+               f"trainer.epochs={FEAT_EPOCHS}",
+               "trainer.include_optim_in_ckpt=True"]
+    t0 = time.perf_counter()
+    m2 = Path(runner.train(recipes.m2_train(str(data)), *m2_over))
+    first = pickle.loads((m2 / "last.pth").read_bytes())
+    m2_over[2] = f"trainer.epochs={FEAT_EPOCHS + 1}"
+    runner.train(recipes.m2_train(str(data)), *m2_over,
+                 f"resume={m2}/last.pth", "trainer.finetune=False")
+    after = pickle.loads((m2 / "last.pth").read_bytes())
+    times["m2_train_s"] = time.perf_counter() - t0
+    text = (m2 / "train.log").read_text()
+    curve = _epoch_curve(m2 / "train.log", "loss", "val_cider")
+    steps = first["lr_count"] // FEAT_EPOCHS
+    log(f"28(c-d): M2 {len(curve)} epochs; checkpoint epoch / lr_count "
+        f"{first['epoch']} / {first['lr_count']} -> after the full resume "
+        f"{after['epoch']} / {after['lr_count']}; optimizer state "
+        f"{'optimizer' in after}")
+    assert f"train wav bank on {dev.type}" in text and \
+        f"val wav bank on {dev.type}" in text, \
+        "the device-resident banks were not built"
+    assert f"(epoch {FEAT_EPOCHS + 1})" in text, "the full resume restarted"
+    assert after["epoch"] == FEAT_EPOCHS + 1 and \
+        after["lr_count"] == first["lr_count"] + steps > 0
+    assert after["not_improve_cnt"] >= 0 and after["monitor_state"]
+    assert all(math.isfinite(c[0]) for c in curve)
+
+    # (e) test_m2.yaml through Runner.evaluate, beam 3
+    t0 = time.perf_counter()
+    scores = runner.evaluate(str(m2), recipes.m2_test(str(data)), dv)
+    times["m2_evaluate_s"] = time.perf_counter() - t0
+    floats = {k: round(v, 4) for k, v in scores.items()
+              if isinstance(v, float)}
+    log(f"28(e): test_m2.yaml beam 3 (swa.pth) {json.dumps(floats)}")
+    assert floats and all(math.isfinite(v) for v in floats.values())
+
+    # (f) AudioTransformerEncoder + TransformerDecoder on the features
+    cfg = recipes.m2_train(str(data))
+    cfg["model"] = {
+        "type": "TransformerModel",
+        "encoder": {"type": "AudioTransformerEncoder",
+                    "args": {"d_model": 256, "nlayers": 2, "nhead": 4,
+                             "dropout": 0.1}},
+        "decoder": {"type": "TransformerDecoder",
+                    "args": {"emb_dim": 256, "attn_emb_dim": 256,
+                             "nlayers": 2, "dropout": 0.1}}}
+    t0 = time.perf_counter()
+    g0, b0 = FG.fused_greedy_decode.launches, FB.fused_beam_decode.launches
+    trm = Path(runner.train(cfg, dv, f"experiment_path={root}/trm",
+                            f"trainer.epochs={FEAT_EPOCHS}"))
+    trm_scores = runner.evaluate(str(trm), recipes.m2_test(str(data)), dv)
+    times["trm_s"] = time.perf_counter() - t0
+    g1, b1 = FG.fused_greedy_decode.launches, FB.fused_beam_decode.launches
+    log(f"28(f): AudioTransformerEncoder + TransformerDecoder: greedy "
+        f"launches {g1 - g0} (val score), beam launches {b1 - b0} (evaluate);"
+        f" test cider {trm_scores['cider']:.4f}")
+    assert "from the first row of data.train" in \
+        (trm / "train.log").read_text()
+    assert dev.type != "cuda" or (
+        g1 - g0 == FEAT_EPOCHS * -(-FEAT_SIZES[1] // 32)
+        and b1 - b0 == -(-FEAT_SIZES[2] // 32))
+
+    # (g) the flagship's model pruned at 0.3, on the corpus's waves
+    t0 = time.perf_counter()
+    pruned = Path(runner.train(
+        recipes.recipe("synthetic/effb2_trm.yaml", str(data)), dv,
+        f"experiment_path={root}/pruned", "trainer.epochs=1",
+        "model.encoder.args.prune_ratio=0.3"))
+    times["pruned_s"] = time.perf_counter() - t0
+    g2 = FG.fused_greedy_decode.launches
+    text = (pruned / "train.log").read_text()
+    log(f"28(g): pruned EffB2 (0.3): greedy launches {g2 - g1} (val score)")
+    assert "encoder pruned: prune_ratio 0.3" in text
+    assert dev.type != "cuda" or g2 - g1 == -(-FEAT_SIZES[1] // 32)
+
+    launches = {"fused_greedy": FG.fused_greedy_decode.launches,
+                "fused_beam": FB.fused_beam_decode.launches,
+                "fused_logmel": FL.fused_logmel.launches}
+    log(f"28: feature-path launches {launches}; times "
+        f"{json.dumps({k: round(v, 1) for k, v in times.items()})} on {card}")
+    assert dev.type != "cuda" or all(v > 0 for v in launches.values()), \
+        launches
+    return {"launches": launches, "times": times}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4792,6 +5135,17 @@ def main() -> int:
             k["family_launches"] = fam["launches"][k["name"]]
     kernels += fam["entries"]
     log(f"phase 27: {time.perf_counter() - t0:.1f} s")
+
+    # -- 28. the MBConv kernel's bf16 work dtype; the feature-input path ---
+    t0 = time.perf_counter()
+    kernels.append(bf16_walk(api, api16, lms64, feat64, audio, lens, dev,
+                             card))
+    t1 = time.perf_counter()
+    feat = feature_path(dev, card)
+    for k in kernels:
+        if k["name"] in feat["launches"]:
+            k["feature_launches"] = feat["launches"][k["name"]]
+    log(f"phase 28: {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f} s)")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

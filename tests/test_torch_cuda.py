@@ -11,10 +11,12 @@ flip a near-tie); n-best beam scores of matching sequences within 1e-4;
 log-mel within 1e-3 dB (an FFT against the plain version's dense DFT,
 both float32), and within 0.05-0.1 dB on a wave with an 80 dB range;
 MBConv within 1e-4 * max(1, max |plain|) (1x1 products in 3xTF32, ~2^-22
-relative a product, and sums in another order than cuDNN's).  The decode
-kernels' bf16 modes: see BF16_BEAM_MODES below.  Every test here ran on
-the card (NVIDIA H100 80GB HBM3, 75 of 75 passing); without a card
-they skip.
+relative a product, and sums in another order than cuDNN's), and in the
+bf16 work dtype within 1e-2 * max(1, max |plain|) of ``mbconv_plain`` in
+bf16 (a bf16 ulp where a float32 sum in another order flips a rounding).
+The decode kernels' bf16 modes: see BF16_BEAM_MODES below.  Every test
+here ran on the card (NVIDIA H100 80GB HBM3, 80 of 80 passing); without
+a card they skip.
 """
 
 import numpy as np
@@ -389,6 +391,58 @@ def test_mbconv_kernel_matches_plain(cuda, kwargs, shape):
     scale = max(1.0, float(want.abs().max()))
     assert float((got - want).abs().max()) <= 1e-4 * scale
     assert float((want - ref).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kwargs,shape", [
+    (dict(in_filters=24, out_filters=24, kernel=3, stride=1, expand_ratio=6,
+          nominal_size=65), (5, 24, 16, 63)),
+    (dict(in_filters=48, out_filters=37, kernel=5, stride=1, expand_ratio=6,
+          nominal_size=33, oup_override=203, squeeze_override=9),
+     (3, 48, 7, 125)),
+    (dict(in_filters=32, out_filters=16, kernel=3, stride=1, expand_ratio=1,
+          nominal_size=130), (2, 32, 11, 31)),
+    (dict(in_filters=208, out_filters=208, kernel=5, stride=1,
+          expand_ratio=6, nominal_size=9), (4, 208, 2, 32))],
+    ids=["expand_residual_k3", "pruned_k5_odd", "no_expand", "wide_late_k5"])
+def test_mbconv_kernel_bf16_matches_plain(cuda, kwargs, shape):
+    """The bf16 work dtype: the kernel (bf16 m16n8k16 products, the
+    depthwise summed in bf16) against ``mbconv_plain`` in bf16 on the same
+    bf16 input, within 1e-2 * max(1, max |plain|): a few bf16 ulps, where
+    float32 sums in another order flip a rounding."""
+    block = jittered_block(5, **kwargs).to(cuda)
+    spec, weights = FM.spec_of(block), FM.pack_mbconv(block)
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn(shape, generator=gen).to(cuda, torch.bfloat16)
+    n0 = FM.fused_mbconv_s1.launches
+    got = FM.fused_mbconv_s1(x, weights, spec)
+    torch.cuda.synchronize()
+    assert FM.fused_mbconv_s1.launches == n0 + 1 and got.dtype == x.dtype
+    want = FM.mbconv_plain(x, weights, spec)
+    scale = max(1.0, float(want.float().abs().max()))
+    diff = (got.float() - want.float()).abs()
+    assert float(diff.max()) <= 1e-2 * scale
+    assert float((diff == 0).float().mean()) > 0.5
+
+
+@pytest.mark.cuda
+def test_prefetch_hands_batches_over_on_the_consumers_stream(cuda):
+    """``prefetch_to_device``'s CUDA transfer: each batch comes in order,
+    equal to the host batch, after the consumer's stream has waited on the
+    side stream's copies; a kernel queued right after reads the copy."""
+    from audiocaption_tpu_torch.data.prefetch import prefetch_to_device
+    host = [{"wav": np.full((64, 4096), i, np.float32),
+             "idx": np.arange(3) + i, "audio_id": [f"a{i}"],
+             "on_card": torch.full((2,), i, device=cuda)}
+            for i in range(6)]
+    seen = []
+    for i, b in enumerate(prefetch_to_device(iter(host), cuda, depth=3)):
+        assert b["wav"].device.type == "cuda" and b["audio_id"] == [f"a{i}"]
+        assert b["on_card"] is host[i]["on_card"]     # passed through
+        seen.append(float(b["wav"].sum()))
+        assert b["idx"].cpu().tolist() == [i, i + 1, i + 2]
+    torch.cuda.synchronize()
+    assert seen == [64 * 4096 * float(i) for i in range(6)]
 
 
 def _train_twin(device, seed=0):

@@ -252,8 +252,24 @@ def test_slice_decodes_as_jax(slice_pair, method):
 LR, FINAL, TOTAL, WD, CLIP = 5e-4, 5e-7, 100, 1e-6, 1.0
 
 
+XE_THREADS = 2
+
+
 @pytest.fixture(scope="module")
 def xe_step():
+    """The XE step at XE_THREADS torch CPU threads (set here and restored
+    after): the float32 sums of the step, and so how near its floors it
+    lands, follow the thread count, which other test modules set at
+    import."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(XE_THREADS)
+    try:
+        return _xe_step()
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _xe_step():
     b = clips(seed=5, B=3, Lc=8)
     node = model_node("Cnn6Encoder", "BahAttnAddFcDecoder", 32, 32, 2)
     jmodel, jvars, port = jax_pair(node, b, seed=2)

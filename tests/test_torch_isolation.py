@@ -83,7 +83,11 @@ for name in ("audiocaption_tpu_torch.native",
              "audiocaption_tpu_torch.models.hm_classifier",
              "audiocaption_tpu_torch.models.rnn_decoder",
              "audiocaption_tpu_torch.models.cnn14",
-             "audiocaption_tpu_torch.losses.loss"):
+             "audiocaption_tpu_torch.losses.loss",
+             "audiocaption_tpu_torch.models.m2",
+             "audiocaption_tpu_torch.data.device_bank",
+             "audiocaption_tpu_torch.data.prefetch",
+             "audiocaption_tpu_torch.cli.prepare_features"):
     assert name in names, name
 print(len(names))
 """

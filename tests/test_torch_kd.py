@@ -338,8 +338,24 @@ def test_token_kd_step_matches_jax(token_runs, k):
     _check_step(token_runs[k], f"token step {k}")
 
 
+ENC_THREADS = 2
+
+
 @pytest.fixture(scope="module")
 def enc_runs():
+    """The two encoder-KD steps at ENC_THREADS torch CPU threads (set here
+    and restored after): the float32 sums of the step, and so how near
+    its floors it lands, follow the thread count, which other test modules
+    set at import."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(ENC_THREADS)
+    try:
+        return _enc_runs()
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _enc_runs():
     port = port_student(seed=6)
     jmodel = jzoo.kd_student_cdur5(vocab_size=V, decoder_dropout=0.0)
     head = kd.ContraEncoderKdHead(256, TCHR_DIM, SHARED,

@@ -290,3 +290,125 @@ def test_split_tf32_keeps_float32_parity(encoders, index):
     scale = float(want.abs().max())
     assert got.shape == want.shape and scale > 0.1
     assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+# -- the bf16 work dtype -------------------------------------------------------
+
+BF16_RTOL = 1e-2   # times max(1, max |kernel|): a few bf16 ulps at the output
+
+
+def _bf16_case(PM, name, seed, jittered):
+    kwargs, H, W = CASES[name]
+    jspec, jw, port, x, _ = make_case(PM, kwargs, H, W, seed=seed,
+                                      jittered=jittered)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    kernel = np.asarray(PM.fused_mbconv_s1(xb, jw, jspec).astype(jnp.float32))
+    xt = nchw(np.asarray(xb.astype(jnp.float32))).to(torch.bfloat16)
+    out = FM.mbconv_plain(xt, FM.pack_mbconv(port), FM.spec_of(port))
+    assert out.dtype == torch.bfloat16
+    return kwargs["kernel"] // 2, nhwc(out.float()), kernel
+
+
+@pytest.mark.parametrize("name", ["s1_k3_expand_residual", "s1_k5_no_expand",
+                                  "s1_k3_no_expand_residual",
+                                  "s1_k5_pruned_widths"])
+@pytest.mark.parametrize("jittered", [False, True], ids=["init", "jittered"])
+def test_mbconv_plain_bf16_matches_jax_kernel(PM, name, jittered):
+    """``mbconv_plain`` in the bf16 work dtype against the JAX kernel run in
+    interpret mode on a bf16 input, within BF16_RTOL * max(1, max |kernel|):
+    on the whole map at flax's BN init (the folded expand bias 0, where the
+    JAX kernel's border is the block's), on the interior with jittered BN
+    (its border holds swish(b_exp), ROADMAP Queue 3 B).  XLA on the CPU
+    keeps some bf16 elementwise results in float32 inside the interpreted
+    kernel, so the two agree to a few bf16 ulps, not bit for bit."""
+    r, got, kernel = _bf16_case(PM, name, seed=3, jittered=jittered)
+    if jittered:
+        got, kernel = got[:, r:-r, r:-r], kernel[:, r:-r, r:-r]
+    bound = BF16_RTOL * max(1.0, float(np.abs(kernel).max()))
+    assert float(np.abs(got - kernel).max()) <= bound
+    assert float(np.abs(kernel).max()) > 0.1
+
+
+def test_mbconv_plain_bf16_rounds_where_the_tpu_kernel_does():
+    """The bf16 plain version by hand on one block: the expand rounded to
+    bf16 after swish, the depthwise summed in bf16 term by term, d * gate
+    rounded, the projection rounded before the residual; and it is not the
+    float32 block rounded once at the end."""
+    torch.manual_seed(5)
+    block = TE.MBConvBlock(16, 16, 3, 1, 6, 130).eval()
+    spec, w = FM.spec_of(block), FM.pack_mbconv(block)
+    w["b_exp"] = w["b_exp"] + 0.3 * torch.randn(w["b_exp"].shape)
+    x = torch.randn(2, 16, 6, 9).to(torch.bfloat16)
+    got = FM.mbconv_plain(x, w, spec)
+    r = lambda v: v.to(torch.bfloat16).float()             # noqa: E731
+    e = r(F_silu(torch.einsum("bchw,ce->behw", x.float(), r(w["w_exp"]))
+                 + w["b_exp"][:, None, None]))
+    ep = torch.nn.functional.pad(e, (1, 1, 1, 1))
+    acc = None
+    for ki in range(3):
+        for kj in range(3):
+            term = r(ep[:, :, ki:ki + 6, kj:kj + 9]
+                     * r(w["w_dw"][ki, kj])[:, None, None])
+            acc = term if acc is None else r(acc + term)
+    d = F_silu(acc + w["b_dw"][:, None, None])
+    s = F_silu(d.mean((2, 3)) @ w["w_ser"] + w["b_ser"])
+    g = torch.sigmoid(s @ w["w_see"] + w["b_see"])
+    p = r(torch.einsum("behw,eo->bohw", r(d * g[:, :, None, None]),
+                       r(w["w_proj"])) + w["b_proj"][:, None, None])
+    want = r(p + x.float())
+    np.testing.assert_allclose(got.float().numpy(), want.numpy(), atol=1e-6)
+    f32 = FM.mbconv_plain(x.float(), w, spec).to(torch.bfloat16)
+    assert bool((f32 != got).any())
+
+
+def F_silu(v):
+    return torch.nn.functional.silu(v)
+
+
+def test_plan_tiles_bf16_fits_the_kernel(encoders):
+    """The bf16 plans (the expand's K padded to 16) of every stride-1 shape
+    of the flagship and the pruned 0.3 / 0.5 encoders fit the kernel."""
+    shapes = [s for enc in encoders.values() for s in _stride1_shapes(enc)]
+    for spec, H, W, squeeze in shapes:
+        for B in (1, 8, 64):
+            plan = FM.plan_tiles(spec, B, H, W, bf16=True)
+            assert plan.Ec % 16 == 0 and plan.Eg % plan.Ec == 0
+            assert plan.smem == FM.tile_smem(spec, H, W, plan.TH, plan.TW,
+                                             plan.Ec, bf16=True) \
+                <= FM.SMEM_LIMIT
+            assert plan.proj_smem <= FM.SMEM_LIMIT
+            if spec.has_expand and spec.in_ch % 16:
+                assert plan.smem >= FM.tile_smem(spec, H, W, plan.TH,
+                                                 plan.TW, plan.Ec)
+
+
+def test_folded_walk_takes_a_bf16_encoder():
+    """A bf16 EffB2 walks on folded weights (float32, as the JAX caller
+    hands them in), every block in the bf16 work dtype; the walk stays
+    near the bf16 cuDNN-module encoder (jittered BN)."""
+    torch.manual_seed(0)
+    enc32 = TE.EfficientNetB2().eval()
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in enc32.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=gen))
+                m.weight.copy_(1 + 0.2 * torch.randn(n, generator=gen))
+                m.bias.copy_(0.2 * torch.randn(n, generator=gen))
+    enc = TE.EfficientNetB2(compute_dtype=torch.bfloat16).eval()
+    enc.load_state_dict(enc32.state_dict())
+    blocks = FM.folded_blocks(enc)
+    assert all(v.dtype == torch.float32 for v in blocks[3].keywords[
+        "weights"].values())
+    lms = torch.randn(2, 160, 64, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        ref = enc(lms, torch.tensor([160, 130]))["attn_emb"]
+        got = enc(lms, torch.tensor([160, 130]), blocks=blocks)["attn_emb"]
+        f32 = enc32(lms, torch.tensor([160, 130]))["attn_emb"]
+    scale = float(f32.abs().max())
+    assert scale > 0.1
+    walk, modules = (float((t - f32).abs().max()) for t in (got, ref))
+    # both bf16 encoders sit about as far from the float32 one
+    assert walk <= 3 * max(modules, 1e-3 * scale), (walk, modules)

@@ -199,9 +199,18 @@ def test_resume_loads_the_weights(trained, workspace):
                                        err_msg=k)
     assert "weights from" in (root / "resumed" / "seed_1" / "train.log"
                               ).read_text()
-    with pytest.raises(ValueError, match="full resume"):
-        Runner().train(str(root / "effb2_trm.yaml"), "device=cpu",
-                       f"resume={exp / 'swa.pth'}", "trainer.finetune=false")
+    # a full resume goes on from the checkpoint's next epoch
+    last = load_checkpoint(str(exp / "last.pth"))
+    out = Runner().train(str(root / "effb2_trm.yaml"), "device=cpu",
+                         f"resume={exp / 'last.pth'}", "trainer.finetune=false",
+                         f"trainer.epochs={last['epoch'] + 1}",
+                         f"experiment_path={root / 'full'}")
+    log = (root / "full" / "seed_1" / "train.log").read_text()
+    assert f"(epoch {last['epoch'] + 1})" in log
+    assert log.count(" epoch ") == 1
+    after = load_checkpoint(f"{out}/last.pth")
+    assert after["epoch"] == last["epoch"] + 1
+    assert after["lr_count"] > last["lr_count"] > 0
 
 
 def test_train_asks_for_the_card_by_default(workspace):
@@ -214,20 +223,22 @@ def test_train_asks_for_the_card_by_default(workspace):
 
 
 def test_unported_types_raise_naming_the_roadmap():
-    """The types still unported: an item-8 encoder (Htsat), the M2
-    decoder, the style models, and a top-level audio transformer encoder
-    (it reads precomputed features, item 6c)."""
+    """The types still unported: an item-8 encoder (Htsat) and the style
+    models raise naming the ROADMAP.  The feature-input encoders and the M2
+    decoder are ported: a top-level audio transformer encoder without an
+    input width raises asking for one, and the M2 decoder on another
+    encoder raises as the JAX builder does."""
     node = _model_node()
     node["encoder"]["type"] = "captioning.models.htsat.Htsat"
     with pytest.raises(ValueError, match="ROADMAP"):
         build_model_from_config(node, vocab_size=20)
     node = _model_node()
     node["encoder"]["type"] = "AudioTransformerEncoder"
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 6c"):
+    with pytest.raises(ValueError, match="input_dim"):
         build_model_from_config(node, vocab_size=20)
     node = _model_node()
     node["decoder"]["type"] = "M2TransformerDecoder"
-    with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="requires an M2TransformerEncoder"):
         build_model_from_config(node, vocab_size=20)
     node = _model_node()
     node["type"] = "StyleCaptionModel"
