@@ -1,6 +1,6 @@
 """Offline data tools (counterpart of ``audiocaption_tpu/cli/data_tools.py``;
 reference ``data/augment/speed_perturb.py``).  Ported so far:
-``speed_perturb``; the other tools are ROADMAP Queue 1 item 8.
+``speed_perturb``; the other tools are ROADMAP Queue 1 item 8c.
 
     python -m audiocaption_tpu_torch.cli.data_tools speed_perturb \\
         INPUT_DIR OUTPUT_DIR [--speeds 0.9 1.1] [--sr 16000] [--compute] \\

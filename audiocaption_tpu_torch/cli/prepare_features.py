@@ -9,12 +9,15 @@
 extracts a trained captioner's encoder output (an experiment directory
 of either package: its ``config.yaml`` and checkpoint), the way
 ``configs/synthetic/m2_trm.yaml``'s header does; or, with
-``--encoder cnn14|cnn10|cnn6|effb2`` and an optional torch
-``--checkpoint`` (PANNs / COLA / BLAT layouts, ``cli/run.py::
-unwrap_pretrained``; without one the encoder's weights are drawn from
-seed 0), a named encoder's over its log-mel (32 kHz, 16 kHz for effb2).
-``panns_cnn10``, ``panns_wavegram`` and ``htsat`` are not ported (ROADMAP
-Queue 1 item 8).
+``--encoder cnn14|cnn10|cnn6|effb2|htsat|panns_cnn10|panns_wavegram`` and
+an optional torch ``--checkpoint`` (PANNs / COLA / BLAT layouts,
+``cli/run.py::unwrap_pretrained``; without one the encoder's weights are
+drawn from seed 0), a named encoder's over its log-mel (32 kHz, 16 kHz
+for effb2).  ``panns_cnn10`` and ``panns_wavegram`` are the PANNs
+classifiers (``models/panns.py``): their ``fc_feat`` and ``attn_feat``
+become ``fc_emb`` and ``attn_emb``, the attn lengths ``feat_len //
+ratio`` with the ratio read off the realised shapes (frames over attn
+steps), and ``probs`` gets their AudioSet probabilities.
 
 Each batch of ``--batch_size`` clips (read as ``data/dataset.py::
 InferenceDataset`` reads a wav.csv, at their stored rate) is padded up to
@@ -70,20 +73,25 @@ def named_encoder(name: str, checkpoint: Optional[str],
     bucket rate)."""
     from audiocaption_tpu_torch.cli.run import unwrap_pretrained
     from audiocaption_tpu_torch.models import encoders_extra as EX
+    from audiocaption_tpu_torch.models import panns
     from audiocaption_tpu_torch.models.cnn14 import Cnn14Encoder
     from audiocaption_tpu_torch.models.effb2 import EfficientNetB2
+    from audiocaption_tpu_torch.models.htsat import HtsatEncoder
     from audiocaption_tpu_torch.models.zoo import random_init
     from audiocaption_tpu_torch.ops.frontend import (
         CNN14_MEL_32K, EFFB2_MEL_16K, LogMelFrontend)
     from audiocaption_tpu_torch.training.checkpoint import merge_variables
-    if name not in ("cnn14", "cnn10", "cnn6", "effb2"):
-        raise ValueError(f"encoder {name!r} is not ported yet (ROADMAP "
-                         "Queue 1 item 8: models/panns.py, models/htsat.py)")
+    if name not in ENCODERS:
+        raise ValueError(f"unknown encoder {name!r}: one of {ENCODERS}")
     encoder, mel = {
         "cnn14": lambda: (Cnn14Encoder(), CNN14_MEL_32K),
         "cnn10": lambda: (EX.Cnn10Encoder(), CNN14_MEL_32K),
         "cnn6": lambda: (EX.Cnn6Encoder(), CNN14_MEL_32K),
-        "effb2": lambda: (EfficientNetB2(), EFFB2_MEL_16K)}[name]()
+        "effb2": lambda: (EfficientNetB2(), EFFB2_MEL_16K),
+        "htsat": lambda: (HtsatEncoder(), CNN14_MEL_32K),
+        "panns_cnn10": lambda: (panns.Cnn10(), CNN14_MEL_32K),
+        "panns_wavegram": lambda: (panns.Wavegram_Logmel_Cnn14(),
+                                   CNN14_MEL_32K)}[name]()
     random_init(encoder, torch.Generator().manual_seed(0))
     if checkpoint:
         sd = unwrap_pretrained(torch.load(checkpoint, map_location="cpu",
@@ -93,7 +101,15 @@ def named_encoder(name: str, checkpoint: Optional[str],
     frontend = LogMelFrontend(mel).to(device)
 
     def encode(wav, wav_len):
-        return encoder(frontend(wav), mel.feat_len(wav_len))
+        lms, feat_len = frontend(wav), mel.feat_len(wav_len)
+        if not name.startswith("panns_"):
+            return encoder(lms, feat_len)
+        out = encoder(wav, lms) if name == "panns_wavegram" else encoder(lms)
+        ratio = max(1, lms.shape[1] // out["attn_feat"].shape[1])
+        return {"fc_emb": out["fc_feat"], "attn_emb": out["attn_feat"],
+                "attn_emb_len": torch.div(feat_len, ratio,
+                                          rounding_mode="floor"),
+                "clipwise_output": out["clipwise_output"]}
     return encode, mel.sample_rate
 
 

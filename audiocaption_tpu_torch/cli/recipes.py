@@ -20,7 +20,12 @@ its YAML, with the data directory ``d`` in place of the YAML's
     :func:`m2_source_test` -> ``configs/synthetic/test.yaml``, on corpus
     v1; :func:`m2_train` -> ``configs/synthetic/m2_trm.yaml`` and
     :func:`m2_test` -> ``test_m2.yaml``, on the features extracted from
-    the source under ``{d}/features_cnn14rnn/{split}/``.
+    the source under ``{d}/features_cnn14rnn/{split}/``;
+  * :func:`encoders_train` -> ``configs/synthetic/cnn14rnn_trm.yaml`` with
+    ``model.encoder`` replaced by an item-8 encoder's node
+    (:data:`ENCODER_NODES`: HTS-AT, MobileNetV3 mn10, UiT-xs,
+    ESResNeXt-FBSP), :func:`encoders_test` -> ``synthetic/test.yaml``
+    (both at 16 kHz for UiT).
 
 The script, on the card by default:
 
@@ -33,6 +38,9 @@ The script, on the card by default:
         --data data/synthetic_v2 --results results/torch_h100/synthetic_v2_aug
     python -m audiocaption_tpu_torch.cli.recipes m2 \\
         --data data/synthetic --results results/torch_h100/synthetic_m2
+    python -m audiocaption_tpu_torch.cli.recipes encoders \\
+        --data data/synthetic --results results/torch_h100/encoders \\
+        [--encoders htsat,mobilenet_v3,uit_xs,esresnext]
 
 ``flagship`` generates corpus v2 at its recorded settings (3000 / 300 /
 300 clips of 10 s at 32 kHz, seed 0; ``--sizes`` and ``--duration`` cut
@@ -58,7 +66,10 @@ all three splits (``cli/prepare_features.py --format npy``), trains the
 M2 transformer on those features (``m2_trm.yaml``) and scores its SWA
 and best checkpoints (``test_m2.yaml``); overrides that start with
 ``m2.`` apply to the M2 config alone (``m2.trainer.epochs=2``), the
-others to the source's (``device=`` to both).  Each profiles a few train steps of the recipe on a
+others to the source's (``device=`` to both).  ``encoders`` generates
+corpus v1 unless ``--data`` holds it, then trains each encoder's
+captioner of ``--encoders`` (:func:`encoders_train`) and scores its SWA
+and best checkpoints at beam 3.  Each profiles a few train steps of the recipe on a
 fresh model (the device's idle share) and copy each ``train.log`` and
 score file into ``--results``, with ``run.json`` (the times of every
 stage, the card, the peak memory).  ``key=value`` overrides after the
@@ -71,6 +82,7 @@ those that start with ``sed.`` apply to the SED config alone
 from __future__ import annotations
 
 import argparse
+import copy
 import itertools
 import json
 import shutil
@@ -141,6 +153,50 @@ def m2_train(d: str = "data/synthetic") -> Dict:
 
 def m2_test(d: str = "data/synthetic") -> Dict:
     return recipe("synthetic/test_m2.yaml", d)
+
+
+# the item-8 encoders, each a ``model.encoder`` node of the JAX builder's
+# types at its published settings (the builder's defaults)
+ENCODER_NODES = {
+    "htsat": {"type": "captioning.models.htsat.Htsat",
+              "args": {"sample_rate": 32000}},
+    "mobilenet_v3": {"type": "MobileNetV3Encoder",
+                     "args": {"model_name": "mn10",
+                              "pooling": "mean_max_fc",
+                              "sample_rate": 32000}},
+    "uit_xs": {"type": "UitEncoder", "args": {"model_name": "uit_xs"}},
+    "esresnext": {"type": "ESResNeXtFBSPEncoder", "args": {}},
+}
+# the encoders over the 16 kHz log-mel: their data nodes resample to it
+_ENCODERS_16K = ("uit_xs",)
+
+
+def _at_16k(cfg: Dict, splits) -> Dict:
+    for split in splits:
+        cfg["data"][split]["dataset"]["args"]["target_sr"] = 16000
+    return cfg
+
+
+def encoders_train(d: str = "data/synthetic",
+                   name: str = "htsat") -> Dict:
+    """``configs/synthetic/cnn14rnn_trm.yaml`` on corpus v1 in ``d`` with
+    ``model.encoder`` replaced by :data:`ENCODER_NODES`'s ``name`` (the
+    rest of the recipe, its transformer decoder included, as it is; the
+    decoder's memory width follows the encoder's, as flax infers it) and
+    its experiment directory ``experiments/synthetic/{name}_trm/``; a
+    16 kHz encoder's train and val data resampled to 16 kHz."""
+    cfg = recipe("synthetic/cnn14rnn_trm.yaml", d)
+    cfg["model"]["encoder"] = copy.deepcopy(ENCODER_NODES[name])
+    cfg["experiment_path"] = f"experiments/synthetic/{name}_trm/"
+    return _at_16k(cfg, ("train", "val")) if name in _ENCODERS_16K else cfg
+
+
+def encoders_test(d: str = "data/synthetic",
+                  name: str = "htsat") -> Dict:
+    """``configs/synthetic/test.yaml`` for :func:`encoders_train`'s
+    ``name`` (at 16 kHz for a 16 kHz encoder)."""
+    cfg = recipe("synthetic/test.yaml", d)
+    return _at_16k(cfg, ("test",)) if name in _ENCODERS_16K else cfg
 
 
 def aug_train(d: str = "data/synthetic_v2",
@@ -446,11 +502,32 @@ def run_m2(data: Path, results: Path, overrides: List[str],
     return record
 
 
+def run_encoders(data: Path, results: Path, overrides: List[str],
+                 sizes=(2000, 200, 200), duration: float = 10.0,
+                 names=tuple(ENCODER_NODES)) -> Dict:
+    """Corpus v1, then for each encoder of ``names`` its
+    :func:`encoders_train` captioner trained and its SWA and best
+    checkpoints scored at beam 3 (:func:`encoders_test`)."""
+    from audiocaption_tpu_torch.cli.run import Runner
+    record: Dict = {"card": card_name()}
+    results.mkdir(parents=True, exist_ok=True)
+    _corpus("v1", data, sizes, duration, record)
+    dev = [o for o in overrides if o.startswith("device=")]
+    runner = Runner()
+    for name in names:
+        t0 = time.perf_counter()
+        exp = Path(runner.train(encoders_train(str(data), name), *overrides))
+        record[f"{name}_train_s"] = time.perf_counter() - t0
+        _scores(runner, exp, encoders_test(str(data), name), dev, results,
+                record, f"{name}_trm")
+    return record
+
+
 def main(argv=None) -> Dict:
     parser = argparse.ArgumentParser(
         prog="audiocaption_tpu_torch.cli.recipes")
     parser.add_argument("recipe", choices=("flagship", "temporal", "aug",
-                                           "m2"))
+                                           "m2", "encoders"))
     parser.add_argument("--data", required=True)
     parser.add_argument("--aug_data", default=None,
                         help="aug: the speed-perturbed copy's directory "
@@ -464,11 +541,17 @@ def main(argv=None) -> Dict:
                              "(default: the recorded 3000,300,300 / "
                              "2000,200,200)")
     parser.add_argument("--duration", type=float, default=10.0)
+    parser.add_argument("--encoders", default=",".join(ENCODER_NODES),
+                        help="encoders: which of the item-8 encoders to "
+                             "train, comma-separated")
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_intermixed_args(argv)
     run = {"flagship": run_flagship, "temporal": run_temporal,
-           "aug": run_aug, "m2": run_m2}[args.recipe]
+           "aug": run_aug, "m2": run_m2,
+           "encoders": run_encoders}[args.recipe]
     kw = {"duration": args.duration}
+    if args.recipe == "encoders":
+        kw["names"] = tuple(args.encoders.split(","))
     if args.recipe == "aug":
         kw.update(stop_epoch=args.stop_epoch,
                   aug_data=Path(args.aug_data) if args.aug_data else None)

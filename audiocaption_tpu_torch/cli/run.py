@@ -323,7 +323,13 @@ def unwrap_pretrained(ckpt, kind: str) -> Dict:
     taken off and the rest dropped), ``{"state_dict": sd}`` (BLAT: the
     keys holding ``audio_encoder``, that word and its dot taken out), a
     plain state dict; for a ``decoder`` part a ``decoder.`` prefix on the
-    first key is taken off the keys that have it (the rest dropped)."""
+    first key is taken off the keys that have it (the rest dropped).  The
+    port's modules carry the reference checkpoint keys that the JAX
+    converters read, so the kinds ``cnn14``, ``effb2``, ``htsat``,
+    ``esresnext`` and ``raw`` load as they are; ``uit`` goes under the
+    ``UitEncoder``'s ``trunk.`` (position tables of another length are
+    then skipped by shape, as the JAX ``convert_uit`` without a model
+    leaves them to the shape-checked merge)."""
     if isinstance(ckpt, dict) and "model" in ckpt:
         sd = ckpt["model"]
         if any(k.startswith("backbone.") for k in sd):
@@ -337,6 +343,8 @@ def unwrap_pretrained(ckpt, kind: str) -> Dict:
     if kind == "decoder" and sd and next(iter(sd)).startswith("decoder."):
         sd = {k[len("decoder."):]: v for k, v in sd.items()
               if k.startswith("decoder.")}
+    if kind == "uit":
+        sd = {"trunk." + k: v for k, v in sd.items()}
     return sd
 
 

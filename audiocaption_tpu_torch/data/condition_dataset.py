@@ -1,6 +1,6 @@
 """Condition and temporal-tag datasets (counterpart of
 ``audiocaption_tpu/data/condition_dataset.py`` but its keyword datasets,
-ROADMAP Queue 1 item 8).
+ROADMAP Queue 1 item 8b).
 
   * ``ConditionCaptionDataset``: each (clip, caption) item with its
     ``condition`` (float32), read from a tsv of ``cap_id`` -> ``prob``

@@ -58,15 +58,17 @@ class Captioner(nn.Module):
     with their lengths (``cli/prepare_features.py``; the feature-input
     encoders ``RnnEncoder``, ``AudioTransformerEncoder``,
     ``M2TransformerEncoder``), straight into the encoder: no frontend,
-    no SpecAugment."""
+    no SpecAugment; "raw_wav", a waveform straight into an encoder that
+    has its own frontend (``ESResNeXtFBSPEncoder``'s learned filterbank),
+    no SpecAugment either."""
 
     def __init__(self, encoder: nn.Module, decoder: nn.Module,
                  mel: MelConfig, special: SpecialTokens = SpecialTokens(),
                  input_mode: str = "mel"):
         super().__init__()
-        if input_mode not in ("mel", "features"):
-            raise ValueError(f"input_mode must be 'mel' or 'features', not "
-                             f"{input_mode!r}")
+        if input_mode not in ("mel", "features", "raw_wav"):
+            raise ValueError(f"input_mode must be 'mel', 'features' or "
+                             f"'raw_wav', not {input_mode!r}")
         self.frontend = LogMelFrontend(mel)
         self.encoder = encoder
         self.decoder = decoder
@@ -78,7 +80,7 @@ class Captioner(nn.Module):
                specaug: bool = False,
                specaug_generator: Optional[torch.Generator] = None
                ) -> Dict[str, torch.Tensor]:
-        if self.input_mode == "features":
+        if self.input_mode != "mel":
             return self.encoder(wav, wav_len)
         return self.encode_lms(self.log_mel(wav, specaug, specaug_generator),
                                self.mel.feat_len(wav_len))

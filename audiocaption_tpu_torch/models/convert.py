@@ -37,7 +37,10 @@ beside it), a LayerNorm, an Embed, a GRU or GRU cell stack, a
 ``MultiheadAttention``, a raw parameter).  ``captioner_state_dict_from_jax``
 converts a whole captioner so (a transformer decoder by
 ``decoder_state_dict_from_jax``'s names) into ``encoder.*`` /
-``decoder.*``.
+``decoder.*``; an item-8 encoder (HTS-AT, MobileNetV3, UiT,
+ESResNeXt-FBSP) by its family's converter below
+(``encoder_state_dict_from_jax``), into the reference checkpoint keys
+that the port's modules carry.
 
 ``tempgru_state_dict_from_jax`` does the same for the temporal captioner
 and its SED model, into the ``wsntxxn/cnn14rnn-tempgru`` key space
@@ -406,13 +409,14 @@ def jax_tree_state_dict(params: Mapping, stats: Mapping = None,
 def captioner_state_dict_from_jax(variables: Mapping
                                   ) -> Dict[str, torch.Tensor]:
     """A JAX captioner's variables whose encoder keeps the JAX names in
-    the port (see :func:`jax_tree_state_dict`) -> the port's state dict
-    of tensors under ``encoder.`` and ``decoder.``: a GRU decoder leaf by
+    the port (see :func:`jax_tree_state_dict`) or is an item-8 encoder
+    (:func:`encoder_state_dict_from_jax`) -> the port's state dict of
+    tensors under ``encoder.`` and ``decoder.``: a GRU decoder leaf by
     leaf, a ``TransformerDecoder`` by the reference's names (its depth
     and tying read off the tree)."""
     params, stats = variables["params"], variables.get("batch_stats", {})
-    out = jax_tree_state_dict(params["encoder"], stats.get("encoder", {}),
-                              "encoder")
+    out = {"encoder." + k: v for k, v in encoder_state_dict_from_jax(
+        params["encoder"], stats.get("encoder", {})).items()}
     dec = params["decoder"]
     if "attn_proj_dense" in dec:
         _transformer_decoder(dec, "decoder",
@@ -421,3 +425,178 @@ def captioner_state_dict_from_jax(variables: Mapping
     else:
         out.update(jax_tree_state_dict(dec, None, "decoder"))
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+# -- the item-8 encoders: a JAX tree -> the reference checkpoint keys ------
+#
+# Each is the inverse of the JAX package's converter of its family
+# (``convert_mobilenet_v3``, ``convert_htsat``, ``convert_uit``,
+# ``convert_esresnext``, ``convert_cnn10_classifier``,
+# ``convert_wavegram_cnn14``), read off the tree itself, so any depth and
+# width converts; the port's modules carry these names.  Parts the JAX
+# converters do not map keep the JAX names (MobileNetV3's ``bn0`` and
+# ``fc1``).
+
+def _conv_bn_pair(params, stats, conv, bn, prefix, out):
+    _conv2d(params[conv], f"{prefix}.0", out)
+    _batchnorm(params[bn], stats[bn], f"{prefix}.1", out)
+
+
+def _se_linear(p, prefix, out):
+    out[f"{prefix}.weight"] = _n(p["kernel"])[0, 0].T
+    out[f"{prefix}.bias"] = _n(p["bias"])
+
+
+def mobilenet_v3_state_dict_from_jax(params: Mapping, stats: Mapping
+                                     ) -> Dict[str, np.ndarray]:
+    """A JAX ``MobileNetV3Encoder``'s params and batch stats -> numpy
+    arrays under the EfficientAT keys (``features.*``), ``bn0`` and
+    ``fc1``."""
+    out: Dict[str, np.ndarray] = {}
+    _batchnorm(params["bn0"], stats["bn0"], "bn0", out)
+    _conv_bn_pair(params, stats, "stem", "bn_stem", "features.0", out)
+    n_blocks = sum(k.startswith("block") for k in params)
+    for i in range(n_blocks):
+        bp, bs = params[f"block{i}"], stats[f"block{i}"]
+        t, j = f"features.{i + 1}.block", 0
+        if "expand" in bp:
+            _conv_bn_pair(bp, bs, "expand", "bn_expand", f"{t}.{j}", out)
+            j += 1
+        _conv_bn_pair(bp, bs, "depthwise", "bn_dw", f"{t}.{j}", out)
+        j += 1
+        if "se_reduce" in bp:
+            se = f"{t}.{j}.conc_se_layers.0"
+            _se_linear(bp["se_reduce"], f"{se}.fc1", out)
+            _se_linear(bp["se_expand"], f"{se}.fc2", out)
+            j += 1
+        _conv_bn_pair(bp, bs, "project", "bn_proj", f"{t}.{j}", out)
+    _conv_bn_pair(params, stats, "lastconv", "bn_last",
+                  f"features.{n_blocks + 1}", out)
+    if "fc1" in params:
+        _linear(params["fc1"], "fc1", out)
+    return out
+
+
+def htsat_state_dict_from_jax(params: Mapping, stats: Mapping
+                              ) -> Dict[str, np.ndarray]:
+    """A JAX ``HtsatEncoder``'s params and batch stats -> numpy arrays
+    under the HTSAT_Swin_Transformer keys."""
+    out: Dict[str, np.ndarray] = {}
+    _batchnorm(params["bn0"], stats["bn0"], "bn0", out)
+    _conv2d(params["patch_embed"], "patch_embed.proj", out)
+    _layernorm(params["patch_norm"], "patch_embed.norm", out)
+    for name, p in params.items():
+        if name.startswith("stage"):
+            s, b = (int(x) for x in name[len("stage"):].split("_block"))
+            tp = f"layers.{s}.blocks.{b}"
+            _layernorm(p["norm1"], f"{tp}.norm1", out)
+            _layernorm(p["norm2"], f"{tp}.norm2", out)
+            _linear(p["attn"]["qkv"], f"{tp}.attn.qkv", out)
+            _linear(p["attn"]["proj"], f"{tp}.attn.proj", out)
+            out[f"{tp}.attn.relative_position_bias_table"] = _n(
+                p["attn"]["relative_position_bias_table"])
+            _linear(p["fc1"], f"{tp}.mlp.fc1", out)
+            _linear(p["fc2"], f"{tp}.mlp.fc2", out)
+        elif name.startswith("merge"):
+            tp = f"layers.{int(name[len('merge'):])}.downsample"
+            _layernorm(p["norm"], f"{tp}.norm", out)
+            _linear(p["reduction"], f"{tp}.reduction", out)
+    _layernorm(params["norm"], "norm", out)
+    return out
+
+
+def uit_state_dict_from_jax(params: Mapping, stats: Mapping
+                            ) -> Dict[str, np.ndarray]:
+    """A JAX ``UITBase``'s params and batch stats (a ``UitEncoder``'s
+    ``trunk``) -> numpy arrays under the reference UiT keys; the head
+    (``outputlayer``) where the tree has one."""
+    out: Dict[str, np.ndarray] = {}
+    _batchnorm(params["init_bn"], stats["init_bn"], "init_bn.1", out)
+    _conv2d(params["patch_proj"], "patch_embed.proj", out)
+    for k in ("cls_token", "token_pos_embed", "time_pos_embed",
+              "freq_pos_embed"):
+        out[k] = _n(params[k])
+    for name, p in params.items():
+        if name.startswith("blocks_"):
+            b = f"blocks.{int(name[len('blocks_'):])}"
+            _layernorm(p["norm1"], f"{b}.norm1", out)
+            _layernorm(p["norm2"], f"{b}.norm2", out)
+            _linear(p["attn"]["qkv"], f"{b}.attn.qkv", out)
+            _linear(p["attn"]["proj"], f"{b}.attn.proj", out)
+            _linear(p["mlp_fc1"], f"{b}.mlp.fc1", out)
+            _linear(p["mlp_fc2"], f"{b}.mlp.fc2", out)
+            for g in ("ls1", "ls2"):
+                if f"{g}_gamma" in p:
+                    out[f"{b}.{g}.gamma"] = _n(p[f"{g}_gamma"])
+    _layernorm(params["norm"], "norm", out)
+    if "out_proj" in params:
+        _layernorm(params["out_norm"], "outputlayer.0", out)
+        _linear(params["out_proj"], "outputlayer.1", out)
+    return out
+
+
+def esresnext_state_dict_from_jax(params: Mapping, stats: Mapping
+                                  ) -> Dict[str, np.ndarray]:
+    """A JAX ``ESResNeXtFBSP``'s params and batch stats (``{"fbsp",
+    "trunk"}``; an encoder's ``fbsp_model``) -> numpy arrays under the
+    reference ESResNeXt keys (``att5`` and ``fc`` where the tree has
+    them)."""
+    out: Dict[str, np.ndarray] = {}
+    tp, ts = params["trunk"], stats["trunk"]
+    _conv2d(tp["conv1"], "conv1", out)
+    _batchnorm(tp["bn1"], ts["bn1"], "bn1", out)
+    for name, p in tp.items():
+        s = ts.get(name, {})
+        if name.startswith("layer"):
+            stage, i = name[len("layer"):].split("_")
+            b = f"layer{stage}.{i}"
+            for c in (1, 2, 3):
+                _conv2d(p[f"conv{c}"], f"{b}.conv{c}", out)
+                _batchnorm(p[f"bn{c}"], s[f"bn{c}"], f"{b}.bn{c}", out)
+            if "downsample_conv" in p:
+                _conv2d(p["downsample_conv"], f"{b}.downsample.0", out)
+                _batchnorm(p["downsample_bn"], s["downsample_bn"],
+                           f"{b}.downsample.1", out)
+        elif name.startswith("att"):
+            _conv2d(p["conv_depth"], f"{name}.conv_depth", out)
+            _conv2d(p["conv_point"], f"{name}.conv_point", out)
+            _batchnorm(p["bn"], s["bn"], f"{name}.bn", out)
+    if "fc" in tp:
+        _linear(tp["fc"], "fc", out)
+    for k in ("m", "fb", "fc"):
+        out[f"fbsp.{k}"] = _n(params["fbsp"][k])
+    return out
+
+
+def panns_classifier_state_dict_from_jax(params: Mapping, stats: Mapping
+                                         ) -> Dict[str, np.ndarray]:
+    """A JAX ``Cnn10`` or ``Wavegram_Logmel_Cnn14`` classifier's params
+    and batch stats -> numpy arrays under the PANNs keys: the head's
+    ``fc1`` and ``fc_audioset`` at the top, a 1-D conv kernel [k, I, O]
+    as [O, I, k]."""
+    body = {k: v for k, v in params.items() if k != "head"}
+    out = jax_tree_state_dict(body, stats)
+    out.update(jax_tree_state_dict(params["head"]))
+    return out
+
+
+def encoder_state_dict_from_jax(params: Mapping, stats: Mapping
+                                ) -> Dict[str, np.ndarray]:
+    """A JAX captioning encoder's params and batch stats -> the port
+    encoder's state dict as numpy arrays: the item-8 encoders by their
+    converters above (read off the tree: an HTS-AT has ``patch_norm``, a
+    MobileNetV3 ``lastconv``, a UiT encoder a ``trunk``, an ESResNeXt
+    encoder an ``fbsp_model``), every other leaf by leaf
+    (:func:`jax_tree_state_dict`)."""
+    if "patch_norm" in params:
+        return htsat_state_dict_from_jax(params, stats)
+    if "lastconv" in params:
+        return mobilenet_v3_state_dict_from_jax(params, stats)
+    if "trunk" in params and "patch_proj" in params["trunk"]:
+        return {"trunk." + k: v for k, v in uit_state_dict_from_jax(
+            params["trunk"], stats["trunk"]).items()}
+    if "fbsp_model" in params:
+        return {"fbsp_model." + k: v for k, v in
+                esresnext_state_dict_from_jax(
+                    params["fbsp_model"], stats["fbsp_model"]).items()}
+    return jax_tree_state_dict(params, stats)

@@ -22,6 +22,7 @@ made once per version of the parameter (:func:`as_compute`).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -158,6 +159,15 @@ class BatchNorm2d(nn.BatchNorm2d):
         # a bf16 x with the float32 parameters is one mixed-dtype call,
         # computed in float32 and rounded once
         return narrow(super().forward(x), self.compute_dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def device_table(build, args: tuple, device: torch.device,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """``build(*args)``, a constant numpy table, as a tensor on ``device``
+    in ``dtype``: built and copied once per key, so a forward on the card
+    makes no copy from host memory (which would wait for the stream)."""
+    return torch.from_numpy(build(*args)).to(device, dtype)
 
 
 def sinusoidal_positions(max_len: int, d_model: int) -> np.ndarray:

@@ -13,6 +13,7 @@ from audiocaption_tpu_torch.models.effb2 import EfficientNetB2
 from audiocaption_tpu_torch.models.encoders_extra import (
     AudioTransformerEncoder, Cdur5Encoder)
 from audiocaption_tpu_torch.models.hm_classifier import HmClassifier
+from audiocaption_tpu_torch.models.htsat import WindowAttention
 from audiocaption_tpu_torch.models.layers import MultiheadAttention
 from audiocaption_tpu_torch.models.m2 import M2Attention
 from audiocaption_tpu_torch.models.rnn_decoder import (
@@ -20,6 +21,7 @@ from audiocaption_tpu_torch.models.rnn_decoder import (
 from audiocaption_tpu_torch.models.rnn_encoder import Cnn14RnnEncoder
 from audiocaption_tpu_torch.models.transformer_decoder import (
     TransformerDecoder)
+from audiocaption_tpu_torch.models.uit import UITBase
 from audiocaption_tpu_torch.ops.frontend import (
     CNN14_MEL_16K, CNN14_MEL_32K, EFFB2_MEL_16K)
 
@@ -123,11 +125,14 @@ def random_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
     ``v``, Xavier-uniform CLS tokens and discriminator word tables,
     identity normalisation; the M2 modules' linears Xavier-uniform with
     zero biases (``xavier_init``) and their memory slots from N(0, (1 /
-    d_k)^2) and N(0, (1 / m)^2), as the JAX modules draw them.  The positional table stays
-    sinusoidal."""
+    d_k)^2) and N(0, (1 / m)^2), as the JAX modules draw them; HTS-AT's
+    relative position tables and UiT's position tables from N(0, 0.02^2),
+    UiT's CLS token from N(0, (1e-6)^2) (the JAX initialisers; the FBSP
+    filterbank and LayerScale keep their fixed starts).  The positional
+    table stays sinusoidal."""
     for m in model.modules():
-        if isinstance(m, nn.Conv2d):
-            fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
+        if isinstance(m, (nn.Conv1d, nn.Conv2d)):
+            fan_out = m.out_channels * math.prod(m.kernel_size)
             m.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
@@ -158,10 +163,18 @@ def random_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
             _xavier_uniform(m.cls_token, generator)
         elif isinstance(m, HmClassifier):
             _xavier_uniform(m.word_embedding, generator)
-        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
+        elif isinstance(m, WindowAttention):
+            m.relative_position_bias_table.normal_(0.0, 0.02,
+                                                   generator=generator)
+        elif isinstance(m, UITBase):
+            for p_ in (m.token_pos_embed, m.time_pos_embed,
+                       m.freq_pos_embed):
+                p_.normal_(0.0, 0.02, generator=generator)
+            m.cls_token.normal_(0.0, 1e-6, generator=generator)
+        elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d, nn.LayerNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
-            if isinstance(m, nn.BatchNorm2d):
+            if not isinstance(m, nn.LayerNorm):
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
     return model

@@ -99,7 +99,7 @@ def load_checkpoint(path: str) -> Dict:
 def jax_variables_to_reference(variables: Mapping) -> Dict[str, np.ndarray]:
     """A JAX EffB2-Transformer, cnn14rnn_trm, Cdur5 KD-student, Cnn14-GRU +
     GRU-decoder (the temporal captioner), any captioner of the extended
-    encoders or GRU decoders (``captioner_state_dict_from_jax``) or
+    or item-8 encoders or GRU decoders (``captioner_state_dict_from_jax``) or
     Cnn8-RNN SED tree {params, batch_stats} (numpy leaves) -> its
     reference key space; the GRUs' and the decoder's depth and the weight
     tying are read off the tree."""

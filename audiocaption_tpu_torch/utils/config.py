@@ -90,19 +90,27 @@ def build_model_from_config(model_cfg: Dict,
                             input_dim: Optional[int] = None
                             ) -> Tuple[torch.nn.Module, List[Tuple]]:
     """A ``Captioner`` from a reference-style model node, with the
-    defaults of the JAX package's ``build_model_from_config``, for the
-    types this package has.  Encoders (the mel preset of
-    ``sample_rate``, 32 kHz by default): ``EfficientNetB2`` (16 kHz),
-    ``CrnnEncoder`` / ``Cnn14RnnEncoder`` (a Cnn14 and a GRU, from its
-    ``cnn`` and ``rnn`` nodes), ``Cnn14Encoder``, ``Cnn6Encoder``,
-    ``Cnn10Encoder``, ``MobileNetV2`` / ``MobileNetV2Encoder``,
-    ``Cdur5Encoder``, ``Cdur8Encoder`` and ``Cnn14TransformerEncoder``
-    (its ``transformer`` node's ``d_model`` 512 and ``nlayers`` 2; an
-    ``encoder.cnn.pretrained`` loads into its Cnn14); over precomputed
-    features (``input_mode`` "features"), ``RnnEncoder``,
-    ``AudioTransformerEncoder`` (``TransformerEncoder`` is its other
-    name) and ``M2TransformerEncoder``.  A feature encoder's input width
-    is ``encoder.args.input_dim`` when the config gives it, else
+    defaults of the JAX package's ``build_model_from_config``.  Encoders
+    (the mel preset of ``sample_rate``, 32 kHz by default):
+    ``EfficientNetB2`` (16 kHz), ``CrnnEncoder`` / ``Cnn14RnnEncoder`` (a
+    Cnn14 and a GRU, from its ``cnn`` and ``rnn`` nodes), ``Cnn14Encoder``,
+    ``Cnn6Encoder``, ``Cnn10Encoder``, ``MobileNetV2`` /
+    ``MobileNetV2Encoder``, ``Cdur5Encoder``, ``Cdur8Encoder``,
+    ``Cnn14TransformerEncoder`` (its ``transformer`` node's ``d_model`` 512
+    and ``nlayers`` 2; an ``encoder.cnn.pretrained`` loads into its Cnn14),
+    ``MobileNetV3`` / ``MobileNetV3Encoder`` (``model_name`` "mn10",
+    ``pooling`` "mean_max_fc"), ``Htsat`` (HTS-AT base), ``UiT`` /
+    ``UitEncoder`` / ``uit_*`` (the variant ``model_name`` or the type's
+    own name, "uit_xs" by default; ``outputdim`` 537, ``target_length``
+    1008; ``UIT_MEL_16K``) and ``ESResNeXtFBSP`` / ``ESResNeXtFBSPEncoder``
+    (the public AudioSet settings: n_fft 2048, hop 561, window 1654
+    blackmanharris, normalised, attention; ``input_mode`` "raw_wav", its
+    own frontend, the mel preset left at 32 kHz whatever ``sample_rate``
+    says, as in the JAX builder); over precomputed features
+    (``input_mode`` "features"), ``RnnEncoder``,
+    ``AudioTransformerEncoder`` (``TransformerEncoder`` is its other name)
+    and ``M2TransformerEncoder``.  A feature encoder's input width is
+    ``encoder.args.input_dim`` when the config gives it, else
     ``input_dim`` (the runner reads it off the first row of the data:
     flax infers it, torch needs it up front: :func:`feature_input_dim`).
     An ``EfficientNetB2`` with ``args.prune_ratio`` is built full here;
@@ -110,20 +118,24 @@ def build_model_from_config(model_cfg: Dict,
     the JAX runner does.  Decoders: the ``TransformerDecoder``, the
     ``M2TransformerDecoder`` (on an M2 encoder only; its width the
     decoder's ``attn_emb_dim``, its gates one per encoder layer) and
-    every GRU decoder (:data:`RNN_DECODERS`), at any ``num_layers``.  A
-    GRU decoder's memory and fc widths are the encoder's own (flax infers
-    them in the JAX package, whatever the config's ``attn_emb_dim`` /
-    ``fc_emb_dim`` say).  As in the JAX
-    builder, ``compute_dtype`` reaches the EffB2, the Cnn14s and the
-    transformer decoder only.  The model's own type is read as the JAX
-    package reads it: every type but the style models is a plain
-    ``Captioner``; an ``ScstWrapper`` node is read as the model node it
-    wraps.  Returns (captioner, pretrained specs), a spec being (the
-    dotted path of the submodule, e.g. ``"encoder.cnn"``, checkpoint
-    path, kind: the JAX package's ``cnn14``, ``effb2``, ``raw`` or
-    ``decoder``, which ``cli/run.py::load_pretrained`` reads).  Other
-    types raise, naming the ROADMAP item that ports them.  Weights are
-    torch's defaults; the runner draws them (``zoo.random_init``)."""
+    every GRU decoder (:data:`RNN_DECODERS`), at any ``num_layers``.  The
+    memory and fc widths of a GRU or transformer decoder are the
+    encoder's own (flax infers them in the JAX package, whatever the
+    config's ``attn_emb_dim`` / ``fc_emb_dim`` say).  As in the JAX
+    builder, ``compute_dtype`` reaches the EffB2, the Cnn14s, the
+    MobileNetV3 and the transformer decoder only.  The model's own type
+    is read as the JAX package reads it: every type but the style models
+    is a plain ``Captioner``; an ``ScstWrapper`` node is read as the model
+    node it wraps.  Returns (captioner, pretrained specs), a spec being
+    (the dotted path of the submodule, e.g. ``"encoder.cnn"``, checkpoint
+    path, kind: the JAX package's ``cnn14``, ``effb2``, ``htsat``,
+    ``uit``, ``esresnext``, ``raw`` or ``decoder``, which
+    ``cli/run.py::load_pretrained`` reads).  The conditioned transformer
+    decoders (``EventTransformerDecoder``,
+    ``KeywordProbTransformerDecoder``) and the style models raise, naming
+    the ROADMAP item that ports them; an unknown type raises as in the JAX
+    builder.  Weights are torch's defaults; the runner draws them
+    (``zoo.random_init``)."""
     from audiocaption_tpu_torch.decoding.engine import SpecialTokens
     from audiocaption_tpu_torch.models import encoders_extra as EX
     from audiocaption_tpu_torch.models import rnn_decoder
@@ -202,6 +214,48 @@ def build_model_from_config(model_cfg: Dict,
         mel = EFFB2_MEL_16K
         if enc_cfg.get("pretrained"):
             pretrained.append(("encoder", enc_cfg["pretrained"], "effb2"))
+    elif enc_type in ("MobileNetV3", "MobileNetV3Encoder"):
+        from audiocaption_tpu_torch.models.mobilenet_v3 import (
+            MobileNetV3Encoder)
+        encoder = MobileNetV3Encoder(
+            model_name=enc_args.get("model_name", "mn10"),
+            pooling=enc_args.get("pooling", "mean_max_fc"),
+            compute_dtype=compute_dtype)
+    elif enc_type == "Htsat":
+        from audiocaption_tpu_torch.models.htsat import HtsatEncoder
+        encoder = HtsatEncoder()
+        if enc_cfg.get("pretrained"):
+            pretrained.append(("encoder", enc_cfg["pretrained"], "htsat"))
+    elif enc_type in ("UiT", "UitEncoder") or enc_type.startswith("uit_"):
+        from audiocaption_tpu_torch.models.uit import (
+            UIT_MEL_16K, UIT_VARIANTS, UitEncoder)
+        variant = enc_args.get("model_name", enc_type if
+                               enc_type.startswith("uit_") else "uit_xs")
+        encoder = UitEncoder(UIT_VARIANTS[variant](
+            outputdim=enc_args.get("outputdim", 537),
+            target_length=enc_args.get("target_length", 1008),
+            classifier=False))
+        mel = UIT_MEL_16K
+        if enc_cfg.get("pretrained"):
+            pretrained.append(("encoder", enc_cfg["pretrained"], "uit"))
+    elif enc_type in ("ESResNeXtFBSP", "ESResNeXtFBSPEncoder"):
+        from audiocaption_tpu_torch.models.resnext import (
+            ESResNeXtFBSP, ESResNeXtFBSPEncoder)
+        encoder = ESResNeXtFBSPEncoder(ESResNeXtFBSP(
+            n_fft=enc_args.get("n_fft", 2048),
+            hop_length=enc_args.get("hop_length", 561),
+            win_length=enc_args.get("win_length", 1654),
+            window=enc_args.get("window", "blackmanharris"),
+            normalized=enc_args.get("normalized", True),
+            num_classes=enc_args.get("num_classes", 527),
+            apply_attention=enc_args.get("apply_attention", True),
+            classifier=False))
+        # its own frontend; the mel preset (unused) stays the 32 kHz one
+        # whatever sample_rate says, as in the JAX builder
+        input_mode, mel = "raw_wav", CNN14_MEL_32K
+        if enc_cfg.get("pretrained"):
+            pretrained.append(("encoder.fbsp_model", enc_cfg["pretrained"],
+                               "esresnext"))
     elif enc_type == "RnnEncoder":
         encoder = RnnEncoder(
             in_dim, hidden_size=enc_args.get("hidden_size", 512),
@@ -223,8 +277,7 @@ def build_model_from_config(model_cfg: Dict,
             dropout=enc_args.get("dropout", 0.1),
             n_memory=enc_args.get("m", 40), compute_dtype=compute_dtype)
     else:
-        raise ValueError(f"encoder type {enc_type!r} is not ported yet "
-                         "(ROADMAP Queue 1 item 8)")
+        raise ValueError(f"unsupported encoder type: {enc_type}")
     attn_width = getattr(encoder, "attn_emb_size", encoder.fc_emb_size)
 
     dec_cfg = model_cfg["decoder"]
@@ -237,7 +290,7 @@ def build_model_from_config(model_cfg: Dict,
     if dec_type == "TransformerDecoder":
         decoder = TransformerDecoder(
             emb_dim=dec_args.get("emb_dim", 256), vocab_size=vocab,
-            attn_emb_dim=dec_args.get("attn_emb_dim", attn_width),
+            attn_emb_dim=attn_width,
             nlayers=dec_args.get("nlayers", 2), nhead=dec_args.get("nhead"),
             dim_feedforward=dec_args.get("dim_feedforward"),
             tie_weights=dec_args.get("tie_weights", False),
@@ -261,16 +314,19 @@ def build_model_from_config(model_cfg: Dict,
             d_model=dec_args.get("d_model", 512),
             dropout=dec_args.get("dropout", 0.5),
             num_layers=dec_args.get("num_layers", 1))
-    else:
+    elif dec_type in ("EventTransformerDecoder",
+                      "KeywordProbTransformerDecoder"):
         raise ValueError(f"decoder type {dec_type!r} is not ported yet "
-                         "(ROADMAP Queue 1 item 8)")
+                         "(ROADMAP Queue 1 item 8b)")
+    else:
+        raise ValueError(f"unsupported decoder type: {dec_type}")
     if dec_cfg.get("pretrained"):
         pretrained.append(("decoder", dec_cfg["pretrained"], "decoder"))
 
     model_type = short_type(model_cfg.get("type", "TransformerModel"))
     if model_type in ("StyleCaptionModel", "StyleSeq2SeqAttnModel"):
         raise ValueError(f"model type {model_type!r} is not ported yet "
-                         "(ROADMAP Queue 1 item 8)")
+                         "(ROADMAP Queue 1 item 8b)")
     model = Captioner(encoder=encoder, decoder=decoder, mel=mel,
                       special=SpecialTokens(), input_mode=input_mode)
     return model, pretrained

@@ -287,7 +287,25 @@ Phases, each of which must pass (none is caught and skipped):
      ``AudioTransformerEncoder`` + ``TransformerDecoder`` on the same
      features (its val score through the greedy kernel, its evaluate
      through the beam kernel) and a pruned EffB2 (0.3) trained an epoch
-     (its val score through the greedy kernel).
+     (its val score through the greedy kernel);
+ 29. the item-8 encoders and the PANNs classifiers: (a) MobileNetV3
+     mn10, HTS-AT, UiT-xs, ESResNeXt-FBSP at its public AudioSet settings,
+     ``Cnn10`` and ``Wavegram_Logmel_Cnn14``, each at its published width
+     (seeded random weights, BN statistics jittered) on B=32 x 10 s: two
+     clips held against a CPU copy of the same weights within 1e-3
+     relative, the eval forward timed (median of 10), peak memory, the
+     log-mel kernel's launches; (b)-(d) on a reduced corpus v1 (640 / 64
+     / 64 clips, ``item8_path``): (b) the ``encoders`` recipe's HTS-AT +
+     2-layer ``TransformerDecoder`` captioner trained 3 epochs (300 steps)
+     with ``Runner.train``: the loss falls, the val CIDEr-D through the
+     greedy kernel beats the best constant caption's, ``Runner.evaluate``
+     at beam 3 through the beam kernel, both kernels against their plain
+     versions at its shapes (S=32) and timed, the step split and idle
+     share; (c) the ESResNeXt-FBSP captioner (``raw_wav``) for a few
+     ``Runner.train`` steps, then steps on one batch whose loss falls, its
+     evaluation through the beam kernel (S=7, held against plain); (d)
+     ``prepare_features`` with ``htsat``, ``panns_cnn10`` and
+     ``panns_wavegram`` on 8 clips, card against CPU.
 
 Every kernel's launch counter is set to 0 just before each path is
 driven (phases 4-5, the EffB2 serving path; phase 8, the temporal path;
@@ -310,7 +328,11 @@ and log-mel entries' ``family_launches`` and whose (d) launches the
 ``fused_greedy[cnn14trm]`` and ``fused_beam[cnn14trm]`` entries'; phase
 28(a), the bf16 walk, whose MBConv count is the ``fused_mbconv[bf16]``
 entry's; phase 28(b)-(g), the feature-input path, whose counts are the
-greedy, beam and log-mel entries' ``feature_launches``) and
+greedy, beam and log-mel entries' ``feature_launches``; phase 29, the
+item-8 path, whose counts are the greedy, beam and log-mel entries'
+``item8_launches`` and whose (b) and (c) launches the
+``fused_greedy[htsat]``, ``fused_beam[htsat]`` and
+``fused_beam[esresnext]`` entries') and
 read just after; the run fails if a kernel of that
 path was not launched there.
 The second-to-last line is the kernels JSON object, the last line
@@ -491,6 +513,17 @@ FAM_STEP_TIMED = 6            # (b), (c): timed steps after FAM_WARMUP
 FEAT_SIZES, FEAT_EPOCHS = (64, 16, 16), 1
 MBCONV_BF16_RTOL = 1e-2       # bf16 kernel vs bf16 plain, times max(1, max)
 BF16_WALK_FACTOR = 2.0        # walked vs cuDNN bf16, times bf16's own error
+# phase 29: the item-8 encoders and PANNs classifiers
+ENC_B, ENC_SECONDS = 32, 10   # (a)
+ENC_CPU_CLIPS = 2             # (a): clips held against a CPU copy
+ENC_RTOL = 1e-3               # (a), (d): card vs CPU, times max(1, max |CPU|)
+ENC_SIZES = (640, 64, 64)     # (b)-(d): corpus v1; 5 captions a train clip
+ENC_EPOCHS = 3                # (b): 100 steps of 32 an epoch
+ENC_FINAL_LR = 5e-5
+ENC_RX_STEPS = 6              # (c): Runner.train steps, then steps on a batch
+ENC_FEATURE_CLIPS = 8         # (d)
+ITEM8 = ("mobilenet_v3", "htsat", "uit_xs", "esresnext", "panns_cnn10",
+         "panns_wavegram")
 FAM_ENCODERS = {
     "Cnn6Encoder": {}, "Cnn10Encoder": {}, "Cdur8Encoder": {},
     "MobileNetV2": {}, "Cnn14Encoder": {},
@@ -544,11 +577,12 @@ def clip_times(params, card: str, label: str) -> dict:
     return out
 
 
-def device_split(fn, iters: int = 5) -> dict:
+def device_split(fn, iters: int = 5, launches=None) -> dict:
     """Device time per kernel (ms per call of ``fn``), from a
     ``torch.profiler`` trace of ``iters`` calls after one warm-up: the
     launches of a multi-kernel call apart, and the kernels' time without
-    the host's.  Empty if the profiler records no device time."""
+    the host's.  Empty if the profiler records no device time.  A dict
+    ``launches`` gets each kernel's launches per call."""
     import re
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -567,6 +601,8 @@ def device_split(fn, iters: int = 5) -> dict:
             names = re.findall(r"[A-Za-z_]\w*_kernel\b", ev.key)
             name = names[0] if names else ev.key[:40]
             out[name] = out.get(name, 0.0) + us / 1e3 / iters
+            if launches is not None:
+                launches[name] = launches.get(name, 0) + ev.count / iters
     return {k: round(v, 4) for k, v in sorted(out.items(),
                                               key=lambda kv: -kv[1])}
 
@@ -4015,6 +4051,75 @@ def _write_conditions(data, tokenizer, ws):
             f.write(f"{key}\t{float(ws[ids].sum()):.6f}\n")
 
 
+def check_decode_kernels(packed, memkv, valid, tag, greedy=True):
+    """The beam-3 kernel and, with ``greedy``, the greedy kernel against
+    their plain versions on ``packed`` over ``memkv``; fails on a
+    disagreement (the beam scores by :func:`float64_floor_check` beyond
+    SCORE_ATOL).  The caller owns the launch counts. -> (greedy tokens
+    apart or None, the beam's max |score diff| on matching sequences)."""
+    import torch
+    from audiocaption_tpu_torch.decoding import fused_beam as FB
+    from audiocaption_tpu_torch.decoding import fused_greedy as FG
+    g_mis = None
+    with torch.no_grad():
+        if greedy:
+            g = FG.fused_greedy_decode(packed, memkv, valid, L)
+            g_mis = int((g != FG.fused_greedy_plain(packed, memkv, valid,
+                                                    L)).sum())
+            assert g_mis <= MISMATCH_LIMIT * g.numel(), \
+                f"{tag}: greedy kernel"
+        seq, score = FB.fused_beam_decode(packed, memkv, valid, L, 3)
+        p_seq, p_score = FB.fused_beam_plain(packed, memkv, valid, L, 3)
+    b_mis = int((seq != p_seq).sum())
+    same = (seq == p_seq).all(-1)
+    b_err = float((score[same] - p_score[same]).abs().max()) \
+        if bool(same.any()) else float("inf")
+    log(f"{tag}: memory {tuple(memkv.shape)}: greedy kernel vs plain "
+        f"tokens apart {'not run' if g_mis is None else g_mis}; beam-3 "
+        f"tokens apart {b_mis}/{seq.numel()}, max |score diff| on matching "
+        f"sequences {b_err:.3g}")
+    assert b_mis <= MISMATCH_LIMIT * seq.numel(), f"{tag}: beam kernel"
+    assert b_err <= SCORE_ATOL or float64_floor_check(
+        packed, memkv, valid, 3, seq, score, p_seq, p_score), \
+        f"{tag}: beam kernel scores disagree"
+    return g_mis, b_err
+
+
+def decode_kernels_at(exp, resume, test_data, dev, tag, greedy=True):
+    """The decoder of the experiment ``exp`` (checkpoint ``resume``) over
+    its encoder's memory of the first batch of the loader config
+    ``test_data``, both decode kernels checked there
+    (:func:`check_decode_kernels`); the launch counts are left as they
+    were. -> (packed weights, memory K/V, valid mask, greedy tokens apart
+    or None, beam error, the model's feature frames of that batch's
+    clips)."""
+    import torch
+    from audiocaption_tpu_torch.cli.run import (
+        build_dataloader, experiment_model, read_experiment)
+    from audiocaption_tpu_torch.decoding import fused_beam as FB
+    from audiocaption_tpu_torch.decoding import fused_greedy as FG
+    from audiocaption_tpu_torch.ops import fused_logmel as FL
+    c0 = (FG.fused_greedy_decode.launches, FB.fused_beam_decode.launches,
+          FL.fused_logmel.launches)
+    cfg, ckpt = read_experiment(exp, resume)
+    model, _ = experiment_model(cfg, ckpt, dev)
+    test = next(iter(build_dataloader(test_data, train=False)))
+    with torch.no_grad():
+        enc = model.encode(torch.as_tensor(test["wav"]).to(dev).float(),
+                           torch.as_tensor(test["wav_len"]).to(dev).long())
+        memkv, valid = FG.memory_kv(model.decoder, enc["attn_emb"],
+                                    enc["attn_emb_len"], False)
+        packed = FG.pack_decoder_weights(model.decoder).to(dev)
+    frames = int(model.mel.feat_len(torch.tensor([test["wav"].shape[1]])))
+    del model, enc
+    g_mis, b_err = check_decode_kernels(packed, memkv, valid,
+                                        f"{tag} at its trained weights",
+                                        greedy)
+    (FG.fused_greedy_decode.launches, FB.fused_beam_decode.launches,
+     FL.fused_logmel.launches) = c0
+    return packed, memkv, valid, g_mis, b_err, frames
+
+
 def decode_entry(kind, name, packed, memkv, valid, launches, err, card,
                  steps=None):
     """A decode kernel (``kind`` "greedy" or "beam" 3) at the shapes of
@@ -4315,44 +4420,17 @@ def _family(root, dev, card):
         assert l_d["fused_beam"] == l_d["eval_fused_greedy"] == 0, l_d
     assert floats_d and all(map(math.isfinite, floats_d.values()))
     # both kernels against their plain versions at these shapes
-    c0 = counts()
-    cfg, ckpt = read_experiment(exp_d, "best.pth")
-    model_d, tok = experiment_model(cfg, ckpt, dev)
-    test = next(iter(build_dataloader(recipes.flagship_test(str(data))[
-        "data"]["test"], train=False)))
-    with torch.no_grad():
-        enc = model_d.encode(torch.as_tensor(test["wav"]).to(dev).float(),
-                             torch.as_tensor(test["wav_len"]).to(dev).long())
-        memkv, valid = FG.memory_kv(model_d.decoder, enc["attn_emb"],
-                                    enc["attn_emb_len"], False)
-        packed = FG.pack_decoder_weights(model_d.decoder).to(dev)
-        g = FG.fused_greedy_decode(packed, memkv, valid, L)
-        g_plain = FG.fused_greedy_plain(packed, memkv, valid, L)
-        seq, score = FB.fused_beam_decode(packed, memkv, valid, L, 3)
-        p_seq, p_score = FB.fused_beam_plain(packed, memkv, valid, L, 3)
-    g_mis = int((g != g_plain).sum())
-    b_mis = int((seq != p_seq).sum())
-    same = (seq == p_seq).all(-1)
-    b_err = float((score[same] - p_score[same]).abs().max()) \
-        if bool(same.any()) else float("inf")
-    log(f"family (d): at the trained weights, memory {tuple(memkv.shape)} "
-        f"(S = frames + CLS): greedy kernel vs plain {g_mis}/{g.numel()} "
-        f"tokens differ; beam-3 kernel vs plain {b_mis}/{seq.numel()} "
-        f"tokens differ, max |score diff| on matching sequences "
-        f"{b_err:.3g}")
-    frames = int(model_d.mel.feat_len(torch.tensor([test["wav"].shape[1]])))
+    packed, memkv, valid, g_mis, b_err, frames = decode_kernels_at(
+        exp_d, "best.pth", recipes.flagship_test(str(data))["data"]["test"],
+        dev, "family (d)")
     assert memkv.shape[3] == frames // 32 + 1, "family (d): memory length"
-    assert g_mis <= MISMATCH_LIMIT * g.numel(), "family: greedy kernel"
-    assert b_mis <= MISMATCH_LIMIT * seq.numel(), "family: beam kernel"
-    assert b_err <= SCORE_ATOL or float64_floor_check(
-        packed, memkv, valid, 3, seq, score, p_seq, p_score), \
-        "family: beam kernel scores disagree"
+    c0 = counts()
     entries = [
         decode_entry("greedy", "cnn14trm", packed, memkv, valid,
                      l_d["fused_greedy"], float(g_mis), card),
         decode_entry("beam", "cnn14trm", packed, memkv, valid,
                      l_d["eval_fused_beam"], b_err, card)]
-    del model_d, enc, memkv
+    del memkv
     restore(c0)
 
     # (e) the ensemble of (b) and (d): a GRU and a transformer member
@@ -4370,6 +4448,8 @@ def _family(root, dev, card):
                for e in (exp_b, exp_d)]
     cpu_members = [copy.deepcopy(m).cpu() for m in members]
     k = EVAL_ENSEMBLE_CPU
+    test = next(iter(build_dataloader(recipes.flagship_test(str(data))[
+        "data"]["test"], train=False)))
     wav = torch.as_tensor(test["wav"][:k]).float()
     wav_len = torch.as_tensor(test["wav_len"][:k]).long()
     card_seq = ensemble_generate(members, wav.to(dev), wav_len.to(dev),
@@ -4845,6 +4925,441 @@ def _feature_path(root, dev, card):
     return {"launches": launches, "times": times}
 
 
+# -- phase 29: the item-8 encoders and the PANNs classifiers ---------------
+
+def item8_model(name: str, seed: int = SEED):
+    """An item-8 encoder or PANNs classifier at its published width (the
+    JAX builder's defaults; ``uit_xs`` with its target length 1008),
+    seeded random weights, every BN's statistics moved off the identity
+    and ``bn0`` at a dB log-mel's (mean -40, variance 400) -> (module,
+    its sample rate)."""
+    import torch
+    from audiocaption_tpu_torch.models import htsat, mobilenet_v3, panns
+    from audiocaption_tpu_torch.models import resnext, uit
+    from audiocaption_tpu_torch.models.zoo import random_init
+    make = {
+        "mobilenet_v3": lambda: mobilenet_v3.MobileNetV3Encoder("mn10"),
+        "htsat": htsat.HtsatEncoder,
+        "uit_xs": lambda: uit.UitEncoder(uit.UIT_VARIANTS["uit_xs"](
+            outputdim=537, target_length=1008, classifier=False)),
+        "esresnext": lambda: resnext.ESResNeXtFBSPEncoder(
+            resnext.ESResNeXtFBSP(n_fft=2048, hop_length=561,
+                                  win_length=1654, window="blackmanharris",
+                                  normalized=True, apply_attention=True,
+                                  classifier=False)),
+        "panns_cnn10": panns.Cnn10,
+        "panns_wavegram": panns.Wavegram_Logmel_Cnn14}[name]
+    m = make()
+    gen = torch.Generator().manual_seed(seed)
+    random_init(m, gen)
+    with torch.no_grad():
+        for mod in m.modules():
+            if isinstance(mod, torch.nn.modules.batchnorm._BatchNorm):
+                n = mod.num_features
+                mod.running_mean.copy_(torch.randn(n, generator=gen) * 0.1)
+                mod.running_var.copy_(1 + torch.rand(n, generator=gen))
+        bn0 = (m.trunk.init_bn[1] if name == "uit_xs"
+               else getattr(m, "bn0", None))
+        if bn0 is not None:
+            bn0.running_mean.fill_(-40.0)
+            bn0.running_var.fill_(400.0)
+    return m.eval(), (16000 if name == "uit_xs" else SR_32K)
+
+
+def item8_forward(name, model, front, wav, wav_len):
+    """One eval forward as its caller runs it: an encoder over the log-mel
+    of ``front`` and its frame counts, ESResNeXt over the wave, the PANNs
+    classifiers as ``prepare_features`` calls them."""
+    if name == "esresnext":
+        return model(wav, wav_len)
+    lms = front(wav)
+    if name == "panns_cnn10":
+        return model(lms)
+    if name == "panns_wavegram":
+        return model(wav, lms)
+    return model(lms, front.config.feat_len(wav_len))
+
+
+def item8_encoders(dev, card) -> dict:
+    """Phase 29(a): each item-8 encoder and PANNs classifier
+    (:func:`item8_model`) on B=ENC_B clips of ENC_SECONDS / 2 to
+    ENC_SECONDS at its rate (the first ENC_CPU_CLIPS of full length), in
+    ``eval()``: those clips' outputs against a CPU copy of the same
+    weights within ENC_RTOL * max(1, max |CPU|); the forward's time (CUDA
+    events, median of FAM_TIMED after FAM_WARMUP), peak memory and
+    log-mel kernel launches.  -> {name: {...}} and the path's log-mel
+    launches (the checks' taken out)."""
+    import copy
+    import torch
+    from audiocaption_tpu_torch.models.uit import UIT_MEL_16K
+    from audiocaption_tpu_torch.ops import fused_logmel as FL
+    from audiocaption_tpu_torch.ops.frontend import (
+        CNN14_MEL_32K, LogMelFrontend)
+    out, launches = {}, 0
+    for i, name in enumerate(ITEM8):
+        cpu_model, sr = item8_model(name, SEED + i)
+        model = copy.deepcopy(cpu_model).to(dev)
+        front = LogMelFrontend(UIT_MEL_16K if sr == 16000 else CNN14_MEL_32K)
+        gen = torch.Generator().manual_seed(SEED + 29 + i)
+        n = ENC_SECONDS * sr
+        wav = torch.randn(ENC_B, n, generator=gen) * 0.1
+        wav_len = torch.randint(n // 2, n + 1, (ENC_B,), generator=gen)
+        wav_len[:ENC_CPU_CLIPS] = n
+        wav = wav * (torch.arange(n)[None] < wav_len[:, None])
+        w, wl = wav.to(dev), wav_len.to(dev)
+        front_d = front.to(dev)
+        with torch.no_grad():
+            n0 = FL.fused_logmel.launches
+            got = item8_forward(name, model, front_d, w, wl)
+            launches += FL.fused_logmel.launches - n0
+            ms = median_ms(lambda: item8_forward(name, model, front_d, w, wl))
+            _sync(dev)
+            torch.cuda.reset_peak_memory_stats()
+            item8_forward(name, model, front_d, w, wl)
+            _sync(dev)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            k = ENC_CPU_CLIPS
+            want = item8_forward(name, cpu_model, front.cpu(), wav[:k],
+                                 wav_len[:k])
+        errs = {}
+        for key, ref in want.items():
+            g = got[key][:k].cpu()
+            if not torch.is_floating_point(ref):
+                assert torch.equal(g, ref), (name, key)
+                continue
+            assert bool(torch.isfinite(got[key]).all()), (name, key)
+            errs[key] = float((g.double() - ref.double()).abs().max()) / max(
+                1.0, float(ref.abs().max()))
+        shapes = {key: list(v.shape) for key, v in got.items()}
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"29(a) {name}: {n_params / 1e6:.2f} M parameters; outputs "
+            f"{shapes}; card vs CPU copy on {k} clips, max |diff| / max(1, "
+            f"max |CPU|) {errs} (limit {ENC_RTOL}); forward (eval) "
+            f"{ms:.3f} ms per batch of {ENC_B} x {ENC_SECONDS} s at {sr} Hz "
+            f"(CUDA events, median of {FAM_TIMED}), peak {peak:.2f} GiB, "
+            f"float32, TF32 off, on {card}")
+        assert all(e <= ENC_RTOL for e in errs.values()), (name, errs)
+        out[name] = {"ms": ms, "peak_gib": peak, "params_m": n_params / 1e6,
+                     "shapes": shapes, "cpu_err": errs}
+        del model, cpu_model, got
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    if dev.type == "cuda":
+        # every 32 kHz model but ESResNeXt (its own frontend) took one
+        assert launches == 4, launches
+    return {"encoders": out, "logmel_launches": launches}
+
+
+def item8_path(dev, card):
+    """:func:`_item8` in a temporary directory, which is removed also
+    when a check fails."""
+    import shutil
+    import tempfile
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_item8_"))
+    try:
+        return _item8(root, dev, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _item8(root, dev, card):
+    """Phase 29(b)-(d) on a reduced corpus v1 (ENC_SIZES clips of 10 s at
+    32 kHz): (b) the ``encoders`` recipe's HTS-AT captioner
+    (``recipes.encoders_train``: cnn14rnn_trm.yaml with the HTS-AT node,
+    its 2-layer transformer decoder) trained ENC_EPOCHS epochs with
+    ``Runner.train`` (the rate decayed to ENC_FINAL_LR): the loss falls,
+    the val CIDEr-D (through the greedy kernel) beats the best constant
+    caption's, ``Runner.evaluate`` at beam 3 through the beam kernel, both
+    kernels against their plain versions at its shapes (S=32) and timed,
+    the train step split and idle share; (c) the ESResNeXt-FBSP captioner
+    (``input_mode="raw_wav"``) for ENC_RX_STEPS ``Runner.train`` steps,
+    then ENC_RX_STEPS steps on one batch, whose loss in ``eval()`` (no
+    dropout) falls; its
+    ``Runner.evaluate`` through the beam kernel (S=7) and the beam kernel
+    against plain; (d) ``prepare_features`` with ``htsat``,
+    ``panns_cnn10`` and ``panns_wavegram`` (a checkpoint of
+    :func:`item8_model`'s weights) on ENC_FEATURE_CLIPS val clips, the
+    card's rows against the CPU's within ENC_RTOL.  The launch counts are
+    set to 0 before (b) and read after (d), the checks' and timings'
+    launches taken back out."""
+    import itertools
+    import numpy as np
+    import torch
+    from audiocaption_tpu_torch.cli import recipes
+    from audiocaption_tpu_torch.cli import synthetic_corpus as SC
+    from audiocaption_tpu_torch.cli.prepare_features import (
+        named_encoder, write_features)
+    from audiocaption_tpu_torch.cli.run import (
+        Runner, build_dataloader, experiment_model, read_experiment,
+        to_device)
+    from audiocaption_tpu_torch.decoding import fused_beam as FB
+    from audiocaption_tpu_torch.decoding import fused_greedy as FG
+    from audiocaption_tpu_torch.losses.loss import build_loss
+    from audiocaption_tpu_torch.ops import fused_logmel as FL
+    from audiocaption_tpu_torch.optim.schedules import build_schedule
+    from audiocaption_tpu_torch.training.trainer import (
+        create_train_state, train_step)
+
+    def counts():
+        return {"fused_greedy": FG.fused_greedy_decode.launches,
+                "fused_beam": FB.fused_beam_decode.launches,
+                "fused_logmel": FL.fused_logmel.launches}
+
+    def restore(c):
+        (FG.fused_greedy_decode.launches, FB.fused_beam_decode.launches,
+         FL.fused_logmel.launches) = (c["fused_greedy"], c["fused_beam"],
+                                      c["fused_logmel"])
+    data = root / "data"
+    t0 = time.perf_counter()
+    SC.generate(str(data), *ENC_SIZES, sr=SR_32K, seed=0)
+    times = {"corpus_s": time.perf_counter() - t0}
+    constant, const_cap = constant_caption_cider(
+        str(data / "train_text.json"), str(data / "val_text.json"))
+    FG.reset_launches(FG.fused_greedy_decode)
+    FB.reset_launches(FB.fused_beam_decode)
+    FL.fused_logmel.launches = 0
+    runner = Runner()
+    over = [f"device={dev.type}",
+            f"data.train.dataloader_args.num_workers={SYN_WORKERS}"]
+    marks = {}
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks[name] = e
+
+    def run(name, cfg, *extra):
+        c0 = counts()
+        t_ = time.perf_counter()
+        exp = runner.train(cfg, *over, f"experiment_path={root}/{name}",
+                           *extra)
+        times[f"{name}_train_s"] = time.perf_counter() - t_
+        for line in (Path(exp) / "train.log").read_text().splitlines():
+            log(f"29 {name} {line}")
+        n = counts()
+        return exp, {k: n[k] - c0[k] for k in n}
+
+    def evaluate(name, exp, resume):
+        c0 = counts()
+        t_ = time.perf_counter()
+        scores = runner.evaluate(
+            exp, recipes.encoders_test(str(data), name), f"device={dev.type}",
+            f"resume={resume}", "caption_output=predictions/beam3.json",
+            "score_output=results/beam3.txt")
+        times[f"{name}_evaluate_s"] = time.perf_counter() - t_
+        n = counts()
+        return ({k: round(v, 4) for k, v in scores.items()
+                 if isinstance(v, float)},
+                {k: n[k] - c0[k] for k in n})
+
+    # (b) the HTS-AT captioner of the encoders recipe
+    n_items = sum(len(a["captions"]) for a in json.loads(
+        (data / "train_text.json").read_text())["audios"])
+    cfg_b = recipes.encoders_train(str(data), "htsat")
+    cfg_b["swa"] = {"use": False}
+    bs = cfg_b["data"]["train"]["dataloader_args"]["batch_size"]
+    n_val = -(-ENC_SIZES[1] // cfg_b["data"]["val"]["dataloader_args"][
+        "batch_size"])
+    n_test = -(-ENC_SIZES[2] // recipes.encoders_test(str(data), "htsat")[
+        "data"]["test"]["dataloader_args"]["batch_size"])
+    exp_b, l_b = run("htsat", cfg_b, f"trainer.epochs={ENC_EPOCHS}",
+                     f"lr_scheduler.args.final_lrs={ENC_FINAL_LR:.7f}")
+    curve_b = _epoch_curve(Path(exp_b) / "train.log", "loss", "val_cider")
+    scores_b, le_b = evaluate("htsat", exp_b, "best.pth")
+    steps_b = ENC_EPOCHS * (n_items // bs)
+    log(f"29(b): HTS-AT + 2-layer TransformerDecoder (the encoders recipe) "
+        f"for {len(curve_b)} epochs ({steps_b} steps) in "
+        f"{times['htsat_train_s']:.1f} s; loss {curve_b[0][0]:.4f} -> "
+        f"{curve_b[-1][0]:.4f}; best val CIDEr-D "
+        f"{max(c[1] for c in curve_b):.4f} (best constant caption "
+        f"{constant:.4f}: {const_cap!r}); test beam 3 (best.pth) "
+        f"{json.dumps(scores_b)}; launches {l_b}, evaluate {le_b} on {card}")
+    if dev.type == "cuda":
+        assert l_b["fused_greedy"] == ENC_EPOCHS * n_val, l_b
+        assert l_b["fused_logmel"] == steps_b + ENC_EPOCHS * n_val, l_b
+        assert l_b["fused_beam"] == 0 and le_b["fused_beam"] == n_test, le_b
+    assert len(curve_b) == ENC_EPOCHS and scores_b
+    packed, memkv, valid, g_mis, b_err, _ = decode_kernels_at(
+        exp_b, "best.pth", recipes.encoders_test(str(data), "htsat")[
+            "data"]["test"], dev, "29(b) htsat")
+    assert memkv.shape[3] == 32, "29(b): HTS-AT's memory is 32 steps"
+    c0 = counts()
+    entries = [
+        decode_entry("greedy", "htsat", packed, memkv, valid,
+                     l_b["fused_greedy"], float(g_mis), card),
+        decode_entry("beam", "htsat", packed, memkv, valid,
+                     le_b["fused_beam"], b_err, card)]
+    restore(c0)
+    # the step split and idle share, on the trained weights
+    c0 = counts()
+    cfg, ckpt = read_experiment(exp_b, "last.pth")
+    model_b, tok = experiment_model(cfg, ckpt, dev)
+    opt = cfg["optimizer"]["args"]
+    state = create_train_state(
+        model_b, opt["lr"], build_schedule(cfg["lr_scheduler"], opt["lr"],
+                                           100, 20),
+        opt.get("weight_decay", 0.0), 1.0)
+    loss_fn = build_loss(cfg["loss"])
+    batches = [to_device(b, dev) for b in itertools.islice(
+        build_dataloader(cfg["data"]["train"], tok),
+        FAM_WARMUP + FAM_STEP_TIMED)]
+    ss_gen = torch.Generator().manual_seed(SEED)
+    rows = []
+    for b in batches:
+        mark("start")
+        train_step(state, loss_fn, b, ss_ratio=torch.tensor(0.85),
+                   generator=ss_gen, mark=mark)
+        _sync(dev)
+        rows.append([marks["start"].elapsed_time(marks["forward"]),
+                     marks["forward"].elapsed_time(marks["backward"]),
+                     marks["backward"].elapsed_time(marks["optimizer"])])
+    rows = np.asarray(rows[FAM_WARMUP:])
+    step_b = float(np.median(rows.sum(1)))
+    split_b = dict(zip(("forward", "backward", "optimizer"),
+                       np.median(rows, 0).tolist()))
+    per_kernel = {}
+    busy = device_split(lambda: train_step(
+        state, loss_fn, batches[0], ss_ratio=torch.tensor(0.85),
+        generator=ss_gen), iters=3, launches=per_kernel)
+    idle_b = 1 - sum(busy.values()) / step_b
+    n_kernels = sum(per_kernel.values())
+    log(f"29(b) step: median {step_b:.2f} ms over {FAM_STEP_TIMED} steps "
+        f"({bs / step_b * 1e3:.1f} clips/s): forward with scheduled "
+        f"sampling + loss {split_b['forward']:.2f}, backward (with the "
+        f"clip) {split_b['backward']:.2f}, optimizer "
+        f"{split_b['optimizer']:.2f} ms; device {sum(busy.values()):.2f} ms "
+        f"a step in {n_kernels:.0f} kernel launches "
+        f"({(step_b - sum(busy.values())) / max(n_kernels, 1) * 1e3:.1f} "
+        f"us of idle per launch), idle share {idle_b:.3f}; top kernels "
+        f"{dict(list(busy.items())[:6])}; most launched "
+        f"{dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6])}; "
+        f"B={bs} x 10 s, float32, TF32 off, on {card}")
+    del state, model_b, batches
+    restore(c0)
+
+    # (c) the ESResNeXt-FBSP captioner (raw_wav)
+    cfg_c = recipes.encoders_train(str(data), "esresnext")
+    cfg_c["swa"] = {"use": False}
+    exp_c, l_c = run("esresnext", cfg_c, "trainer.epochs=1",
+                     f"data.train.dataloader_args.num_samples="
+                     f"{ENC_RX_STEPS * bs}")
+    curve_c = _epoch_curve(Path(exp_c) / "train.log", "loss", "val_cider")
+    assert len(curve_c) == 1 and math.isfinite(curve_c[0][0]), curve_c
+    c0 = counts()
+    cfg, ckpt = read_experiment(exp_c, "last.pth")
+    model_c, tok = experiment_model(cfg, ckpt, dev)
+    state = create_train_state(
+        model_c, 5e-4, build_schedule(cfg["lr_scheduler"], 5e-4, 100, 0),
+        1e-6, 1.0)
+    batch = to_device(next(iter(build_dataloader(cfg["data"]["train"],
+                                                 tok))), dev)
+    loss_fn = build_loss(cfg["loss"])
+
+    def batch_loss():
+        """The batch's teacher-forced loss in ``eval()`` (no dropout)."""
+        model_c.eval()
+        with torch.no_grad():
+            out = model_c(batch["wav"], batch["wav_len"], batch["cap"],
+                          batch["cap_len"])
+            out.update(tgt=batch["cap"][:, 1:], tgt_len=batch["cap_len"] - 1)
+            return float(loss_fn(out))
+    losses = [batch_loss()]
+    for _ in range(ENC_RX_STEPS):
+        train_step(state, loss_fn, batch)
+    losses.append(batch_loss())
+    restore(c0)
+    del state, model_c
+    scores_c, le_c = evaluate("esresnext", exp_c, "last.pth")
+    log(f"29(c): ESResNeXt-FBSP + 2-layer TransformerDecoder (raw_wav), "
+        f"{ENC_RX_STEPS} Runner.train steps in "
+        f"{times['esresnext_train_s']:.1f} s (epoch loss "
+        f"{curve_c[0][0]:.4f}); then {ENC_RX_STEPS} steps on one batch: "
+        f"its loss in eval() {losses[0]:.4f} -> {losses[1]:.4f}; test beam 3 "
+        f"{json.dumps(scores_c)}; launches {l_c}, evaluate {le_c} on {card}")
+    assert all(map(math.isfinite, losses)) and losses[-1] < losses[0], \
+        "29(c): the ESResNeXt captioner's loss did not fall"
+    if dev.type == "cuda":
+        assert le_c["fused_beam"] == n_test and l_c["fused_logmel"] == 0 \
+            and le_c["fused_logmel"] == 0, (l_c, le_c)
+    _, memkv, valid, _, _, _ = decode_kernels_at(
+        exp_c, "last.pth", recipes.encoders_test(str(data), "esresnext")[
+            "data"]["test"], dev, "29(c) esresnext", greedy=False)
+    assert memkv.shape[3] == 7, "29(c): ESResNeXt's memory is 7 steps"
+    # the few-step decoder ends its beams after a few steps: the S=7
+    # yardstick is (b)'s trained decoder (the same widths) over this memory
+    c0 = counts()
+    _, b_err_c = check_decode_kernels(
+        packed, memkv, valid, "29(c) (b)'s decoder over the esresnext "
+        "memory", greedy=False)
+    entries.append(decode_entry("beam", "esresnext", packed, memkv, valid,
+                                le_c["fused_beam"], b_err_c, card))
+    restore(c0)
+
+    # (d) prepare_features with the item-8 extractors, card vs CPU
+    t0 = time.perf_counter()
+    wav_csv = data / "features_clips.csv"
+    rows = (data / "val_wav.csv").read_text().splitlines()
+    wav_csv.write_text("\n".join(rows[:1 + ENC_FEATURE_CLIPS]) + "\n")
+    feats = {}
+    for i, name in enumerate(("htsat", "panns_cnn10", "panns_wavegram")):
+        module, _ = item8_model(name, SEED + 40 + i)
+        ckpt_path = root / f"{name}.pth"
+        torch.save(module.state_dict(), ckpt_path)
+        rows_by = {}
+        for where in (dev, torch.device("cpu")):
+            c0 = counts()
+            encode, bucket = named_encoder(name, str(ckpt_path), where)
+            out_dir = root / "features" / f"{name}_{where.type}"
+            n = write_features(str(wav_csv), str(out_dir), encode, bucket,
+                               where, batch_size=ENC_FEATURE_CLIPS,
+                               fmt="npy")
+            assert n == ENC_FEATURE_CLIPS
+            if where.type == "cpu":
+                restore(c0)
+            rows_by[where.type] = {
+                kind: {p.stem: np.load(p) for p in (out_dir / kind).glob(
+                    "*.npy")}
+                for kind in ("fc", "attn", "probs") if (out_dir / kind
+                                                        ).is_dir()}
+        got, want = rows_by[dev.type], rows_by["cpu"]
+        errs = {}
+        for kind, ref in want.items():
+            assert set(got[kind]) == set(ref), (name, kind)
+            errs[kind] = max(
+                float(np.abs(got[kind][a] - r).max()) / max(
+                    1.0, float(np.abs(r).max()))
+                for a, r in ref.items() if got[kind][a].shape == r.shape)
+            assert all(got[kind][a].shape == r.shape
+                       for a, r in ref.items()), (name, kind)
+        feats[name] = errs
+        log(f"29(d): prepare_features --encoder {name}: {n} clips, the "
+            f"card's rows vs the CPU's, max |diff| / max(1, max |CPU|) "
+            f"{errs} (limit {ENC_RTOL}); kinds {sorted(want)}")
+        assert all(e <= ENC_RTOL for e in errs.values()), (name, errs)
+    times["features_s"] = time.perf_counter() - t0
+
+    launches = counts()
+    rounded = {k: round(v, 1) for k, v in times.items()}
+    log(f"29: launches on the path {launches} (the checks' and timings' "
+        f"taken out); times {json.dumps(rounded)} on {card}")
+    if dev.type == "cuda":
+        # the val scores of (b) and (c), their evaluations, every 32 kHz
+        # log-mel model's encode
+        assert launches["fused_greedy"] == l_b["fused_greedy"] + \
+            l_c["fused_greedy"] and launches["fused_beam"] == \
+            le_b["fused_beam"] + le_c["fused_beam"], launches
+        assert launches["fused_logmel"] > 0, launches
+    # the quality bars last
+    assert curve_b[-1][0] < curve_b[0][0], "29(b): the loss did not fall"
+    assert max(c[1] for c in curve_b) > constant, \
+        "29(b): the val score is no better than a constant caption"
+    return {"launches": launches, "entries": entries, "times": times,
+            "xe": {"step_ms": step_b, "split": split_b, "idle": idle_b,
+                   "launches": n_kernels},
+            "features": feats, "constant": constant,
+            "best_val_cider": max(c[1] for c in curve_b)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5146,6 +5661,19 @@ def main() -> int:
         if k["name"] in feat["launches"]:
             k["feature_launches"] = feat["launches"][k["name"]]
     log(f"phase 28: {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f} s)")
+
+    # -- 29. the item-8 encoders and PANNs classifiers ---------------------
+    t0 = time.perf_counter()
+    enc8 = item8_encoders(dev, card)
+    t1 = time.perf_counter()
+    item8 = item8_path(dev, card)
+    for k in kernels:
+        if k["name"] in item8["launches"]:
+            k["item8_launches"] = item8["launches"][k["name"]]
+        if k["name"] == "fused_logmel":
+            k["item8_launches"] += enc8["logmel_launches"]
+    kernels += item8["entries"]
+    log(f"phase 29: {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f} s)")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

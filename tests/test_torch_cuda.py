@@ -15,7 +15,7 @@ relative a product, and sums in another order than cuDNN's), and in the
 bf16 work dtype within 1e-2 * max(1, max |plain|) of ``mbconv_plain`` in
 bf16 (a bf16 ulp where a float32 sum in another order flips a rounding).
 The decode kernels' bf16 modes: see BF16_BEAM_MODES below.  Every test
-here ran on the card (NVIDIA H100 80GB HBM3, 80 of 80 passing); without
+here ran on the card (NVIDIA H100 80GB HBM3, 92 of 92 passing); without
 a card they skip.
 """
 
@@ -1047,3 +1047,76 @@ def test_gru_scst_step_on_card(cuda):
     np.testing.assert_allclose(
         m["token_logprob"][mask].cpu().numpy(),
         m["sampled_logprob"][mask].cpu().numpy(), atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [32, 62, 7], ids=["htsat", "uit_xs",
+                                               "esresnext"])
+@pytest.mark.parametrize("B", [1, 32])
+def test_decode_kernels_item8_shapes_match_plain(cuda, S, B):
+    """The item-8 captioners' decode (``chip_smoke.py`` phase 29): the
+    cnn14rnn_trm decoder (E=256, 4 heads, 2 layers, untied, V=300) over
+    the memory lengths of HTS-AT and MobileNetV3 at 10 s (32), UiT-xs
+    (62) and ESResNeXt-FBSP (7).  Greedy: at most 1% of tokens differ
+    from plain; beam 3 against the plain search in float64: at most 1% of
+    tokens differ, n-best scores of matching sequences within 1e-4."""
+    dec = _untied_decoder(300, 29, cuda)
+    packed = TG.pack_decoder_weights(dec).to(cuda)
+    gen = torch.Generator().manual_seed(S + B)
+    memkv = torch.randn(2, 2, B, S, 256, generator=gen).to(cuda)
+    lens = torch.randint(1, S + 1, (B,), generator=gen)
+    lens[0] = S
+    valid = (torch.arange(S)[None] < lens[:, None]).to(torch.uint8).to(cuda)
+    got = TG.fused_greedy_decode(packed, memkv, valid, 20)
+    want = TG.fused_greedy_plain(packed, memkv, valid, 20)
+    assert int((got != want).sum()) <= 0.01 * want.numel()
+    seq, score = TB.fused_beam_decode(packed, memkv, valid, 20, 3)
+    p64, mem64 = plain64(packed, memkv)
+    want_seq, want_score = TB.fused_beam_plain(p64, mem64, valid, 20, 3)
+    same = (seq == want_seq).all(-1)
+    assert int((seq != want_seq).sum()) <= 0.01 * want_seq.numel()
+    assert bool(same.any())
+    err = (score[same].double() - want_score[same]).abs()
+    assert float(err.max()) <= 1e-4, float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mobilenet_v3", "htsat", "uit_xs",
+                                  "esresnext", "panns_cnn10",
+                                  "panns_wavegram"])
+def test_item8_encoder_card_matches_cpu(cuda, name):
+    """Each item-8 encoder and PANNs classifier (``chip_smoke.item8_model``:
+    published width, seeded weights, BN statistics jittered) on 2 clips of
+    3 s that fill their length, the card against a CPU copy of the same
+    weights (the 32 kHz log-mel through the kernel on the card, the plain
+    version on the CPU): every output within 1e-3 * max(1, max |CPU|);
+    the log-mel kernel launched for the 32 kHz log-mel models only."""
+    import copy
+    import chip_smoke
+    from audiocaption_tpu_torch.models.uit import UIT_MEL_16K
+    cpu_m, sr = chip_smoke.item8_model(name)
+    card_m = copy.deepcopy(cpu_m).to(cuda)
+    front = TF.LogMelFrontend(UIT_MEL_16K if sr == 16000
+                              else TF.CNN14_MEL_32K)
+    wav = torch.randn(2, 3 * sr, generator=torch.Generator().manual_seed(
+        3)) * 0.1
+    wav_len = torch.full((2,), 3 * sr, dtype=torch.long)
+
+    def run(m, device):
+        with torch.no_grad():
+            return chip_smoke.item8_forward(name, m, front.to(device),
+                                            wav.to(device),
+                                            wav_len.to(device))
+    FL.fused_logmel.launches = 0
+    got = run(card_m, cuda)
+    assert FL.fused_logmel.launches == (1 if sr == 32000 and
+                                        name != "esresnext" else 0)
+    want = run(cpu_m, torch.device("cpu"))
+    for k, w in want.items():
+        g = got[k].cpu()
+        if not torch.is_floating_point(w):
+            assert torch.equal(g, w), k
+            continue
+        assert bool(torch.isfinite(g).all()), k
+        err = float((g.double() - w.double()).abs().max())
+        assert err <= 1e-3 * max(1.0, float(w.abs().max())), (k, err)

@@ -87,7 +87,12 @@ for name in ("audiocaption_tpu_torch.native",
              "audiocaption_tpu_torch.models.m2",
              "audiocaption_tpu_torch.data.device_bank",
              "audiocaption_tpu_torch.data.prefetch",
-             "audiocaption_tpu_torch.cli.prepare_features"):
+             "audiocaption_tpu_torch.cli.prepare_features",
+             "audiocaption_tpu_torch.models.mobilenet_v3",
+             "audiocaption_tpu_torch.models.htsat",
+             "audiocaption_tpu_torch.models.uit",
+             "audiocaption_tpu_torch.models.resnext",
+             "audiocaption_tpu_torch.models.panns"):
     assert name in names, name
 print(len(names))
 """

@@ -13,7 +13,10 @@ dataset reads h5 rows).  Both tools run ``--experiment``:
     and ``fc.csv`` with ``file_name``) reads back through the port's
     dataset equal to its own h5;
   * ``--format h5`` without h5py raises, naming ``--format npy``; the
-    pretrained-classifier encoders raise, naming ROADMAP item 8."""
+    encoders that raised before the item-8 slice (``htsat``,
+    ``panns_cnn10``, ``panns_wavegram``) build, an unknown name raises;
+  * ``--encoder htsat`` against JAX's tool (the classifiers' runs are in
+    ``test_torch_panns_classifiers.py``)."""
 
 import csv
 import sys
@@ -170,5 +173,21 @@ def test_h5_without_h5py_raises(workspace, monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("name", ["htsat", "panns_cnn10", "panns_wavegram"])
 def test_unported_encoders_raise(name):
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 8"):
-        TPF.named_encoder(name, None, torch.device("cpu"))
+    """The encoders that raised before the item-8 slice build now (a 32
+    kHz bucket); a name the tool does not know raises."""
+    encode, bucket = TPF.named_encoder(name, None, torch.device("cpu"))
+    assert callable(encode) and bucket == SR
+    with pytest.raises(ValueError, match="unknown encoder"):
+        TPF.named_encoder(name + "_x", None, torch.device("cpu"))
+
+
+def test_htsat_features_match_jax(tmp_path):
+    """``--encoder htsat --checkpoint`` (the published HTS-AT, a
+    reference-key file) in both tools on 3 clips: the same ids, ``fc.h5``
+    and ``attn.h5`` rows (attn cut to each clip's ``feat_len // 32``)
+    within 1e-4 relative."""
+    from audiocaption_tpu_torch.models.htsat import HtsatEncoder
+    from test_torch_item8_wiring import check_prepared, prepare_features_pair
+    out = prepare_features_pair(tmp_path, "htsat", HtsatEncoder(), seed=1)
+    assert set(out) == {"fc", "attn"}
+    check_prepared(out)

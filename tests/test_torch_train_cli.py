@@ -223,13 +223,16 @@ def test_train_asks_for_the_card_by_default(workspace):
 
 
 def test_unported_types_raise_naming_the_roadmap():
-    """The types still unported: an item-8 encoder (Htsat) and the style
-    models raise naming the ROADMAP.  The feature-input encoders and the M2
-    decoder are ported: a top-level audio transformer encoder without an
-    input width raises asking for one, and the M2 decoder on another
-    encoder raises as the JAX builder does."""
+    """The types still unported: a conditioned transformer decoder
+    (EventTransformerDecoder) and the style models raise naming the
+    ROADMAP (every encoder type of the JAX builder is ported).  The
+    feature-input encoders and the M2 decoder are ported: a top-level
+    audio transformer encoder without an input width raises asking for
+    one, and the M2 decoder on another encoder raises as the JAX builder
+    does."""
     node = _model_node()
-    node["encoder"]["type"] = "captioning.models.htsat.Htsat"
+    node["decoder"]["type"] = ("captioning.models.transformer_decoder."
+                               "EventTransformerDecoder")
     with pytest.raises(ValueError, match="ROADMAP"):
         build_model_from_config(node, vocab_size=20)
     node = _model_node()
