@@ -25,7 +25,12 @@ its YAML, with the data directory ``d`` in place of the YAML's
     ``model.encoder`` replaced by an item-8 encoder's node
     (:data:`ENCODER_NODES`: HTS-AT, MobileNetV3 mn10, UiT-xs,
     ESResNeXt-FBSP), :func:`encoders_test` -> ``synthetic/test.yaml``
-    (both at 16 kHz for UiT).
+    (both at 16 kHz for UiT);
+  * :func:`keyword_train` -> ``configs/synthetic/cnn14rnn_trm.yaml`` on the
+    temporal corpus with its decoder a ``KeywordProbTransformerDecoder``
+    (527 keyword classes), scheduled sampling off and keyword datasets,
+    the keywords each clip's ground-truth events
+    (:func:`write_keyword_rows`).
 
 The script, on the card by default:
 
@@ -197,6 +202,57 @@ def encoders_test(d: str = "data/synthetic",
     ``name`` (at 16 kHz for a 16 kHz encoder)."""
     cfg = recipe("synthetic/test.yaml", d)
     return _at_16k(cfg, ("test",)) if name in _ENCODERS_16K else cfg
+
+
+def write_keyword_rows(sed_json: str, out_dir: str,
+                       classes_num: int = 527) -> str:
+    """The keywords of each clip of a temporal corpus's split: the
+    multi-hot [classes_num] float32 of its ground-truth event classes
+    (``{split}_sed.json``), one ``.npy`` per clip in ``out_dir``, and the
+    tsv of ``audio_id`` -> ``hdf5_path`` rows that the keyword datasets
+    read (``data/condition_dataset.py``) -> the tsv's path."""
+    import numpy as np
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    split = Path(sed_json).name[:-len("_sed.json")]
+    rows = ["audio_id\thdf5_path\n"]
+    for a in json.loads(Path(sed_json).read_text())["audios"]:
+        kw = np.zeros(classes_num, np.float32)
+        kw[[int(c) for c, _, _ in a["segments"]]] = 1.0
+        path = out / f"{a['audio_id']}.npy"
+        np.save(path, kw)
+        rows.append(f"{a['audio_id']}\t{path}\n")
+    tsv = out / f"{split}_keyword.tsv"
+    tsv.write_text("".join(rows))
+    return str(tsv)
+
+
+def keyword_train(d: str = "data/synthetic_temporal",
+                  keywords: str = "data/synthetic_temporal/keywords"
+                  ) -> Dict:
+    """``configs/synthetic/cnn14rnn_trm.yaml`` (the Cnn14 + BiGRU encoder
+    and its data nodes, moved to the temporal corpus in ``d``) with its
+    decoder a ``KeywordProbTransformerDecoder`` (the JAX builder's
+    defaults: emb 256, 2 layers, dropout 0.2, 527 keyword classes),
+    scheduled sampling off (its forward would drop the condition: ROADMAP
+    Queue 3 K), the train data a ``KeywordProbCaptionDataset`` and the val
+    data a ``KeywordProbInferenceDataset`` over the rows of
+    ``{keywords}/{split}_keyword.tsv`` (:func:`write_keyword_rows`), and
+    its experiment directory ``experiments/synthetic_temporal/
+    keyword_trm/``."""
+    cfg = recipe("synthetic/cnn14rnn_trm.yaml", d)
+    cfg["model"]["decoder"]["type"] = (
+        "captioning.models.transformer_decoder."
+        "KeywordProbTransformerDecoder")
+    cfg["scheduled_sampling"] = {"use": False}
+    cfg["experiment_path"] = "experiments/synthetic_temporal/keyword_trm/"
+    for split, kind in (("train", "KeywordProbCaptionDataset"),
+                        ("val", "KeywordProbInferenceDataset")):
+        node = cfg["data"][split]["dataset"]
+        node["type"] = kind
+        node["args"]["keyword_prob"] = str(
+            Path(keywords) / f"{split}_keyword.tsv")
+    return cfg
 
 
 def aug_train(d: str = "data/synthetic_v2",

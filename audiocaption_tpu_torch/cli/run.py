@@ -20,7 +20,17 @@ tempgru.yaml``: ``TemporalBahAttnDecoder`` on a temporal-tag dataset)
 trains on each batch's ``temporal_tag`` and its val score decodes with
 the val set's tags.  A conditioned GRU decoder trains on each batch's
 ``condition`` (``ConditionCaptionDataset``), ``style`` or ``structure``;
-its val score decodes with none, as the JAX runner's.
+its val score decodes with none, as the JAX runner's.  A conditioned
+transformer decoder (``EventTransformerDecoder``,
+``KeywordProbTransformerDecoder``) trains on each batch's ``event`` or
+``keyword`` (``KeywordProbCaptionDataset``; the keyword rides the
+decoder's ``event`` argument), and its val score, ``evaluate`` and
+``predict`` decode it with no condition, as the JAX runner's do (ROADMAP
+Queue 3 L); ``models/captioner.py::generate(..., cond_kwargs={"event":
+...})`` is the conditioned decode.  A style captioner
+(``StyleCaptionModel``) infers each caption's style from the caption
+itself in training; its val score decodes with none (the decoder's
+``fc_emb`` slot).
 
 A model node of type ``ScstWrapper`` (``configs/*/scst.yaml``) trains
 the wrapped model by self-critical sequence training instead
@@ -240,7 +250,8 @@ def build_dataset(cfg: Dict):
         from audiocaption_tpu_torch.data import kd_dataset
         return getattr(kd_dataset, t)(**args)
     if t in ("ConditionCaptionDataset", "RandomConditionDataset",
-             "TemporalTagCaptionDataset", "TemporalTagInferenceDataset"):
+             "TemporalTagCaptionDataset", "TemporalTagInferenceDataset",
+             "KeywordProbCaptionDataset", "KeywordProbInferenceDataset"):
         from audiocaption_tpu_torch.data import condition_dataset
         return getattr(condition_dataset, t)(**args)
     raise ValueError(f"dataset {t!r} is not ported yet")
@@ -290,8 +301,8 @@ def to_device(batch: Dict, device: torch.device,
     on ``device``) -> the train step's tensors on ``device``: the wave
     (rows ``wav_idx`` of ``bank`` when the batch carries them) widened to
     float32 (a float16 wire as is, int16 / 32768), lengths, ids, temporal
-    tags and structure ids as int64, a ``condition`` or ``style`` as
-    float32."""
+    tags and structure ids as int64, a ``condition``, ``style``,
+    ``event`` or ``keyword`` as float32 (the JAX runner's step keys)."""
     out = batch_wav(
         {"wav_idx": torch.as_tensor(batch["wav_idx"]).to(device),
          "wav_bank": bank} if "wav_idx" in batch
@@ -299,7 +310,7 @@ def to_device(batch: Dict, device: torch.device,
     for k in ("wav_len", "cap", "cap_len", "temporal_tag", "structure"):
         if k in batch:
             out[k] = torch.as_tensor(batch[k]).to(device, torch.long)
-    for k in ("condition", "style"):
+    for k in ("condition", "style", "event", "keyword"):
         if k in batch:
             v = batch[k]
             v = v if torch.is_tensor(v) else np.asarray(v, np.float32)

@@ -28,7 +28,9 @@ captions: [{tokens, caption, cap_id}]}]}); the temporal corpus adds
 train split's vocabulary goes to ``vocab.pkl``.  Every file but the wave
 container and ``wav.csv`` is byte for byte the JAX generator's for the
 same seed and sizes, and every sample equals the JAX h5's.  Everything is
-seeded: the same (seed, sizes) gives the same corpus.
+seeded: the same (seed, sizes) gives the same corpus.  :func:`subset`
+cuts a corpus's train split to its first clips without generating
+anything: the corpus of the smaller train size.
 """
 
 from __future__ import annotations
@@ -296,8 +298,6 @@ def _write_corpus(output_dir: str, sizes: Dict[str, int], rng_base: int,
     """The three splits, split ``si`` drawn from ``RandomState(rng_base +
     si)``; ``clip(rng, audio_id)`` -> (wave, captions) or, for the
     temporal corpus, (wave, captions, segments, tag)."""
-    from audiocaption_tpu_torch.data.tokenizer import DictTokenizer
-
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
     paths: Dict[str, Dict[str, str]] = {}
@@ -339,13 +339,56 @@ def _write_corpus(output_dir: str, sizes: Dict[str, int], rng_base: int,
             paths[split].update(tag=str(out / f"{split}_tag.csv"),
                                 sed=str(out / f"{split}_sed.json"))
 
+    paths["vocab"] = {"vocab": _write_vocab(out, train_caps)}
+    return paths
+
+
+def _write_vocab(out: Path, train_caps: List[str]) -> str:
+    """The train captions' words, in order of first use, after the
+    special tokens -> ``vocab.pkl``."""
+    from audiocaption_tpu_torch.data.tokenizer import DictTokenizer
     tok = DictTokenizer()
     for c in train_caps:
         for w in c.split():
             tok.add_word(w)
     with open(out / "vocab.pkl", "wb") as f:
         pickle.dump(tok.state_dict(), f)
-    paths["vocab"] = {"vocab": str(out / "vocab.pkl")}
+    return str(out / "vocab.pkl")
+
+
+def subset(src: str, dst: str, n_train: int) -> Dict[str, Dict[str, str]]:
+    """The corpus in ``src`` with its train split cut to its first
+    ``n_train`` clips, written to ``dst``: the files its generator writes
+    for ``n_train`` train clips and the same seed, val and test (each
+    split is drawn from its own stream, clip by clip, so the first clips
+    of a larger train split are those of a smaller one; the vocabulary is
+    rebuilt from the kept captions).  The wav files stay in ``src``, and
+    the tables point there.  -> the paths, as the generators return
+    them."""
+    src_p, out = Path(src), Path(dst)
+    out.mkdir(parents=True, exist_ok=True)
+    paths: Dict[str, Dict[str, str]] = {}
+    for split in ("train", "val", "test"):
+        n = n_train if split == "train" else None
+        names = {"wav_csv": f"{split}_wav.csv", "text": f"{split}_text.json",
+                 "tag": f"{split}_tag.csv", "sed": f"{split}_sed.json"}
+        paths[split] = {"wav_dir": str(src_p / f"{split}_wav")}
+        for key, name in names.items():
+            if not (src_p / name).exists():
+                continue
+            text = (src_p / name).read_text()
+            if name.endswith(".json"):
+                data = json.loads(text)
+                data["audios"] = data["audios"][:n]
+                text = json.dumps(data)
+            else:
+                lines = text.splitlines(keepends=True)
+                text = "".join(lines[:1 + n] if n is not None else lines)
+            (out / name).write_text(text)
+            paths[split][key] = str(out / name)
+    train = json.loads((out / "train_text.json").read_text())["audios"]
+    paths["vocab"] = {"vocab": _write_vocab(
+        out, [c["tokens"] for a in train for c in a["captions"]])}
     return paths
 
 

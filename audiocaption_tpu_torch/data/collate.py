@@ -14,6 +14,12 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 
+# per-clip probability vectors [C] that stack into [B, C] float32 (the
+# conditioned transformer decoders' inputs: a float threshold of
+# ``binarize_keyword`` gives float64 rows)
+FLOAT_KEYS = ("keyword", "event")
+
+
 def bucket_length(n: int, bucket: int) -> int:
     """Round n up to a multiple of ``bucket``."""
     return max(bucket, (n + bucket - 1) // bucket * bucket)
@@ -74,6 +80,8 @@ class VarLenPadCollate:
                 padded, lens = pad_sequences(arrs, bucket=bucket)
                 out[k] = padded
                 out[f"{k}_len"] = lens
+            elif k in FLOAT_KEYS:
+                out[k] = np.asarray(vals, np.float32)
             else:
                 try:
                     out[k] = np.asarray(vals)

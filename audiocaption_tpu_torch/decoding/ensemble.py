@@ -9,10 +9,13 @@ Pallas kernel does in the JAX package either): it runs in the engine, on
 the members' device.
 
 The members share one tokenizer.  A member's decoder is a
-``TransformerDecoder`` or any GRU decoder (``models/rnn_decoder.py``),
-mixed as they come.  A GRU member's cache is built from its
-``attn_emb``, ``attn_emb_len`` and ``fc_emb`` with no condition, as in
-the JAX ensemble: the temporal decoder runs on tag 0 (ROADMAP Queue 3).
+``TransformerDecoder`` (a conditioned one among them), or any GRU decoder
+(``models/rnn_decoder.py``), mixed as they come.  Every member's cache is
+built from its ``attn_emb``, ``attn_emb_len`` and ``fc_emb`` with no
+condition, and each steps through its own class's ``step``, as in the
+JAX ensemble: the temporal decoder runs on tag 0 (ROADMAP Queue 3 H), an
+``EventTransformerDecoder`` or ``KeywordProbTransformerDecoder`` with no
+event or keyword.
 """
 
 from __future__ import annotations

@@ -27,6 +27,16 @@ Python float 1.0), else the previous step's greedy word.  A
 ``structure``: the JAX package's route) go into the decoder's cache, in
 training and in ``generate``.
 
+A conditioned transformer decoder (``EventTransformerDecoder``,
+``KeywordProbTransformerDecoder``) takes ``cond_kwargs={"event": ...}``
+(keyword probabilities ride the same key) in the teacher-forcing
+forward, and in ``generate``, where its cache keeps the condition for
+every step (expanded to the beams).  The scheduled-sampling forward
+passes no condition, neither to the teacher pass nor to the cache, as
+the JAX ``_ss_forward_transformer`` does (ROADMAP Queue 3 K): a
+conditioned transformer trained with ``ss_ratio`` below 1 trains
+unconditioned in both packages.
+
 The frontend runs without autograd; the encoder and decoder follow their
 ``train()`` / ``eval()`` mode (batch statistics, dropout, drop-connect).
 With ``specaug`` (the config key of the same name), SpecAugment
@@ -48,6 +58,7 @@ from audiocaption_tpu_torch.decoding.engine import (
     expand_to_beams, stepwise_decode)
 from audiocaption_tpu_torch.models.rnn_decoder import RnnDecoder
 from audiocaption_tpu_torch.ops.frontend import LogMelFrontend, MelConfig
+from audiocaption_tpu_torch.ops.masking import mean_with_lens
 from audiocaption_tpu_torch.ops.specaug import spec_augment
 
 
@@ -259,7 +270,8 @@ def generate(model: Captioner, wav: Optional[torch.Tensor] = None,
     waveform (``wav``, ``wav_len``), a log-mel (``lms``, ``feat_len``) or
     the encoder's outputs (``enc``).  ``temporal_tag`` [B] and
     ``cond_kwargs`` (``condition`` [B], ``style`` [B, E], ``structure``
-    [B]) condition a GRU decoder's cache.  Sampling draws from
+    [B]) condition a GRU decoder's cache, ``cond_kwargs={"event": [B, C]}``
+    a conditioned transformer decoder's.  Sampling draws from
     ``generator`` (on the model's device), or, without one, from a fresh
     generator seeded with 0, so that two calls draw the same (the JAX
     default key is ``PRNGKey(0)``); ``noise(t, shape)`` hands in step t's
@@ -313,3 +325,11 @@ def generate(model: Captioner, wav: Optional[torch.Tensor] = None,
                               generator=generator, noise=noise)
     out.update(enc)
     return out
+
+
+def sequence_embedding(output: Dict[str, torch.Tensor],
+                       cap_len: torch.Tensor) -> torch.Tensor:
+    """The mean of a training forward's ``embed`` [B, L, E] over each row's
+    ``cap_len - 1`` valid steps -> [B, E] (the JAX ``sequence_embedding``;
+    the reference's ``CaptionSequenceModel``)."""
+    return mean_with_lens(output["embed"], cap_len - 1)

@@ -42,6 +42,13 @@ ESResNeXt-FBSP) by its family's converter below
 (``encoder_state_dict_from_jax``), into the reference checkpoint keys
 that the port's modules carry.
 
+A conditioned transformer decoder's parameters keep the JAX names (the
+JAX loader gives them no reference key): ``decoder.event_embedding.weight``,
+``decoder.keyword_proj.*``, ``decoder.word_keyword_norm.*``.  A style
+captioner's reference encoder and style bank sit beside the encoder and
+decoder under ``ref_encoder.`` and ``style_bank.``
+(:func:`captioner_parts`, :func:`style_state_dict_from_jax`).
+
 ``tempgru_state_dict_from_jax`` does the same for the temporal captioner
 and its SED model, into the ``wsntxxn/cnn14rnn-tempgru`` key space
 (``cap_model.encoder.{cnn,rnn}.*``, ``cap_model.decoder.*``,
@@ -55,7 +62,7 @@ plain strict ``load_state_dict``.  More layout changes:
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -163,6 +170,14 @@ def _transformer_decoder(params, prefix, nlayers, tie_weights, out):
             _layernorm(lp[n], f"{tp}.{n}", out)
     if not tie_weights and "classifier" in params:
         _linear(params["classifier"], f"{prefix}.classifier", out)
+    # the conditioned decoders' parameters, under the JAX names
+    if "event_embedding" in params:
+        _embedding(params["event_embedding"], f"{prefix}.event_embedding",
+                   out)
+    if "keyword_proj" in params:
+        _linear(params["keyword_proj"], f"{prefix}.keyword_proj", out)
+        _layernorm(params["word_keyword_norm"],
+                   f"{prefix}.word_keyword_norm", out)
 
 
 def effb2_state_dict_from_jax(params: Mapping, stats: Mapping
@@ -256,6 +271,33 @@ def kd_head_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 
+# the style captioner's parts beside its encoder and decoder, under the
+# JAX module names (``models/style.py``)
+STYLE_PARTS = ("ref_encoder", "style_bank")
+
+
+def captioner_parts(model: torch.nn.Module
+                    ) -> List[Tuple[str, torch.nn.Module]]:
+    """(prefix, module) of every part of a ``Captioner`` that its state
+    dict in the reference key space holds: the encoder and decoder under
+    :func:`reference_prefixes`, and a ``StyleCaptioner``'s ``ref_encoder.``
+    and ``style_bank.``."""
+    enc_prefix, dec_prefix = reference_prefixes(model)
+    parts = [(enc_prefix, model.encoder), (dec_prefix, model.decoder)]
+    return parts + [(f"{name}.", getattr(model, name))
+                    for name in STYLE_PARTS if hasattr(model, name)]
+
+
+def style_state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
+    """A JAX ``StyleCaptioner``'s ``ref_encoder`` and ``style_bank`` params
+    (none for any other captioner) -> numpy arrays under their names."""
+    out: Dict[str, np.ndarray] = {}
+    for name in STYLE_PARTS:
+        if name in params:
+            out.update(jax_tree_state_dict(params[name], None, name))
+    return out
+
+
 def reference_prefixes(model: torch.nn.Module) -> Tuple[str, str]:
     """The prefixes of a ``Captioner``'s encoder and decoder keys in its
     reference key space: the HF EffB2-Transformer checkpoint's for an
@@ -288,21 +330,23 @@ def load_known(module: torch.nn.Module,
 def load_reference_state_dict(model: torch.nn.Module,
                               sd: Mapping[str, torch.Tensor]) -> None:
     """Load a reference-key-space state dict (:func:`reference_prefixes`)
-    into a ``Captioner``: every encoder and decoder tensor must be
-    present; keys outside them are dropped (:func:`load_known`)."""
-    enc_prefix, dec_prefix = reference_prefixes(model)
-    enc, dec = {}, {}
+    into a ``Captioner``: every tensor of its parts
+    (:func:`captioner_parts`) must be present; keys outside them are
+    dropped (:func:`load_known`)."""
+    parts = captioner_parts(model)
+    subs: List[Dict] = [{} for _ in parts]
     for k, v in sd.items():
-        if k.startswith(enc_prefix):
-            enc[k[len(enc_prefix):]] = v
-        elif k.startswith(dec_prefix):
-            dec[k[len(dec_prefix):]] = v
+        for (prefix, _), sub in zip(parts, subs):
+            if k.startswith(prefix):
+                sub[k[len(prefix):]] = v
+                break
+    dec = subs[1]
     if "pos_encoder.pe" not in dec and hasattr(model.decoder,
                                                "pos_encoder"):
         # older trees without a PE table
         dec["pos_encoder.pe"] = model.decoder.pos_encoder.pe
-    load_known(model.encoder, enc)
-    load_known(model.decoder, dec)
+    for (_, module), sub in zip(parts, subs):
+        load_known(module, sub)
 
 
 def _cnn(params, stats, prefix, n_blocks, out):
@@ -424,6 +468,7 @@ def captioner_state_dict_from_jax(variables: Mapping
                              "classifier" not in dec, out)
     else:
         out.update(jax_tree_state_dict(dec, None, "decoder"))
+    out.update(style_state_dict_from_jax(params))
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 

@@ -31,6 +31,22 @@ Module names follow the reference (``word_embedding``, ``attn_proj.0/3``,
 ``classifier``) so its checkpoints load with ``load_state_dict``.  The
 positional table is a loadable buffer: reference checkpoints carry a
 random frozen table, not sinusoids.
+
+The conditioned decoders (the JAX ``EventTransformerDecoder`` and
+``KeywordProbTransformerDecoder``) add a per-sample condition [B, E] to
+the scaled word embeddings before the positional table: an event
+embedding (the event distribution, normalised to sum 1, times a [C, E]
+table) or a keyword projection (a Linear of the keyword probabilities)
+followed by a LayerNorm, the LayerNorm only when a condition is given.
+``forward`` takes it as ``event=`` [B, C]; ``init_cache(..., event=)``
+keeps its embedding in ``static["cond"]`` for every cached step.  The
+base class carries the hooks (:meth:`TransformerDecoder.condition`, the
+``cond`` of ``embed``, ``static["cond"]`` in ``step_hidden``) and never
+sets a condition itself, so the plain decoder computes what it did.  The
+new parameters keep the JAX names (``event_embedding``,
+``keyword_proj``, ``word_keyword_norm``): the JAX loader gives them no
+reference key.  No kernel takes a condition: ``decoding/select.py``
+sends only the plain ``TransformerDecoder`` to the fused kernels.
 """
 
 from __future__ import annotations
@@ -124,8 +140,17 @@ class TransformerDecoder(nn.Module):
     def _drop(self, x: torch.Tensor) -> torch.Tensor:
         return F.dropout(x, self.dropout, self.training)
 
-    def embed(self, word: torch.Tensor, pos_offset: int = 0) -> torch.Tensor:
+    def condition(self, e: torch.Tensor,
+                  cond: Optional[torch.Tensor]) -> torch.Tensor:
+        """The scaled word embeddings ``e`` [B, T, E] with the condition
+        ``cond`` [B, E] mixed in (the conditioned subclasses); this decoder
+        takes none."""
+        return e
+
+    def embed(self, word: torch.Tensor, pos_offset: int = 0,
+              cond: Optional[torch.Tensor] = None) -> torch.Tensor:
         e = self._drop(self.word_embedding(word)) * math.sqrt(self.emb_dim)
+        e = self.condition(e, cond)
         T = word.shape[-1]
         return narrow(self._drop(e + self.pe[pos_offset:pos_offset + T][None]),
                       self.compute_dtype)
@@ -135,9 +160,14 @@ class TransformerDecoder(nn.Module):
                 cap_padding_mask: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         """word [B, L] ids -> {logit [B, L, V], embed [B, L, E]}."""
+        return self._forward(word, attn_emb, attn_emb_len, cap_padding_mask)
+
+    def _forward(self, word, attn_emb, attn_emb_len, cap_padding_mask,
+                 cond: Optional[torch.Tensor] = None
+                 ) -> Dict[str, torch.Tensor]:
         memory = self.project_memory(attn_emb)
         mem_kpm = ~length_mask(attn_emb_len, attn_emb.shape[1])
-        x = self.embed(word)
+        x = self.embed(word, 0, cond)
         tgt_mask = causal_mask(word.shape[1], device=word.device)
         for layer in self.layers:
             x = layer(x, memory, tgt_mask=tgt_mask,
@@ -188,7 +218,7 @@ class TransformerDecoder(nn.Module):
         self_pad = put_row(dyn["self_pad"], row, is_pad_t)
         positions = torch.arange(L, device=word_t.device)
         kpm = (positions[None, :] > t) | self_pad
-        x = self.embed(word_t[:, None], t)[:, 0]
+        x = self.embed(word_t[:, None], t, static.get("cond"))[:, 0]
         dyn = dict(dyn, self_pad=self_pad)
         for i, layer in enumerate(self.layers):
             x, dyn[f"self_k{i}"], dyn[f"self_v{i}"] = layer.step(
@@ -202,3 +232,70 @@ class TransformerDecoder(nn.Module):
         """One decode step: word_t [B] ids -> (logit [B, V], dyn)."""
         x, dyn = self.step_hidden(word_t, t, static, dyn, is_pad_t)
         return self.logits(x), dyn
+
+
+class EventTransformerDecoder(TransformerDecoder):
+    """Event-conditioned decoder (the JAX ``EventTransformerDecoder``): the
+    event distribution [B, ``event_classes``], normalised to sum 1 (by
+    max(sum, 1e-8)), times a [C, E] xavier-initialised table, added to the
+    scaled word embeddings before the positional table."""
+
+    def __init__(self, *args, event_classes: int = 527, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.event_classes = event_classes
+        self.build_condition(event_classes)
+
+    def build_condition(self, classes: int) -> None:
+        self.event_embedding = nn.Embedding(classes, self.emb_dim)
+        nn.init.xavier_uniform_(self.event_embedding.weight)
+
+    def encode_event(self, event: torch.Tensor) -> torch.Tensor:
+        """[N, C] probabilities -> the condition [N, E] (float32)."""
+        event = event.float()
+        probs = event / event.sum(-1, keepdim=True).clamp(min=1e-8)
+        return probs @ self.event_embedding.weight
+
+    def condition(self, e, cond):
+        return e if cond is None else e + cond[:, None, :]
+
+    def forward(self, word, attn_emb, attn_emb_len, cap_padding_mask=None,
+                event: Optional[torch.Tensor] = None):
+        """As the plain decoder's, with the condition of ``event`` [B, C]
+        (None: no condition)."""
+        cond = None if event is None else self.encode_event(event)
+        return self._forward(word, attn_emb, attn_emb_len, cap_padding_mask,
+                             cond)
+
+    def init_cache(self, attn_emb, attn_emb_len, max_length, fc_emb=None,
+                   event: Optional[torch.Tensor] = None):
+        """As the plain decoder's; with ``event`` [B, C], its condition in
+        ``static["cond"]``, which every cached step adds."""
+        static, dyn = super().init_cache(attn_emb, attn_emb_len, max_length,
+                                         fc_emb)
+        if event is not None:
+            static["cond"] = self.encode_event(event.to(attn_emb.device))
+        return static, dyn
+
+
+class KeywordProbTransformerDecoder(EventTransformerDecoder):
+    """Keyword-conditioned decoder (the JAX
+    ``KeywordProbTransformerDecoder``): the keyword probabilities
+    [B, ``keyword_classes_num``] through ``keyword_proj`` (a Linear),
+    added to the scaled word embeddings, then ``word_keyword_norm`` (a
+    LayerNorm, only where a condition is given), before the positional
+    table.  The condition rides the ``event`` argument, as in JAX."""
+
+    def __init__(self, *args, keyword_classes_num: int = 527, **kwargs):
+        super().__init__(*args, event_classes=keyword_classes_num, **kwargs)
+        self.keyword_classes_num = keyword_classes_num
+
+    def build_condition(self, classes: int) -> None:
+        self.keyword_proj = Linear(classes, self.emb_dim)
+        self.word_keyword_norm = LayerNorm(self.emb_dim, eps=1e-5)
+
+    def encode_event(self, event: torch.Tensor) -> torch.Tensor:
+        return self.keyword_proj(event.float())
+
+    def condition(self, e, cond):
+        return e if cond is None else self.word_keyword_norm(
+            e + cond[:, None, :])

@@ -19,6 +19,7 @@ from audiocaption_tpu_torch.models.m2 import M2Attention
 from audiocaption_tpu_torch.models.rnn_decoder import (
     Seq2SeqAttention, TemporalBahAttnDecoder)
 from audiocaption_tpu_torch.models.rnn_encoder import Cnn14RnnEncoder
+from audiocaption_tpu_torch.models.style import StyleBank, TextRefEncoder
 from audiocaption_tpu_torch.models.transformer_decoder import (
     TransformerDecoder)
 from audiocaption_tpu_torch.models.uit import UITBase
@@ -122,7 +123,9 @@ def random_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
     serving and tests): He-normal fan-out convs, torch-default uniform
     linears, Xavier-uniform embeddings and packed attention projections,
     torch-default uniform GRUs, a standard-normal additive-attention
-    ``v``, Xavier-uniform CLS tokens and discriminator word tables,
+    ``v``, Xavier-uniform CLS tokens (the style captioner's reference
+    encoder's too) and discriminator word tables, the style bank's tokens
+    from N(0, 0.02^2),
     identity normalisation; the M2 modules' linears Xavier-uniform with
     zero biases (``xavier_init``) and their memory slots from N(0, (1 /
     d_k)^2) and N(0, (1 / m)^2), as the JAX modules draw them; HTS-AT's
@@ -159,8 +162,10 @@ def random_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
             d_k = m.d_model // m.nhead
             m.m_k.normal_(0.0, 1.0 / d_k, generator=generator)
             m.m_v.normal_(0.0, 1.0 / m.n_memory, generator=generator)
-        elif isinstance(m, AudioTransformerEncoder):
+        elif isinstance(m, (AudioTransformerEncoder, TextRefEncoder)):
             _xavier_uniform(m.cls_token, generator)
+        elif isinstance(m, StyleBank):
+            m.styles.normal_(0.0, 0.02, generator=generator)
         elif isinstance(m, HmClassifier):
             _xavier_uniform(m.word_embedding, generator)
         elif isinstance(m, WindowAttention):

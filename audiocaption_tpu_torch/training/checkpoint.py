@@ -27,20 +27,18 @@ import numpy as np
 import torch
 
 from audiocaption_tpu_torch.models.convert import (
-    bahattn_captioner_state_dict_from_jax, captioner_state_dict_from_jax,
-    cdur5_trm_state_dict_from_jax,
-    cnn14rnn_trm_state_dict_from_jax, reference_prefixes,
-    sed_state_dict_from_jax, state_dict_from_jax)
+    bahattn_captioner_state_dict_from_jax, captioner_parts,
+    captioner_state_dict_from_jax, cdur5_trm_state_dict_from_jax,
+    cnn14rnn_trm_state_dict_from_jax, sed_state_dict_from_jax,
+    state_dict_from_jax, style_state_dict_from_jax)
 
 
 def model_variables(model: torch.nn.Module) -> Dict[str, np.ndarray]:
-    """A ``Captioner``'s encoder and decoder weights and buffers, as host
-    numpy arrays in its reference key space
-    (``models.convert.reference_prefixes``)."""
+    """A ``Captioner``'s encoder and decoder weights and buffers (and a
+    ``StyleCaptioner``'s reference encoder and style bank), as host numpy
+    arrays in its reference key space (``models.convert.captioner_parts``)."""
     out = {}
-    enc_prefix, dec_prefix = reference_prefixes(model)
-    for prefix, module in ((enc_prefix, model.encoder),
-                           (dec_prefix, model.decoder)):
+    for prefix, module in captioner_parts(model):
         for k, v in module.state_dict().items():
             out[prefix + k] = v.detach().cpu().numpy().copy()
     return out
@@ -99,21 +97,23 @@ def load_checkpoint(path: str) -> Dict:
 def jax_variables_to_reference(variables: Mapping) -> Dict[str, np.ndarray]:
     """A JAX EffB2-Transformer, cnn14rnn_trm, Cdur5 KD-student, Cnn14-GRU +
     GRU-decoder (the temporal captioner), any captioner of the extended
-    or item-8 encoders or GRU decoders (``captioner_state_dict_from_jax``) or
-    Cnn8-RNN SED tree {params, batch_stats} (numpy leaves) -> its
-    reference key space; the GRUs' and the decoder's depth and the weight
-    tying are read off the tree."""
+    or item-8 encoders or GRU decoders (``captioner_state_dict_from_jax``),
+    a style captioner or a Cnn8-RNN SED tree {params, batch_stats} (numpy
+    leaves) -> its reference key space; the GRUs' and the decoder's depth,
+    the weight tying and a conditioned decoder's parameters are read off
+    the tree."""
     params = variables["params"]
     dec, enc = params.get("decoder", {}), params.get("encoder", {})
     if "fc_audioset" in params:
         return sed_state_dict_from_jax(variables)
     if "word_embedding" in dec and "attn" in dec and "rnn" in enc:
         gru = enc["rnn"]["network"]
-        return bahattn_captioner_state_dict_from_jax(
+        return dict(bahattn_captioner_state_dict_from_jax(
             variables, rnn_num_layers=sum(
                 k.startswith("w_ih_l") and not k.endswith("_reverse")
                 for k in gru),
-            rnn_bidirectional=any(k.endswith("_reverse") for k in gru))
+            rnn_bidirectional=any(k.endswith("_reverse") for k in gru)),
+            **style_state_dict_from_jax(params))
     if not dec or not enc:
         raise ValueError("only JAX captioner (encoder + decoder) or SED "
                          "checkpoints convert to this package's key space")

@@ -97,9 +97,10 @@ def mark_part(mark: Mark, name: str) -> None:
         mark(name)
 
 
-# the batch keys that condition a GRU decoder (the JAX step's
-# ``cond_kwargs``; its ``event`` / ``keyword`` serve decoders not ported)
-COND_KEYS = ("condition", "style", "structure")
+# the batch keys that condition a decoder (the JAX step's
+# ``cond_kwargs``): a GRU decoder's, and a conditioned transformer
+# decoder's ``event``; a batch's ``keyword`` rides the ``event`` slot
+COND_KEYS = ("condition", "style", "structure", "event")
 
 
 def batch_wav(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -126,8 +127,9 @@ def train_step(state: TrainState, loss_fn: Callable[[Dict], torch.Tensor],
                mark: Mark = None) -> Dict[str, torch.Tensor]:
     """One training step on ``batch`` (wav [B, T] float32, wav_len [B],
     cap [B, L] ids, cap_len [B], on the model's device; a
-    ``temporal_tag`` [B], and a ``condition`` [B], ``style`` [B, E] or
-    ``structure`` [B], go to the forward, as in the JAX step; the
+    ``temporal_tag`` [B], and a ``condition`` [B], ``style`` [B, E],
+    ``structure`` [B] or ``event`` / ``keyword`` [B, C] (the keyword as
+    ``event``), go to the forward, as in the JAX step; the
     ``condition`` also goes to the loss as ``conditions``, which the JAX
     step leaves out though its condition and specificity losses read it,
     ROADMAP Queue 3) ->
@@ -135,7 +137,9 @@ def train_step(state: TrainState, loss_fn: Callable[[Dict], torch.Tensor],
     ``generator`` go to ``Captioner.forward``: the Python float 1.0 takes
     the teacher-forcing path, anything else scheduled sampling.
     ``specaug`` and ``specaug_generator`` (on the batch's device) too:
-    SpecAugment on the log-mel.  ``mark(name)``, if given, is called after
+    SpecAugment on the log-mel.  A parameter the loss does not reach
+    takes a zero gradient (:func:`zero_unreached_grads`).
+    ``mark(name)``, if given, is called after
     the forward and loss ("forward"), the backward and clip ("backward")
     and the optimizer ("optimizer"), for the caller's timers."""
     batch = batch_wav(batch)
@@ -147,6 +151,8 @@ def train_step(state: TrainState, loss_fn: Callable[[Dict], torch.Tensor],
     tag = ({"temporal_tag": batch["temporal_tag"]}
            if "temporal_tag" in batch else {})
     cond = {k: batch[k] for k in COND_KEYS if k in batch}
+    if "keyword" in batch:
+        cond["event"] = batch["keyword"]
     out = model(batch["wav"], batch["wav_len"], batch["cap"],
                 batch["cap_len"], ss_ratio=ss_ratio, generator=generator,
                 specaug=specaug, specaug_generator=specaug_generator,
@@ -158,6 +164,7 @@ def train_step(state: TrainState, loss_fn: Callable[[Dict], torch.Tensor],
     loss = loss_fn(out)
     mark_part(mark, "forward")
     loss.backward()
+    zero_unreached_grads(state.params)
     # the raw norm; the gradients are clipped in place (a non-finite norm
     # leaves them non-finite, and they are then dropped)
     grad_norm = clip_grad_norm(state.params, state.max_grad_norm)
@@ -174,6 +181,17 @@ def train_step(state: TrainState, loss_fn: Callable[[Dict], torch.Tensor],
     mark_part(mark, "optimizer")
     return {"loss": loss.detach(), "grad_norm": grad_norm.detach(),
             "skipped": not ok}
+
+
+def zero_unreached_grads(params) -> None:
+    """A zero gradient for each parameter the loss did not reach (an
+    encoder's fc head under a transformer decoder, the decoder in an
+    unsup encoder-KD step), as the JAX step has: Adam then decays its
+    moments and applies its L2 term, where torch's Adam would skip a
+    parameter without a gradient."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
 
 
 def clip_grad_norm(params, max_norm: float,
@@ -201,10 +219,7 @@ def apply_update(state, loss: torch.Tensor, mark: Mark = None,
     """Backward, the global-norm clip and the optimizer step on ``state``
     (its gradients zeroed before the caller's forward) -> the raw
     gradient norm, before the clip.  A parameter the loss does not reach
-    (the decoder in an unsup encoder-KD step) takes a zero gradient, as
-    in the JAX step: Adam still decays its moments and applies the L2
-    term, where torch's Adam would skip a parameter without a gradient.
-    The clip's norms are float32 by default, as the JAX KD step's are:
+    takes a zero gradient (:func:`zero_unreached_grads`).  The clip's norms are float32 by default, as the JAX KD step's are:
     the KD student's largest tensor holds 0.64 M values, far from the tens
     of millions at which a float32 sum drifts, and with float64 norms the
     weights leave JAX's by float32 rounding in the other direction, enough
@@ -212,9 +227,7 @@ def apply_update(state, loss: torch.Tensor, mark: Mark = None,
     (``tests/test_torch_kd.py``, token step 2).  The augmented step of the
     Cnn14 asks for float64 (``norm_dtype``; ``training/aug_runner.py``)."""
     loss.backward()
-    for p in state.params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
+    zero_unreached_grads(state.params)
     grad_norm = clip_grad_norm(state.params, state.max_grad_norm,
                                dtype=norm_dtype)
     mark_part(mark, "backward")

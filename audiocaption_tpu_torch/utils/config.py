@@ -131,9 +131,15 @@ def build_model_from_config(model_cfg: Dict,
     path, kind: the JAX package's ``cnn14``, ``effb2``, ``htsat``,
     ``uit``, ``esresnext``, ``raw`` or ``decoder``, which
     ``cli/run.py::load_pretrained`` reads).  The conditioned transformer
-    decoders (``EventTransformerDecoder``,
-    ``KeywordProbTransformerDecoder``) and the style models raise, naming
-    the ROADMAP item that ports them; an unknown type raises as in the JAX
+    decoders take the transformer's arguments and ``event_classes``
+    (``EventTransformerDecoder``) or ``keyword_classes_num``
+    (``KeywordProbTransformerDecoder``), 527 by default.  A
+    ``StyleCaptionModel`` or ``StyleSeq2SeqAttnModel`` node builds a
+    ``models/style.py::StyleCaptioner`` from its ``style.args``:
+    ``n_styles`` 4, a reference encoder of ``ref_d_model`` (the decoder's
+    ``emb_dim``), ``ref_nlayers`` 2 and ``ref_dropout`` 0.2, and a style
+    bank as wide as the decoder's ``emb_dim`` (its decoder a
+    ``StyleBahAttnDecoder``).  An unknown type raises as in the JAX
     builder.  Weights are torch's defaults; the runner draws them
     (``zoo.random_init``)."""
     from audiocaption_tpu_torch.decoding.engine import SpecialTokens
@@ -146,8 +152,7 @@ def build_model_from_config(model_cfg: Dict,
         M2TransformerDecoder, M2TransformerEncoder)
     from audiocaption_tpu_torch.models.rnn_encoder import (
         Cnn14RnnEncoder, RnnEncoder)
-    from audiocaption_tpu_torch.models.transformer_decoder import (
-        TransformerDecoder)
+    from audiocaption_tpu_torch.models import transformer_decoder as TD
     from audiocaption_tpu_torch.ops.frontend import (
         CNN14_MEL_16K, CNN14_MEL_32K, EFFB2_MEL_16K)
 
@@ -287,15 +292,22 @@ def build_model_from_config(model_cfg: Dict,
     if vocab is None:
         raise ValueError("the decoder needs a vocab_size (from the "
                          "tokenizer or the decoder's args)")
-    if dec_type == "TransformerDecoder":
-        decoder = TransformerDecoder(
+    if dec_type in ("TransformerDecoder", "EventTransformerDecoder",
+                    "KeywordProbTransformerDecoder"):
+        extra = {}
+        if dec_type == "EventTransformerDecoder":
+            extra["event_classes"] = dec_args.get("event_classes", 527)
+        if dec_type == "KeywordProbTransformerDecoder":
+            extra["keyword_classes_num"] = dec_args.get(
+                "keyword_classes_num", 527)
+        decoder = getattr(TD, dec_type)(
             emb_dim=dec_args.get("emb_dim", 256), vocab_size=vocab,
             attn_emb_dim=attn_width,
             nlayers=dec_args.get("nlayers", 2), nhead=dec_args.get("nhead"),
             dim_feedforward=dec_args.get("dim_feedforward"),
             tie_weights=dec_args.get("tie_weights", False),
             dropout=dec_args.get("dropout", 0.2),
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, **extra)
     elif dec_type == "M2TransformerDecoder":
         if not isinstance(encoder, M2TransformerEncoder):
             raise ValueError("M2TransformerDecoder requires an "
@@ -314,10 +326,6 @@ def build_model_from_config(model_cfg: Dict,
             d_model=dec_args.get("d_model", 512),
             dropout=dec_args.get("dropout", 0.5),
             num_layers=dec_args.get("num_layers", 1))
-    elif dec_type in ("EventTransformerDecoder",
-                      "KeywordProbTransformerDecoder"):
-        raise ValueError(f"decoder type {dec_type!r} is not ported yet "
-                         "(ROADMAP Queue 1 item 8b)")
     else:
         raise ValueError(f"unsupported decoder type: {dec_type}")
     if dec_cfg.get("pretrained"):
@@ -325,8 +333,21 @@ def build_model_from_config(model_cfg: Dict,
 
     model_type = short_type(model_cfg.get("type", "TransformerModel"))
     if model_type in ("StyleCaptionModel", "StyleSeq2SeqAttnModel"):
-        raise ValueError(f"model type {model_type!r} is not ported yet "
-                         "(ROADMAP Queue 1 item 8b)")
+        from audiocaption_tpu_torch.models.style import (
+            StyleBank, StyleCaptioner, TextRefEncoder)
+        style_args = dict((model_cfg.get("style") or {}).get("args") or {})
+        emb_dim = decoder.emb_dim
+        ref_d = style_args.get("ref_d_model", emb_dim)
+        model = StyleCaptioner(
+            encoder=encoder, decoder=decoder, mel=mel,
+            special=SpecialTokens(), input_mode=input_mode,
+            ref_encoder=TextRefEncoder(
+                vocab, d_model=ref_d,
+                nlayers=style_args.get("ref_nlayers", 2),
+                dropout=style_args.get("ref_dropout", 0.2)),
+            style_bank=StyleBank(style_args.get("n_styles", 4), emb_dim,
+                                 query_dim=ref_d))
+        return model, pretrained
     model = Captioner(encoder=encoder, decoder=decoder, mel=mel,
                       special=SpecialTokens(), input_mode=input_mode)
     return model, pretrained

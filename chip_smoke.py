@@ -55,7 +55,8 @@ Phases, each of which must pass (none is caught and skipped):
      first) and its bound at B=64 x 10 s (a real FFT's operations against
      the bytes in and out), the split of one
      temporal-model batch (frontend, SED network, host tag step, captioner
-     encoder, decode), and end-to-end clips/s, greedy and beam 3;
+     encoder, decode), and end-to-end clips/s, greedy and beam 3 (one
+     batch each, no warm-up: the host tag step takes 2.4-3.1 s of it);
  10. walk the flagship EffB2 encoder of phase 4 (BN jittered, so the
      folded expand biases are not zero) block by block on folded weights
      at B=64 x 10 s: the 19 stride-1 blocks through the MBConv kernel, the
@@ -104,7 +105,8 @@ Phases, each of which must pass (none is caught and skipped):
      kernel, its plain version and its bound (``decode_bound_ms`` at the
      mode's product rate, bytes with 2-byte K/V and weights); bf16
      clips/s of both models at B=64 x 10 s beside float32, greedy and
-     beam 3; the bf16 EffB2 encode beside the float32 one;
+     beam 3 (the temporal model's over one batch, no warm-up); the
+     bf16 EffB2 encode beside the float32 one;
  16. train the flagship at full width (``zoo.effb2_trm(vocab_size=4981)``,
      random weights from a seed) with the recipe of
      ``configs/audiocaps/effb2_trm.yaml`` through the port's trainer API
@@ -127,7 +129,7 @@ Phases, each of which must pass (none is caught and skipped):
      3's jittered weights and random memory K/V, where the trajectories
      are not degenerate; (e) SWA of two
      snapshots equals their mean within 1e-6;
- 17. time the train step (median of 20 after 3 warm-up steps, float32,
+ 17. time the train step (median of 10 after 3 warm-up steps, float32,
      TF32 off) split by CUDA events into frontend + encoder forward,
      decoder forward with the SS loop and the loss, backward with the
      clip, and optimizer, for the cached SS path, teacher forcing and the
@@ -211,7 +213,8 @@ Phases, each of which must pass (none is caught and skipped):
      per scorer; the ensemble's torch-engine beam per batch;
  24. the flagship trained on a reduced corpus v2 that the port generates
      (``synthetic_flagship_path``: 960 / 64 / 64 clips of 10 s at 32 kHz,
-     5 epochs of the recipe, ``cli/recipes.py``), its val
+     4 epochs of the recipe, ``cli/recipes.py``; the corpus is kept for
+     phases 26 and 27, which take its first train clips), its val
      score through the greedy kernel, then ``Runner.evaluate`` of the best
      checkpoint at beam 3 through the beam kernel: the loss falls, the
      best val score beats the best constant caption, the test scores are
@@ -219,7 +222,8 @@ Phases, each of which must pass (none is caught and skipped):
      as the torch engine does (or diverges at a near tie) and the beam
      kernel passes ``float64_floor_check``;
  25. the temporal pair on a reduced temporal corpus
-     (``synthetic_temporal_path``: 320 / 64 / 64 clips): ``train_sed``
+     (``synthetic_temporal_path``: 320 / 64 / 64 clips, kept for phase
+     30): ``train_sed``
      (its log-mel bank through the log-mel kernel, within 1e-3 dB of the
      plain version or no further than it from float64),
      the tag-conditioned captioner for 3 epochs, ``evaluate_temporal``
@@ -227,8 +231,8 @@ Phases, each of which must pass (none is caught and skipped):
      the most frequent tag's share and the val score the best constant
      caption;
  26. augmented training of ``zoo.cnn14rnn_trm`` at full width
-     (``synthetic_aug_path``): a reduced corpus v2 (640 / 64 / 64 clips)
-     and its speed-perturbed train split (``cli/data_tools.py
+     (``synthetic_aug_path``): a reduced corpus v2 (320 / 64 / 64 clips,
+     phase 24's first train clips) and its speed-perturbed train split (``cli/data_tools.py
      speed_perturb --compute``), ``Runner.train_aug`` of
      ``cli/recipes.py::aug_train`` for 2 epochs (B=32 real + 32 aug
      clips a step): the loss falls, the val score through the greedy
@@ -249,13 +253,14 @@ Phases, each of which must pass (none is caught and skipped):
      layers) forward in ``eval()`` at B=32, fed by the log-mel kernel
      (held against plain on that batch), its time (CUDA events, median
      of 10) and peak memory; on a reduced corpus v2 (640 / 64 / 64
-     clips): (b) ``Runner.train`` of a Cnn10 + 2-layer
+     clips, phase 24's first train clips): (b) ``Runner.train`` for 2
+     epochs of a Cnn10 + 2-layer
      ``BahAttnAddFcDecoder`` (emb and d_model 512) with the XE recipe's
      settings and scheduled sampling: the loss falls and the val score
      (torch engine) beats the best constant caption; its step split and
      idle share; (c) SCST of (b)'s best checkpoint (``ScstWrapper``,
      torch engine), its step split and rewards; (d) a Cnn14Transformer +
-     ``TransformerDecoder`` captioner trained briefly, its val score
+     ``TransformerDecoder`` captioner trained 40 steps, its val score
      through the greedy kernel and ``Runner.evaluate`` at beam 3 through
      the beam kernel; both kernels against their plain versions at these
      shapes (E=256, S=32, memory width 512) and timed; (e)
@@ -294,9 +299,9 @@ Phases, each of which must pass (none is caught and skipped):
      (seeded random weights, BN statistics jittered) on B=32 x 10 s: two
      clips held against a CPU copy of the same weights within 1e-3
      relative, the eval forward timed (median of 10), peak memory, the
-     log-mel kernel's launches; (b)-(d) on a reduced corpus v1 (640 / 64
+     log-mel kernel's launches; (b)-(d) on a reduced corpus v1 (160 / 64
      / 64 clips, ``item8_path``): (b) the ``encoders`` recipe's HTS-AT +
-     2-layer ``TransformerDecoder`` captioner trained 3 epochs (300 steps)
+     2-layer ``TransformerDecoder`` captioner trained 2 epochs (50 steps)
      with ``Runner.train``: the loss falls, the val CIDEr-D through the
      greedy kernel beats the best constant caption's, ``Runner.evaluate``
      at beam 3 through the beam kernel, both kernels against their plain
@@ -305,7 +310,26 @@ Phases, each of which must pass (none is caught and skipped):
      ``Runner.train`` steps, then steps on one batch whose loss falls, its
      evaluation through the beam kernel (S=7, held against plain); (d)
      ``prepare_features`` with ``htsat``, ``panns_cnn10`` and
-     ``panns_wavegram`` on 8 clips, card against CPU.
+     ``panns_wavegram`` on 4 clips, card against CPU;
+ 30. item 8b on phase 25's temporal corpus, each clip's keywords the
+     multi-hot of its ground-truth events (527 columns, ``.npy`` rows in
+     a temporary directory; ``keyword_path``): (a) the keyword captioner
+     of ``cli/recipes.py::keyword_train`` (cnn14rnn_trm's Cnn14 + BiGRU
+     encoder at full width, a ``KeywordProbTransformerDecoder`` at the
+     JAX builder's defaults) trained 2 epochs (100 steps) with
+     ``Runner.train``: the loss falls, the val CIDEr-D of the greedy
+     decode with the keywords (torch engine: no kernel takes a
+     condition) beats the best constant caption's, the decode with the
+     keywords zeroed differs, the runner's own val score (no keywords)
+     printed beside it, 2 clips on a CPU copy give the card's tokens or
+     diverge at a near tie, the log-mel kernel on the first batch
+     against plain, the step split and idle share, the log-mel kernel
+     once an encode; (b) an ``EventTransformerDecoder`` for a few
+     ``Runner.train`` steps on the same events and a conditioned greedy
+     decode; (c) a ``StyleCaptionModel`` (Cnn10, ``StyleBahAttnDecoder``)
+     for a few ``Runner.train`` steps, then steps on one batch whose loss
+     falls, then a greedy decode with each one-hot ``style_weight``
+     through ``style_of_weight``.
 
 Every kernel's launch counter is set to 0 just before each path is
 driven (phases 4-5, the EffB2 serving path; phase 8, the temporal path;
@@ -332,7 +356,8 @@ greedy, beam and log-mel entries' ``feature_launches``; phase 29, the
 item-8 path, whose counts are the greedy, beam and log-mel entries'
 ``item8_launches`` and whose (b) and (c) launches the
 ``fused_greedy[htsat]``, ``fused_beam[htsat]`` and
-``fused_beam[esresnext]`` entries') and
+``fused_beam[esresnext]`` entries'; phase 30, the item-8b path, whose
+log-mel count is the log-mel entry's ``keyword_launches``) and
 read just after; the run fails if a kernel of that
 path was not launched there.
 The second-to-last line is the kernels JSON object, the last line
@@ -380,7 +405,7 @@ TRAIN_B, TRAIN_SECONDS, TRAIN_STEPS = 32, 10, 40
 TRAIN_WORDS, TRAIN_CAP_LEN = 64, (8, 20)   # caption tokens, <bos>/<eos> in
 TRAIN_LOSS_DROP = 0.10        # last 5 steps' mean loss vs the first 5
 TRAIN_VAL_CLIPS = 64
-TRAIN_WARMUP, TRAIN_TIMED = 3, 20
+TRAIN_WARMUP, TRAIN_TIMED = 3, 10
 SWA_ATOL = 1e-6
 # phases 18-19: SCST of zoo.cnn14rnn_trm (configs/synthetic_v2/scst.yaml)
 SCST_V, SCST_B, SCST_SECONDS, SCST_STEPS = 4368, 32, 10, 20
@@ -466,7 +491,7 @@ EVAL_REFS = 5                 # references per clip, from the model's samples
 # (d) scores the first EVAL_SCORED clips of each family: meteor_py's chunk
 # search runs to its 100k-pairing budget on the one-word loops of these
 # random models (~0.75 s a caption-reference pair on the host)
-EVAL_SCORED = 16
+EVAL_SCORED = 4
 EVAL_ENSEMBLE_SEED = 2        # the second cnn14rnn_trm member (the first: 1)
 EVAL_ENSEMBLE_CPU = 4         # clips of the ensemble's card-vs-CPU check
 EVAL_WAVS = 16                # wav files of the inference core, one short
@@ -494,17 +519,18 @@ SYN_CONSTANT_CANDIDATES = 20  # the most frequent train captions tried as a
 # phase 26: augmented training of zoo.cnn14rnn_trm on a reduced corpus v2
 # and its speed-perturbed copy; the recipe's schedule decays the rate only
 # tenfold over these epochs, as phase 24's does
-SYN_AUG_SIZES, SYN_AUG_EPOCHS = (640, 64, 64), 2
+SYN_AUG_SIZES, SYN_AUG_EPOCHS = (320, 64, 64), 2
 SYN_AUG_FINAL_LR = 5e-5
 SYN_AUG_SPECAUG_SAMPLES = 96  # (d): three Runner.train steps of 32
 SYN_AUG_WARMUP, SYN_AUG_TIMED = 2, 6
 # phase 27: the rest of the 32 kHz family on a reduced corpus v2
 FAM_SIZES = (640, 64, 64)     # clips; 5 captions a train clip
 FAM_B, FAM_SECONDS = 32, 10   # (a)
-FAM_XE_EPOCHS = 3             # (b): 100 steps of 32 an epoch
+FAM_XE_EPOCHS = 2             # (b): 100 steps of 32 an epoch
 FAM_XE_FINAL_LR = 5e-5
 FAM_SCST_STEPS = 24           # (c)
 FAM_TRM_EPOCHS = 1            # (d)
+FAM_TRM_STEPS = 40            # (d): Runner.train steps of its epoch
 FAM_COND_STEPS = 3            # (f): Runner.train steps of each decoder
 FAM_WARMUP, FAM_TIMED = 2, 10
 FAM_STEP_TIMED = 6            # (b), (c): timed steps after FAM_WARMUP
@@ -517,13 +543,21 @@ BF16_WALK_FACTOR = 2.0        # walked vs cuDNN bf16, times bf16's own error
 ENC_B, ENC_SECONDS = 32, 10   # (a)
 ENC_CPU_CLIPS = 2             # (a): clips held against a CPU copy
 ENC_RTOL = 1e-3               # (a), (d): card vs CPU, times max(1, max |CPU|)
-ENC_SIZES = (640, 64, 64)     # (b)-(d): corpus v1; 5 captions a train clip
-ENC_EPOCHS = 3                # (b): 100 steps of 32 an epoch
+ENC_SIZES = (160, 64, 64)     # (b)-(d): corpus v1; 5 captions a train clip
+ENC_EPOCHS = 2                # (b): 25 steps of 32 an epoch
 ENC_FINAL_LR = 5e-5
 ENC_RX_STEPS = 6              # (c): Runner.train steps, then steps on a batch
-ENC_FEATURE_CLIPS = 8         # (d)
+ENC_FEATURE_CLIPS = 4         # (d)
 ITEM8 = ("mobilenet_v3", "htsat", "uit_xs", "esresnext", "panns_cnn10",
          "panns_wavegram")
+# phase 30: item 8b on phase 25's temporal corpus (320 train clips, 5
+# captions each: 50 steps of 32 an epoch)
+KW_EPOCHS = 2                 # (a): the keyword captioner
+KW_FINAL_LR = 5e-5
+KW_CPU_CLIPS = 2              # (a): clips decoded on a CPU copy
+KW_EVENT_STEPS = 3            # (b): Runner.train steps
+KW_STYLE_STEPS = 3            # (c): Runner.train steps
+KW_STYLE_BATCH_STEPS = 10     # (c): then steps on one repeated batch
 FAM_ENCODERS = {
     "Cnn6Encoder": {}, "Cnn10Encoder": {}, "Cdur8Encoder": {},
     "MobileNetV2": {}, "Cnn14Encoder": {},
@@ -994,14 +1028,13 @@ def temporal_times(api, dev, card):
             return api.decode_lms(api.log_mel(wav), lens,
                                   sample_method=method, beam_size=3,
                                   max_length=L)
-        fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        reps = 2
-        for _ in range(reps):
-            fn()
+        # one batch, no warm-up: 2.4-3.1 s, nearly all the host tag step
+        # (the batch split above ran each part at this batch's shapes)
+        fn()
         torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) / reps
+        dt = time.perf_counter() - t0
         log(f"temporal end to end {method}: {B / dt:.1f} clips/s "
             f"({dt * 1e3:.1f} ms per batch of {B} x 10 s) on {card}")
     return timing
@@ -1562,12 +1595,15 @@ def bf16_temporal_path(api32, dev, card, rng):
     return api, launches
 
 
-def e2e_clips_per_s(decode, wav, lens, method, reps):
-    """Clips/s of ``decode`` on a batch, greedy or beam 3, after a warm-up."""
+def e2e_clips_per_s(decode, wav, lens, method, reps, warmup=True):
+    """Clips/s of ``decode`` on a batch, greedy or beam 3, after a warm-up
+    call unless ``warmup`` is False (a path whose host work dwarfs the
+    first call's device set-up)."""
     import torch
     fn = functools.partial(decode, wav, lens, sample_method=method,
                            beam_size=3, max_length=L)
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -1668,7 +1704,8 @@ def bf16_times(packed, memkv, valid, checks, f32_kernels, api16, api32,
         return decode
     for method in ("greedy", "beam"):
         for label, api in (("bf16", t_api16), ("float32", t_api32)):
-            cps, ms = e2e_clips_per_s(temporal(api), wav, lens, method, 2)
+            cps, ms = e2e_clips_per_s(temporal(api), wav, lens, method, 1,
+                                      warmup=False)
             log(f"temporal end to end {method}, {label}: {cps:.1f} clips/s "
                 f"({ms:.1f} ms per batch of 64 x 10 s) on {card}")
     return kernels
@@ -3343,6 +3380,88 @@ def constant_caption_cider(train_text: str, val_text: str) -> tuple:
     return best
 
 
+# the synthetic corpora that phases 24-30 train on (10 s clips at 32 kHz,
+# seed 0), in one temporary directory removed when the script exits.  A
+# spawned worker process starts generating them with the script
+# (:func:`start_corpora`), so that this host work (numpy, wav files)
+# overlaps the earlier phases; a phase that takes fewer train clips than a
+# corpus holds gets its first ones (``synthetic_corpus.subset``: the
+# corpus the generator writes for that size, without generating it again)
+_GENERATORS = {"v1": "generate", "v2": "generate_v2",
+               "temporal": "generate_temporal"}
+# the corpora's directory, and per (kind, sizes) the worker's future, or
+# None for a corpus made in this process
+_CORPORA = {"root": None, "made": {}}
+
+
+def _generate_corpus(kind: str, path: str, sizes: tuple) -> float:
+    """Corpus ``kind`` at ``sizes`` in ``path`` -> the seconds it took (run
+    in the corpus worker, or in this process)."""
+    sys.path.insert(0, str(ROOT))
+    from audiocaption_tpu_torch.cli import synthetic_corpus as SC
+    t0 = time.perf_counter()
+    getattr(SC, _GENERATORS[kind])(path, *sizes, sr=SR_32K, seed=0)
+    return time.perf_counter() - t0
+
+
+def _corpus_dir(kind: str, sizes: tuple) -> Path:
+    if _CORPORA["root"] is None:
+        import atexit
+        import shutil
+        import tempfile
+        _CORPORA["root"] = Path(tempfile.mkdtemp(prefix="chip_smoke_corpora_"))
+        atexit.register(shutil.rmtree, _CORPORA["root"], True)
+    return _CORPORA["root"] / f"{kind}_{'_'.join(map(str, sizes))}"
+
+
+def start_corpora() -> None:
+    """Start the corpus worker (one spawned process) on every corpus the
+    later phases generate: phase 24's corpus v2 (26 and 27 take its first
+    train clips), phase 25's temporal corpus (30 reuses it) and the two
+    corpora v1 of phases 28 and 29.  The worker is shut down at exit."""
+    import atexit
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    specs = [(kind, tuple(sizes)) for kind, sizes in (
+        ("v2", SYN_V2_SIZES), ("temporal", SYN_TEMPORAL_SIZES),
+        ("v1", FEAT_SIZES), ("v1", ENC_SIZES))]
+    paths = [str(_corpus_dir(*spec)) for spec in specs]
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+        "spawn"))
+    # atexit runs last-registered first: the worker ends before the
+    # directory goes
+    atexit.register(pool.shutdown, wait=True, cancel_futures=True)
+    for spec, path in zip(specs, paths):
+        _CORPORA["made"][spec] = pool.submit(_generate_corpus, spec[0], path,
+                                             spec[1])
+
+
+def shared_corpus(kind: str, sizes) -> tuple:
+    """(the directory of the corpus ``kind``, "v1", "v2" or "temporal", at
+    ``sizes`` (train, val, test), the seconds this call waited for it):
+    the corpus worker's, a subset of a larger train split already asked
+    for, or else generated here."""
+    from audiocaption_tpu_torch.cli import synthetic_corpus as SC
+    sizes = tuple(sizes)
+    path = _corpus_dir(kind, sizes)
+    made = _CORPORA["made"]
+    t0 = time.perf_counter()
+    if (kind, sizes) in made:
+        if made[(kind, sizes)] is not None:
+            made[(kind, sizes)].result()
+        return path, time.perf_counter() - t0
+    larger = [s for k, s in made if k == kind and s[0] > sizes[0]
+              and s[1:] == sizes[1:]]
+    if larger:
+        if made[(kind, larger[0])] is not None:
+            made[(kind, larger[0])].result()
+        SC.subset(str(_corpus_dir(kind, larger[0])), str(path), sizes[0])
+    else:
+        _generate_corpus(kind, str(path), sizes)
+    made[(kind, sizes)] = None
+    return path, time.perf_counter() - t0
+
+
 def synthetic_flagship_path(dev, card):
     """:func:`_synthetic_flagship` in a temporary directory, which is removed
     also when a check fails."""
@@ -3357,7 +3476,8 @@ def synthetic_flagship_path(dev, card):
 
 def _synthetic_flagship(root, dev, card):
     """Phase 24: generate a reduced corpus v2 (``cli/synthetic_corpus.py``:
-    SYN_V2_SIZES clips of 10 s at 32 kHz, float32 wav files) and train the
+    SYN_V2_SIZES clips of 10 s at 32 kHz, float32 wav files; kept for the
+    run by :func:`shared_corpus`) and train the
     flagship recipe on it through ``Runner.train``
     (``cli/recipes.py::flagship_train``:
     ``configs/synthetic_v2/effb2_trm.yaml`` with the corpus's directory;
@@ -3380,7 +3500,6 @@ def _synthetic_flagship(root, dev, card):
     import torch
     import torch.nn.functional as F
     from audiocaption_tpu_torch.cli import recipes
-    from audiocaption_tpu_torch.cli import synthetic_corpus as SC
     from audiocaption_tpu_torch.cli.run import (
         Runner, build_dataloader, experiment_model, read_experiment)
     from audiocaption_tpu_torch.decoding import fused_beam as FB
@@ -3388,10 +3507,7 @@ def _synthetic_flagship(root, dev, card):
     from audiocaption_tpu_torch.models.captioner import generate
     from audiocaption_tpu_torch.ops import fused_logmel as FL
 
-    data = root / "data"
-    t0 = time.perf_counter()
-    SC.generate_v2(str(data), *SYN_V2_SIZES, sr=SR_32K, seed=0)
-    t_gen = time.perf_counter() - t0
+    data, t_gen = shared_corpus("v2", SYN_V2_SIZES)
     constant, const_cap = constant_caption_cider(
         str(data / "train_text.json"), str(data / "val_text.json"))
     over = [f"device={dev.type}", f"experiment_path={root}/effb2_trm",
@@ -3508,7 +3624,7 @@ def synthetic_temporal_path(dev, card):
 
 def _synthetic_temporal(root, dev, card):
     """Phase 25: generate a reduced temporal corpus (SYN_TEMPORAL_SIZES
-    clips of 10 s at 32 kHz), train the SED net through
+    clips of 10 s at 32 kHz; kept for phase 30), train the SED net through
     ``Runner.train_sed`` (``cli/recipes.py::sed_train``, epochs cut to
     SYN_SED_EPOCHS; its log-mel bank through the log-mel kernel), the
     tag-conditioned captioner through ``Runner.train`` (``tempgru_train``,
@@ -3528,7 +3644,6 @@ def _synthetic_temporal(root, dev, card):
     import numpy as np
     import torch
     from audiocaption_tpu_torch.cli import recipes
-    from audiocaption_tpu_torch.cli import synthetic_corpus as SC
     from audiocaption_tpu_torch.cli.run import Runner, _sed_audio
     from audiocaption_tpu_torch.ops import fused_logmel as FL
     from audiocaption_tpu_torch.ops.frontend import (
@@ -3536,10 +3651,7 @@ def _synthetic_temporal(root, dev, card):
     from audiocaption_tpu_torch.training.sed_trainer import (
         build_lms_bank, load_sed_annotations)
 
-    data = root / "data"
-    t0 = time.perf_counter()
-    SC.generate_temporal(str(data), *SYN_TEMPORAL_SIZES, sr=SR_32K, seed=0)
-    t_gen = time.perf_counter() - t0
+    data, t_gen = shared_corpus("temporal", SYN_TEMPORAL_SIZES)
     constant, const_cap = constant_caption_cider(
         str(data / "train_text.json"), str(data / "val_text.json"))
     val_tags = np.asarray([a["tag"] for a in load_sed_annotations(
@@ -3640,7 +3752,8 @@ def synthetic_aug_path(dev, card):
 
 def _synthetic_aug(root, dev, card):
     """Phase 26: augmented training of ``zoo.cnn14rnn_trm`` at full width.
-    (a) a reduced corpus v2 (SYN_AUG_SIZES clips of 10 s at 32 kHz) and
+    (a) a reduced corpus v2 (SYN_AUG_SIZES clips of 10 s at 32 kHz, the
+    first train clips of phase 24's) and
     its speed-perturbed train split (``cli/data_tools.py speed_perturb
     --compute``, 0.9 and 1.1); (b) ``Runner.train_aug`` of
     ``cli/recipes.py::aug_train`` (``configs/synthetic_v2/cnn14rnn_trm.yaml``
@@ -3666,7 +3779,6 @@ def _synthetic_aug(root, dev, card):
     import numpy as np
     import torch
     from audiocaption_tpu_torch.cli import recipes
-    from audiocaption_tpu_torch.cli import synthetic_corpus as SC
     from audiocaption_tpu_torch.cli.data_tools import speed_perturb
     from audiocaption_tpu_torch.cli.run import (
         Runner, build_dataloader, experiment_model, read_experiment,
@@ -3683,16 +3795,15 @@ def _synthetic_aug(root, dev, card):
         bn_buffers, create_train_state)
 
     # (a) the corpus and its speed-perturbed train split
-    data, aug = root / "data", root / "aug"
+    data, t_gen = shared_corpus("v2", SYN_AUG_SIZES)
+    aug = root / "aug"
     t0 = time.perf_counter()
-    SC.generate_v2(str(data), *SYN_AUG_SIZES, sr=SR_32K, seed=0)
-    t_gen = time.perf_counter() - t0
     out = speed_perturb(str(data), str(aug), compute=True,
                         wav_csv=str(data / "train_wav.csv"),
                         text_json=str(data / "train_text.json"))
     Path(out["wav_csv"]).replace(aug / "train_wav.csv")
     Path(out["text_json"]).replace(aug / "train_text.json")
-    t_sp = time.perf_counter() - t0 - t_gen
+    t_sp = time.perf_counter() - t0
     constant, const_cap = constant_caption_cider(
         str(data / "train_text.json"), str(data / "val_text.json"))
 
@@ -4195,7 +4306,6 @@ def _family(root, dev, card):
     import numpy as np
     import torch
     from audiocaption_tpu_torch.cli import recipes
-    from audiocaption_tpu_torch.cli import synthetic_corpus as SC
     from audiocaption_tpu_torch.cli.run import (
         Runner, build_dataloader, build_tokenizer, experiment_model,
         read_experiment, to_device)
@@ -4245,10 +4355,7 @@ def _family(root, dev, card):
     times["a_s"] = time.perf_counter() - t0
 
     # the corpus, its conditions and the recipe's data nodes
-    data = root / "data"
-    t0 = time.perf_counter()
-    SC.generate_v2(str(data), *FAM_SIZES, sr=SR_32K, seed=0)
-    times["corpus_s"] = time.perf_counter() - t0
+    data, times["corpus_s"] = shared_corpus("v2", FAM_SIZES)
     constant, const_cap = constant_caption_cider(
         str(data / "train_text.json"), str(data / "val_text.json"))
     base = recipes.recipe("synthetic_v2/cnn14rnn_trm.yaml", str(data))
@@ -4395,7 +4502,8 @@ def _family(root, dev, card):
     # (d) a Cnn14Transformer + TransformerDecoder captioner
     cfg_d = dict(copy.deepcopy(base), model=FAM_TRM_NODE)
     exp_d, times["d_train_s"], l_d = train_run(
-        "cnn14trm", cfg_d, f"trainer.epochs={FAM_TRM_EPOCHS}")
+        "cnn14trm", cfg_d, f"trainer.epochs={FAM_TRM_EPOCHS}",
+        f"data.train.dataloader_args.num_samples={FAM_TRM_STEPS * bs}")
     c0 = counts()
     t0 = time.perf_counter()
     scores_d = runner.evaluate(exp_d, recipes.flagship_test(str(data)),
@@ -4786,7 +4894,6 @@ def _feature_path(root, dev, card):
     import torch
     import yaml
     from audiocaption_tpu_torch.cli import recipes
-    from audiocaption_tpu_torch.cli import synthetic_corpus as SC
     from audiocaption_tpu_torch.cli.prepare_features import (
         experiment_encoder, write_features)
     from audiocaption_tpu_torch.cli.run import Runner, build_tokenizer
@@ -4798,10 +4905,7 @@ def _feature_path(root, dev, card):
         model_variables, save_checkpoint)
     from audiocaption_tpu_torch.utils.config import build_model_from_config
 
-    data = root / "data"
-    t0 = time.perf_counter()
-    SC.generate(str(data), *FEAT_SIZES, sr=SR_32K, seed=0)
-    t_gen = time.perf_counter() - t0
+    data, t_gen = shared_corpus("v1", FEAT_SIZES)
     FG.reset_launches(FG.fused_greedy_decode)
     FB.reset_launches(FB.fused_beam_decode)
     FL.fused_logmel.launches = 0
@@ -5086,7 +5190,6 @@ def _item8(root, dev, card):
     import numpy as np
     import torch
     from audiocaption_tpu_torch.cli import recipes
-    from audiocaption_tpu_torch.cli import synthetic_corpus as SC
     from audiocaption_tpu_torch.cli.prepare_features import (
         named_encoder, write_features)
     from audiocaption_tpu_torch.cli.run import (
@@ -5109,10 +5212,8 @@ def _item8(root, dev, card):
         (FG.fused_greedy_decode.launches, FB.fused_beam_decode.launches,
          FL.fused_logmel.launches) = (c["fused_greedy"], c["fused_beam"],
                                       c["fused_logmel"])
-    data = root / "data"
-    t0 = time.perf_counter()
-    SC.generate(str(data), *ENC_SIZES, sr=SR_32K, seed=0)
-    times = {"corpus_s": time.perf_counter() - t0}
+    data, t_gen = shared_corpus("v1", ENC_SIZES)
+    times = {"corpus_s": t_gen}
     constant, const_cap = constant_caption_cider(
         str(data / "train_text.json"), str(data / "val_text.json"))
     FG.reset_launches(FG.fused_greedy_decode)
@@ -5360,6 +5461,383 @@ def _item8(root, dev, card):
             "best_val_cider": max(c[1] for c in curve_b)}
 
 
+# -- phase 30: item 8b, the conditioned transformer decoders and styles ----
+
+def keyword_path(dev, card):
+    """:func:`_keyword` in a temporary directory, which is removed also
+    when a check fails (the corpus is phase 25's, kept for the run)."""
+    import shutil
+    import tempfile
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_keyword_"))
+    try:
+        return _keyword(root, dev, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _keyword(root, dev, card):
+    """Phase 30 on phase 25's temporal corpus (SYN_TEMPORAL_SIZES clips of
+    10 s at 32 kHz), each clip's keywords the multi-hot of its ground-truth
+    events (527 columns, one ``.npy`` a clip in ``root``:
+    ``recipes.write_keyword_rows``).  (a) The keyword captioner of
+    ``recipes.keyword_train`` (cnn14rnn_trm's Cnn14 + 3-layer BiGRU(256)
+    encoder, a ``KeywordProbTransformerDecoder`` at the JAX builder's
+    defaults, scheduled sampling off) trained KW_EPOCHS epochs with
+    ``Runner.train`` (the rate decayed to KW_FINAL_LR): the loss falls;
+    the val CIDEr-D of ``generate(..., cond_kwargs={"event": keywords})``
+    (torch engine, greedy; no kernel takes a condition) beats the best
+    constant caption's; the same decode with the keywords zeroed differs
+    on at least one clip; the runner's own val score (decoded without the
+    keywords, ROADMAP Queue 3 L) is printed beside it; KW_CPU_CLIPS clips
+    decoded on a CPU copy give the card's tokens or diverge first at a
+    near tie (SYN_TIE); the log-mel kernel on the first batch within
+    LOGMEL_DB_ATOL of plain or no further from float64; the step split
+    (CUDA events) and idle share; the log-mel kernel once an encode (a
+    train step, a val batch).  (b) An ``EventTransformerDecoder`` over the
+    same encoder for KW_EVENT_STEPS ``Runner.train`` steps on the same
+    events (the keyword rows ride its ``event`` argument): finite losses
+    and a conditioned greedy decode.  (c) A ``StyleCaptionModel``
+    (``family_node``'s Cnn10 and a ``StyleBahAttnDecoder`` at emb and
+    d_model 512) for KW_STYLE_STEPS ``Runner.train`` steps, then
+    KW_STYLE_BATCH_STEPS steps on one batch whose loss in ``eval()``
+    falls, then a greedy decode with each one-hot ``style_weight``
+    through ``style_of_weight``.  The log-mel kernel's count is set to 0
+    before (a) and read after (c), the checks' and timings' launches taken
+    back out."""
+    import copy
+    import itertools
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from audiocaption_tpu_torch.cli import recipes
+    from audiocaption_tpu_torch.cli.run import (
+        Runner, build_dataloader, experiment_model, read_experiment,
+        to_device)
+    from audiocaption_tpu_torch.data.dataset import load_caption_json
+    from audiocaption_tpu_torch.decoding import fused_beam as FB
+    from audiocaption_tpu_torch.decoding import fused_greedy as FG
+    from audiocaption_tpu_torch.losses.loss import build_loss
+    from audiocaption_tpu_torch.metrics.tokenize import ptb_tokenize
+    from audiocaption_tpu_torch.models.captioner import generate
+    from audiocaption_tpu_torch.models.transformer_decoder import (
+        EventTransformerDecoder, KeywordProbTransformerDecoder)
+    from audiocaption_tpu_torch.native import FastCiderD
+    from audiocaption_tpu_torch.ops import fused_logmel as FL
+    from audiocaption_tpu_torch.optim.schedules import build_schedule
+    from audiocaption_tpu_torch.training.trainer import (
+        create_train_state, train_step)
+
+    def counts():
+        return {"fused_greedy": FG.fused_greedy_decode.launches,
+                "fused_beam": FB.fused_beam_decode.launches,
+                "fused_logmel": FL.fused_logmel.launches}
+
+    def restore(c):
+        (FG.fused_greedy_decode.launches, FB.fused_beam_decode.launches,
+         FL.fused_logmel.launches) = (c["fused_greedy"], c["fused_beam"],
+                                      c["fused_logmel"])
+    times = {}
+    t0 = time.perf_counter()
+    data, times["corpus_s"] = shared_corpus("temporal", SYN_TEMPORAL_SIZES)
+    kw_dir = root / "keywords"
+    for split in ("train", "val", "test"):
+        recipes.write_keyword_rows(str(data / f"{split}_sed.json"),
+                                   str(kw_dir))
+    times["keyword_rows_s"] = time.perf_counter() - t0 - times["corpus_s"]
+    constant, const_cap = constant_caption_cider(
+        str(data / "train_text.json"), str(data / "val_text.json"))
+    base = recipes.keyword_train(str(data), str(kw_dir))
+    base["swa"] = {"use": False}
+    bs = base["data"]["train"]["dataloader_args"]["batch_size"]
+    n_items = sum(len(a["captions"]) for a in json.loads(
+        (data / "train_text.json").read_text())["audios"])
+    n_val = -(-SYN_TEMPORAL_SIZES[1]
+              // base["data"]["val"]["dataloader_args"]["batch_size"])
+    over = [f"device={dev.type}",
+            f"data.train.dataloader_args.num_workers={SYN_WORKERS}"]
+    runner = Runner()
+    FG.reset_launches(FG.fused_greedy_decode)
+    FB.reset_launches(FB.fused_beam_decode)
+    FL.fused_logmel.launches = 0
+
+    def run(name, cfg, *extra):
+        c0 = counts()
+        t_ = time.perf_counter()
+        exp = runner.train(cfg, *over, f"experiment_path={root}/{name}",
+                           *extra)
+        times[f"{name}_train_s"] = time.perf_counter() - t_
+        for line in (Path(exp) / "train.log").read_text().splitlines():
+            log(f"30 {name} {line}")
+        n = counts()
+        return exp, {k: n[k] - c0[k] for k in n}
+
+    def val_batches(cfg):
+        for b in build_dataloader(cfg["data"]["val"], train=False):
+            yield (b["audio_id"], torch.as_tensor(b["wav"]).to(dev).float(),
+                   torch.as_tensor(b["wav_len"]).to(dev).long(),
+                   torch.as_tensor(b["keyword"]).to(dev).float())
+
+    # (a) the keyword captioner
+    exp_a, l_a = run("keyword", copy.deepcopy(base),
+                     f"trainer.epochs={KW_EPOCHS}",
+                     f"lr_scheduler.args.final_lrs={KW_FINAL_LR:.7f}")
+    curve = _epoch_curve(Path(exp_a) / "train.log", "loss", "val_cider")
+    steps_a = KW_EPOCHS * (n_items // bs)
+    cfg, ckpt = read_experiment(exp_a, "last.pth")
+    model, tok = experiment_model(cfg, ckpt, dev)
+    assert type(model.decoder) is KeywordProbTransformerDecoder
+    refs = load_caption_json(str(data / "val_text.json"))
+    preds = {"keyword": {}, "zeroed": {}}
+    first = None
+    c_dec = counts()
+    for ids, wav, wav_len, kw in val_batches(cfg):
+        seq = generate(model, wav, wav_len, sample_method="greedy",
+                       max_length=L, cond_kwargs={"event": kw})["seq"]
+        c_chk = counts()
+        zero = generate(model, wav, wav_len, sample_method="greedy",
+                        max_length=L, cond_kwargs={
+                            "event": torch.zeros_like(kw)})["seq"]
+        restore(c_chk)
+        if first is None:
+            first = (wav, wav_len, kw, seq)
+        for name, s in (("keyword", seq), ("zeroed", zero)):
+            for aid, cap in zip(ids, tok.decode(s.cpu().numpy())):
+                preds[name][str(aid)] = [cap]
+    l_dec = {k: v - c_dec[k] for k, v in counts().items()}
+    scorer = FastCiderD()
+    cider = {name: scorer.compute_score(
+        ptb_tokenize({k: refs[k] for k in p}), ptb_tokenize(p))[0]
+        for name, p in preds.items()}
+    moved = sum(preds["keyword"][k] != preds["zeroed"][k]
+                for k in preds["keyword"])
+    log(f"30(a): {type(model.decoder).__name__} (emb "
+        f"{model.decoder.emb_dim}, {model.decoder.nlayers} layers, "
+        f"{model.decoder.keyword_classes_num} keyword classes) over "
+        f"{type(model.encoder).__name__} for {len(curve)} epochs "
+        f"({steps_a} steps) in {times['keyword_train_s']:.1f} s; loss "
+        f"{curve[0][0]:.4f} -> {curve[-1][0]:.4f}; val CIDEr-D greedy "
+        f"(torch engine, last.pth) with the keywords {cider['keyword']:.4f}, "
+        f"keywords zeroed {cider['zeroed']:.4f} ({moved}/{len(preds['keyword'])}"
+        f" captions moved); the runner's val score (no keywords) "
+        f"{[round(c[1], 4) for c in curve]}; best constant caption "
+        f"{constant:.4f}: {const_cap!r}; e.g. "
+        f"{list(preds['keyword'].items())[:2]}; launches {l_a} train, "
+        f"{l_dec} keyword decode on {card}")
+    if dev.type == "cuda":
+        assert l_a["fused_logmel"] == steps_a + KW_EPOCHS * n_val, l_a
+        assert l_dec["fused_logmel"] == n_val, l_dec
+        assert l_a["fused_greedy"] == l_a["fused_beam"] == 0, l_a
+    assert moved > 0, "30(a): the keywords do not reach the decode"
+
+    # the card's tokens against a CPU copy's on KW_CPU_CLIPS clips
+    c0 = counts()
+    wav, wav_len, kw, seq = first
+    k = KW_CPU_CLIPS
+    cpu = copy.deepcopy(model).cpu()
+    with torch.no_grad():
+        enc = cpu.encode(wav[:k].cpu(), wav_len[:k].cpu())
+        cpu_seq = generate(cpu, enc=enc, sample_method="greedy",
+                           max_length=L, cond_kwargs={
+                               "event": kw[:k].cpu()})["seq"]
+        card_seq = seq[:k].cpu()
+        ties = 0
+        for r in torch.nonzero((card_seq != cpu_seq).any(-1)).flatten(
+                ).tolist():
+            t = int(torch.nonzero(card_seq[r] != cpu_seq[r])[0])
+            prefix = torch.cat([cpu_seq.new_full((1,), cpu.special.bos),
+                                cpu_seq[r, :t]])[None]
+            logit = cpu.decoder(prefix, enc["attn_emb"][r:r + 1],
+                                enc["attn_emb_len"][r:r + 1],
+                                event=kw[r:r + 1].cpu())["logit"]
+            lp = F.log_softmax(logit[0, -1].double(), -1)
+            gap = abs(float(lp[cpu_seq[r, t]] - lp[card_seq[r, t]]))
+            assert gap <= SYN_TIE, f"30(a): card vs CPU diverge at gap {gap}"
+            ties += 1
+    cpu_mis = int((card_seq != cpu_seq).sum())
+    del cpu, enc
+    # the log-mel kernel on the first batch against plain and float64
+    with torch.no_grad():
+        kernel = model.frontend(wav)
+        plain = FL.fused_logmel_plain(wav, model.frontend.basis,
+                                      model.frontend.mel_fb,
+                                      model.frontend.config)
+        f64 = float64_logmel(wav, model.frontend)
+    lm_err = float((kernel - plain).abs().max())
+    err64 = float((kernel.double() - f64).abs().max())
+    plain64 = float((plain.double() - f64).abs().max())
+    del kernel, plain, f64
+    log(f"30(a): {k} val clips on a CPU copy, with the keywords: "
+        f"{cpu_mis}/{card_seq.numel()} tokens apart from the card's, "
+        f"{ties} captions diverging at a near tie (log-prob gap <= "
+        f"{SYN_TIE}); log-mel kernel vs fused_logmel_plain on the batch "
+        f"{tuple(wav.shape)}: max |diff| {lm_err:.3g} dB (limit "
+        f"{LOGMEL_DB_ATOL}); vs float64 {err64:.3g} dB, plain vs float64 "
+        f"{plain64:.3g} dB")
+    assert lm_err <= LOGMEL_DB_ATOL or err64 <= plain64, \
+        "30(a): log-mel kernel disagrees"
+
+    # the step split and idle share, on the trained weights
+    marks = {}
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks[name] = e
+    opt = cfg["optimizer"]["args"]
+    state = create_train_state(
+        model, opt["lr"], build_schedule(cfg["lr_scheduler"], opt["lr"],
+                                         100, 20),
+        opt.get("weight_decay", 0.0), 1.0)
+    loss_fn = build_loss(cfg["loss"])
+    batches = [to_device(b, dev) for b in itertools.islice(
+        build_dataloader(cfg["data"]["train"], tok),
+        FAM_WARMUP + FAM_STEP_TIMED)]
+    rows = []
+    for b in batches:
+        mark("start")
+        train_step(state, loss_fn, b, mark=mark)
+        _sync(dev)
+        rows.append([marks["start"].elapsed_time(marks["forward"]),
+                     marks["forward"].elapsed_time(marks["backward"]),
+                     marks["backward"].elapsed_time(marks["optimizer"])])
+    rows = np.asarray(rows[FAM_WARMUP:])
+    step_ms = float(np.median(rows.sum(1)))
+    split = dict(zip(("forward", "backward", "optimizer"),
+                     np.median(rows, 0).tolist()))
+    per_kernel = {}
+    busy = device_split(lambda: train_step(state, loss_fn, batches[0]),
+                        iters=3, launches=per_kernel)
+    idle = 1 - sum(busy.values()) / step_ms
+    log(f"30(a) step: median {step_ms:.2f} ms over {FAM_STEP_TIMED} steps "
+        f"({bs / step_ms * 1e3:.1f} clips/s): forward (teacher forcing, the "
+        f"keywords in) + loss {split['forward']:.2f}, backward (with the "
+        f"clip) {split['backward']:.2f}, optimizer "
+        f"{split['optimizer']:.2f} ms; device {sum(busy.values()):.2f} ms a "
+        f"step in {sum(per_kernel.values()):.0f} kernel launches, idle "
+        f"share {idle:.3f}; top kernels {dict(list(busy.items())[:6])}; "
+        f"B={bs} x 10 s, float32, TF32 off, on {card}")
+    del state, model, batches
+    restore(c0)
+
+    # (b) an EventTransformerDecoder on the same events
+    cfg_b = copy.deepcopy(base)
+    cfg_b["model"]["decoder"]["type"] = "EventTransformerDecoder"
+    exp_b, l_b = run("event", cfg_b, "trainer.epochs=1",
+                     f"data.train.dataloader_args.num_samples="
+                     f"{KW_EVENT_STEPS * bs}")
+    curve_b = _epoch_curve(Path(exp_b) / "train.log", "loss", "val_cider")
+    cfg, ckpt = read_experiment(exp_b, "last.pth")
+    model, tok = experiment_model(cfg, ckpt, dev)
+    assert type(model.decoder) is EventTransformerDecoder
+    c_dec = counts()
+    ids, wav, wav_len, kw = next(val_batches(cfg))
+    seq = generate(model, wav, wav_len, sample_method="greedy",
+                   max_length=L, cond_kwargs={"event": kw})["seq"]
+    l_b["fused_logmel"] += counts()["fused_logmel"] - c_dec["fused_logmel"]
+    log(f"30(b): EventTransformerDecoder ({model.decoder.event_classes} "
+        f"classes) over {type(model.encoder).__name__}, {KW_EVENT_STEPS} "
+        f"Runner.train steps in {times['event_train_s']:.1f} s, epoch loss "
+        f"{curve_b[0][0]:.4f}; a greedy decode of {wav.shape[0]} val clips "
+        f"with their events: {tok.decode(seq[:2].cpu().numpy())}; launches "
+        f"{l_b} on {card}")
+    assert len(curve_b) == 1 and math.isfinite(curve_b[0][0]), curve_b
+    assert seq.shape == (wav.shape[0], L) and bool(
+        ((seq >= 0) & (seq < len(tok))).all()), "30(b): decode"
+    del model
+
+    # (c) a StyleCaptionModel: Cnn10 + StyleBahAttnDecoder
+    cfg_c = copy.deepcopy(base)
+    cfg_c["model"] = dict(family_node(
+        dec_type="StyleBahAttnDecoder",
+        dec_args={"emb_dim": 512, "d_model": 512}),
+        type="captioning.models.style_model.StyleCaptionModel")
+    for split in ("train", "val"):
+        cfg_c["data"][split]["dataset"]["type"] = {
+            "train": "CaptionDataset", "val": "InferenceDataset"}[split]
+        cfg_c["data"][split]["dataset"]["args"].pop("keyword_prob")
+    exp_c, l_c = run("style", cfg_c, "trainer.epochs=1",
+                     f"data.train.dataloader_args.num_samples="
+                     f"{KW_STYLE_STEPS * bs}")
+    curve_c = _epoch_curve(Path(exp_c) / "train.log", "loss", "val_cider")
+    assert len(curve_c) == 1 and math.isfinite(curve_c[0][0]), curve_c
+    cfg, ckpt = read_experiment(exp_c, "last.pth")
+    model, tok = experiment_model(cfg, ckpt, dev)
+    c0 = counts()
+    state = create_train_state(
+        model, 5e-4, build_schedule(cfg["lr_scheduler"], 5e-4, 100, 0),
+        1e-6, 1.0)
+    batch = to_device(next(iter(build_dataloader(cfg["data"]["train"],
+                                                 tok))), dev)
+    loss_fn = build_loss(cfg["loss"])
+
+    def batch_loss():
+        """The batch's teacher-forced loss in ``eval()`` (no dropout), the
+        style inferred from each caption."""
+        model.eval()
+        with torch.no_grad():
+            out = model(batch["wav"], batch["wav_len"], batch["cap"],
+                        batch["cap_len"])
+            out.update(tgt=batch["cap"][:, 1:], tgt_len=batch["cap_len"] - 1)
+            return float(loss_fn(out))
+    losses = [batch_loss()]
+    for _ in range(KW_STYLE_BATCH_STEPS):
+        train_step(state, loss_fn, batch)
+    losses.append(batch_loss())
+    restore(c0)
+    model.eval()
+    n_styles = model.style_bank.n_styles
+    c_dec = counts()
+    ids, wav, wav_len, _ = next(val_batches(cfg_b))
+    with torch.no_grad():
+        enc = model.encode(wav, wav_len)
+        styles = []
+        for s in range(n_styles):
+            w = torch.zeros(wav.shape[0], n_styles, device=dev)
+            w[:, s] = 1.0
+            styles.append(generate(model, enc=enc, sample_method="greedy",
+                                   max_length=L, cond_kwargs={
+                                       "style": model.style_of_weight(w)}
+                                   )["seq"])
+    l_c["fused_logmel"] += counts()["fused_logmel"] - c_dec["fused_logmel"]
+    log(f"30(c): StyleCaptionModel (Cnn10, StyleBahAttnDecoder emb and "
+        f"d_model 512, {n_styles} styles, a {model.ref_encoder.nlayers}-"
+        f"layer {model.ref_encoder.d_model}-wide reference encoder), "
+        f"{KW_STYLE_STEPS} Runner.train steps in "
+        f"{times['style_train_s']:.1f} s (epoch loss {curve_c[0][0]:.4f}); "
+        f"then {KW_STYLE_BATCH_STEPS} steps on one batch: its loss in eval() "
+        f"{losses[0]:.4f} -> {losses[1]:.4f}; greedy with each one-hot "
+        f"style_weight: first captions "
+        f"{[tok.decode(s[:1].cpu().numpy())[0] for s in styles]}, "
+        f"{sum(int((s != styles[0]).any()) for s in styles[1:])} of "
+        f"{n_styles - 1} other styles moved the batch; launches {l_c} on "
+        f"{card}")
+    assert all(map(math.isfinite, losses)) and losses[-1] < losses[0], \
+        "30(c): the style captioner's loss did not fall"
+    assert all(s.shape == (wav.shape[0], L) and bool(
+        ((s >= 0) & (s < len(tok))).all()) for s in styles), "30(c)"
+    del state, model
+
+    launches = counts()
+    rounded = {k_: round(v, 1) for k_, v in times.items()}
+    log(f"30: launches on the path {launches} (the checks' and timings' "
+        f"taken out); times {json.dumps(rounded)} on {card}")
+    if dev.type == "cuda":
+        # no kernel decodes a conditioned decoder; every encode through
+        # the log-mel kernel
+        assert launches["fused_greedy"] == launches["fused_beam"] == 0
+        assert launches["fused_logmel"] == l_a["fused_logmel"] + \
+            l_dec["fused_logmel"] + l_b["fused_logmel"] + \
+            l_c["fused_logmel"] > 0, launches
+    # the quality bars last
+    assert curve[-1][0] < curve[0][0], "30(a): the loss did not fall"
+    assert cider["keyword"] > constant, \
+        "30(a): the keyword decode is no better than a constant caption"
+    return {"launches": launches, "logmel_err": err64, "cider": cider,
+            "constant": constant, "runner_val": [c[1] for c in curve],
+            "xe": {"step_ms": step_ms, "split": split, "idle": idle},
+            "style_losses": losses, "times": times}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5383,6 +5861,8 @@ def main() -> int:
     from audiocaption_tpu_torch.serving import MicroBatchServer, wire_decoder
 
     t_start = time.perf_counter()
+    # phases 24-30's corpora, generated beside phases 1-23
+    start_corpora()
     dev = torch.device("cuda")
     set_parity_precision()
     card = card_line()
@@ -5674,6 +6154,14 @@ def main() -> int:
             k["item8_launches"] += enc8["logmel_launches"]
     kernels += item8["entries"]
     log(f"phase 29: {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f} s)")
+
+    # -- 30. item 8b: keyword and event decoders, the style captioner -----
+    t0 = time.perf_counter()
+    kw = keyword_path(dev, card)
+    for k in kernels:
+        if k["name"] == "fused_logmel":
+            k["keyword_launches"] = kw["launches"]["fused_logmel"]
+    log(f"phase 30: {time.perf_counter() - t0:.1f} s")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

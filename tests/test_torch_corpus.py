@@ -176,3 +176,27 @@ def test_temporal_tag_survives_collates(corpora):
         np.testing.assert_array_equal(np.asarray(got[k]),
                                       np.asarray(want[k]), err_msg=k)
     assert np.asarray(got["temporal_tag"]).dtype == np.int32
+
+
+@pytest.mark.parametrize("name", GENERATORS)
+def test_subset_is_the_smaller_corpus(corpora, tmp_path, name):
+    """``subset`` of the port's corpus to its first 2 train clips: every
+    text file byte for byte what the JAX generator writes for 2 train
+    clips and the same seed, and the wav table the first rows of the
+    source's (the waves stay there)."""
+    _, p = corpora[f"{name}_8000"]
+    small = tmp_path / "jax_small"
+    getattr(J, name)(str(small), 2, *SIZES[1:], sr=8000, duration=10.0,
+                     seed=1)
+    paths = P.subset(str(p), str(tmp_path / "cut"), 2)
+    for f in _text_files(name):
+        assert filecmp.cmp(small / f, tmp_path / "cut" / f,
+                           shallow=False), f
+    rows = (p / "train_wav.csv").read_text().splitlines(keepends=True)
+    assert (tmp_path / "cut" / "train_wav.csv").read_text() == \
+        "".join(rows[:3])
+    assert (tmp_path / "cut" / "val_wav.csv").read_text() == \
+        (p / "val_wav.csv").read_text()
+    assert paths["train"]["text"] == str(tmp_path / "cut" /
+                                         "train_text.json")
+    assert paths["vocab"]["vocab"] == str(tmp_path / "cut" / "vocab.pkl")
