@@ -155,8 +155,23 @@ weights, the epoch (training goes on from the next), the monitor's best,
 ``not_improve_cnt``, the update count ``lr_count`` (the learning rate
 and, unlike the JAX runner, the scheduled-sampling ratio follow it) and,
 where the checkpoint holds one (``trainer.include_optim_in_ckpt: True``
-writes it), the optimizer's state.  Data parallelism is not ported
-(ROADMAP Queue 1 item 7).
+writes it), the optimizer's state.
+
+Data parallelism: ``train`` run by ``torchrun`` (``torchrun
+--nproc_per_node=N -m audiocaption_tpu_torch.cli.run train CONFIG``)
+trains one replica a rank over NCCL on the cards (gloo for
+``device=cpu``), as the JAX runner does over the devices it sees
+(``audiocaption_tpu/cli/run.py:272-276, 394-396``): every rank's loader
+yields the global batch (the ranks share rank 0's host RNG state at each
+epoch), padded by repeating leading rows to a multiple of the world size
+and sliced per rank (``parallel/mesh.py``); the step is the global
+batch's (each mean of the loss over the global batch's count, the
+per-row draws the global batch's, gradients summed, cross-rank batch
+norm; ``training/trainer.py``); rank 0 alone scores, logs and writes the
+checkpoints, and tells the others when to stop early.  Device-resident
+banks are off under it, and SCST, KD, augmented and SED training refuse
+it: they run in one process.  Each epoch line
+ends with the host's resident-set size (``rss``), as the JAX runner's.
 """
 
 from __future__ import annotations
@@ -195,6 +210,9 @@ from audiocaption_tpu_torch.models.transformer_decoder import (
 from audiocaption_tpu_torch.models.zoo import random_init
 from audiocaption_tpu_torch.native import FastCiderD
 from audiocaption_tpu_torch.optim.schedules import build_schedule
+from audiocaption_tpu_torch.parallel.mesh import (
+    data_parallel_context, init_distributed, launched_by_torchrun,
+    pad_to_world, rank_and_size, shard_batch)
 from audiocaption_tpu_torch.training.checkpoint import (
     AsyncCheckpointer, MetricImprover, load_checkpoint, merge_variables,
     model_variables, save_checkpoint)
@@ -205,6 +223,7 @@ from audiocaption_tpu_torch.training.scst import scst_step
 from audiocaption_tpu_torch.training.swa import swa_init, swa_update
 from audiocaption_tpu_torch.training.trainer import (
     batch_wav, create_train_state, train_step)
+from audiocaption_tpu_torch.utils.profiling import host_rss_gb
 from audiocaption_tpu_torch.utils.config import (
     apply_pruning, build_model_from_config, feature_input_dim, load_config,
     resolve_config, short_type)
@@ -316,6 +335,33 @@ def to_device(batch: Dict, device: torch.device,
             v = v if torch.is_tensor(v) else np.asarray(v, np.float32)
             out[k] = torch.as_tensor(v).to(device, torch.float32)
     return out
+
+
+def _single_process(mode: str) -> None:
+    """Refuse ``torchrun`` for a training ``mode`` that runs in one
+    process, as the JAX runner's does."""
+    if launched_by_torchrun():
+        raise RuntimeError(f"{mode} runs in one process; only the XE "
+                           "training of Runner.train runs under torchrun")
+
+
+def _from_rank0(t: torch.Tensor) -> torch.Tensor:
+    """Rank 0's copy of the host tensor ``t`` (through the card for
+    NCCL)."""
+    dev = t.cuda() if torch.distributed.get_backend() == "nccl" else t
+    torch.distributed.broadcast(dev, src=0)
+    return dev.cpu()
+
+
+def _share_host_rng() -> None:
+    """Every rank takes rank 0's host RNG state (the loader's shuffle
+    draws from it, and rank 0 alone draws for its val loader)."""
+    torch.set_rng_state(_from_rank0(torch.get_rng_state()))
+
+
+def _broadcast_flag(flag: bool) -> bool:
+    """Rank 0's ``flag``, on every rank."""
+    return bool(_from_rank0(torch.tensor([int(flag)])).item())
 
 
 def _make_logger(path: Path) -> Callable[[str], None]:
@@ -623,7 +669,9 @@ class Runner:
                           Callable[[str], None]]:
         """The config (a path or a dict) with the overrides -> (config,
         device, seed, experiment directory, its log): seeded, the
-        directory made, ``config.yaml`` written into it."""
+        directory made, ``config.yaml`` written into it.  Under
+        ``torchrun`` the process joins the group here, and only rank 0
+        writes and logs."""
         import yaml
         cfg = resolve_config(config, overrides)
         device = resolve_device(cfg.get("device", "cuda"))
@@ -631,9 +679,15 @@ class Runner:
         set_seed(seed)
         exp_dir = Path(cfg["experiment_path"]) / f"seed_{seed}"
         exp_dir.mkdir(parents=True, exist_ok=True)
-        with open(exp_dir / "config.yaml", "w") as f:
-            yaml.safe_dump(cfg, f)
-        return cfg, device, seed, exp_dir, _make_logger(exp_dir / "train.log")
+        if launched_by_torchrun():
+            init_distributed(device=device)
+        if rank_and_size()[0] == 0:
+            with open(exp_dir / "config.yaml", "w") as f:
+                yaml.safe_dump(cfg, f)
+            log = _make_logger(exp_dir / "train.log")
+        else:
+            log = lambda msg: None      # noqa: E731
+        return cfg, device, seed, exp_dir, log
 
     def _setup(self, config: Config, overrides) -> RunSetup:
         """:meth:`_start`, then the tokenizer (it must have a vocabulary)
@@ -642,7 +696,8 @@ class Runner:
         ``prune_ratio``, on the device; an ``ScstWrapper`` node is the
         model it wraps), the optimiser's settings (Adam with L2 decay, the
         clip, the schedule with a fifth of warm-up) and the device-resident
-        banks of ``data.train`` and ``data.val``."""
+        banks of ``data.train`` and ``data.val`` (not under
+        ``torchrun``)."""
         cfg, device, seed, exp_dir, log = self._start(config, overrides)
         tokenizer = build_tokenizer(
             cfg["data"]["train"]["collate_fn"]["tokenizer"])
@@ -687,8 +742,13 @@ class Runner:
                                              total_iters // 5),
                      weight_decay=opt_args.get("weight_decay", 0.0),
                      max_grad_norm=trainer_cfg.get("max_grad_norm", 1.0)))
-        run.add_bank("train", train_loader)
-        run.add_bank("val", val_loader)
+        if launched_by_torchrun():
+            if cfg["data"]["train"].get("device_resident") or \
+                    val_cfg.get("device_resident"):
+                log("device_resident ignored under data parallelism")
+        else:
+            run.add_bank("train", train_loader)
+            run.add_bank("val", val_loader)
         return run
 
     def train(self, config: Config, *overrides: str,
@@ -706,6 +766,16 @@ class Runner:
         trainer_cfg = cfg.get("trainer", {})
         # an ScstWrapper node trains the model it wraps by SCST
         rl_train = short_type(cfg["model"].get("type", "")) == "ScstWrapper"
+        if rl_train:
+            _single_process("SCST")
+        # data parallelism under torchrun (see the module docstring)
+        parallel = data_parallel_context(model, device)
+        rank, world = rank_and_size()
+        if parallel is not None:
+            log(f"data parallel: {world} rank(s), "
+                f"{torch.distributed.get_backend()}")
+        shard = (None if parallel is None else
+                 lambda b: shard_batch(pad_to_world(b, world), rank, world))
         state = create_train_state(model, **run.opt)
         # the condition loss's gumbel draws and its discriminator's device
         loss_fn = build_loss(cfg.get("loss", {}), generator=torch.Generator(
@@ -780,9 +850,11 @@ class Runner:
         try:
             for epoch in range(start_epoch, min(stop_epoch or epochs,
                                                 epochs) + 1):
+                if parallel is not None:
+                    _share_host_rng()
                 losses = []
-                for batch in clock.batches(prefetch_to_device(train_loader,
-                                                              device)):
+                for batch in clock.batches(prefetch_to_device(
+                        train_loader, device, transform=shard)):
                     if rl_train:
                         metrics = scst_step(
                             state, to_device(batch, device, bank),
@@ -803,10 +875,16 @@ class Runner:
                                          to_device(batch, device, bank),
                                          ss_ratio=ss_arg, generator=ss_gen,
                                          specaug=specaug,
-                                         specaug_generator=specaug_gen)
+                                         specaug_generator=specaug_gen,
+                                         parallel=parallel)
                     losses.append(metrics["loss"])
                 train_loss = (float(torch.stack(losses).mean())
                               if losses else float("nan"))
+                if rank != 0:
+                    # rank 0 scores, saves and logs; it says when to stop
+                    if _broadcast_flag(False):
+                        break
+                    continue
                 score, improved = clock.score()
                 not_improve = 0 if improved else not_improve + 1
                 swa_due = (swa_cfg.get("use")
@@ -826,13 +904,18 @@ class Runner:
                                if with_optim else None))
                 log(f"epoch {epoch}: loss {train_loss:.4f} "
                     f"val_cider {score:.4f} ss {ss_ratio:.3f} "
-                    f"({clock.split()})")
-                if not_improve >= early_stop:
+                    f"({clock.split()}) rss {host_rss_gb():.1f}G")
+                stop = not_improve >= early_stop
+                if parallel is not None:
+                    _broadcast_flag(stop)
+                if stop:
                     log(f"early stop at epoch {epoch}")
                     break
             clock.ckpt_writer.wait()
         finally:
             clock.ckpt_writer.close()
+        if rank != 0:
+            return str(exp_dir)
         final = swa_state[0] if swa_state is not None else variables
         save_checkpoint(str(exp_dir / "swa.pth"), final, epoch=epochs,
                         monitor_state=monitor.state_dict(),
@@ -852,6 +935,7 @@ class Runner:
     def train_kd(self, config: Config, *overrides: str) -> str:
         """Knowledge distillation from a config with a ``kd`` node (see
         the module docstring); returns the experiment directory."""
+        _single_process("KD")
         run = self._setup(config, overrides)
         cfg, device, seed, exp_dir, log = (run.cfg, run.device, run.seed,
                                            run.exp_dir, run.log)
@@ -963,7 +1047,8 @@ class Runner:
                 score = val_score()
                 improved = monitor(score)
                 log(f"kd[{kd_type}] epoch {epoch}: loss {train_loss:.4f} "
-                    f"val_cider {score:.4f} ({time.time() - t0:.0f}s)")
+                    f"val_cider {score:.4f} ({time.time() - t0:.0f}s) "
+                    f"rss {host_rss_gb():.1f}G")
                 variables = model_variables(model)
 
                 def ckpt_job(snap=variables, epoch=epoch, improved=improved):
@@ -1001,6 +1086,7 @@ class Runner:
         the pairs come through ``prefetch_to_device``."""
         from audiocaption_tpu_torch.training.aug_runner import (
             aug_train_step, discount_schedule, interleave_loaders)
+        _single_process("augmented training")
         run = self._setup(config, overrides)
         cfg, device, exp_dir, log = run.cfg, run.device, run.exp_dir, run.log
         aug_loader = build_dataloader(cfg["data"]["train_aug"], run.tokenizer)
@@ -1034,7 +1120,7 @@ class Runner:
                 variables = clock.save(improved, epoch=epoch)
                 log(f"aug epoch {epoch}: loss {train_loss:.4f} "
                     f"val_cider {score:.4f} discount {discount(it):.3f} "
-                    f"({clock.split()})")
+                    f"({clock.split()}) rss {host_rss_gb():.1f}G")
             clock.ckpt_writer.wait()
         finally:
             clock.ckpt_writer.close()
@@ -1173,6 +1259,7 @@ class Runner:
             build_lms_bank, evaluate_tags, framewise_targets,
             load_sed_annotations, sed_train_step)
 
+        _single_process("SED training")
         cfg, device, seed, exp_dir, log = self._start(config, overrides)
         classes_num = cfg["model"]["args"].get("classes_num", 447)
         model = Cnn8RnnSedModel(classes_num=classes_num)

@@ -59,6 +59,13 @@ def read_wav_table(path: str) -> Tuple[Dict[str, str], bool]:
     return mapping, files
 
 
+def read_wav_csv(path: str) -> Dict[str, str]:
+    """wav.csv (tab-separated: audio_id, hdf5_path | file_name) -> audio_id
+    -> its h5 or wav path (``audiocaption_tpu/data/dataset.py::
+    read_wav_csv``)."""
+    return read_wav_table(path)[0]
+
+
 def read_wav(path: str) -> Tuple[int, np.ndarray]:
     """-> (sample rate, float32 mono wave in [-1, 1])."""
     from scipy.io import wavfile

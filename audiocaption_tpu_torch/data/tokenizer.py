@@ -10,7 +10,9 @@ checkpoints load directly.
 
 from __future__ import annotations
 
+import json
 import pickle
+from collections import Counter
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -96,3 +98,29 @@ class DictTokenizer:
     def save(self, path: str) -> None:
         with open(path, "wb") as f:
             pickle.dump(self.state_dict(), f)
+
+
+def build_vocab(caption_json: str, threshold: int = 1,
+                output_path: Optional[str] = None,
+                max_length: int = 20) -> DictTokenizer:
+    """A ``DictTokenizer`` vocabulary from a caption json ({"audios":
+    [{audio_id, captions: [{caption | tokens, cap_id}]}]}): the four
+    special words, then every word of the captions' ``tokens`` (else
+    ``caption``) counted at least ``threshold`` times, in sorted order
+    (``audiocaption_tpu/data/tokenizer.py::build_vocab``; the reference's
+    ``python_scripts/utils/build_custom_tokenizer.py``).  Written as the
+    pickled word -> id dict to ``output_path`` if given."""
+    with open(caption_json) as f:
+        data = json.load(f)
+    counter: Counter = Counter()
+    for audio in data["audios"]:
+        for cap in audio["captions"]:
+            counter.update(cap.get("tokens", cap.get("caption", "")).split())
+    tok = DictTokenizer(max_length=max_length)
+    for word, count in sorted(counter.items()):
+        if count >= threshold:
+            tok.add_word(word)
+    tok.loaded = True
+    if output_path:
+        tok.save(output_path)
+    return tok

@@ -1,7 +1,12 @@
 """Caption training losses (counterpart of
 ``audiocaption_tpu/losses/loss.py``): pure functions over the model's
 output dict, with the length mask of the reference (mean = sum over
-valid tokens / their count)."""
+valid tokens / their count).
+
+Under data parallelism a rank's output dict holds its slice of the global
+batch and a ``count_sum`` (``training/trainer.py::train_step``): a mean's
+denominator is then the global batch's count, so that the ranks' losses
+sum to the global batch's mean (:func:`global_count`)."""
 
 from __future__ import annotations
 
@@ -12,6 +17,24 @@ import torch
 import torch.nn.functional as F
 
 from audiocaption_tpu_torch.ops.masking import length_mask
+
+
+def global_count(output: Dict, local: torch.Tensor) -> torch.Tensor:
+    """The denominator of a mean over the global batch: ``local``, this
+    batch's count, summed over the ranks that hold the global batch's
+    slices by ``output["count_sum"]`` where the step is data parallel;
+    ``local`` itself in one process."""
+    count_sum = output.get("count_sum")
+    return local if count_sum is None else count_sum(local)
+
+
+def batch_mean(output: Dict, x: torch.Tensor) -> torch.Tensor:
+    """The mean of the per-sample ``x`` [N] over the global batch:
+    ``x.mean()`` in one process, sum(x) / the global sample count under
+    data parallelism (:func:`global_count`)."""
+    if "count_sum" not in output:
+        return torch.mean(x)
+    return torch.sum(x) / global_count(output, x.new_tensor(x.shape[0]))
 
 
 def _reduce(loss: torch.Tensor, mask: torch.Tensor,
@@ -59,13 +82,21 @@ def masked_token_loss(kind: str = "label_smoothing", smoothing: float = 0.1,
                       reduction: str = "mean"
                       ) -> Callable[[Dict], torch.Tensor]:
     """Loss over an output dict with keys logit / tgt / tgt_len (the
-    reference's ``loss_fn(output_dict)`` protocol)."""
-    def fn(output: Dict) -> torch.Tensor:
+    reference's ``loss_fn(output_dict)`` protocol); the mean's count is
+    the global batch's tokens (:func:`global_count`)."""
+    def loss(output: Dict, reduction: str) -> torch.Tensor:
         if kind == "cross_entropy":
             return cross_entropy_loss(output["logit"], output["tgt"],
                                       output["tgt_len"], reduction)
         return label_smoothing_loss(output["logit"], output["tgt"],
                                     output["tgt_len"], smoothing, reduction)
+
+    def fn(output: Dict) -> torch.Tensor:
+        if reduction != "mean" or "count_sum" not in output:
+            return loss(output, reduction)
+        mask = length_mask(output["tgt_len"], output["tgt"].shape[1])
+        return loss(output, "sum") / global_count(output,
+                                                  mask.float().sum())
     return fn
 
 

@@ -9,7 +9,12 @@ The wrappers read the step's output dict: ``logit`` [N, T, V],
 ``conditions`` [N] (the batch's ``condition``; the port's train step
 fills it, ``training/trainer.py::train_step``).  The gumbel noise is
 drawn from an explicit ``torch.Generator``, where the JAX wrapper reads
-``output["rng"]``."""
+``output["rng"]``.
+
+Under data parallelism (``output["count_sum"]``, ``output["rows"]``, set
+by ``training/trainer.py::train_step``) each mean is taken over the
+global batch (``losses/loss.py::global_count``), and the gumbel noise of
+this rank's rows is that of the same rows of the global batch's draw."""
 
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from audiocaption_tpu_torch.losses.loss import batch_mean, global_count
 from audiocaption_tpu_torch.ops.masking import length_mask, mean_with_lens
 
 LossFn = Callable[[Dict], torch.Tensor]
@@ -45,7 +51,8 @@ def augment_loss_wrapper(loss_fn_none: LossFn, eps: float = 1e-12) -> LossFn:
         loss = loss_fn_none(output)
         keep = output["aug_keep"].to(loss.dtype)[:, None]
         mask = length_mask(output["tgt_len"], loss.shape[1]).to(loss.dtype)
-        return torch.sum(loss * keep) / (torch.sum(mask * keep) + eps)
+        kept = global_count(output, torch.sum(mask * keep))
+        return torch.sum(loss * keep) / (kept + eps)
     return fn
 
 
@@ -86,15 +93,22 @@ def condition_loss_wrapper(loss_fn: LossFn,
     "argmax" (straight-through), "gumbel" (straight-through gumbel-softmax,
     its uniforms from ``uniform(shape, device)`` or else from
     ``generator`` on the logits' device) or "weighted" (the softmax).  The
-    discriminator reads ``tgt_len - 1`` words (no <eos>)."""
+    discriminator reads ``tgt_len - 1`` words (no <eos>).  Where
+    ``output["rows"]`` is (first row, global rows), the uniforms are drawn
+    for the global batch and this rank's rows taken."""
     if sample_method not in ("argmax", "gumbel", "weighted"):
         raise ValueError(sample_method)
 
-    def draw(logit: torch.Tensor) -> torch.Tensor:
+    def draw(logit: torch.Tensor, rows=None) -> torch.Tensor:
+        n = logit.shape[0]
+        lo, total = rows if rows is not None else (0, n)
+        shape = (total,) + tuple(logit.shape[1:])
         if uniform is not None:
-            return uniform(logit.shape, logit.device).to(logit.dtype)
-        return torch.rand(logit.shape, generator=generator,
-                          device=logit.device, dtype=logit.dtype)
+            u = uniform(torch.Size(shape), logit.device).to(logit.dtype)
+        else:
+            u = torch.rand(shape, generator=generator, device=logit.device,
+                           dtype=logit.dtype)
+        return u[lo:lo + n]
 
     def fn(output: Dict) -> torch.Tensor:
         word_loss = loss_fn(output)
@@ -102,13 +116,13 @@ def condition_loss_wrapper(loss_fn: LossFn,
         if sample_method == "argmax":
             preds = reparameterize_argmax(logit)
         elif sample_method == "gumbel":
-            preds = gumbel_softmax(logit, draw(logit))
+            preds = gumbel_softmax(logit, draw(logit, output.get("rows")))
         else:
             preds = torch.softmax(logit, dim=-1)
         probs = torch.clamp(dscrm_apply(preds, output["tgt_len"] - 1),
                             1e-7, 1 - 1e-7)
         cond = output["conditions"].to(probs.dtype)
-        bce = -torch.mean(cond * torch.log(probs)
+        bce = -batch_mean(output, cond * torch.log(probs)
                           + (1 - cond) * torch.log(1 - probs))
         return word_loss + alpha * bce
     return fn
@@ -134,7 +148,7 @@ def specificity_loss_wrapper(loss_fn: LossFn, word_specificity,
             cond_pred = torch.sum(cond_pred * mask, dim=1)
         else:
             cond_pred = mean_with_lens(cond_pred, tgt_len)
-        mse = torch.mean((cond_pred - output["conditions"].to(
+        mse = batch_mean(output, (cond_pred - output["conditions"].to(
             cond_pred.dtype)) ** 2)
         return word_loss + alpha * mse
     return fn

@@ -47,7 +47,7 @@ on the batch's device (the JAX ``Captioner.frontend``).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -89,22 +89,27 @@ class Captioner(nn.Module):
 
     def encode(self, wav: torch.Tensor, wav_len: torch.Tensor,
                specaug: bool = False,
-               specaug_generator: Optional[torch.Generator] = None
+               specaug_generator: Optional[torch.Generator] = None,
+               specaug_rows: Optional[Tuple[int, int]] = None
                ) -> Dict[str, torch.Tensor]:
         if self.input_mode != "mel":
             return self.encoder(wav, wav_len)
-        return self.encode_lms(self.log_mel(wav, specaug, specaug_generator),
+        return self.encode_lms(self.log_mel(wav, specaug, specaug_generator,
+                                            specaug_rows),
                                self.mel.feat_len(wav_len))
 
     def log_mel(self, wav: torch.Tensor, specaug: bool = False,
-                specaug_generator: Optional[torch.Generator] = None
+                specaug_generator: Optional[torch.Generator] = None,
+                specaug_rows: Optional[Tuple[int, int]] = None
                 ) -> torch.Tensor:
         """The frontend's log-mel, without autograd; with ``specaug`` in
-        ``train()`` mode, SpecAugment's stripes dropped."""
+        ``train()`` mode, SpecAugment's stripes dropped (``specaug_rows``:
+        the batch's rows of a global batch, ``ops/specaug.py``)."""
         with torch.no_grad():
             lms = self.frontend(wav)
             if specaug and self.training:
-                lms = spec_augment(lms, specaug_generator)
+                lms = spec_augment(lms, specaug_generator,
+                                   rows=specaug_rows)
         return lms
 
     def encode_lms(self, lms: torch.Tensor, feat_len: torch.Tensor
@@ -120,7 +125,8 @@ class Captioner(nn.Module):
                 temporal_tag: Optional[torch.Tensor] = None,
                 specaug: bool = False,
                 specaug_generator: Optional[torch.Generator] = None,
-                cond_kwargs: Optional[Dict[str, torch.Tensor]] = None
+                cond_kwargs: Optional[Dict[str, torch.Tensor]] = None,
+                specaug_rows: Optional[Tuple[int, int]] = None
                 ) -> Dict[str, torch.Tensor]:
         """Training forward: wav [B, T], cap [B, Lc] ids (<bos> ... <eos>,
         padded) -> {logit [B, Lc-1, V], embed [B, Lc-1, E], encoder
@@ -129,8 +135,9 @@ class Captioner(nn.Module):
         loss's, not this forward's; ``temporal_tag`` [B] and
         ``cond_kwargs`` condition a GRU decoder; ``specaug`` applies
         SpecAugment in ``train()`` (``specaug_generator`` on the batch's
-        device)."""
-        enc = self.encode(wav, wav_len, specaug, specaug_generator)
+        device; ``specaug_rows`` the batch's rows of a global batch)."""
+        enc = self.encode(wav, wav_len, specaug, specaug_generator,
+                          specaug_rows)
         cond = dict(cond_kwargs or {})
         if temporal_tag is not None:
             cond["temporal_tag"] = temporal_tag

@@ -23,7 +23,7 @@ Module names follow the JAX tree (``ref_encoder.word_embedding``,
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -115,7 +115,8 @@ class StyleCaptioner(Captioner):
                 temporal_tag: Optional[torch.Tensor] = None,
                 specaug: bool = False,
                 specaug_generator: Optional[torch.Generator] = None,
-                cond_kwargs: Optional[Dict[str, torch.Tensor]] = None
+                cond_kwargs: Optional[Dict[str, torch.Tensor]] = None,
+                specaug_rows: Optional[Tuple[int, int]] = None
                 ) -> Dict[str, torch.Tensor]:
         cond = dict(cond_kwargs or {})
         if "style" not in cond:
@@ -125,7 +126,7 @@ class StyleCaptioner(Captioner):
                                generator=generator, temporal_tag=temporal_tag,
                                specaug=specaug,
                                specaug_generator=specaug_generator,
-                               cond_kwargs=cond)
+                               cond_kwargs=cond, specaug_rows=specaug_rows)
 
     def style_of_weight(self, style_weight: torch.Tensor) -> torch.Tensor:
         """[N, n_styles] mixture -> the style vector [N, style_dim]."""

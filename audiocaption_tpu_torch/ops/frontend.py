@@ -16,7 +16,11 @@ waveform of a 32 kHz preset goes through the hand-written kernel
 (``ops/fused_logmel.py``); every other case, the 16 kHz presets on the
 card and everything on the CPU, takes the kernel's plain version there
 (``unfold`` framing, a matmul with the windowed cos / -sin basis, power,
-the mel matmul).  Both read this module's tables.  All math is float32.
+the mel matmul).  Both read this module's tables.  The plain path is
+float32 unless ``compute_dtype`` rounds its DFT input (JAX's knob,
+``audiocaption_tpu/ops/frontend.py:200-217, 253-266``; nothing passes it
+by default, and the kernel path ignores it, as JAX's Pallas branch
+does); the kernel computes in float64 and returns float32.
 Frame count: ``feat_len = wav_len // hop + 1``.
 """
 
@@ -145,11 +149,14 @@ class LogMelFrontend(torch.nn.Module):
     """Waveform [B, T] -> log-mel [B, T // hop + 1, n_mels], float32:
     the fused kernel for a CUDA waveform of a 32 kHz preset, its plain
     version otherwise.  Buffers: ``basis`` [n_fft, 2 * n_freqs] and
-    ``mel_fb`` [n_freqs, n_mels]."""
+    ``mel_fb`` [n_freqs, n_mels].  ``compute_dtype``: the plain path's
+    DFT input type (products summed in float32)."""
 
-    def __init__(self, config: MelConfig):
+    def __init__(self, config: MelConfig,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
+        self.compute_dtype = compute_dtype
         self.register_buffer(
             "basis", torch.from_numpy(
                 _dft_basis(config.n_fft, hann_window(config.n_fft))),
@@ -168,4 +175,5 @@ class LogMelFrontend(torch.nn.Module):
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
         if self.uses_kernel(wav):
             return fused_logmel(wav, self.basis, self.mel_fb, self.config)
-        return fused_logmel_plain(wav, self.basis, self.mel_fb, self.config)
+        return fused_logmel_plain(wav, self.basis, self.mel_fb, self.config,
+                                  self.compute_dtype)

@@ -14,17 +14,23 @@ plain version only) and ``mel_fb`` [n_freqs, n_mels].  ``fused_logmel``
 launches the kernel for a CUDA tensor and runs ``fused_logmel_plain``
 (framing by ``unfold``, two matmuls) only for a CPU tensor.
 ``LogMelFrontend`` sends every CUDA waveform of a 32 kHz preset to the
-wrapper and every other waveform to the plain version.
+wrapper and every other waveform to the plain version.  The plain
+version's ``compute_dtype`` (item 9 of the JAX frontend,
+``audiocaption_tpu/ops/frontend.py:200-217, 253-266``) rounds the frames
+and the basis to that type and sums their products in float32; the
+kernel has no such option, as the TPU kernel has none.
 
 The kernel computes an FFT of each frame in shared memory (the real frame
 packed as n_fft / 2 complex values, Stockham stages of radix 8 as far as
-they go, ``fft_radices``, the real split) and a banded mel product.  Its host side lives here and is tested
+they go, ``fft_radices``, the real split) and a banded mel product, all
+in float64 from the float32 wave to the float32 dB value (see the source's
+header for why).  Its host side lives here and is tested
 on the CPU: ``logmel_tables`` (twiddles, real-split twiddles, window, one
 contiguous band of packed weights per mel), ``reflect_index`` (the
 kernel's in-place reflect padding) and ``fft_twin``, the kernel's
-algorithm in PyTorch.  The function is bound by its bytes (the wave in,
-the log-mel out): ~0.03 ms for 64 clips of 10 s on an H100
-(``chip_smoke.py::logmel_work``).
+algorithm in PyTorch.  In float64 the kernel is bound by its operations:
+~0.056 ms for 64 clips of 10 s on an H100, where its bytes (the wave in,
+the log-mel out) take ~0.029 ms (``chip_smoke.py::logmel_work``).
 """
 
 from __future__ import annotations
@@ -62,13 +68,20 @@ def _reflect_pad(wav: torch.Tensor, pad: int) -> torch.Tensor:
 
 
 def fused_logmel_plain(wav: torch.Tensor, basis: torch.Tensor,
-                       mel_fb: torch.Tensor, config) -> torch.Tensor:
+                       mel_fb: torch.Tensor, config,
+                       compute_dtype: torch.dtype = torch.float32
+                       ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: [B, T] -> log-mel
-    [B, T // hop + 1, n_mels] float32 (``top_db`` applied per clip)."""
+    [B, T // hop + 1, n_mels] float32 (``top_db`` applied per clip).
+    ``compute_dtype`` rounds the wave (before its reflect padding) and
+    the basis to that type; their products are summed in float32, as the
+    JAX frontend's DFT with ``preferred_element_type=jnp.float32``.  The
+    power, the mel product and the dB stay float32."""
     n_freqs = mel_fb.shape[0]
-    frames = _reflect_pad(wav, config.n_fft // 2).unfold(
+    frames = _reflect_pad(wav.to(compute_dtype), config.n_fft // 2).unfold(
         1, config.n_fft, config.hop)                 # [B, n_frames, n_fft]
-    proj = torch.matmul(frames, basis)               # [B, n_frames, 2F]
+    proj = torch.matmul(frames, basis.to(compute_dtype).float())
+    # proj: [B, n_frames, 2F]
     re, im = proj[..., :n_freqs], proj[..., n_freqs:]
     return amplitude_to_db(torch.matmul(re * re + im * im, mel_fb),
                            config.top_db)
@@ -87,9 +100,9 @@ def reflect_index(pos: torch.Tensor, T: int, pad: int) -> torch.Tensor:
 
 class LogmelTables(NamedTuple):
     """What the kernel reads besides the wave, for one n_fft and mel_fb."""
-    tw: torch.Tensor        # [M, 2] float32, exp(-2 pi i t / M), M = n_fft / 2
-    split: torch.Tensor     # [M + 1, 2] float32, exp(-2 pi i k / n_fft)
-    window: torch.Tensor    # [n_fft] float32, periodic Hann
+    tw: torch.Tensor        # [M, 2] float64, exp(-2 pi i t / M), M = n_fft / 2
+    split: torch.Tensor     # [M + 1, 2] float64, exp(-2 pi i k / n_fft)
+    window: torch.Tensor    # [n_fft] float64, periodic Hann
     bands: torch.Tensor     # [3, n_mels] int32: band start, length, offset
     band_w: torch.Tensor    # [sum of lengths] float32, packed filter weights
     k_min: int              # bins [k_min, k_max) carry mel weight
@@ -98,13 +111,12 @@ class LogmelTables(NamedTuple):
 
 def _unit_roots(count: int, period: int) -> torch.Tensor:
     angle = -2.0 * math.pi * np.arange(count, dtype=np.float64) / period
-    return torch.from_numpy(np.stack([np.cos(angle), np.sin(angle)],
-                                     1).astype(np.float32))
+    return torch.from_numpy(np.stack([np.cos(angle), np.sin(angle)], 1))
 
 
 def logmel_tables(mel_fb: torch.Tensor, n_fft: int) -> LogmelTables:
-    """The kernel's tables, on the CPU: twiddles (float64, cast), the
-    window, and one contiguous band [lo, lo + len) of ``mel_fb``'s column
+    """The kernel's tables, on the CPU: twiddles and the window in
+    float64, and one contiguous band [lo, lo + len) of ``mel_fb``'s column
     per mel from its first to its last nonzero weight, packed in mel
     order (an all-zero column has length 0)."""
     M = n_fft // 2
@@ -126,7 +138,7 @@ def logmel_tables(mel_fb: torch.Tensor, n_fft: int) -> LogmelTables:
     band_w = (np.concatenate(weights) if weights
               else np.zeros(0, np.float32)).astype(np.float32)
     n = np.arange(n_fft, dtype=np.float64)
-    window = (0.5 - 0.5 * np.cos(2.0 * math.pi * n / n_fft)).astype(np.float32)
+    window = 0.5 - 0.5 * np.cos(2.0 * math.pi * n / n_fft)
     return LogmelTables(
         _unit_roots(M, M), _unit_roots(M + 1, n_fft),
         torch.from_numpy(window),
@@ -198,11 +210,11 @@ def _stockham_stage(z, Ns: int, R: int, tw: torch.Tensor):
 
 
 def fft_twin(wav: torch.Tensor, mel_fb: torch.Tensor, config) -> torch.Tensor:
-    """The kernel's algorithm in PyTorch, float32 (for the CPU tests): the
-    reflect rule, the packed frame, the same Stockham stages
-    (``fft_radices``) and tables, the real split over [k_min, k_max), the
-    banded mel product, dB and ``top_db``.  [B, T] -> [B, T // hop + 1,
-    n_mels]."""
+    """The kernel's algorithm in PyTorch, float64 as the kernel's (for
+    the CPU tests): the reflect rule, the packed frame, the same Stockham
+    stages (``fft_radices``) and tables, the real split over [k_min,
+    k_max), the banded mel product, dB rounded to float32, and
+    ``top_db``.  [B, T] -> [B, T // hop + 1, n_mels] float32."""
     n_fft, hop = config.n_fft, config.hop
     M = n_fft // 2
     t = logmel_tables(mel_fb, n_fft)
@@ -210,7 +222,7 @@ def fft_twin(wav: torch.Tensor, mel_fb: torch.Tensor, config) -> torch.Tensor:
     n_frames = T // hop + 1
     pos = torch.arange(n_frames)[:, None] * hop + torch.arange(n_fft)[None]
     idx = reflect_index(pos, T, M)
-    x = wav.float()[:, idx.clamp(min=0)] * (idx >= 0)
+    x = wav.float().double()[:, idx.clamp(min=0)] * (idx >= 0)
     z = (x[..., 0::2] * t.window[0::2], x[..., 1::2] * t.window[1::2])
     Ns = 1
     for R in fft_radices(M):
@@ -224,9 +236,10 @@ def fft_twin(wav: torch.Tensor, mel_fb: torch.Tensor, config) -> torch.Tensor:
     wx = _cmul((t.split[k, 0], t.split[k, 1]), xo)
     power = (xe[0] + wx[0]) ** 2 + (xe[1] + wx[1]) ** 2     # [B, F, k_max - k_min]
     mel = torch.stack([power[..., lo - t.k_min:lo - t.k_min + n]
-                       @ t.band_w[off:off + n]
+                       @ t.band_w[off:off + n].double()
                        for lo, n, off in t.bands.t().tolist()], -1)
-    return amplitude_to_db(mel, config.top_db)
+    db = 10.0 * torch.log10(torch.clamp(mel, min=1e-10))
+    return db_floor(db.float(), config.top_db)
 
 
 _SIGNATURES = {

@@ -12,6 +12,11 @@ stripes from an explicit ``torch.Generator`` on the batch's device,
 :func:`drop_stripes` zeroes given stripes (a pure function, so stripes
 drawn anywhere, JAX's included, can be replayed), and
 :func:`spec_augment` does both for time and frequency.
+
+Under data parallelism a rank holds rows ``[lo, lo + B)`` of a global
+batch: given ``rows=(lo, total)`` the stripes are drawn for all ``total``
+rows and this rank's taken, so that every row gets the stripes that one
+process drawing for the global batch would give it.
 """
 
 from __future__ import annotations
@@ -25,16 +30,20 @@ Stripes = Tuple[torch.Tensor, torch.Tensor]
 
 def draw_stripes(batch: int, dim: int, drop_width: int, stripes_num: int,
                  generator: Optional[torch.Generator] = None,
-                 device=None) -> Stripes:
+                 device=None, rows: Optional[Tuple[int, int]] = None
+                 ) -> Stripes:
     """-> (distance, bgn), each int64 [stripes_num, batch]: widths in
-    [0, drop_width) and starts in [0, max(dim - distance, 1))."""
-    distance = torch.randint(0, drop_width, (stripes_num, batch),
+    [0, drop_width) and starts in [0, max(dim - distance, 1)); with
+    ``rows=(lo, total)``, columns ``[lo, lo + batch)`` of the draw for
+    ``total`` rows."""
+    lo, total = rows if rows is not None else (0, batch)
+    distance = torch.randint(0, drop_width, (stripes_num, total),
                              generator=generator, device=device)
     high = torch.clamp(dim - distance, min=1)
-    u = torch.rand((stripes_num, batch), generator=generator,
+    u = torch.rand((stripes_num, total), generator=generator,
                    device=device, dtype=torch.float64)
     bgn = torch.minimum((u * high).long(), high - 1)
-    return distance, bgn
+    return distance[:, lo:lo + batch], bgn[:, lo:lo + batch]
 
 
 def drop_stripes(x: torch.Tensor, axis: int, distance: torch.Tensor,
@@ -57,17 +66,18 @@ def spec_augment(lms: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
                  time_drop_width: int = 64, time_stripes_num: int = 2,
                  freq_drop_width: int = 8, freq_stripes_num: int = 2,
-                 stripes: Optional[Dict[str, Stripes]] = None
-                 ) -> torch.Tensor:
+                 stripes: Optional[Dict[str, Stripes]] = None,
+                 rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """lms [B, T, F] -> a copy with time stripes, then frequency stripes
     dropped, drawn from ``generator`` (on ``lms``'s device; None: the
-    device's default generator).  Given a dict ``stripes``, the draws are
-    stored in it under "time" and "freq"."""
+    device's default generator) for ``rows`` of a global batch (see the
+    module docstring; None: the batch is all).  Given a dict ``stripes``,
+    the draws are stored in it under "time" and "freq"."""
     B, T, F = lms.shape
     time = draw_stripes(B, T, time_drop_width, time_stripes_num, generator,
-                        lms.device)
+                        lms.device, rows)
     freq = draw_stripes(B, F, freq_drop_width, freq_stripes_num, generator,
-                        lms.device)
+                        lms.device, rows)
     if stripes is not None:
         stripes.update(time=time, freq=freq)
     return drop_stripes(drop_stripes(lms, 1, *time), 2, *freq)

@@ -94,6 +94,23 @@ def load_checkpoint(path: str) -> Dict:
     return payload
 
 
+def strip_optimizer(ckpt_path: str, out_path: Optional[str] = None) -> str:
+    """Drop the optimizer state from a checkpoint either package wrote,
+    written to ``out_path`` (default: in place) as the same pickle without
+    it (``audiocaption_tpu/training/checkpoint.py::strip_optimizer``; the
+    reference's ``python_scripts/utils/remove_optimizer.py``).  The
+    payload is not converted: a JAX checkpoint stays a JAX checkpoint.
+    -> the path written."""
+    with open(ckpt_path, "rb") as f:
+        payload = pickle.load(f)
+    payload.pop("optimizer", None)
+    out_path = out_path or ckpt_path
+    Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+    with open(out_path, "wb") as f:
+        pickle.dump(payload, f, protocol=4)
+    return out_path
+
+
 def jax_variables_to_reference(variables: Mapping) -> Dict[str, np.ndarray]:
     """A JAX EffB2-Transformer, cnn14rnn_trm, Cdur5 KD-student, Cnn14-GRU +
     GRU-decoder (the temporal captioner), any captioner of the extended

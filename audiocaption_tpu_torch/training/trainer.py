@@ -20,6 +20,17 @@ row) that arrives as float16, bfloat16 or int16 (the collate's
 ``wire_dtype``, a float16 bank) is widened to float32 first, int16 /
 32768, as in the JAX step.
 
+Under data parallelism (``parallel/mesh.py::ParallelContext``) the batch
+is this rank's slice of a global batch and the step is the global
+batch's: each mean of the loss divides by the global batch's count (the
+output's ``count_sum``, ``losses/loss.py::global_count``), the per-row
+draws (SpecAugment's stripes, the condition loss's gumbel noise) are
+this rank's rows of the global batch's draw (the output's ``rows``), the
+gradients are summed over the data-parallel group before the clip, and
+the loss and norm it returns, and the NaN skip, are the global ones.  A
+scheduled-sampling coin is one draw for the whole batch, as in JAX, and
+the same on every rank.
+
 Only ``nn.Parameter``s with ``requires_grad`` train; the decoder's
 positional table ``pe`` is a buffer, so neither Adam nor the weight
 decay ever sees it (the JAX optimizer masks it out by name).
@@ -124,7 +135,8 @@ def train_step(state: TrainState, loss_fn: Callable[[Dict], torch.Tensor],
                generator: Optional[torch.Generator] = None,
                specaug: bool = False,
                specaug_generator: Optional[torch.Generator] = None,
-               mark: Mark = None) -> Dict[str, torch.Tensor]:
+               mark: Mark = None,
+               parallel=None) -> Dict[str, torch.Tensor]:
     """One training step on ``batch`` (wav [B, T] float32, wav_len [B],
     cap [B, L] ids, cap_len [B], on the model's device; a
     ``temporal_tag`` [B], and a ``condition`` [B], ``style`` [B, E],
@@ -141,7 +153,9 @@ def train_step(state: TrainState, loss_fn: Callable[[Dict], torch.Tensor],
     takes a zero gradient (:func:`zero_unreached_grads`).
     ``mark(name)``, if given, is called after
     the forward and loss ("forward"), the backward and clip ("backward")
-    and the optimizer ("optimizer"), for the caller's timers."""
+    and the optimizer ("optimizer"), for the caller's timers.
+    ``parallel``: a ``parallel.mesh.ParallelContext`` when ``batch`` is
+    this rank's slice of a global batch (see the module docstring)."""
     batch = batch_wav(batch)
     model = state.model
     model.train()
@@ -153,21 +167,28 @@ def train_step(state: TrainState, loss_fn: Callable[[Dict], torch.Tensor],
     cond = {k: batch[k] for k in COND_KEYS if k in batch}
     if "keyword" in batch:
         cond["event"] = batch["keyword"]
+    rows = None if parallel is None else parallel.rows(len(batch["cap"]))
     out = model(batch["wav"], batch["wav_len"], batch["cap"],
                 batch["cap_len"], ss_ratio=ss_ratio, generator=generator,
                 specaug=specaug, specaug_generator=specaug_generator,
-                cond_kwargs=cond, **tag)
+                cond_kwargs=cond, specaug_rows=rows, **tag)
     out["tgt"] = batch["cap"][:, 1:]
     out["tgt_len"] = batch["cap_len"] - 1
     if "condition" in batch:
         out["conditions"] = batch["condition"]
+    if parallel is not None:
+        out["count_sum"], out["rows"] = parallel.sum, rows
     loss = loss_fn(out)
     mark_part(mark, "forward")
     loss.backward()
     zero_unreached_grads(state.params)
+    if parallel is not None:
+        parallel.reduce_grads(state.params)
+        loss = parallel.sum(loss)
     # the raw norm; the gradients are clipped in place (a non-finite norm
     # leaves them non-finite, and they are then dropped)
-    grad_norm = clip_grad_norm(state.params, state.max_grad_norm)
+    grad_norm = clip_grad_norm(state.params, state.max_grad_norm,
+                               parallel=parallel)
     mark_part(mark, "backward")
     ok = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
     if ok:
@@ -195,7 +216,8 @@ def zero_unreached_grads(params) -> None:
 
 
 def clip_grad_norm(params, max_norm: float,
-                   dtype: torch.dtype = torch.float64) -> torch.Tensor:
+                   dtype: torch.dtype = torch.float64,
+                   parallel=None) -> torch.Tensor:
     """``nn.utils.clip_grad_norm_`` with the norms taken in ``dtype``
     (``torch._foreach_norm``'s): float64 by default, since on the CPU a
     float32 sum over a tensor of tens of millions of elements (the Cnn14's
@@ -203,12 +225,17 @@ def clip_grad_norm(params, max_norm: float,
     package's reduction stays near float32 rounding.  KD's step passes
     float32 (:func:`apply_update`).  Scales the gradients
     in place by min(1, max_norm / (norm + 1e-6)); returns the raw norm
-    (float32)."""
+    (float32).  ``parallel`` (a ``ParallelContext``) takes the norm
+    (over the shards, where parameters are split across ranks)."""
+    params = list(params)
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return torch.zeros(())
-    norm = torch.linalg.vector_norm(torch.stack(
-        torch._foreach_norm(grads, 2, dtype=dtype)))
+    if parallel is not None:
+        norm = parallel.grad_norm(params, dtype)
+    else:
+        norm = torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(grads, 2, dtype=dtype)))
     coef = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     torch._foreach_mul_(grads, coef.to(grads[0].dtype))
     return norm.float()

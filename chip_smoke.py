@@ -39,8 +39,8 @@ Phases, each of which must pass (none is caught and skipped):
      the 32 kHz Cnn14 preset and the 16 kHz EffB2 preset (the kernel is
      config-general: any power-of-two n_fft from 256 to 2048).  Limit
      1e-3 dB: the JAX package holds its own kernel to 2e-4 dB of its conv
-     path, and here a float32 FFT is held against the plain version's
-     dense float32 DFT, on 10 s of audio instead of 1 s;
+     path, and here the kernel's float64 FFT is held against the plain
+     version's dense float32 DFT, on 10 s of audio instead of 1 s;
   8. drive the temporal path end to end through
      ``Cnn14RnnTempAttnGruModel`` at full width (vocab 4981; random weights
      from a seed, decoder jittered, BN statistics jittered): 8 clips of
@@ -329,7 +329,27 @@ Phases, each of which must pass (none is caught and skipped):
      decode; (c) a ``StyleCaptionModel`` (Cnn10, ``StyleBahAttnDecoder``)
      for a few ``Runner.train`` steps, then steps on one batch whose loss
      falls, then a greedy decode with each one-hot ``style_weight``
-     through ``style_of_weight``.
+     through ``style_of_weight``;
+ 31. the modules that finish the port (``port_tools_path``): (a) ROADMAP
+     Queue 3 M's batches (corpus v2's first 160 train clips perturbed,
+     the aug loader's first 10 batches of 32), each held by the log-mel
+     rule of phase 25, unchanged; (b) the DFT input type: the flagship's
+     16 kHz log-mel at B=64 x 10 s with ``compute_dtype=torch.bfloat16``
+     against its CPU copy within 1e-3 dB (its distance from float64
+     printed beside float32's), the 32 kHz kernel given bfloat16 equal to
+     float32's; (c) ``create_word_embedding`` by word2vec on the card over
+     corpus v2's train captions against the CPU copy on the card's draws,
+     installed into a 256-wide decoder; (d) the demo (``cli/demo.py``,
+     its REPL fed 3 wav paths) on phase 26's ``cnn14rnn_trm`` (the
+     log-mel kernel) and phase 24's flagship, captions equal to
+     ``generate``'s; (e) ``flops_estimate`` of the flagship's eval
+     forward at B=32 x 10 s within 2% of an analytic count, ``mfu`` over
+     its median time, ``host_rss_gb``; (f) ``Runner.train`` of a
+     full-width ``cnn14rnn_trm`` under ``torchrun --nproc_per_node=1``
+     (NCCL) against the same run in this process, and two ranks on the
+     one card over gloo (this script run with ``--dp-worker``) against
+     the single-process step on their global batch; (g) ``prepare_dataset
+     clotho --no_pack`` from a Clotho-style csv of corpus v2.
 
 Every kernel's launch counter is set to 0 just before each path is
 driven (phases 4-5, the EffB2 serving path; phase 8, the temporal path;
@@ -357,7 +377,8 @@ item-8 path, whose counts are the greedy, beam and log-mel entries'
 ``item8_launches`` and whose (b) and (c) launches the
 ``fused_greedy[htsat]``, ``fused_beam[htsat]`` and
 ``fused_beam[esresnext]`` entries'; phase 30, the item-8b path, whose
-log-mel count is the log-mel entry's ``keyword_launches``) and
+log-mel count is the log-mel entry's ``keyword_launches``; phase 31,
+whose log-mel count is the log-mel entry's ``phase31_launches``) and
 read just after; the run fails if a kernel of that
 path was not launched there.
 The second-to-last line is the kernels JSON object, the last line
@@ -395,6 +416,7 @@ ENCODER_RTOL = 1e-3           # walked vs cuDNN attn_emb, times max |ref|
 # and float32 products through the TF32 tensor cores in a 3xTF32 split
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+FP64_FLOPS = 34e12            # float64 outside the tensor cores
 TF32X3_FLOPS = 495e12 / 3
 BF16_FLOPS = 989e12           # dense bf16 tensor-core peak
 # phase 12, weights_bf16: a kernel n-best score against the plain version's
@@ -558,6 +580,22 @@ KW_CPU_CLIPS = 2              # (a): clips decoded on a CPU copy
 KW_EVENT_STEPS = 3            # (b): Runner.train steps
 KW_STYLE_STEPS = 3            # (c): Runner.train steps
 KW_STYLE_BATCH_STEPS = 10     # (c): then steps on one repeated batch
+# phase 31: (a) the speed-perturbed batches that once failed the log-mel
+# rule: corpus v2's first 160 train clips, as phase 26 once ran them
+QM_SIZES = (160, 64, 64)
+QM_BATCHES = 10               # of the aug loader's 50 (5 captions a clip)
+W2V_EMB, W2V_EPOCHS = 256, 2  # (c): the flagship decoder's width
+W2V_RTOL_OF_MAX = 1e-5        # (c): test_torch_word_embedding.py's bound
+DEMO_CLIPS = 3                # (d): wav paths fed to the demo's REPL
+FLOPS_RTOL, FLOPS_TIMED = 0.02, 10   # (e)
+FLOPS_B, FLOPS_SECONDS = 32, 10      # (e): the eval forward's batch
+DP_SAMPLES = 128              # (f)(i): 4 steps of 32
+DP_RTOL, DP_ATOL = 1e-5, 1e-5  # (f)(i): torchrun vs this process, or
+DP_FLOOR_FACTOR = 4           # that times two runs' own gap here
+DP_B, DP_VOCAB = 8, 4368      # (f)(ii): global batch, cnn14rnn_trm's vocab
+DP_SECONDS = 10               # (f)(ii): clip length
+DP_SS = 0.7                   # (f)(ii): the scheduled-sampling ratio
+DP_TIMEOUT = 300              # (f): seconds a subprocess may take
 FAM_ENCODERS = {
     "Cnn6Encoder": {}, "Cnn10Encoder": {}, "Cdur8Encoder": {},
     "MobileNetV2": {}, "Cnn14Encoder": {},
@@ -985,14 +1023,19 @@ def temporal_times(api, dev, card):
         lib_ms = cuda_ms(lambda: stft_logmel(wav, front), 10)
         k_ms2 = cuda_ms(lambda: FL.fused_logmel(wav, *tables), 10)
     flops, nbytes = logmel_work(front, B, wav.shape[1])
+    # the bound is the function's: float32 out, float32 ops suffice (the
+    # plain float32 version meets the float64 rule); the kernel's own
+    # float64 arithmetic is a design choice, its op time printed beside
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
+    t_fp64 = flops / FP64_FLOPS * 1e3
     log(f"fused_logmel device time by kernel (torch.profiler): "
         f"{device_split(lambda: FL.fused_logmel(wav, *tables))}")
     log(f"fused_logmel: {k_ms:.4f} ms/call (again {k_ms2:.4f}; plain "
         f"{p_ms:.3f} ms, torch.stft yardstick {lib_ms:.4f} ms, bound "
-        f"{max(t_bytes, t_ops):.4f} ms: {nbytes} bytes, {flops} fp32 ops) "
-        f"B={B} x 10 s 32 kHz on {card}")
+        f"{max(t_bytes, t_ops):.4f} ms: {nbytes} bytes, {flops} ops at the "
+        f"float32 rate; the same ops at the float64 rate the kernel works "
+        f"in {t_fp64:.4f} ms) B={B} x 10 s 32 kHz on {card}")
     timing = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
               "bound_ms": max(t_bytes, t_ops),
               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -3530,6 +3573,7 @@ def _synthetic_flagship(root, dev, card):
     launches = {"fused_greedy": FG.fused_greedy_decode.launches,
                 "fused_beam": FB.fused_beam_decode.launches,
                 "fused_logmel": FL.fused_logmel.launches}
+    keep_experiment(exp, "flagship", "best.pth")
     curve = _epoch_curve(Path(exp) / "train.log", "loss", "val_cider")
     for line in (Path(exp) / "train.log").read_text().splitlines():
         log(f"synthetic v2 {line}")
@@ -3821,6 +3865,7 @@ def _synthetic_aug(root, dev, card):
     t_train = time.perf_counter() - t0
     launches = {"fused_greedy": FG.fused_greedy_decode.launches,
                 "fused_logmel": FL.fused_logmel.launches}
+    keep_experiment(exp, "cnn14rnn_trm_aug", "last.pth")
     for line in (Path(exp) / "train.log").read_text().splitlines():
         log(f"synthetic aug {line}")
     curve = _epoch_curve(Path(exp) / "train.log", "loss", "val_cider")
@@ -5838,6 +5883,672 @@ def _keyword(root, dev, card):
             "style_losses": losses, "times": times}
 
 
+# -- phase 31: the host tools, word2vec, profiling, the demo, the DFT input
+# -- type, data and tensor parallelism, dataset preparation ---------------
+
+def queue_m_logmel(dev, card):
+    """Phase 31(a): the batches of ROADMAP Queue 3 M.  Corpus v2 (seed 0,
+    phase 24's) cut to its first QM_SIZES[0] train clips, their
+    speed-perturbed copy (``speed_perturb --compute``, 0.9 and 1.1), and
+    the first QM_BATCHES batches of the aug loader of
+    ``cli/recipes.py::aug_train`` (shuffled from ``torch.manual_seed(SEED)``;
+    batches of 32, each padded to its longest clip).  Each batch is held
+    by Queue 3 C's rule, unchanged: the log-mel kernel within
+    LOGMEL_DB_ATOL of ``fused_logmel_plain``, or no further from the
+    float64 log-mel than the float32 plain version.  Printed per batch and
+    per clip: how many clips the kernel lies further from float64 than
+    plain.  -> {"launches", "err": kernel vs plain, worst batch}."""
+    import shutil
+    import tempfile
+    import torch
+    from audiocaption_tpu_torch.cli import recipes
+    from audiocaption_tpu_torch.cli.data_tools import speed_perturb
+    from audiocaption_tpu_torch.cli.run import build_dataloader, to_device
+    from audiocaption_tpu_torch.data.tokenizer import DictTokenizer
+    from audiocaption_tpu_torch.ops import frontend as TF
+    from audiocaption_tpu_torch.ops import fused_logmel as FL
+    data, _ = shared_corpus("v2", QM_SIZES)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_qm_"))
+    try:
+        t0 = time.perf_counter()
+        out = speed_perturb(str(data), str(root), compute=True,
+                            wav_csv=str(data / "train_wav.csv"),
+                            text_json=str(data / "train_text.json"))
+        Path(out["wav_csv"]).replace(root / "train_wav.csv")
+        Path(out["text_json"]).replace(root / "train_text.json")
+        t_sp = time.perf_counter() - t0
+        cfg = recipes.aug_train(str(data), str(root))
+        tokenizer = DictTokenizer(str(data / "vocab.pkl"))
+        front = TF.LogMelFrontend(TF.CNN14_MEL_32K).to(dev)
+        torch.manual_seed(SEED)
+        FL.fused_logmel.launches = 0
+        worst, further, clips = (0.0, 0.0, 0.0), 0, 0
+        loader = build_dataloader(cfg["data"]["train_aug"], tokenizer)
+        for i, batch in zip(range(QM_BATCHES), loader):
+            wav = to_device(batch, dev)["wav"]
+            with torch.no_grad():
+                kernel = front(wav)
+                plain = FL.fused_logmel_plain(wav, front.basis, front.mel_fb,
+                                              front.config)
+                f64 = float64_logmel(wav, front)
+            err = float((kernel - plain).abs().max())
+            k64 = (kernel.double() - f64).abs().amax((1, 2))
+            p64 = (plain.double() - f64).abs().amax((1, 2))
+            err64, plain64 = float(k64.max()), float(p64.max())
+            n_far = int((k64 > p64).sum())
+            further, clips = further + n_far, clips + len(k64)
+            log(f"31(a) aug batch {i} {tuple(wav.shape)}: log-mel kernel vs "
+                f"fused_logmel_plain max |diff| {err:.3g} dB (limit "
+                f"{LOGMEL_DB_ATOL}); vs float64 {err64:.3g} dB, plain vs "
+                f"float64 {plain64:.3g} dB; clips where the kernel lies "
+                f"further from float64 than plain: {n_far}/{len(k64)}")
+            assert bool(torch.isfinite(kernel).all())
+            assert err <= LOGMEL_DB_ATOL or err64 <= plain64, \
+                f"31(a): log-mel kernel disagrees on aug batch {i}"
+            worst = max(worst, (err, err64, plain64))
+        launches = FL.fused_logmel.launches
+        log(f"31(a): corpus v2's first {QM_SIZES[0]} train clips perturbed "
+            f"in {t_sp:.1f} s; {i + 1} aug batches, {launches} log-mel "
+            f"launches; worst batch: kernel vs plain {worst[0]:.3g} dB, vs "
+            f"float64 {worst[1]:.3g} (plain {worst[2]:.3g}); the kernel "
+            f"further from float64 than plain on {further}/{clips} clips on "
+            f"{card}")
+        assert launches == i + 1, launches
+        return {"launches": launches, "err": worst[0]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def logmel_compute_dtype(dev, card):
+    """Phase 31(b), item 9: the DFT input type.  The flagship's 16 kHz
+    log-mel (``EFFB2_MEL_16K``, the plain path) at B=64 x 10 s with
+    ``compute_dtype=torch.bfloat16``: held against its CPU copy within
+    LOGMEL_DB_ATOL, and its distance from the float64 log-mel printed
+    beside float32's; the 32 kHz frontend given bfloat16 takes the kernel,
+    which ignores the option: equal to the float32 frontend's, bit for
+    bit.  -> {"launches"}."""
+    import torch
+    from audiocaption_tpu_torch.ops import frontend as TF
+    from audiocaption_tpu_torch.ops import fused_logmel as FL
+    gen = torch.Generator().manual_seed(SEED + 31)
+    out = {}
+    for name in ("EFFB2_MEL_16K", "CNN14_MEL_32K"):
+        cfg = getattr(TF, name)
+        wav = (torch.randn(B_LOGMEL, 10 * cfg.sample_rate, generator=gen)
+               * 0.1)
+        f32 = TF.LogMelFrontend(cfg).to(dev)
+        bf16 = TF.LogMelFrontend(cfg, compute_dtype=torch.bfloat16).to(dev)
+        n0 = FL.fused_logmel.launches
+        with torch.no_grad():
+            got = bf16(wav.to(dev))
+            ref32 = f32(wav.to(dev))
+            f64 = float64_logmel(wav.to(dev), f32)
+        launched = FL.fused_logmel.launches - n0
+        assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+        if cfg.sample_rate == 32000:
+            log(f"31(b) {name}, B={B_LOGMEL} x 10 s: compute_dtype=bfloat16 "
+                f"on the kernel path equals float32 bit for bit: "
+                f"{bool(torch.equal(got, ref32))}; {launched} kernel "
+                f"launches")
+            assert launched == 2 and torch.equal(got, ref32), name
+            out["launches"] = launched
+            continue
+        cpu = TF.LogMelFrontend(cfg, compute_dtype=torch.bfloat16)(wav)
+        err = float((got.cpu() - cpu).abs().max())
+        e16 = float((got.double() - f64).abs().max())
+        e32 = float((ref32.double() - f64).abs().max())
+        log(f"31(b) {name}, B={B_LOGMEL} x 10 s, compute_dtype=bfloat16 "
+            f"(plain path): card vs CPU copy max |diff| {err:.3g} dB (limit "
+            f"{LOGMEL_DB_ATOL}); from the float64 log-mel: bfloat16 "
+            f"{e16:.4g} dB, float32 {e32:.4g} dB; {launched} kernel launches "
+            f"on {card}")
+        assert launched == 0 and err <= LOGMEL_DB_ATOL, name
+    return out
+
+
+# experiments of the training phases that phase 31(d) serves through the
+# demo: name -> the directory of their config.yaml and checkpoint, under
+# the corpora's temporary directory
+_KEPT = {}
+
+
+def keep_experiment(exp, name: str, ckpt: str) -> None:
+    """Copy experiment ``exp``'s ``config.yaml`` and checkpoint ``ckpt``
+    under the run's temporary directory, as ``name`` (phase 31(d))."""
+    import shutil
+    dst = _corpus_dir("kept", (0,)) / name
+    dst.mkdir(parents=True, exist_ok=True)
+    for f in ("config.yaml", ckpt):
+        shutil.copy(Path(exp) / f, dst / f)
+    _KEPT[name] = dst / ckpt
+
+
+def word2vec_path(dev, card):
+    """Phase 31(c): ``create_word_embedding`` by word2vec on the card over
+    the shared corpus v2's train captions (W2V_EPOCHS epochs, embedding
+    256, the flagship decoder's width), its negatives drawn on the card
+    (``train_word2vec``'s generator, recorded by ``draw_negatives``); the
+    same call on the CPU copy with those draws: the ``.npy`` within
+    W2V_RTOL_OF_MAX of the largest |w| (test_torch_word_embedding.py's
+    bound); the card's own draws give the same vectors as the recorded
+    ones; the matrix installed into a full-width transformer decoder on
+    the card.  -> seconds of the card's training."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from audiocaption_tpu_torch.cli import data_tools as DT
+    from audiocaption_tpu_torch.data.tokenizer import DictTokenizer
+    from audiocaption_tpu_torch.models.transformer_decoder import (
+        TransformerDecoder)
+    from audiocaption_tpu_torch.utils import word_embedding as WE
+    data, _ = shared_corpus("v2", SYN_V2_SIZES)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_w2v_"))
+    try:
+        caps = str(data / "train_text.json")
+        sents = [c["tokens"].split() for a in json.loads(
+            Path(caps).read_text())["audios"] for c in a["captions"]]
+        kw = dict(caption_file=caps, epochs=W2V_EPOCHS, seed=SEED)
+        neg = WE.draw_negatives(sents, epochs=W2V_EPOCHS, seed=SEED,
+                                device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        own = DT.create_word_embedding(str(data / "vocab.pkl"), W2V_EMB,
+                                       str(root / "own.npy"), **kw,
+                                       device=dev.type)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        got = DT.create_word_embedding(
+            str(data / "vocab.pkl"), W2V_EMB, str(root / "card.npy"), **kw,
+            device=dev.type, negative_ids=[n.cpu().numpy() for n in neg])
+        t0 = time.perf_counter()
+        cpu = DT.create_word_embedding(
+            str(data / "vocab.pkl"), W2V_EMB, str(root / "cpu.npy"), **kw,
+            device="cpu", negative_ids=[n.cpu().numpy() for n in neg])
+        t_cpu = time.perf_counter() - t0
+        bound = W2V_RTOL_OF_MAX * float(np.abs(cpu).max())
+        err = float(np.abs(got - cpu).max())
+        err_own = float(np.abs(own - got).max())
+        tok = DictTokenizer(str(data / "vocab.pkl"))
+        dec = TransformerDecoder(emb_dim=W2V_EMB, vocab_size=len(tok),
+                                 attn_emb_dim=512).to(dev)
+        WE.install_word_embedding(dec, got)
+        installed = bool(torch.equal(dec.word_embedding.weight.detach().cpu(),
+                                     torch.from_numpy(got)))
+        log(f"31(c) word2vec: {len(sents)} captions, vocabulary {len(tok)}, "
+            f"{len(neg)} steps of {neg[0].shape[0]} pairs, embedding "
+            f"{W2V_EMB}, {W2V_EPOCHS} epochs: card {t_card:.2f} s, CPU copy "
+            f"{t_cpu:.2f} s; card vs CPU copy on the card's draws max |diff| "
+            f"{err:.3g} (bound {bound:.3g}); the card's own draws vs the "
+            f"recorded ones {err_own:.3g}; installed into a {W2V_EMB}-wide "
+            f"decoder: {installed} on {card}")
+        assert np.isfinite(got).all() and err <= bound and err_own <= bound
+        assert installed
+        return t_card
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def demo_path(dev, card):
+    """Phase 31(d): the demo's model path (``cli/demo.py``'s ``main``, its
+    stdin REPL fed DEMO_CLIPS wav paths of corpus v2's test split) on the
+    kept 32 kHz ``cnn14rnn_trm`` of phase 26 (its log-mel through the
+    kernel) and phase 24's flagship (16 kHz); each printed caption equals
+    the port's ``generate`` (beam 3) on the same clip.  -> the log-mel
+    launches of the two demo runs."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from audiocaption_tpu_torch.cli import demo as DEMO
+    from audiocaption_tpu_torch.cli.run import Runner
+    from audiocaption_tpu_torch.data.dataset import read_wav
+    from audiocaption_tpu_torch.models.captioner import generate
+    from audiocaption_tpu_torch.ops import fused_logmel as FL
+    data, _ = shared_corpus("v2", SYN_V2_SIZES)
+    rows = (data / "test_wav.csv").read_text().splitlines()[1:1 + DEMO_CLIPS]
+    paths = [r.split("\t")[1] for r in rows]
+    launches = 0
+    for name in ("cnn14rnn_trm_aug", "flagship"):
+        ckpt = _KEPT[name]
+        stdin = io.StringIO("\n".join(paths) + "\n")
+        out = io.StringIO()
+        n0 = FL.fused_logmel.launches
+        old_stdin = sys.stdin
+        sys.stdin = stdin
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                DEMO.main(["--checkpoint", str(ckpt), "--device", dev.type])
+            t_demo = time.perf_counter() - t0
+        finally:
+            sys.stdin = old_stdin
+        n = FL.fused_logmel.launches - n0
+        launches += n
+        lines = out.getvalue().splitlines()
+        _, model, tok = Runner()._load_experiment(str(ckpt.parent),
+                                                  ckpt.name, dev)
+        want = []
+        for path in paths:
+            sr, x = read_wav(path)
+            wav = DEMO.normalize_audio(sr, x, model.mel.sample_rate)
+            with torch.no_grad():
+                seq = generate(model, torch.from_numpy(wav[None]).to(dev),
+                               torch.tensor([len(wav)], device=dev),
+                               sample_method="beam", beam_size=3)["seq"]
+            want.append(tok.decode(seq.cpu().numpy())[0])
+        log(f"31(d) demo on {name} ({model.mel.sample_rate} Hz): "
+            f"{len(paths)} paths in {t_demo:.1f} s, log-mel kernel launches "
+            f"{n}; captions {lines[1:]}; equal to generate's: "
+            f"{lines[1:] == want} on {card}")
+        assert lines[0].startswith("gradio not installed")
+        assert lines[1:] == want, (lines, want)
+        if model.mel.sample_rate == 32000:
+            assert n == len(paths), n
+    return launches
+
+
+def flops_path(api, dev, card):
+    """Phase 31(e): ``flops_estimate`` of the flagship's eval forward (the
+    teacher-forced forward of ``bench.py``'s FLOP count: the frontend,
+    EffB2 and the decoder over the 20 inputs of 21-token captions) at
+    B=32 x 10 s, against an
+    analytic count of its products (every ``Conv2d`` and ``Linear`` module
+    by its shapes, plus the frontend's DFT and mel products, the
+    attentions' q / k / v projections, scores and contexts, and the tied
+    classifier): within FLOPS_RTOL; ``mfu`` over the forward's median time
+    (CUDA events) against the card's dense bf16 rate; ``host_rss_gb``.
+    -> (FLOPs, ms)."""
+    import statistics
+    import torch
+    from audiocaption_tpu_torch.utils import profiling as P
+    model = api.model
+    B, T = FLOPS_B, FLOPS_SECONDS * SR
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    wav = torch.randn(B, T, generator=gen, device=dev) * 0.1
+    wav_len = torch.full((B,), T, dtype=torch.long, device=dev)
+    Lc = L + 1
+    cap = torch.randint(4, V, (B, Lc), generator=gen, device=dev)
+    cap[:, 0] = 1
+    cap_len = torch.full((B,), Lc, dtype=torch.long, device=dev)
+
+    def forward():
+        with torch.no_grad():
+            return model(wav, wav_len, cap, cap_len)
+
+    model.eval()
+    est = P.flops_estimate(forward)
+    count = {"modules": 0}
+
+    def hook(mod, inp, out):
+        if isinstance(mod, torch.nn.Conv2d):
+            k = mod.weight.shape[1] * mod.weight.shape[2] * mod.weight.shape[3]
+            count["modules"] += 2 * out.numel() * k
+        else:
+            count["modules"] += 2 * out.numel() * mod.in_features
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        forward()
+    finally:
+        for h in handles:
+            h.remove()
+    cfg, dec = model.mel, model.decoder
+    frames, F_ = T // cfg.hop + 1, cfg.n_fft // 2 + 1
+    S = int(model.encode(wav[:1], wav_len[:1])["attn_emb"].shape[1])
+    E, T_ = dec.emb_dim, int(forward()["logit"].shape[1])   # Lc - 1 inputs
+    front = 2 * B * frames * cfg.n_fft * 2 * F_ + 2 * B * frames * F_ * \
+        cfg.n_mels
+    per_layer = (2 * B * T_ * E * 3 * E + 2 * 2 * B * T_ * T_ * E
+                 + 2 * B * T_ * E * E + 2 * 2 * B * S * E * E
+                 + 2 * 2 * B * T_ * S * E)
+    tied = 2 * B * T_ * E * dec.vocab_size if dec.tie_weights else 0
+    analytic = count["modules"] + front + dec.nlayers * per_layer + tied
+    times = []
+    for _ in range(FLOPS_TIMED + 2):
+        times.append(cuda_ms(forward, 1, warmup=0))
+    ms = statistics.median(times[2:])
+    util = P.mfu(est["flops"], ms / 1e3, dev)
+    log(f"31(e) flops_estimate of the flagship's eval forward, B={B} x "
+        f"{FLOPS_SECONDS} s, {T_} tokens: {est['flops']:.6g} FLOPs ({est['flops'] / B:.4g} a "
+        f"clip), bytes_accessed {est['bytes_accessed']:.4g}; analytic "
+        f"{analytic:.6g} ({est['flops'] / analytic - 1:+.2e}); median "
+        f"{ms:.3f} ms of {FLOPS_TIMED}: {est['flops'] / ms / 1e9:.4g} "
+        f"TFLOP/s, mfu {util} against "
+        f"{P.device_peak_flops(dev)} bf16 FLOP/s; host rss "
+        f"{P.host_rss_gb():.2f} GB on {card}")
+    assert abs(est["flops"] / analytic - 1) <= FLOPS_RTOL
+    assert util is not None and 0 < util < 1 and P.host_rss_gb() > 0
+    return est["flops"], ms
+
+
+def _dp_config(data, root) -> dict:
+    """``configs/synthetic_v2/cnn14rnn_trm.yaml`` on the corpus ``data``:
+    DP_SAMPLES train samples an epoch (a fixed number, so the step count
+    is), one epoch, no loader workers, no SWA, no device-resident banks
+    (which data parallelism turns off)."""
+    from audiocaption_tpu_torch.cli import recipes
+    cfg = recipes.recipe("synthetic_v2/cnn14rnn_trm.yaml", str(data))
+    cfg["experiment_path"] = str(root)
+    cfg["trainer"]["epochs"] = 1
+    cfg["swa"] = {"use": False}
+    cfg["data"]["train"]["dataloader_args"].update(
+        num_samples=DP_SAMPLES, num_workers=0)
+    cfg["data"]["val"]["dataloader_args"]["num_workers"] = 0
+    for split in ("train", "val"):
+        cfg["data"][split]["device_resident"] = False
+    return cfg
+
+
+def _largest_diff(a: dict, b: dict):
+    """(the largest |a - b| / max(1, max |a|) over the tensors, its name)."""
+    import numpy as np
+    return max((float(np.abs(a[k] - b[k]).max())
+                / max(1.0, float(np.abs(a[k]).max())), k) for k in a)
+
+
+def dp_worker(rank: int, world: int, port: int, case: str,
+              device: str = "cuda") -> None:
+    """Phase 31(f)(ii)'s rank: gloo on the card (NCCL refuses two ranks on
+    one card), the seeded full-width ``cnn14rnn_trm``, its slice of the
+    saved global batch, one ``train_step`` with a ``ParallelContext``;
+    rank 0 writes the loss and the raw gradient norm."""
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+    from audiocaption_tpu_torch.device import set_parity_precision
+    from audiocaption_tpu_torch.parallel import (
+        ParallelContext, init_distributed, shard_batch, sync_batch_norm)
+    set_parity_precision()
+    d = Path(case)
+    dev = torch.device(device)
+    init_distributed(f"tcp://localhost:{port}", world, rank, dev,
+                     backend="gloo")
+    model = _dp_model(dev)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in np.load(d / "batch.npz").items()}
+    sync_batch_norm(model)
+    out = _dp_step(model, shard_batch(batch, rank, world), ParallelContext())
+    if rank == 0:
+        (d / "result.json").write_text(json.dumps(out))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def _dp_model(dev):
+    """The seeded full-width ``cnn14rnn_trm`` (random weights), its
+    dropouts off."""
+    import torch
+    from audiocaption_tpu_torch.models import zoo
+    model = zoo.cnn14rnn_trm(vocab_size=DP_VOCAB, rnn_dropout=0.0,
+                             decoder_dropout=0.0)
+    zoo.random_init(model, torch.Generator().manual_seed(SEED + 31))
+    return model.to(dev)
+
+
+def _dp_step(model, batch, parallel=None) -> dict:
+    """One ``train_step`` with scheduled sampling at DP_SS and SpecAugment,
+    each from its own seeded generator (the per-row stripes drawn for the
+    global batch), the Cnn14's functional dropout the identity -> loss,
+    raw gradient norm."""
+    import torch
+    import torch.nn.functional as F
+    from audiocaption_tpu_torch.losses.loss import masked_token_loss
+    from audiocaption_tpu_torch.optim.schedules import (
+        exponential_decay_with_warmup)
+    from audiocaption_tpu_torch.training.trainer import (
+        create_train_state, train_step)
+    state = create_train_state(
+        model, 5e-4, exponential_decay_with_warmup(5e-4, 5e-7, 100, 10))
+    dropout = F.dropout
+    F.dropout = lambda t, p=0.5, training=True, inplace=False: t
+    try:
+        m = train_step(state, masked_token_loss("label_smoothing", 0.1),
+                       batch, ss_ratio=torch.tensor(DP_SS),
+                       generator=torch.Generator().manual_seed(SEED + 33),
+                       specaug=True, specaug_generator=torch.Generator(
+                           device=batch["wav"].device).manual_seed(SEED + 34),
+                       parallel=parallel)
+    finally:
+        F.dropout = dropout
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+
+
+def start_parallel(dev) -> dict:
+    """Phase 31(f)'s subprocesses, started before the other parts so that
+    they run beside them: (i) ``Runner.train`` under ``torchrun
+    --standalone --nproc_per_node=1`` (NCCL, a world of one) of
+    :func:`_dp_config`; (ii) two ranks of :func:`dp_worker` on the one
+    card over gloo (NCCL refuses two ranks on one card), each with half
+    of a global batch of DP_B clips.  -> what :func:`finish_parallel`
+    reads."""
+    import socket
+    import subprocess
+    import tempfile
+    import numpy as np
+    import torch
+    import yaml
+    data, _ = shared_corpus("v2", QM_SIZES)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
+    gen = torch.Generator().manual_seed(SEED + 32)
+    Lc = 9
+    batch = {"wav": (torch.randn(DP_B, DP_SECONDS * SR_32K, generator=gen)
+                     * 0.1).numpy(),
+             "wav_len": np.asarray([DP_SECONDS * SR_32K - 3000 * i
+                                    for i in range(DP_B)], np.int64),
+             "cap": torch.randint(4, DP_VOCAB, (DP_B, Lc),
+                                  generator=gen).numpy(),
+             "cap_len": np.asarray([Lc - i % 3 for i in range(DP_B)],
+                                   np.int64)}
+    batch["cap"][:, 0] = 1
+    for i, n in enumerate(batch["cap_len"]):
+        batch["cap"][i, n - 1] = 2
+    case = root / "dp2"
+    case.mkdir()
+    np.savez(case / "batch.npz", **batch)
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    cfg_path = root / "dp.yaml"
+    cfg_path.write_text(yaml.safe_dump(_dp_config(data, root / "tr")))
+    procs = {f"rank {r}": subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dp-worker", str(r),
+         "2", str(port), str(case), dev.type], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)}
+    procs["torchrun"] = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=1", "-m", "audiocaption_tpu_torch.cli.run",
+         "train", str(cfg_path), f"device={dev.type}"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=str(ROOT))
+    return {"root": root, "data": data, "batch": batch, "case": case,
+            "procs": procs, "t0": time.perf_counter()}
+
+
+def finish_parallel(jobs: dict, dev, card) -> int:
+    """Phase 31(f): data parallelism on the card.  (i) ``Runner.train`` of a
+    full-width ``cnn14rnn_trm`` (corpus v2's first QM_SIZES[0] train clips,
+    DP_SAMPLES samples: a few steps) under ``torchrun`` against the same
+    run in this process: the epoch loss within DP_RTOL, and every
+    parameter of ``last.pth`` within DP_ATOL * max(1, max |p|), or within
+    DP_FLOOR_FACTOR times the gap between two runs in this process
+    (cuDNN's backward sums in no fixed order, and Adam's first steps move
+    a parameter whose gradient is near zero by the rate whatever its
+    size); (ii) the two gloo ranks' step (dropout off): loss within rtol
+    1e-5 and raw gradient norm within rtol 1e-4 of the single-process step
+    on the global batch (``tests/test_torch_parallel.py``'s bounds).  The
+    subprocesses are stopped and the files removed whatever happens.  ->
+    the log-mel launches of (i)'s runs in this process."""
+    import shutil
+    import subprocess
+    import numpy as np
+    import torch
+    from audiocaption_tpu_torch.cli.run import Runner
+    from audiocaption_tpu_torch.ops import fused_logmel as FL
+    from audiocaption_tpu_torch.training.checkpoint import load_checkpoint
+    root, data, procs = jobs["root"], jobs["data"], jobs["procs"]
+    try:
+        # (i) Runner.train here twice (the second run gives the floor)
+        runs, t_here = [], []
+        n0 = FL.fused_logmel.launches
+        for name in ("here", "again"):
+            t0 = time.perf_counter()
+            runs.append(Path(Runner().train(_dp_config(data, root / name),
+                                            f"device={dev.type}")))
+            t_here.append(time.perf_counter() - t0)
+        launches = FL.fused_logmel.launches - n0
+        outs = {}
+        for name, p in procs.items():
+            try:
+                outs[name] = p.communicate(timeout=DP_TIMEOUT)[0]
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs[name] = p.communicate()[0]
+            assert p.returncode == 0, f"{name} failed:\n{outs[name][-3000:]}"
+        t_sub = time.perf_counter() - jobs["t0"]
+        here, again = runs
+        tr = root / "tr" / here.name
+        log_tr = (tr / "train.log").read_text()
+        for line in log_tr.splitlines():
+            log(f"31(f)(i) under torchrun: {line}")
+        engaged = ("data parallel: 1 rank(s), "
+                   f"{'nccl' if dev.type == 'cuda' else 'gloo'}") in log_tr
+        curve_here = _epoch_curve(here / "train.log", "loss", "val_cider")
+        curve_tr = _epoch_curve(tr / "train.log", "loss", "val_cider")
+        p_here, p_again, p_tr = (
+            load_checkpoint(str(d / "last.pth"))["variables"]
+            for d in (here, again, tr))
+        worst = _largest_diff(p_here, p_tr)
+        floor = _largest_diff(p_here, p_again)
+        log(f"31(f)(i) Runner.train of cnn14rnn_trm ({DP_SAMPLES} samples): "
+            f"here {t_here[0]:.1f} / {t_here[1]:.1f} s, the subprocesses "
+            f"{t_sub:.1f} s from their start (data parallel engaged under "
+            f"torchrun: {engaged}); epoch loss {curve_here[0][0]:.6f} / "
+            f"{curve_tr[0][0]:.6f}, val CIDEr-D {curve_here[0][1]:.4f} / "
+            f"{curve_tr[0][1]:.4f}; parameters' largest |diff| / max(1, max "
+            f"|p|) {worst[0]:.3g} at {worst[1]} (two runs here: "
+            f"{floor[0]:.3g} at {floor[1]}); log-mel launches here "
+            f"{launches} on {card}")
+        assert engaged
+        assert abs(curve_tr[0][0] / curve_here[0][0] - 1) <= DP_RTOL
+        assert worst[0] <= max(DP_ATOL, DP_FLOOR_FACTOR * floor[0])
+        assert launches > 0
+
+        # (ii) the two ranks against the single-process step
+        got = json.loads((jobs["case"] / "result.json").read_text())
+        single = _dp_step(_dp_model(dev), {
+            k: torch.from_numpy(v).to(dev) for k, v in jobs["batch"].items()})
+        log(f"31(f)(ii) two ranks on one card (gloo, CUDA tensors), "
+            f"global batch {DP_B} x {DP_SECONDS} s, scheduled sampling "
+            f"{DP_SS} and SpecAugment: loss {got['loss']:.7f} "
+            f"/ single {single['loss']:.7f}, raw grad norm "
+            f"{got['grad_norm']:.7f} / {single['grad_norm']:.7f} on {card}")
+        np.testing.assert_allclose(got["loss"], single["loss"], rtol=1e-5)
+        np.testing.assert_allclose(got["grad_norm"], single["grad_norm"],
+                                   rtol=1e-4)
+        return launches
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def prepare_path(card):
+    """Phase 31(g): ``prepare_dataset clotho --no_pack`` (its command line,
+    in a subprocess) from a Clotho-style csv of corpus v2's val split (file
+    names of its wav files, the five captions), then ``build_vocab``:
+    ``text.json`` and ``vocab.pkl`` equal to those ``prepare_clotho`` and
+    ``build_vocab`` write in this process; the audio ids the md5 of the
+    file names, the captions the corpus's."""
+    import csv
+    import hashlib
+    import shutil
+    import subprocess
+    import tempfile
+    from audiocaption_tpu_torch.cli.prepare_dataset import prepare_clotho
+    from audiocaption_tpu_torch.data.tokenizer import DictTokenizer
+    data, _ = shared_corpus("v2", SYN_V2_SIZES)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_prep_"))
+    try:
+        audios = json.loads((data / "val_text.json").read_text())["audios"]
+        files = dict(r.split("\t") for r in (data / "val_wav.csv")
+                     .read_text().splitlines()[1:])
+        with open(root / "captions.csv", "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["file_name"] + [f"caption_{i}" for i in range(1, 6)])
+            for a in audios:
+                caps = [c["caption"] for c in a["captions"][:5]]
+                w.writerow([Path(files[a["audio_id"]]).name] + caps
+                           + [""] * (5 - len(caps)))
+        audio_dir = str(Path(files[audios[0]["audio_id"]]).parent)
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "audiocaption_tpu_torch.cli."
+             "prepare_dataset", "clotho", "--audio_dir", audio_dir,
+             "--caption_csv", str(root / "captions.csv"), "--output_dir",
+             str(root / "cli"), "--no_pack"], capture_output=True, text=True,
+            timeout=300, cwd=str(ROOT))
+        t_cli = time.perf_counter() - t0
+        assert run.returncode == 0, run.stdout[-2000:] + run.stderr[-2000:]
+        prepare_clotho(audio_dir, str(root / "captions.csv"),
+                       str(root / "here"), pack=False)
+        same = all((root / "cli" / n).read_bytes()
+                   == (root / "here" / n).read_bytes()
+                   for n in ("text.json", "vocab.pkl"))
+        text = json.loads((root / "cli" / "text.json").read_text())["audios"]
+        ids = all(t["audio_id"] == hashlib.md5(Path(
+            files[a["audio_id"]]).name.encode()).hexdigest()
+            and [c["caption"] for c in t["captions"]]
+            == [c["caption"] for c in a["captions"][:5]]
+            for t, a in zip(text, audios))
+        tok = DictTokenizer(str(root / "cli" / "vocab.pkl"))
+        log(f"31(g) prepare_dataset clotho --no_pack: {len(text)} clips, "
+            f"vocabulary {len(tok)}, in {t_cli:.1f} s; text.json and "
+            f"vocab.pkl equal to this process's: {same}; ids and captions "
+            f"the corpus's: {ids} on {card}")
+        assert same and ids and len(text) == len(audios) and tok.loaded
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def port_tools_path(api, dev, card):
+    """Phase 31: (f)'s subprocesses start first and run beside (a)-(d) and
+    (g) (``start_parallel``); (f) is read after them, and (e), which
+    times the card, runs last, alone.  -> the log-mel launches of the
+    phase and its parts' seconds."""
+    launches, times = 0, {}
+    t0 = time.perf_counter()
+    jobs = start_parallel(dev)
+    try:
+        times["f start"] = time.perf_counter() - t0
+        for key, fn in (("a", lambda: queue_m_logmel(dev, card)["launches"]),
+                        ("b", lambda: logmel_compute_dtype(dev, card)[
+                            "launches"]),
+                        ("c", lambda: word2vec_path(dev, card) and 0),
+                        ("d", lambda: demo_path(dev, card)),
+                        ("g", lambda: prepare_path(card) or 0)):
+            t0 = time.perf_counter()
+            launches += fn()
+            times[key] = time.perf_counter() - t0
+    except BaseException:
+        import shutil
+        for p in jobs["procs"].values():
+            p.kill()
+            p.wait()
+        shutil.rmtree(jobs["root"], ignore_errors=True)
+        raise
+    t0 = time.perf_counter()
+    launches += finish_parallel(jobs, dev, card)
+    times["f"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flops_path(api, dev, card)
+    times["e"] = time.perf_counter() - t0
+    return launches, times
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6163,6 +6874,16 @@ def main() -> int:
             k["keyword_launches"] = kw["launches"]["fused_logmel"]
     log(f"phase 30: {time.perf_counter() - t0:.1f} s")
 
+    # -- 31. Queue 3 M's batches; host tools, word2vec, the demo, profiling,
+    # the DFT input type, data parallelism, dataset preparation ----------
+    t0 = time.perf_counter()
+    n31, t31 = port_tools_path(api, dev, card)
+    for k in kernels:
+        if k["name"] == "fused_logmel":
+            k["phase31_launches"] = n31
+    log(f"phase 31: {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(f'({p}) {t:.1f} s' for p, t in t31.items())})")
+
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -6172,4 +6893,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        dp_worker(*map(int, sys.argv[2:5]), *sys.argv[5:7])
+        sys.exit(0)
     sys.exit(main())

@@ -8,14 +8,15 @@ torch only, so it also runs where JAX is absent:
 Tolerances: decode tokens exact at the small width; at the flagship
 width at most 1% of tokens may differ (float32 sums in another order can
 flip a near-tie); n-best beam scores of matching sequences within 1e-4;
-log-mel within 1e-3 dB (an FFT against the plain version's dense DFT,
-both float32), and within 0.05-0.1 dB on a wave with an 80 dB range;
+log-mel within 1e-3 dB (the kernel's float64 FFT against the plain
+version's dense float32 DFT), within 0.05-0.1 dB on a wave with an 80 dB
+range, and within 1e-5 dB of a float64 log-mel on quiet bands;
 MBConv within 1e-4 * max(1, max |plain|) (1x1 products in 3xTF32, ~2^-22
 relative a product, and sums in another order than cuDNN's), and in the
 bf16 work dtype within 1e-2 * max(1, max |plain|) of ``mbconv_plain`` in
 bf16 (a bf16 ulp where a float32 sum in another order flips a rounding).
 The decode kernels' bf16 modes: see BF16_BEAM_MODES below.  Every test
-here ran on the card (NVIDIA H100 80GB HBM3, 92 of 92 passing); without
+here ran on the card (NVIDIA H100 80GB HBM3, 95 of 95 passing); without
 a card they skip.
 """
 
@@ -334,6 +335,47 @@ def test_logmel_kernel_wide_dynamic_range(cuda, cfg):
     assert float(ref.min()) < -80.0 and float(ref.max()) > 10.0
     assert float((got.double().cpu() - ref).abs().max()) <= 0.05
     assert float((got - want).abs().max()) <= 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", [1e-3, 1e-4])
+def test_logmel_kernel_holds_quiet_bands_to_float64(cuda, noise):
+    """A loud 5 kHz tone over noise 54 or 74 dB down (ROADMAP Queue 3 M's
+    mechanism): the kernel, which computes in float64, within 1e-5 dB of
+    the float64 log-mel, where the float32 plain version lies 1e-3 to
+    1e-2 dB from it."""
+    front = TF.LogMelFrontend(TF.CNN14_MEL_32K)
+    cfg = front.config
+    t = np.arange(2 * 32000) / 32000
+    wav = torch.from_numpy((0.5 * np.sin(2 * np.pi * 5000 * t) + noise
+                            * np.random.RandomState(0).randn(len(t)))
+                           .astype(np.float32))[None]
+    frames = torch.nn.functional.pad(
+        wav.double()[:, None], (cfg.n_fft // 2,) * 2, mode="reflect")[
+        :, 0].unfold(1, cfg.n_fft, cfg.hop)
+    spec = torch.fft.rfft(frames * torch.hann_window(
+        cfg.n_fft, dtype=torch.float64), dim=-1)
+    ref = FL.amplitude_to_db(spec.abs() ** 2 @ front.mel_fb.double(),
+                             cfg.top_db)
+    front = front.to(cuda)
+    got = FL.fused_logmel(wav.to(cuda), front.basis, front.mel_fb, cfg)
+    plain = FL.fused_logmel_plain(wav.to(cuda), front.basis, front.mel_fb,
+                                  cfg)
+    err = float((got.double().cpu() - ref).abs().max())
+    assert err <= 1e-5
+    assert float((plain.double().cpu() - ref).abs().max()) >= 50 * err
+
+
+@pytest.mark.cuda
+def test_kernel_path_ignores_compute_dtype(cuda):
+    """The JAX Pallas branch takes no ``compute_dtype``; nor does the
+    kernel: a 32 kHz frontend given bf16 gives float32's log-mel."""
+    wav = torch.randn(2, 32000, device=cuda) * 0.1
+    n0 = FL.fused_logmel.launches
+    got = TF.LogMelFrontend(TF.CNN14_MEL_32K,
+                            compute_dtype=torch.bfloat16).to(cuda)(wav)
+    assert FL.fused_logmel.launches == n0 + 1
+    assert torch.equal(got, TF.LogMelFrontend(TF.CNN14_MEL_32K).to(cuda)(wav))
 
 
 @pytest.mark.cuda

@@ -6,9 +6,11 @@ algorithm in PyTorch, against the plain version.
 ``tests/test_torch_logmel.py``.  Tolerances: the bands reproduce the
 dense mel product to float64 rounding (1e-12 relative); the Stockham
 stages compute the DFT to float64 rounding; the twin agrees with the
-plain version within 1e-3 dB, the kernel's own limit on the card (the FFT
-and the dense basis product round differently in float32).  This file
-imports torch only, so it also runs where JAX is absent."""
+plain version within 1e-3 dB, the kernel's own limit on the card (the
+twin, as the kernel, computes in float64, the plain version's dense basis
+product in float32), and on quiet mel bands it stays within 1e-5 dB of a
+float64 log-mel where the plain version does not.  This file imports
+torch only, so it also runs where JAX is absent."""
 
 import math
 
@@ -100,7 +102,12 @@ def test_tables_are_unit_roots_and_the_window():
     assert t.tw.shape == (512, 2)
     np.testing.assert_allclose(t.tw[:257].double(), t.split[0::2].double(),
                                atol=1e-7)
-    np.testing.assert_array_equal(t.window.numpy(), TF.hann_window(1024))
+    assert t.tw.dtype == t.split.dtype == t.window.dtype == torch.float64
+    n = np.arange(1024, dtype=np.float64)
+    np.testing.assert_array_equal(t.window.numpy(),
+                                  0.5 - 0.5 * np.cos(2.0 * math.pi * n / 1024))
+    np.testing.assert_array_equal(t.window.float().numpy(),
+                                  TF.hann_window(1024))
 
 
 @pytest.mark.parametrize("preset,seconds", [
@@ -136,3 +143,37 @@ def test_device_tables_are_built_once_per_table():
     key = (id(fb), 1024)
     del fb
     assert key not in FL._TABLES
+
+
+def _float64_logmel(wav, front):
+    """The log-mel in float64 (``torch.fft.rfft`` of the reflect-padded,
+    windowed frames), as ``chip_smoke.py::float64_logmel``."""
+    cfg = front.config
+    frames = F.pad(wav.double()[:, None], (cfg.n_fft // 2,) * 2,
+                   mode="reflect")[:, 0].unfold(1, cfg.n_fft, cfg.hop)
+    frames = frames * torch.hann_window(cfg.n_fft, dtype=torch.float64)
+    power = torch.fft.rfft(frames, dim=-1).abs() ** 2
+    return FL.amplitude_to_db(power @ front.mel_fb.double(), cfg.top_db)
+
+
+@pytest.mark.parametrize("noise", [1e-3, 1e-4])
+def test_twin_holds_quiet_bands_to_float64(noise):
+    """ROADMAP Queue 3 M's mechanism: a mel band far below its frame (here
+    a loud 5 kHz tone over noise 54 or 74 dB down) carries the FFT's
+    rounding, ~eps * |frame| a bin, which a float32 FFT turns into 1e-3
+    dB and more (the float32 plain version: 9e-4 and 8.5e-3 dB from the
+    float64 log-mel).  The kernel's algorithm, in float64 as the kernel
+    computes since, stays within 1e-5 dB of it (measured 2.7e-6 and
+    3.8e-6), far nearer than the plain version."""
+    front = TF.LogMelFrontend(TF.CNN14_MEL_32K)
+    rng = np.random.RandomState(0)
+    t = np.arange(2 * 32000) / 32000
+    wav = torch.from_numpy((0.5 * np.sin(2 * np.pi * 5000 * t)
+                            + noise * rng.randn(len(t))).astype(np.float32))
+    ref = _float64_logmel(wav[None], front)
+    twin = FL.fft_twin(wav[None], front.mel_fb, front.config).double()
+    plain = FL.fused_logmel_plain(wav[None], front.basis, front.mel_fb,
+                                  front.config).double()
+    assert float((twin - ref).abs().max()) <= 1e-5
+    assert float((plain - ref).abs().max()) >= 50 * float(
+        (twin - ref).abs().max())
