@@ -49,6 +49,7 @@ from audiocaption_tpu_torch.decoding.fused_greedy import (
     decoder_rows_plain, launch_decode, memory_kv, pack_decoder_weights,
     product, reset_launches, round_bf16, vocab_slices)
 from audiocaption_tpu_torch.device import DeviceLike, resolve_device
+from audiocaption_tpu_torch.utils.profiling import span
 
 NEG = -3.0e38        # the TPU kernel's stand-in for float32's lowest value
 MAX_BEAMS = 8        # ACD_KMAX in csrc/decoder_common.cuh; the TPU kernel's K8
@@ -316,12 +317,14 @@ class FusedBeamDecoder:
     def __call__(self, wav: torch.Tensor, wav_len: torch.Tensor,
                  n_best: bool = False):
         enc = self.model.encode(wav.to(self.device), wav_len.to(self.device))
-        memkv, mem_valid = memory_kv(self.model.decoder, enc["attn_emb"],
-                                     enc["attn_emb_len"], self.cache_bf16)
+        with span("ac.decode.memory_kv"):
+            memkv, mem_valid = memory_kv(self.model.decoder, enc["attn_emb"],
+                                         enc["attn_emb_len"], self.cache_bf16)
         sp = self.model.special
-        seq, score = fused_beam_decode(self.packed, memkv, mem_valid,
-                                       self.max_length, self.beam_size,
-                                       sp.bos, sp.eos, sp.pad,
-                                       cache_bf16=self.cache_bf16,
-                                       weights_bf16=self.weights_bf16)
+        with span("ac.decode.search"):
+            seq, score = fused_beam_decode(self.packed, memkv, mem_valid,
+                                           self.max_length, self.beam_size,
+                                           sp.bos, sp.eos, sp.pad,
+                                           cache_bf16=self.cache_bf16,
+                                           weights_bf16=self.weights_bf16)
         return (seq, score) if n_best else seq[:, 0]

@@ -60,6 +60,7 @@ import torch.nn.functional as F
 
 from audiocaption_tpu_torch import cuda_build
 from audiocaption_tpu_torch.device import DeviceLike, resolve_device
+from audiocaption_tpu_torch.utils.profiling import span
 
 MASKED = -1e30
 CACHE_BF16 = 1       # DecodeArgs.mode bits (ACD_CACHE_BF16, ACD_WEIGHTS_BF16)
@@ -756,9 +757,11 @@ class FusedGreedyDecoder:
     @torch.no_grad()
     def decode_enc(self, enc: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Greedy ids [B, max_length] int32 of the encoder's outputs."""
-        memkv, mem_valid = memory_kv(self.model.decoder, enc["attn_emb"],
-                                     enc["attn_emb_len"], self.cache_bf16)
+        with span("ac.decode.memory_kv"):
+            memkv, mem_valid = memory_kv(self.model.decoder, enc["attn_emb"],
+                                         enc["attn_emb_len"], self.cache_bf16)
         sp = self.model.special
-        return fused_greedy_decode(self.packed, memkv, mem_valid,
-                                   self.max_length, sp.bos, sp.eos, sp.pad,
-                                   cache_bf16=self.cache_bf16)
+        with span("ac.decode.search"):
+            return fused_greedy_decode(self.packed, memkv, mem_valid,
+                                       self.max_length, sp.bos, sp.eos,
+                                       sp.pad, cache_bf16=self.cache_bf16)

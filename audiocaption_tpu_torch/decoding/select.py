@@ -29,6 +29,7 @@ from audiocaption_tpu_torch.models.captioner import generate
 from audiocaption_tpu_torch.models.rnn_decoder import TemporalBahAttnDecoder
 from audiocaption_tpu_torch.models.transformer_decoder import (
     TransformerDecoder)
+from audiocaption_tpu_torch.utils.profiling import sync
 
 DecodeFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -123,7 +124,8 @@ def decode_batches(decode: DecodeFn, tokenizer, loader: Iterable[Dict]
                      *tag)
         if seq.dim() == 3:
             seq = seq[:, 0]
-        seq = seq.cpu().numpy()
+        with sync("decode_batches"):
+            seq = seq.cpu().numpy()
         seqs.append(seq)
         for aid, cap in zip(batch["audio_id"], tokenizer.decode(seq)):
             key2pred.setdefault(aid, [cap])

@@ -46,6 +46,7 @@ from audiocaption_tpu_torch.models.sed import (
     Cnn8RnnSedModel, framewise_to_temporal_tags)
 from audiocaption_tpu_torch.models.zoo import (
     cnn14rnn_tempgru, effb2_trm, random_init)
+from audiocaption_tpu_torch.utils.profiling import sync
 
 
 def pad_bucket(audio: np.ndarray, sample_rate: int,
@@ -152,7 +153,9 @@ class Effb2TrmCaptioningModel:
         seq = self.decode(torch.from_numpy(audio), lens,
                           sample_method=sample_method, beam_size=beam_size,
                           max_length=max_length, temp=temp)
-        return seq.cpu().numpy().astype(np.int32)
+        with sync("api_tokens"):
+            seq = seq.cpu()
+        return seq.numpy().astype(np.int32)
 
 
 @dataclasses.dataclass
@@ -234,7 +237,9 @@ class Cnn14RnnTempAttnGruModel:
     def sed_tags(self, lms: torch.Tensor) -> np.ndarray:
         """Log-mel -> SED temporal tag per clip [B] (host numpy)."""
         framewise = self.model.sed_model(lms)["framewise_output"]
-        return framewise_to_temporal_tags(framewise.cpu().numpy())
+        with sync("sed_tags"):
+            framewise = framewise.cpu()
+        return framewise_to_temporal_tags(framewise.numpy())
 
     @torch.no_grad()
     def decode_lms(self, lms: torch.Tensor, audio_length, temporal_tag=None,
@@ -262,4 +267,6 @@ class Cnn14RnnTempAttnGruModel:
                               sample_method=sample_method,
                               beam_size=beam_size, max_length=max_length,
                               temp=temp)
-        return seq.cpu().numpy().astype(np.int32)
+        with sync("api_tokens"):
+            seq = seq.cpu()
+        return seq.numpy().astype(np.int32)

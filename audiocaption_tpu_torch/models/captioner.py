@@ -60,6 +60,7 @@ from audiocaption_tpu_torch.models.rnn_decoder import RnnDecoder
 from audiocaption_tpu_torch.ops.frontend import LogMelFrontend, MelConfig
 from audiocaption_tpu_torch.ops.masking import mean_with_lens
 from audiocaption_tpu_torch.ops.specaug import spec_augment
+from audiocaption_tpu_torch.utils.profiling import span
 
 
 class Captioner(nn.Module):
@@ -93,7 +94,8 @@ class Captioner(nn.Module):
                specaug_rows: Optional[Tuple[int, int]] = None
                ) -> Dict[str, torch.Tensor]:
         if self.input_mode != "mel":
-            return self.encoder(wav, wav_len)
+            with span("ac.encoder"):
+                return self.encoder(wav, wav_len)
         return self.encode_lms(self.log_mel(wav, specaug, specaug_generator,
                                             specaug_rows),
                                self.mel.feat_len(wav_len))
@@ -105,7 +107,7 @@ class Captioner(nn.Module):
         """The frontend's log-mel, without autograd; with ``specaug`` in
         ``train()`` mode, SpecAugment's stripes dropped (``specaug_rows``:
         the batch's rows of a global batch, ``ops/specaug.py``)."""
-        with torch.no_grad():
+        with span("ac.frontend"), torch.no_grad():
             lms = self.frontend(wav)
             if specaug and self.training:
                 lms = spec_augment(lms, specaug_generator,
@@ -116,7 +118,8 @@ class Captioner(nn.Module):
                    ) -> Dict[str, torch.Tensor]:
         """Encode a log-mel computed elsewhere (the temporal model computes
         it once for its SED branch and its captioner)."""
-        return self.encoder(lms, feat_len)
+        with span("ac.encoder"):
+            return self.encoder(lms, feat_len)
 
     def forward(self, wav: torch.Tensor, wav_len: torch.Tensor,
                 cap: torch.Tensor, cap_len: torch.Tensor,
@@ -170,16 +173,18 @@ class Captioner(nn.Module):
                                      Lc - 1)
         prev = torch.full((B,), sp.bos, dtype=torch.long, device=cap.device)
         steps = []
-        for t in range(Lc - 1):
-            teacher = ss_coin(ss_ratio, generator)
-            hidden, dyn = dec.step_hidden(prev, t, static, dyn,
-                                          is_pad_t=prev == sp.pad)
-            if teacher:
-                logit_t, embed_t = t_out["logit"][:, t], t_out["embed"][:, t]
-            else:
-                logit_t, embed_t = dec.logits(hidden), hidden
-            prev, step = _greedy_pick(logit_t, embed_t)
-            steps.append(step)
+        with span("ac.ss_loop"):
+            for t in range(Lc - 1):
+                teacher = ss_coin(ss_ratio, generator)
+                hidden, dyn = dec.step_hidden(prev, t, static, dyn,
+                                              is_pad_t=prev == sp.pad)
+                if teacher:
+                    logit_t = t_out["logit"][:, t]
+                    embed_t = t_out["embed"][:, t]
+                else:
+                    logit_t, embed_t = dec.logits(hidden), hidden
+                prev, step = _greedy_pick(logit_t, embed_t)
+                steps.append(step)
         return _stack_steps(steps)
 
     def _ss_forward_rnn(self, enc: Dict[str, torch.Tensor],
@@ -200,12 +205,13 @@ class Captioner(nn.Module):
         forced = isinstance(ss_ratio, float) and ss_ratio == 1.0
         prev = torch.full((B,), sp.bos, dtype=torch.long, device=cap.device)
         steps = []
-        for t in range(Lc - 1):
-            word = cap[:, t] if forced or ss_coin(ss_ratio, generator) \
-                else prev
-            logit_t, dyn = dec.step(word, t, static, dyn)
-            prev, step = _greedy_pick(logit_t, dyn["state"][:, -1])
-            steps.append(step)
+        with span("ac.ss_loop"):
+            for t in range(Lc - 1):
+                word = cap[:, t] if forced or ss_coin(ss_ratio, generator) \
+                    else prev
+                logit_t, dyn = dec.step(word, t, static, dyn)
+                prev, step = _greedy_pick(logit_t, dyn["state"][:, -1])
+                steps.append(step)
         return _stack_steps(steps)
 
 

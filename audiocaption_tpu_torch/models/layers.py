@@ -32,6 +32,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
+from audiocaption_tpu_torch.utils.profiling import sync
+
 NEG_MASK = float(torch.finfo(torch.float32).min)
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -433,11 +435,15 @@ class GRU(nn.GRU):
         if lens is None:
             return super().forward(x)[0]
         T = x.shape[1]
-        lens_cpu = lens.detach().to("cpu", torch.int64).clamp(max=T)
+        # packing needs the lengths on the host: the one device read here
+        with sync("gru_lengths"):
+            lens_cpu = lens.detach().to("cpu", torch.int64)
+        lens_cpu = lens_cpu.clamp(max=T)
+        valid = lens_cpu > 0
         packed = pack_padded_sequence(x, lens_cpu.clamp(min=1),
                                       batch_first=True, enforce_sorted=False)
         out, _ = pad_packed_sequence(super().forward(packed)[0],
                                      batch_first=True, total_length=T)
-        if bool((lens_cpu <= 0).any()):
-            out = out * (lens_cpu > 0).to(out.device, out.dtype)[:, None, None]
+        if not bool(valid.all()):
+            out = out * valid.to(out.device, out.dtype)[:, None, None]
         return out

@@ -18,6 +18,11 @@ decode per batch:
 
 Backpressure: ``submit`` blocks once ``max_queue`` clips are waiting.
 
+Counters and spans, for an operator: ``MicroBatchServer``'s docstring
+names the counters; the collector opens ``ac.serve.pad`` and
+``ac.serve.dispatch`` and the resolver ``ac.serve.resolve``
+(``utils/profiling.py::span``), seen in a ``utils.profiling.trace``.
+
 Wire formats shrink the waveform on the submitting thread; the decode
 side dequantizes on the device: ``"f32"`` (4 B/sample, lossless),
 ``"f16"`` (2 B), ``"i16"`` (2 B, lossless for 16-bit PCM), ``"mulaw"``
@@ -36,6 +41,7 @@ import numpy as np
 import torch
 
 from audiocaption_tpu_torch.device import DeviceLike, resolve_device
+from audiocaption_tpu_torch.utils.profiling import span
 
 __all__ = ["MicroBatchServer", "encode_wire", "decode_wire_device",
            "wire_dtype", "wire_decoder"]
@@ -100,6 +106,10 @@ def wire_decoder(decode_fn: Callable, wire: str = "f32",
     return wrapped
 
 
+# a submitted clip in its wire format, its future and its submit time
+Request = Tuple[np.ndarray, Future, float]
+
+
 def _default_buckets(max_batch: int) -> Tuple[int, ...]:
     out, b = [], 1
     while b < max_batch:
@@ -140,6 +150,17 @@ class MicroBatchServer:
         waveform wire format (module docstring).
     max_inflight:
         outstanding-dispatch window; 1 serializes.
+
+    Counters, over the batches dispatched without error (read them from
+    any thread; the collector alone writes them):
+
+    * ``dispatched_batches``: batched decodes;
+    * ``served_requests``: requests in them;
+    * ``padded_rows``: rows of padding, the bucket size minus the
+      requests, summed; the batch fill is
+      ``served_requests / (served_requests + padded_rows)``;
+    * ``queue_wait_s``: seconds from ``submit`` to dispatch, summed; the
+      mean queue wait is ``queue_wait_s / served_requests``.
     """
 
     def __init__(self, decode_fn: Callable, *, max_batch: int = 128,
@@ -160,6 +181,9 @@ class MicroBatchServer:
             batch_buckets or _default_buckets(self.max_batch))))
         assert self.buckets[-1] == self.max_batch
         self.dispatched_batches = 0
+        self.served_requests = 0
+        self.padded_rows = 0
+        self.queue_wait_s = 0.0
         # wire encoding of silence (mulaw's zero is not the zero byte)
         self._pad = encode_wire(np.zeros(1, np.float32), self.wire)[0]
         self._pending: "queue.Queue" = queue.Queue(maxsize=max_queue)
@@ -178,7 +202,7 @@ class MicroBatchServer:
         """Enqueue one clip; returns a Future of its token row."""
         fut: Future = Future()
         wav = encode_wire(np.asarray(wav).ravel(), self.wire)
-        self._pending.put((wav, fut))
+        self._pending.put((wav, fut, time.perf_counter()))
         return fut
 
     def stop(self, timeout: float = 30.0) -> None:
@@ -201,7 +225,7 @@ class MicroBatchServer:
                 first = self._pending.get(timeout=0.05)
             except queue.Empty:
                 continue
-            batch: List[Tuple[np.ndarray, Future]] = [first]
+            batch: List[Request] = [first]
             deadline = time.perf_counter() + self.max_wait
             while len(batch) < self.max_batch:
                 left = deadline - time.perf_counter()
@@ -218,7 +242,7 @@ class MicroBatchServer:
                     except queue.Empty:
                         break
             self._dispatch(batch)
-        leftover: List[Tuple[np.ndarray, Future]] = []
+        leftover: List[Request] = []
         while True:
             try:
                 leftover.append(self._pending.get_nowait())
@@ -228,26 +252,33 @@ class MicroBatchServer:
             self._slots.acquire()
             self._dispatch(leftover[i:i + self.max_batch])
 
-    def _dispatch(self, batch: List[Tuple[np.ndarray, Future]]) -> None:
+    def _dispatch(self, batch: List[Request]) -> None:
         """Dispatch one batch.  Caller holds a ``_slots`` permit; the
         resolver releases it (or this method, on a dispatch error)."""
+        now = time.perf_counter()
         n = len(batch)
         bucket = next(b for b in self.buckets if b >= n)
-        wav = np.full((bucket, self.max_samples), self._pad, self._wire_np)
-        lens = np.ones(bucket, np.int32)
-        for i, (w, _) in enumerate(batch):
-            w = w[:self.max_samples]
-            wav[i, :w.shape[0]] = w
-            lens[i] = max(1, w.shape[0])
+        with span("ac.serve.pad"):
+            wav = np.full((bucket, self.max_samples), self._pad,
+                          self._wire_np)
+            lens = np.ones(bucket, np.int32)
+            for i, (w, _, _) in enumerate(batch):
+                w = w[:self.max_samples]
+                wav[i, :w.shape[0]] = w
+                lens[i] = max(1, w.shape[0])
         try:
-            out = self._decode(wav, lens)
+            with span("ac.serve.dispatch"):
+                out = self._decode(wav, lens)
         except Exception as e:              # resolve errors per request
             self._slots.release()
-            for _, fut in batch:
+            for _, fut, _ in batch:
                 fut.set_exception(e)
             return
         self.dispatched_batches += 1
-        self._inflight.put((out, [f for _, f in batch]))
+        self.served_requests += n
+        self.padded_rows += bucket - n
+        self.queue_wait_s += sum(now - t for _, _, t in batch)
+        self._inflight.put((out, [f for _, f, _ in batch]))
 
     def _resolve_loop(self) -> None:
         while True:
@@ -256,7 +287,8 @@ class MicroBatchServer:
                 return
             out, futs = item
             try:
-                tokens = _to_host(out)
+                with span("ac.serve.resolve"):
+                    tokens = _to_host(out)
             except Exception as e:
                 self._slots.release()
                 for fut in futs:

@@ -46,6 +46,7 @@ from torch import nn
 
 from audiocaption_tpu_torch.data.device_bank import bank_rows
 from audiocaption_tpu_torch.optim.schedules import Schedule, lambda_lr
+from audiocaption_tpu_torch.utils.profiling import span, sync
 
 
 @dataclasses.dataclass
@@ -155,50 +156,57 @@ def train_step(state: TrainState, loss_fn: Callable[[Dict], torch.Tensor],
     the forward and loss ("forward"), the backward and clip ("backward")
     and the optimizer ("optimizer"), for the caller's timers.
     ``parallel``: a ``parallel.mesh.ParallelContext`` when ``batch`` is
-    this rank's slice of a global batch (see the module docstring)."""
-    batch = batch_wav(batch)
-    model = state.model
-    model.train()
-    buffers = bn_buffers(model)
-    saved = [b.clone() for b in buffers]
-    state.optimizer.zero_grad(set_to_none=True)
-    tag = ({"temporal_tag": batch["temporal_tag"]}
-           if "temporal_tag" in batch else {})
-    cond = {k: batch[k] for k in COND_KEYS if k in batch}
-    if "keyword" in batch:
-        cond["event"] = batch["keyword"]
-    rows = None if parallel is None else parallel.rows(len(batch["cap"]))
-    out = model(batch["wav"], batch["wav_len"], batch["cap"],
-                batch["cap_len"], ss_ratio=ss_ratio, generator=generator,
-                specaug=specaug, specaug_generator=specaug_generator,
-                cond_kwargs=cond, specaug_rows=rows, **tag)
-    out["tgt"] = batch["cap"][:, 1:]
-    out["tgt_len"] = batch["cap_len"] - 1
-    if "condition" in batch:
-        out["conditions"] = batch["condition"]
-    if parallel is not None:
-        out["count_sum"], out["rows"] = parallel.sum, rows
-    loss = loss_fn(out)
-    mark_part(mark, "forward")
-    loss.backward()
-    zero_unreached_grads(state.params)
-    if parallel is not None:
-        parallel.reduce_grads(state.params)
-        loss = parallel.sum(loss)
-    # the raw norm; the gradients are clipped in place (a non-finite norm
-    # leaves them non-finite, and they are then dropped)
-    grad_norm = clip_grad_norm(state.params, state.max_grad_norm,
-                               parallel=parallel)
-    mark_part(mark, "backward")
-    ok = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
-    if ok:
-        state.optimizer.step()
-        state.scheduler.step()
-    else:
+    this rank's slice of a global batch (see the module docstring).
+    Its parts are the spans ``ac.train.forward``, ``ac.train.backward``
+    and ``ac.train.optimizer`` (``utils/profiling.py``), at the ``mark``
+    boundaries; the host's one wait is ``ac.sync.finite_check``."""
+    with span("ac.train.forward"):
+        batch = batch_wav(batch)
+        model = state.model
+        model.train()
+        buffers = bn_buffers(model)
+        saved = [b.clone() for b in buffers]
         state.optimizer.zero_grad(set_to_none=True)
-        with torch.no_grad():
-            for b, s in zip(buffers, saved):
-                b.copy_(s)
+        tag = ({"temporal_tag": batch["temporal_tag"]}
+               if "temporal_tag" in batch else {})
+        cond = {k: batch[k] for k in COND_KEYS if k in batch}
+        if "keyword" in batch:
+            cond["event"] = batch["keyword"]
+        rows = None if parallel is None else parallel.rows(len(batch["cap"]))
+        out = model(batch["wav"], batch["wav_len"], batch["cap"],
+                    batch["cap_len"], ss_ratio=ss_ratio, generator=generator,
+                    specaug=specaug, specaug_generator=specaug_generator,
+                    cond_kwargs=cond, specaug_rows=rows, **tag)
+        out["tgt"] = batch["cap"][:, 1:]
+        out["tgt_len"] = batch["cap_len"] - 1
+        if "condition" in batch:
+            out["conditions"] = batch["condition"]
+        if parallel is not None:
+            out["count_sum"], out["rows"] = parallel.sum, rows
+        loss = loss_fn(out)
+    mark_part(mark, "forward")
+    with span("ac.train.backward"):
+        loss.backward()
+        zero_unreached_grads(state.params)
+        if parallel is not None:
+            parallel.reduce_grads(state.params)
+            loss = parallel.sum(loss)
+        # the raw norm; the gradients are clipped in place (a non-finite
+        # norm leaves them non-finite, and they are then dropped)
+        grad_norm = clip_grad_norm(state.params, state.max_grad_norm,
+                                   parallel=parallel)
+    mark_part(mark, "backward")
+    with span("ac.train.optimizer"):
+        with sync("finite_check"):
+            ok = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
+        if ok:
+            state.optimizer.step()
+            state.scheduler.step()
+        else:
+            state.optimizer.zero_grad(set_to_none=True)
+            with torch.no_grad():
+                for b, s in zip(buffers, saved):
+                    b.copy_(s)
     mark_part(mark, "optimizer")
     return {"loss": loss.detach(), "grad_norm": grad_norm.detach(),
             "skipped": not ok}

@@ -1,10 +1,12 @@
 """Profiling helpers (counterpart of ``audiocaption_tpu/utils/profiling.py``):
 
+  * ``span`` and ``sync``: the program's own named ranges on its hot
+    path (``ac.*``), recorded only while a ``torch.profiler`` session
+    records, and free otherwise (one flag read, no ``record_function``);
   * ``host_rss_gb``: the host's resident-set size, logged in the runner's
     epoch lines;
   * ``trace``: a ``torch.profiler`` trace of the host and the card, as a
-    Chrome trace file (TensorBoard or chrome://tracing);
-  * ``StepTimer``: step time, its moving average and items per second;
+    Chrome trace file (TensorBoard or chrome://tracing), with the spans;
   * ``flops_estimate``: the FLOPs and bytes of one call of a function;
   * ``device_peak_flops`` and ``mfu``: model FLOPs utilisation against the
     card's dense bf16 rate.
@@ -13,13 +15,44 @@
 from __future__ import annotations
 
 import contextlib
-import time
 from pathlib import Path
 from typing import Callable, Dict, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
+
+
+_OFF = contextlib.nullcontext()
+
+
+def recording() -> bool:
+    """Whether a ``torch.profiler`` (or ``torch.autograd.profiler``)
+    session records: the module flag torch sets at a session's start and
+    clears at its end, read in about 0.1 us, where a ``record_function``
+    costs about 12 us even with no session (torch 2.13, CPU); torch's own
+    query where the flag is absent."""
+    flag = getattr(_autograd_profiler, "_is_profiler_enabled", None)
+    return torch.autograd._profiler_enabled() if flag is None else flag
+
+
+def span(name: str):
+    """A context manager around one part of the program's work: a
+    ``torch.profiler.record_function(name)`` range (a user annotation on
+    the profiler's clock, to which the card's work launched inside it is
+    tied by launch correlation) while a session records, else a shared
+    no-op.  Names start with ``ac.``; a span never nests inside one of
+    its own name."""
+    if not recording():
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def sync(site: str):
+    """``span("ac.sync." + site)``: around a deliberate device-to-host
+    read, whose span then lasts as long as the host waited for the card."""
+    return span("ac.sync." + site)
 
 
 def host_rss_gb() -> float:
@@ -39,35 +72,30 @@ def host_rss_gb() -> float:
 @contextlib.contextmanager
 def trace(logdir: str):
     """A ``torch.profiler`` trace (host, and the card where there is one)
-    of the block, written to ``logdir/trace.json`` at its end."""
+    of the block, written to ``logdir/trace.json`` at its end: the
+    operator's way to see the program's spans (:func:`span`), each
+    beside the card's work launched inside it.  Every thread is recorded
+    where torch can (``MicroBatchServer``'s collector and resolver open
+    their spans on their own threads)."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     Path(logdir).mkdir(parents=True, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, **_all_threads()) as prof:
         yield prof
     prof.export_chrome_trace(str(Path(logdir) / "trace.json"))
 
 
-class StepTimer:
-    """Host-clock step timer with an exponential moving average.  Time a
-    step on the card only around work that ends in a synchronise."""
-
-    def __init__(self, ema: float = 0.9):
-        self.ema = ema
-        self.avg: Optional[float] = None
-        self._t0: Optional[float] = None
-
-    def start(self):
-        self._t0 = time.perf_counter()
-
-    def stop(self, items: int = 1) -> Dict[str, float]:
-        dt = time.perf_counter() - self._t0
-        self.avg = dt if self.avg is None else \
-            self.ema * self.avg + (1 - self.ema) * dt
-        return {"step_time_s": dt, "step_time_ema_s": self.avg,
-                "items_per_sec": items / max(dt, 1e-9)}
+def _all_threads() -> Dict:
+    """``torch.profiler.profile``'s keyword that records the spans of
+    every thread, not only of those that started the session (and
+    autograd's), or nothing where this torch lacks it."""
+    try:
+        return {"experimental_config": torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)}
+    except (AttributeError, TypeError):
+        return {}
 
 
 class _BytesCounter(TorchDispatchMode):

@@ -16,7 +16,7 @@ relative a product, and sums in another order than cuDNN's), and in the
 bf16 work dtype within 1e-2 * max(1, max |plain|) of ``mbconv_plain`` in
 bf16 (a bf16 ulp where a float32 sum in another order flips a rounding).
 The decode kernels' bf16 modes: see BF16_BEAM_MODES below.  Every test
-here ran on the card (NVIDIA H100 80GB HBM3, 95 of 95 passing); without
+here ran on the card (NVIDIA H100 80GB HBM3, 96 of 96 passing); without
 a card they skip.
 """
 
@@ -1162,3 +1162,38 @@ def test_item8_encoder_card_matches_cpu(cuda, name):
         assert bool(torch.isfinite(g).all()), k
         err = float((g.double() - w.double()).abs().max())
         assert err <= 1e-3 * max(1.0, float(w.abs().max())), (k, err)
+
+
+@pytest.mark.cuda
+def test_decode_search_span_holds_the_beam_kernel_alone(cuda):
+    """Under the benchmark's profiler (``benchmark/harness/trace.py``) a
+    ``FusedBeamDecoder`` call of the flagship (seeded weights, 2 clips of
+    2 s) ties the beam kernel, and nothing else, to its
+    ``ac.decode.search`` span, and the memory K/V products to
+    ``ac.decode.memory_kv``."""
+    import sys
+    from pathlib import Path
+    bench = str(Path(__file__).resolve().parent.parent / "benchmark")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    from harness.trace import Spans, profile
+    from audiocaption_tpu_torch.models.zoo import effb2_trm
+    model = random_init(effb2_trm(vocab_size=4981),
+                        torch.Generator().manual_seed(4)).to(cuda).eval()
+    dec = TB.FusedBeamDecoder(model, beam_size=3, device=cuda)
+    wav = torch.randn(2, 32000, generator=torch.Generator().manual_seed(
+        5)).to(cuda) * 0.1
+    wav_len = torch.full((2,), 32000, dtype=torch.long, device=cuda)
+    dec(wav, wav_len)
+    torch.cuda.synchronize()
+    holder = {}
+    with profile(Spans(False), holder):
+        dec(wav, wav_len)
+    tr = holder["trace"]
+    beam = sum(min(e, tr.t1) - max(s, tr.t0) for s, e, name, _ in tr.device
+               if "fused_beam_kernel" in name) / 1e9
+    assert beam > 0
+    assert tr.device_s("ac.decode.search") == pytest.approx(beam, rel=1e-9)
+    assert tr.device_s("ac.decode.memory_kv") > 0
+    assert tr.span_count("ac.decode.search") == 1
+    assert tr.span_count("ac.decode.memory_kv") == 1

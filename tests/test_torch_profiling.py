@@ -7,7 +7,7 @@ convolution and the linear layer), and within 3% of the JAX package's
 counts the elementwise work (the bias adds and the ReLU, here 1.2% of
 the products) where ``FlopCounterMode`` counts the products alone.
 ``bytes_accessed`` counts each operation's operands and result once.
-``StepTimer``, ``mfu``, ``device_peak_flops`` (None on the CPU and for a
+``mfu``, ``device_peak_flops`` (None on the CPU and for a
 card not in its table, the H100 SXM's dense bf16 rate for that card),
 ``host_rss_gb`` and ``trace`` as specified."""
 
@@ -76,20 +76,6 @@ def test_flops_estimate_agrees_with_jax():
 def test_flops_estimate_is_minus_one_where_nothing_counts():
     est = P.flops_estimate(lambda: None)
     assert est == {"flops": -1.0, "bytes_accessed": -1.0}
-
-
-def test_step_timer():
-    t = P.StepTimer(ema=0.5)
-    t.start()
-    first = t.stop(items=4)
-    assert first["step_time_s"] > 0 and first["step_time_ema_s"] == \
-        first["step_time_s"]
-    assert first["items_per_sec"] == pytest.approx(
-        4 / first["step_time_s"])
-    t.start()
-    second = t.stop()
-    assert second["step_time_ema_s"] == pytest.approx(
-        0.5 * first["step_time_s"] + 0.5 * second["step_time_s"])
 
 
 def test_peak_and_mfu(monkeypatch):
