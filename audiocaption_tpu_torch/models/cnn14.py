@@ -60,6 +60,14 @@ class Cnn14Encoder(nn.Module):
         self.fc1 = Linear(CHANNELS[-1], fc_emb_size, compute_dtype=cd)
         self.fc_emb_size = fc_emb_size
 
+    @classmethod
+    def out_len(cls, feat_len: torch.Tensor) -> torch.Tensor:
+        """The frames left of ``feat_len`` by the pooling, ``feat_len //
+        downsample_ratio``, on the card or the host: the one rule for
+        ``attn_emb_len`` and for the lengths a GRU after it packs by."""
+        return torch.div(feat_len, cls.downsample_ratio,
+                         rounding_mode="floor")
+
     def forward(self, lms: torch.Tensor, feat_len: torch.Tensor
                 ) -> Dict[str, torch.Tensor]:
         x = batch_norm_mels(self.bn0, lms, self.compute_dtype)  # [B,1,T,M]
@@ -69,8 +77,7 @@ class Cnn14Encoder(nn.Module):
                         "avg")
             x = F.dropout(x, 0.2, self.training)
         attn_emb = widen(x.mean(dim=3).transpose(1, 2))   # [B, T', 2048]
-        out_len = torch.div(feat_len, self.downsample_ratio,
-                            rounding_mode="floor")
+        out_len = self.out_len(feat_len)
         return {"fc_emb": pooled_fc(attn_emb, out_len, self.fc1,
                                     self.training),
                 "attn_emb": attn_emb,

@@ -24,13 +24,13 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+from torch.nn.utils.rnn import PackedSequence
 
 from audiocaption_tpu_torch.utils.profiling import sync
 
@@ -405,6 +405,72 @@ def batch_norm_mels(bn: nn.BatchNorm2d, lms: torch.Tensor,
     return narrow(x[..., 0].transpose(1, 2)[:, None], compute_dtype)
 
 
+class HostLengths:
+    """A GRU's lengths brought to the host ahead of need.
+
+    ``HostLengths(lens, rule)`` is made where ``lens`` first exists on the
+    card, before the launches the GRU does not depend on (a Cnn14): it
+    starts a non-blocking copy of ``lens`` into pinned host memory and
+    records a CUDA event behind it, so the copy completes with the work
+    queued before it and not with what is launched after.  :meth:`wait`
+    waits for that event alone and returns ``rule(lens)`` on the host as
+    int64 (``rule`` maps the lengths to the GRU's, e.g. the Cnn14's
+    :meth:`~audiocaption_tpu_torch.models.cnn14.Cnn14Encoder.out_len`).
+    A host ``lens`` (a data loader's) needs neither copy nor wait."""
+
+    def __init__(self, lens: torch.Tensor,
+                 rule: Optional[Callable[[torch.Tensor],
+                                         torch.Tensor]] = None):
+        self.rule, self.ready = rule, None
+        lens = lens.detach()
+        if lens.device.type == "cuda":
+            host = torch.empty(lens.shape, dtype=lens.dtype, pin_memory=True)
+            host.copy_(lens, non_blocking=True)
+            self.ready = torch.cuda.Event()
+            self.ready.record(torch.cuda.current_stream(lens.device))
+            lens = host
+        self.lens = lens
+
+    def wait(self) -> torch.Tensor:
+        if self.ready is not None:
+            self.ready.synchronize()
+        lens = self.lens if self.rule is None else self.rule(self.lens)
+        return lens.to(torch.int64)
+
+
+def _upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on ``device`` without a blocking copy: from pinned
+    memory, ``non_blocking`` (a blocking host-to-card copy waits for the
+    whole stream)."""
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def pack_rows(x: torch.Tensor, lens_cpu: torch.Tensor) -> PackedSequence:
+    """``pack_padded_sequence(x, lens_cpu, batch_first=True,
+    enforce_sorted=False)`` for host int64 lengths >= 1: its sort, its
+    ops and its result, bit for bit, without its blocking copy of the sort
+    permutation to the card (the permutation and its inverse go up
+    together from pinned memory)."""
+    sorted_lens, order = torch.sort(lens_cpu, descending=True)
+    inverse = torch.empty_like(order).scatter_(0, order,
+                                               torch.arange(len(order)))
+    order, inverse = _upload(torch.stack([order, inverse]), x.device)
+    data, batch_sizes = torch._pack_padded_sequence(
+        x.index_select(0, order), sorted_lens, True)
+    return PackedSequence(data, batch_sizes, order, inverse)
+
+
+def unpack_rows(packed: PackedSequence, total_length: int) -> torch.Tensor:
+    """``pad_packed_sequence(packed, batch_first=True,
+    total_length=total_length)[0]`` without its blocking read of the
+    unsort permutation (for the lengths it also returns)."""
+    out = torch._pad_packed_sequence(packed.data, packed.batch_sizes, True,
+                                     0.0, total_length)[0]
+    return out.index_select(0, packed.unsorted_indices)
+
+
 class GRU(nn.GRU):
     """``nn.GRU`` (batch first) whose ``forward(x, lens)`` has the
     pack-padded semantics of the reference encoders: each row runs over its
@@ -413,6 +479,20 @@ class GRU(nn.GRU):
     of length 0 gives zeros, as the JAX package's masked scan does
     (``pack_padded_sequence`` itself refuses a length of 0).  Without
     ``lens`` every row runs over the whole padded length.
+
+    Packing needs the lengths on the host.  Where they come from:
+    :class:`HostLengths` (``Cnn14RnnEncoder``'s, copied before the Cnn14
+    runs), waited for inside ``sync("gru_lengths")``; else a tensor, read
+    to the host here inside ``sync("gru_lengths_read")`` (``RnnEncoder``
+    in features mode, ``HmClassifier``), which on the card waits for
+    everything queued before it.  The two spans count the calls of each
+    path.  The sequence is packed and unpacked by :func:`pack_rows` /
+    :func:`unpack_rows`, the ops of ``pack_padded_sequence`` /
+    ``pad_packed_sequence`` (so the packed data, ``batch_sizes``, row
+    order, cuDNN's dropout masks, outputs and gradients are theirs, bit
+    for bit), but not through them: they copy the sort permutation to
+    the card and the lengths back with blocking copies, each a wait for
+    the whole stream.
 
     Its dtype is its input's, as in the JAX package (``h0`` takes
     ``x.dtype`` and ``x @ w_ih`` promotes to the float32 weights).  Both
@@ -429,21 +509,23 @@ class GRU(nn.GRU):
                          bidirectional=bidirectional, batch_first=True,
                          dropout=dropout if num_layers > 1 else 0.0)
 
-    def forward(self, x: torch.Tensor, lens: Optional[torch.Tensor] = None
+    def forward(self, x: torch.Tensor,
+                lens: Union[torch.Tensor, HostLengths, None] = None
                 ) -> torch.Tensor:
         """x [B, T, I] -> out [B, T, H * directions]."""
         if lens is None:
             return super().forward(x)[0]
+        if isinstance(lens, HostLengths):
+            with sync("gru_lengths"):
+                lens_cpu = lens.wait()
+        else:
+            with sync("gru_lengths_read"):
+                lens_cpu = lens.detach().to("cpu", torch.int64)
         T = x.shape[1]
-        # packing needs the lengths on the host: the one device read here
-        with sync("gru_lengths"):
-            lens_cpu = lens.detach().to("cpu", torch.int64)
         lens_cpu = lens_cpu.clamp(max=T)
+        out = unpack_rows(super().forward(
+            pack_rows(x, lens_cpu.clamp(min=1)))[0], T)
         valid = lens_cpu > 0
-        packed = pack_padded_sequence(x, lens_cpu.clamp(min=1),
-                                      batch_first=True, enforce_sorted=False)
-        out, _ = pad_packed_sequence(super().forward(packed)[0],
-                                     batch_first=True, total_length=T)
         if not bool(valid.all()):
-            out = out * valid.to(out.device, out.dtype)[:, None, None]
+            out = out * _upload(valid.to(out.dtype), out.device)[:, None, None]
         return out

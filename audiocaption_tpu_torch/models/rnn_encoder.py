@@ -6,6 +6,14 @@ The GRU has the reference's pack-padded semantics (``layers.GRU``); its
 parameters keep ``nn.GRU``'s names under ``network``, so the reference key
 space ``encoder.rnn.network.weight_ih_l{k}[_reverse]`` loads as it is.
 
+Packing needs the GRU's lengths on the host.  ``Cnn14RnnEncoder`` starts
+their copy before the Cnn14 runs (``layers.HostLengths``: ``feat_len``
+copied without blocking, mapped by ``Cnn14Encoder.out_len``), so the GRU
+waits, in ``ac.sync.gru_lengths``, for the work queued before the call
+and not for the Cnn14; the host goes on launching while the Cnn14 runs.
+``RnnEncoder`` alone (features mode) hands the GRU its device lengths,
+which the GRU reads itself (``ac.sync.gru_lengths_read``).
+
 ``compute_dtype`` is the Cnn14's only, as in the JAX package: the Cnn14
 hands the GRU a float32 ``attn_emb``, so the BiGRU runs in float32 in
 both modes (see ``layers.GRU``).
@@ -13,13 +21,13 @@ both modes (see ``layers.GRU``).
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from audiocaption_tpu_torch.models.cnn14 import Cnn14Encoder
-from audiocaption_tpu_torch.models.layers import GRU
+from audiocaption_tpu_torch.models.layers import GRU, HostLengths
 from audiocaption_tpu_torch.ops.masking import max_with_lens, mean_with_lens
 
 
@@ -54,9 +62,12 @@ class RnnEncoder(nn.Module):
         self.out_size = self.fc_emb_size = hidden_size * (2 if bidirectional
                                                           else 1)
 
-    def forward(self, attn: torch.Tensor, attn_len: torch.Tensor
+    def forward(self, attn: torch.Tensor, attn_len: torch.Tensor,
+                host_len: Optional[HostLengths] = None
                 ) -> Dict[str, torch.Tensor]:
-        out = self.network(attn, attn_len)
+        """``host_len``: ``attn_len`` brought to the host ahead of need,
+        which the GRU packs by; without it the GRU reads ``attn_len``."""
+        out = self.network(attn, attn_len if host_len is None else host_len)
         return {"attn_emb": out,
                 "fc_emb": embedding_pooling(out, attn_len, self.pooling),
                 "attn_emb_len": attn_len}
@@ -92,8 +103,11 @@ class Cnn14RnnEncoder(nn.Module):
 
     def forward(self, lms: torch.Tensor, feat_len: torch.Tensor
                 ) -> Dict[str, torch.Tensor]:
+        # before any Cnn14 launch: the GRU then waits for the work queued
+        # before this call, not for the Cnn14
+        host_len = HostLengths(feat_len, self.cnn.out_len)
         cnn_out = self.cnn(lms, feat_len)
         attn = cnn_out["attn_emb"]
         if self.freeze_cnn:
             attn = attn.detach()
-        return self.rnn(attn, cnn_out["attn_emb_len"])
+        return self.rnn(attn, cnn_out["attn_emb_len"], host_len)

@@ -2,6 +2,11 @@
 the JAX package on the same numpy inputs and weights carried across by
 the JAX package's exporter (``models/export.py``).
 
+The GRU's host-side packing (``layers.pack_rows`` / ``unpack_rows``,
+``HostLengths``) is held bit for bit against ``pack_padded_sequence`` /
+``pad_packed_sequence`` and the GRU over them (outputs and gradients),
+and the Cnn14's length rule against its pooling.
+
 Tolerances: pooling and masking rtol 1e-6 / atol 1e-6 (the same float32
 arithmetic); BatchNorm rtol 1e-5 (the normalisation is composed in
 another order, on outputs up to ~1e2); ConvBlock and the GRU rtol/atol
@@ -13,6 +18,7 @@ collapse."""
 import numpy as np
 import pytest
 import torch
+from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +30,7 @@ from audiocaption_tpu_torch.models import layers as TL
 from audiocaption_tpu_torch.models.cnn14 import Cnn14Encoder
 from audiocaption_tpu_torch.models.rnn_encoder import Cnn14RnnEncoder
 from audiocaption_tpu_torch.ops import masking as TM
+from audiocaption_tpu_torch.ops.frontend import CNN14_MEL_32K
 
 from test_torch_effb2 import jitter_bn
 
@@ -134,6 +141,113 @@ def test_gru_pack_padded_semantics_match_jax(lens):
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
     for b, n in enumerate(lens):
         assert not got[b, n:].any()             # zero past each length
+
+
+# lengths of 7 rows over T = 10: ties, above T, a zero, all full, all 1
+PACK_LENS = [[10, 3, 3, 12, 1, 7, 3], [4, 0, 9, 4, 4, 15, 2],
+             [10] * 7, [1] * 7, [2, 9, 9, 9, 0, 0, 5]]
+PACK_IDS = ["ties_above_T", "zero", "full", "ones", "ties_zeros"]
+
+
+def _torch_packed_gru(gru, x, lens):
+    """The GRU over ``pack_padded_sequence`` / ``pad_packed_sequence``
+    (lengths clamped to [1, T], rows of length 0 zeroed after): the
+    reference encoders' packing through torch's own helpers."""
+    T = x.shape[1]
+    packed = pack_padded_sequence(x, lens.clamp(1, T), batch_first=True,
+                                  enforce_sorted=False)
+    out, _ = pad_packed_sequence(torch.nn.GRU.forward(gru, packed)[0],
+                                 batch_first=True, total_length=T)
+    return out * (lens > 0).to(out.dtype)[:, None, None]
+
+
+@pytest.mark.parametrize("lens", PACK_LENS, ids=PACK_IDS)
+def test_pack_rows_equals_pack_padded_sequence(lens):
+    x = torch.randn(7, 10, 16, generator=torch.Generator().manual_seed(6))
+    lens = torch.tensor(lens).clamp(1, 10)
+    want = pack_padded_sequence(x, lens, batch_first=True,
+                                enforce_sorted=False)
+    got = TL.pack_rows(x, lens)
+    for field in ("data", "batch_sizes", "sorted_indices",
+                  "unsorted_indices"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+    assert torch.equal(TL.unpack_rows(got, 12), pad_packed_sequence(
+        want, batch_first=True, total_length=12)[0])
+
+
+@pytest.mark.parametrize("lens", PACK_LENS, ids=PACK_IDS)
+def test_gru_host_lengths_equal_the_read_and_torch_packing(lens):
+    """Train mode, dropout 0.5 between the 3 layers: the GRU handed
+    ``HostLengths``, the GRU reading a tensor and the GRU over torch's
+    helpers give the same outputs and parameter gradients, bit for bit,
+    on one seed of the dropout."""
+    torch.manual_seed(0)
+    gru = TL.GRU(16, 16, num_layers=3, bidirectional=True,
+                 dropout=0.5).train()
+    x = torch.randn(7, 10, 16, generator=torch.Generator().manual_seed(8))
+    lens = torch.tensor(lens)
+    runs = []
+    for call in (lambda: gru(x, TL.HostLengths(lens)),
+                 lambda: gru(x, lens),
+                 lambda: _torch_packed_gru(gru, x, lens)):
+        torch.manual_seed(9)
+        out = call()
+        runs.append((out, torch.autograd.grad((out * out).sum(),
+                                              list(gru.parameters()))))
+    for out, grads in runs[1:]:
+        assert torch.equal(out, runs[0][0])
+        for g, g0 in zip(grads, runs[0][1]):
+            assert torch.equal(g, g0)
+    assert not runs[0][0][lens == 0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_cnn14_length_rule_follows_its_pooling(dtype):
+    """For every wave length within two hops of each multiple of 32
+    frames (2-7 of them): ``HostLengths`` with the Cnn14's rule gives
+    the ``attn_emb_len`` the Cnn14 computes, which is the frame count
+    that its five 2x2 poolings leave of ``feat_len`` frames."""
+    mel, hop = CNN14_MEL_32K, CNN14_MEL_32K.hop
+    wav_len = torch.tensor([(32 * k - 1) * hop + d for k in range(2, 8)
+                            for d in range(-2 * hop, 2 * hop + 1)],
+                           dtype=dtype)
+    feat_len = mel.feat_len(wav_len)
+    device_rule = Cnn14Encoder.out_len(feat_len)
+    host = TL.HostLengths(feat_len, Cnn14Encoder.out_len).wait()
+    assert host.dtype == torch.int64
+    assert torch.equal(host, device_rule.long())
+    pooled = {}
+    for n in set(feat_len.tolist()):
+        x = torch.zeros(1, 1, n, 64)
+        for _ in range(5):
+            x = TL.pool_2d(x, (2, 2), "avg")
+        pooled[n] = x.shape[2]
+    assert {n % 32 for n in pooled} == {30, 31, 0, 1, 2}
+    for n, got in zip(feat_len.tolist(), host.tolist()):
+        assert got == pooled[n], (n, got)
+
+
+def test_cnn14_rnn_encoder_host_lengths_equal_the_read(lms_input):
+    """``Cnn14RnnEncoder`` (random weights, train mode at its dropouts, the
+    CNN frozen) fed host ``feat_len`` equals its Cnn14 and RNN run apart
+    with the GRU reading its device-style lengths, bit for bit; under a
+    profiler the encoder waits once (``ac.sync.gru_lengths``) and never
+    reads."""
+    lms, feat_len = (torch.from_numpy(a) for a in lms_input)
+    torch.manual_seed(3)
+    enc = Cnn14RnnEncoder(freeze_cnn=True, freeze_cnn_bn=True).train()
+    torch.manual_seed(4)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = enc(lms, feat_len)
+    torch.manual_seed(4)
+    cnn_out = enc.cnn(lms, feat_len)
+    want = enc.rnn(cnn_out["attn_emb"].detach(), cnn_out["attn_emb_len"])
+    for key in ("attn_emb", "fc_emb", "attn_emb_len"):
+        assert torch.equal(got[key], want[key]), key
+    names = [e.name for e in prof.events()
+             if e.name.startswith("ac.sync.")]
+    assert names == ["ac.sync.gru_lengths"], names
 
 
 @pytest.fixture(scope="module")

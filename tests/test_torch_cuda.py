@@ -16,7 +16,7 @@ relative a product, and sums in another order than cuDNN's), and in the
 bf16 work dtype within 1e-2 * max(1, max |plain|) of ``mbconv_plain`` in
 bf16 (a bf16 ulp where a float32 sum in another order flips a rounding).
 The decode kernels' bf16 modes: see BF16_BEAM_MODES below.  Every test
-here ran on the card (NVIDIA H100 80GB HBM3, 96 of 96 passing); without
+here ran on the card (NVIDIA H100 80GB HBM3, 98 of 98 passing); without
 a card they skip.
 """
 
@@ -1197,3 +1197,118 @@ def test_decode_search_span_holds_the_beam_kernel_alone(cuda):
     assert tr.device_s("ac.decode.memory_kv") > 0
     assert tr.span_count("ac.decode.search") == 1
     assert tr.span_count("ac.decode.memory_kv") == 1
+
+
+def _clotho_batch(cuda, B: int = 32, seed: int = 40):
+    """train_clotho's shape: B clips of 15-30 s at 32 kHz (lengths drawn
+    from a seeded generator, the longest padded), on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    wav_len = (15 + 15 * torch.rand(B, generator=gen)).mul(32000).long()
+    wav = torch.randn(B, int(wav_len.max()), generator=gen) * 0.1
+    return wav.to(cuda), wav_len.to(cuda), gen
+
+
+@pytest.mark.cuda
+def test_cnn14_rnn_encoder_launches_past_the_cnn14(cuda):
+    """``Cnn14RnnEncoder.forward`` at train_clotho's shape (B=32, 15-30 s,
+    train mode at the recipe's dropouts, the CNN frozen) under
+    ``set_sync_debug_mode("error")``: no synchronising call (the GRU
+    waits on an event recorded before the Cnn14, which torch does not
+    count); when it returns, an event recorded right after the Cnn14's
+    launches is not complete, so the host launched the whole BiGRU while
+    the card still ran the Cnn14.  Its outputs equal the Cnn14 and GRU
+    run apart, the GRU reading its lengths, bit for bit (one dropout
+    seed)."""
+    from audiocaption_tpu_torch.models.rnn_encoder import Cnn14RnnEncoder
+    from audiocaption_tpu_torch.ops.frontend import CNN14_MEL_32K
+    wav, wav_len, gen = _clotho_batch(cuda)
+    feat_len = CNN14_MEL_32K.feat_len(wav_len)
+    lms = (torch.randn(32, int(feat_len.max()), 64, generator=gen) * 10
+           - 40).to(cuda)
+    enc = random_init(Cnn14RnnEncoder(freeze_cnn=True, freeze_cnn_bn=True),
+                      torch.Generator().manual_seed(41)).to(cuda).train()
+    # the first call sets cuDNN up and draws the GRU's dropout state; a
+    # call right after torch.manual_seed draws it anew with a blocking
+    # read of a seed (torch's ``get_dropout_state``), so none is made here
+    enc(lms, feat_len)
+    torch.cuda.synchronize()
+    cnn_end = torch.cuda.Event()
+    hook = enc.cnn.register_forward_hook(lambda *args: cnn_end.record())
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        enc(lms, feat_len)
+        assert not cnn_end.query()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        hook.remove()
+    torch.cuda.synchronize()
+    torch.manual_seed(42)
+    got = enc(lms, feat_len)
+    torch.manual_seed(42)
+    cnn_out = enc.cnn(lms, feat_len)
+    want = enc.rnn(cnn_out["attn_emb"].detach(), cnn_out["attn_emb_len"])
+    for key in ("attn_emb", "fc_emb", "attn_emb_len"):
+        assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.cuda
+def test_train_step_span_order_on_card(cuda):
+    """One scheduled-sampling train step of cnn14rnn_trm at train_clotho's
+    shape under a profiler: ``ac.train.forward`` holds the frontend, the
+    encoder (holding the GRU's wait ``ac.sync.gru_lengths``) and the SS
+    loop; then ``ac.train.backward``; then ``ac.train.optimizer`` holding
+    ``ac.sync.finite_check``; each once, and no GRU read
+    (``ac.sync.gru_lengths_read``)."""
+    from audiocaption_tpu_torch.losses.loss import build_loss
+    from audiocaption_tpu_torch.models.zoo import cnn14rnn_trm
+    from audiocaption_tpu_torch.optim.schedules import (
+        exponential_decay_with_warmup)
+    from audiocaption_tpu_torch.training.trainer import (create_train_state,
+                                                         train_step)
+    wav, wav_len, gen = _clotho_batch(cuda)
+    cap_len = torch.randint(10, 23, (32,), generator=gen)
+    cap = torch.randint(3, 4368, (32, int(cap_len.max())), generator=gen)
+    cap[:, 0] = 1
+    cap[torch.arange(32), cap_len - 1] = 2
+    cap[torch.arange(cap.shape[1])[None] >= cap_len[:, None]] = 0
+    batch = {"wav": wav, "wav_len": wav_len, "cap": cap.to(cuda),
+             "cap_len": cap_len.to(cuda)}
+    model = random_init(cnn14rnn_trm(freeze_cnn=True, freeze_cnn_bn=True),
+                        torch.Generator().manual_seed(43)).to(cuda)
+    state = create_train_state(
+        model, 5e-4, exponential_decay_with_warmup(5e-4, 5e-7, 100, 20),
+        1e-6, 1.0)
+    loss_fn = build_loss({"type": "LabelSmoothingLoss",
+                          "args": {"smoothing": 0.1}})
+
+    def step():
+        return train_step(state, loss_fn, batch, ss_ratio=torch.tensor(0.85),
+                          generator=torch.Generator().manual_seed(44))
+
+    step()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = step()
+    assert np.isfinite(float(out["loss"])) and not out["skipped"]
+    spans = sorted(((e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+                    for e in prof.profiler.kineto_results.events()
+                    if e.is_user_annotation()
+                    and e.name().startswith("ac.")), key=lambda s: s[1])
+    names = [s[0] for s in spans]
+    for name in ("ac.train.forward", "ac.frontend", "ac.encoder",
+                 "ac.sync.gru_lengths", "ac.ss_loop", "ac.train.backward",
+                 "ac.train.optimizer", "ac.sync.finite_check"):
+        assert names.count(name) == 1, (name, names)
+    assert "ac.sync.gru_lengths_read" not in names
+    by = {s[0]: s for s in spans}
+
+    def inside(inner, outer):
+        return by[outer][1] <= by[inner][1] and by[inner][2] <= by[outer][2]
+
+    for inner in ("ac.frontend", "ac.encoder", "ac.ss_loop"):
+        assert inside(inner, "ac.train.forward"), inner
+    assert inside("ac.sync.gru_lengths", "ac.encoder")
+    assert inside("ac.sync.finite_check", "ac.train.optimizer")
+    assert by["ac.train.forward"][2] <= by["ac.train.backward"][1]
+    assert by["ac.train.backward"][2] <= by["ac.train.optimizer"][1]

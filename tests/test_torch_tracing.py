@@ -15,6 +15,8 @@ server's counters, on the CPU.
     parameters equal the unprofiled step's exactly;
   * a beam decode records the frontend, encoder, memory K/V and search
     spans once each, in that order;
+  * a GRU handed only its lengths as a tensor (``HmClassifier``'s) reads
+    them itself, in ``ac.sync.gru_lengths_read``;
   * ``MicroBatchServer`` counts served requests, padding rows and queue
     wait, and ``profiling.trace`` records its threads' spans."""
 
@@ -33,6 +35,8 @@ from torch import nn
 from audiocaption_tpu_torch.decoding.fused_beam import FusedBeamDecoder
 from audiocaption_tpu_torch.losses.loss import build_loss
 from audiocaption_tpu_torch.models.captioner import Captioner
+from audiocaption_tpu_torch.models.hm_classifier import HmClassifier
+from audiocaption_tpu_torch.models.layers import HostLengths
 from audiocaption_tpu_torch.models.rnn_encoder import RnnEncoder
 from audiocaption_tpu_torch.models.transformer_decoder import (
     TransformerDecoder)
@@ -51,7 +55,8 @@ V, SR = 40, 32000
 
 class TinyCrnn(nn.Module):
     """A linear map of the mel bins pooled 4x in time (the Cnn14's place),
-    then the recipe's 3-layer BiGRU with dropout 0.5."""
+    then the recipe's 3-layer BiGRU with dropout 0.5, its lengths handed
+    down as ``Cnn14RnnEncoder`` hands them (copied before the "CNN")."""
 
     def __init__(self, n_mels: int = 64, width: int = 24, hidden: int = 16):
         super().__init__()
@@ -59,9 +64,14 @@ class TinyCrnn(nn.Module):
         self.rnn = RnnEncoder(width, hidden, 3, True, 0.5)
         self.fc_emb_size = self.rnn.out_size
 
+    @staticmethod
+    def out_len(feat_len):
+        return torch.div(feat_len, 4, rounding_mode="floor")
+
     def forward(self, lms, feat_len):
+        host_len = HostLengths(feat_len, self.out_len)
         x = F.avg_pool1d(self.cnn(lms).transpose(1, 2), 4).transpose(1, 2)
-        return self.rnn(x, torch.div(feat_len, 4, rounding_mode="floor"))
+        return self.rnn(x, self.out_len(feat_len), host_len)
 
 
 def tiny_captioner(seed: int = 0) -> Captioner:
@@ -178,6 +188,7 @@ def test_train_step_spans_and_results_under_the_profiler():
                  "ac.train.backward", "ac.train.optimizer",
                  "ac.sync.finite_check", "ac.frontend", "ac.encoder"):
         assert names.count(name) == 1, (name, names)
+    assert "ac.sync.gru_lengths_read" not in names
     by = {s[0]: s for s in spans}
     for inner in ("ac.frontend", "ac.encoder", "ac.sync.gru_lengths",
                   "ac.ss_loop"):
@@ -206,6 +217,25 @@ def test_beam_decode_spans_under_the_profiler():
     names = [s[0] for s in annotations(prof)]
     assert names == ["ac.frontend", "ac.encoder", "ac.sync.gru_lengths",
                      "ac.decode.memory_kv", "ac.decode.search"], names
+
+
+def test_hm_classifier_gru_reads_its_lengths_itself():
+    """``HmClassifier``'s GRU gets its caption lengths as a tensor only,
+    so it reads them itself: one ``ac.sync.gru_lengths_read``, no
+    ``ac.sync.gru_lengths``; the logits are the unprofiled ones."""
+    torch.manual_seed(0)
+    clf = HmClassifier(V, emb_dim=16, hidden_size=8).eval()
+    cap = torch.randint(3, V, (3, 6), generator=torch.Generator()
+                        .manual_seed(1))
+    cap_len = torch.tensor([6, 2, 4])
+    with torch.no_grad():
+        want = clf(cap, cap_len)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            got = clf(cap, cap_len)
+    assert torch.equal(got, want)
+    names = [s[0] for s in annotations(prof)]
+    assert names == ["ac.sync.gru_lengths_read"], names
 
 
 def test_server_counts_requests_padding_and_queue_wait():
